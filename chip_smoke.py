@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's deterministic M1 serving path on one
+NVIDIA GPU and hold every hand-written kernel against its plain twin.
+
+    python3 chip_smoke.py [--seed 0] [--out FILE]
+
+Phases (each raises on failure, so the script exits non-zero and prints no
+"ok" line):
+
+  1. build    nvidia-smi name and power limit; TF32 off for fp32 references;
+              nvcc builds csrc/*.cu for sm_90a.
+  2. kernels  K1 conv3d, K2 conv3d_transpose, K3 in_stats, K4 in_apply at
+              every distinct shape the cfg1 forward gives them at the serving
+              batch, in bf16 and fp32, against their plain twins on the card;
+              times in bf16 beside each shape's bound and, where one torch
+              call computes the same function, that call's time.
+  3. serve    a cfg1 checkpoint in the JAX npz format (weights drawn by numpy
+              from --seed, dropout 0) -> M1.load(dtype=bfloat16) ->
+              InferenceSession, 3 requests of 2 volumes of 20x160x160x3;
+              launch counters must rise by exactly 50/4/37/37 per forward.
+              Then one more request under torch.profiler, outside the counted
+              run: device busy share and device time by kernel.
+  4. parity   one fp32 volume through the card model and the same model on
+              the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
+              on the card: mean |diff| <= 1e-2.
+
+The last line is {"ok": true, "device": {...}}; the line before it lists
+every kernel with its launches on the serving run, error and times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# cfg1: the CLI's default architecture (bench cfg1), 93.2 GFLOP per volume
+CFG1 = dict(
+    input_spatial_dims=(20, 160, 160), input_channels=3, num_classes=2,
+    filters=(16, 32, 64, 128, 256),
+    strides=((1, 1, 1), (1, 2, 2), (1, 2, 2), (2, 2, 2), (2, 2, 2)),
+    kernel_sizes=((1, 3, 3), (1, 3, 3), (3, 3, 3), (3, 3, 3), (3, 3, 3)),
+    se_reduction=(8, 8, 8, 8, 8),
+    att_sub_samp=((1, 1, 1), (1, 1, 1), (1, 1, 1), (1, 1, 1)),
+    dropout_rate=0.0, dropout_mode="standard")
+LAUNCHES_PER_FORWARD = {"conv3d": 50, "conv3d_transpose": 4, "in_stats": 37,
+                        "in_apply": 37}
+PKG = "prostatemr_3d_cad_cspca_tpu_torch"
+KERNEL_INFO = {
+    "conv3d": (f"{PKG}/csrc/conv3d.cu", "benchmarks/r2_probe_pallas_mxu.py:80"),
+    "conv3d_transpose": (f"{PKG}/csrc/conv3d.cu",
+                         "benchmarks/r2_probe_pallas_mxu.py:80"),
+    "in_stats": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198"),
+    "in_apply": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198"),
+}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+BF16_ULP = 2.0 ** -7       # bf16 spacing just below 1: one rounding step
+REQUESTS, BATCH = 3, 2     # served requests, volumes per request
+REPS = 10                  # timed launches per kernel shape
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+# ------------------------------------------------------------------ build
+def phase_build():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    path = cuda_lib.build()
+    cuda_lib.library()
+    regs = [ln.strip() for ln in cuda_lib.build_log.splitlines()
+            if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "library": os.path.basename(path),
+          "seconds": round(time.perf_counter() - t0, 3),
+          "ptxas": regs[:40]})
+    return smi
+
+
+# ------------------------------------------------- path shapes (meta trace)
+def trace_path_calls(batch):
+    """Every kernel call of one cfg1 forward at ``batch``, found by running
+    the model on the meta device with recording wrappers."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import m1
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution, normalization
+
+    calls = []
+    originals = {}
+
+    def record(mod, name, sig):
+        orig = getattr(mod, name)
+        originals[(mod, name)] = orig
+
+        def wrapper(*a, **kw):
+            calls.append((name, sig(*a, **kw)))
+            return orig(*a, **kw)
+        setattr(mod, name, wrapper)
+
+    record(convolution, "conv3d", lambda parts, kernel, bias=None,
+           strides=(1, 1, 1): (tuple(tuple(p.shape) for p in parts),
+                               tuple(kernel.shape), tuple(strides)))
+    record(convolution, "conv3d_transpose", lambda x, kernel, bias=None,
+           strides=(1, 1, 1): (tuple(x.shape), tuple(kernel.shape), tuple(strides)))
+    record(normalization, "in_stats", lambda x: (tuple(x.shape),))
+    record(normalization, "in_apply", lambda x, stats, scale, bias, lrelu=False,
+           epsilon=1e-3: (tuple(x.shape), bool(lrelu)))
+    try:
+        kw = {k: v for k, v in CFG1.items() if k != "input_spatial_dims"}
+        with torch.device("meta"):
+            net = m1(**kw, dtype=torch.bfloat16)
+            x = torch.zeros((batch, *CFG1["input_spatial_dims"], 3))
+            with torch.no_grad():
+                net(x)
+    finally:
+        for (mod, name), orig in originals.items():
+            setattr(mod, name, orig)
+    counts = collections.Counter(name for name, _ in calls)
+    if dict(counts) != LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"cfg1 forward calls {dict(counts)}, expected "
+                             f"{LAUNCHES_PER_FORWARD}")
+    return collections.Counter(calls)
+
+
+# ---------------------------------------------------------------- timing
+def time_ms(fn, reps):
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# ------------------------------------------------------------- kernels
+def _errors(got, ref):
+    """(max |got - ref|, max |got - ref| / max(1, |ref|)), in fp32."""
+    diff = (got.float() - ref.float()).abs()
+    return float(diff.max()), float((diff / ref.float().abs().clamp(min=1.0)).max())
+
+
+def _conv_case(sig, dtype, gen):
+    import torch
+
+    part_shapes, kshape, strides = sig
+    parts = [torch.randn(s, generator=gen, device="cuda").to(dtype) for s in part_shapes]
+    fan_in = kshape[0] * kshape[1] * kshape[2] * kshape[3]
+    kernel = (torch.randn(kshape, generator=gen, device="cuda") / fan_in ** 0.5).to(dtype)
+    bias = torch.randn(kshape[4], generator=gen, device="cuda") * 0.1
+    return parts, kernel, bias, strides
+
+
+def _convt_case(sig, dtype, gen):
+    import torch
+
+    xshape, kshape, strides = sig
+    x = torch.randn(xshape, generator=gen, device="cuda").to(dtype)
+    fan_in = kshape[0] * kshape[1] * kshape[2] * kshape[4]
+    kernel = (torch.randn(kshape, generator=gen, device="cuda") / fan_in ** 0.5).to(dtype)
+    bias = torch.randn(kshape[3], generator=gen, device="cuda") * 0.1
+    return x, kernel, bias, strides
+
+
+def _in_case(shape, dtype, gen):
+    import torch
+
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return x, scale, bias
+
+
+def _conv_library(parts, kernel, strides):
+    """One cuDNN call computing K1's function: the parts' concat and the XLA
+    SAME asymmetric padding are prepared outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import same_pads
+
+    x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+    pads = []
+    for axis in (2, 1, 0):
+        _, lo, hi = same_pads(x.shape[1 + axis], kernel.shape[axis], strides[axis])
+        pads += [lo, hi]
+    xp = F.pad(x.permute(0, 4, 1, 2, 3), pads).contiguous(
+        memory_format=torch.channels_last_3d)
+    w = kernel.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    return lambda: F.conv3d(xp, w, stride=strides)
+
+
+def _convt_library(x, kernel, strides):
+    """One cuDNN call computing K2's function: torch's full transposed conv,
+    whose SAME window is a view."""
+    import torch
+    import torch.nn.functional as F
+
+    xt = x.permute(0, 4, 1, 2, 3)
+    w = kernel.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    return lambda: F.conv_transpose3d(xt, w, stride=strides)
+
+
+def _conv_flops(sig, transposed):
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import (
+        forward_plan, transpose_plan)
+
+    if transposed:
+        xshape, kshape, strides = sig
+        plan = transpose_plan(tuple(kshape[:3]), tuple(strides), tuple(xshape[1:4]))
+        rows = xshape[0] * int(np.prod(plan["grid"]))
+        macs = sum(rows * len(taps) for _, taps in plan["phases"])
+        return 2.0 * macs * kshape[3] * kshape[4]
+    part_shapes, kshape, strides = sig
+    plan = forward_plan(tuple(kshape[:3]), tuple(strides), tuple(part_shapes[0][1:4]))
+    rows = part_shapes[0][0] * int(np.prod(plan["out"]))
+    return 2.0 * rows * kshape[0] * kshape[1] * kshape[2] * kshape[3] * kshape[4]
+
+
+def phase_kernels(calls, reps):
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2 * BF16_ULP}
+    rows = collections.defaultdict(list)
+    for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        row = {"count": count}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).replace("torch.", "")
+            if name == "conv3d":
+                parts, kernel, bias, st = _conv_case(sig, dtype, gen)
+                run = lambda: cv.conv3d(parts, kernel, bias, st)  # noqa: E731
+                plain = lambda: cv.conv3d_plain(parts, kernel, bias, st)  # noqa: E731
+                lib = _conv_library(parts, kernel, st)
+                nbytes = _nbytes(*parts, kernel, bias) + _nbytes(run())
+                flops = _conv_flops(sig, False)
+                row["shape"] = {"parts": sig[0], "kernel": sig[1], "strides": sig[2]}
+            elif name == "conv3d_transpose":
+                x, kernel, bias, st = _convt_case(sig, dtype, gen)
+                run = lambda: cv.conv3d_transpose(x, kernel, bias, st)  # noqa: E731
+                plain = lambda: cv.conv3d_transpose_plain(x, kernel, bias, st)  # noqa: E731
+                lib = _convt_library(x, kernel, st)
+                nbytes = _nbytes(x, kernel, bias) + _nbytes(run())
+                flops = _conv_flops(sig, True)
+                row["shape"] = {"x": sig[0], "kernel": sig[1], "strides": sig[2]}
+            elif name == "in_stats":
+                x, _, _ = _in_case(sig[0], dtype, gen)
+                run = lambda: nm.in_stats(x)  # noqa: E731
+                plain = lambda: nm.in_stats_plain(x)  # noqa: E731
+                lib = lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0)  # noqa: E731
+                nbytes = _nbytes(x) + x.shape[0] * 2 * x.shape[-1] * 4
+                flops = 3.0 * x.numel()
+                row["shape"] = {"x": sig[0]}
+            else:
+                x, scale, bias = _in_case(sig[0], dtype, gen)
+                stats = nm.in_stats_plain(x)
+                lr = sig[1]
+                run = lambda: nm.in_apply(x, stats, scale, bias, lr)  # noqa: E731
+                plain = lambda: nm.in_apply_plain(x, stats, scale, bias, lr)  # noqa: E731
+                lib = None
+                nbytes = 2 * _nbytes(x) + _nbytes(stats, scale, bias)
+                flops = 3.0 * x.numel()
+                row["shape"] = {"x": sig[0], "lrelu": lr}
+            got = run()
+            ref = plain()
+            torch.cuda.synchronize()
+            abs_err, rel_err = _errors(got, ref)
+            limit = 1e-4 if name == "in_stats" else tol[dtype]
+            if not (np.isfinite(rel_err) and rel_err <= limit):
+                raise AssertionError(
+                    f"{name} {dn} {sig}: error {rel_err} > {limit}")
+            row[f"max_abs_err_{dn}"] = abs_err
+            row[f"max_rel_err_{dn}"] = rel_err
+            row[f"tol_{dn}"] = limit
+            if dtype == torch.bfloat16:  # the serving path's dtype
+                row["kernel_ms"] = time_ms(run, reps)
+                row["plain_ms"] = time_ms(plain, reps)
+                row["library_ms"] = time_ms(lib, reps) if lib is not None else None
+                row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        rows[name].append(row)
+    return rows
+
+
+def summarize_kernels(rows):
+    out = {}
+    for name, shape_rows in rows.items():
+        tot = lambda key: sum(r[key] * r["count"] for r in shape_rows)  # noqa: E731
+        lib = None if any(r["library_ms"] is None for r in shape_rows) \
+            else tot("library_ms")
+        by_bytes = sum(r["bound_ms"] * r["count"] for r in shape_rows
+                       if r["bound_by"] == "bytes")
+        out[name] = dict(
+            launches_per_forward=sum(r["count"] for r in shape_rows),
+            distinct_shapes=len(shape_rows),
+            max_abs_err=max(max(r["max_abs_err_float32"], r["max_abs_err_bfloat16"])
+                            for r in shape_rows),
+            max_err=max(max(r["max_rel_err_float32"], r["max_rel_err_bfloat16"])
+                        for r in shape_rows),
+            tol={"float32": shape_rows[0]["tol_float32"],
+                 "bfloat16": shape_rows[0]["tol_bfloat16"]},
+            kernel_ms=tot("kernel_ms"), plain_ms=tot("plain_ms"),
+            library_ms=lib, bound_ms=tot("bound_ms"),
+            bound_by="bytes" if by_bytes >= tot("bound_ms") / 2 else "operations")
+    return out
+
+
+# ----------------------------------------------------------------- serve
+def write_cfg1_checkpoint(path, seed):
+    """A cfg1 checkpoint in the JAX package's npz format, weights drawn by
+    numpy from ``seed``."""
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.utils.serialization import save_model
+
+    model = M1(**CFG1, summary=False, init_params=False, device="meta")
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, p in model.net.named_parameters():
+        key, shape = name.replace(".", "/"), tuple(p.shape)
+        leaf = key.rsplit("/", 1)[-1]
+        parent = key.rsplit("/", 2)[-2]
+        if leaf == "kernel":
+            fan_in = int(np.prod(shape[:3])) * (shape[4] if "convtd" in parent
+                                                 else shape[3])
+            val = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
+        elif leaf == "scale":
+            val = 1.0 + 0.1 * rng.normal(size=shape)
+        else:
+            val = 0.05 * rng.normal(size=shape)
+        flat[key] = val.astype(np.float32)
+    save_model(path, model.config, flat)
+
+
+def counters():
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+
+    return {"conv3d": cv.conv3d, "conv3d_transpose": cv.conv3d_transpose,
+            "in_stats": nm.in_stats, "in_apply": nm.in_apply}
+
+
+def phase_serve(ckpt, seed, smi):
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+
+    model = M1.load(ckpt, dtype=torch.bfloat16, device="cuda")
+    session = InferenceSession(model, device="cuda")
+    rng = np.random.default_rng(seed + 1)
+    requests = [rng.normal(size=(BATCH, *CFG1["input_spatial_dims"], 3)
+                           ).astype(np.float32) for _ in range(REQUESTS)]
+    fns = counters()
+    for fn in fns.values():  # counts start at 0 just before the main path
+        fn.launches = 0
+    latencies, per_request = [], []
+    for req in requests:
+        before = {k: f.launches for k, f in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs, unc = session(req)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        per_request.append({k: f.launches - before[k] for k, f in fns.items()})
+        if unc is not None or probs.shape != (BATCH, *CFG1["input_spatial_dims"], 2):
+            raise AssertionError(f"serve output {probs.shape}, uncertainty {unc}")
+        if not np.isfinite(probs).all():
+            raise AssertionError("serve output is not finite")
+        sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
+        if sum_err > 4 * BF16_ULP:  # two bf16-rounded channels
+            raise AssertionError(f"softmax channels sum off by {sum_err}")
+    launches = {k: f.launches for k, f in fns.items()}
+    for got in per_request:
+        if got != LAUNCHES_PER_FORWARD:
+            raise AssertionError(f"launches per forward {got}, expected "
+                                 f"{LAUNCHES_PER_FORWARD}")
+    steady = sorted(latencies[1:] or latencies)
+    med = steady[len(steady) // 2]
+    emit({"phase": "serve", "card": smi, "dtype": "bfloat16", "batch": BATCH,
+          "requests": REQUESTS, "latency_ms": latencies,
+          "median_latency_ms_after_first": med, "vol_per_s": BATCH / med * 1e3,
+          "launches": launches, "launches_per_request": per_request,
+          "softmax_sum_max_err": sum_err,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return launches, requests[0]
+
+
+def phase_profile(ckpt, volume, top=12):
+    """One more bf16 request under torch.profiler (outside the counted run):
+    device busy share of the request's wall time and device time by kernel
+    name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+
+    session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
+                               device="cuda")
+    session(volume)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session(volume)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.time_range.elapsed_us() > 0:
+            spans.append((evt.time_range.start, evt.time_range.end))
+            ident = re.search(r"(\w+)[<(]", evt.name)
+            by_name[ident.group(1) if ident else evt.name[:40]] += \
+                evt.time_range.elapsed_us()
+    busy, end = 0.0, None
+    for s, e in sorted(spans):  # union of device intervals
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    emit({"phase": "profile", "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+          "device_busy_share": busy / wall_us if wall_us else None,
+          "device_events": len(spans),
+          "top_ms": {k: v / 1e3 for k, v in by_name.most_common(top)}})
+
+
+def phase_parity(ckpt, volume):
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+
+    x = volume[:1]
+    card = M1.load(ckpt, device="cuda")
+    cpu = M1.load(ckpt, device="cpu")
+    card16 = M1.load(ckpt, device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    p_card = card.predict(x).float().cpu().numpy()
+    p_cpu = cpu.predict(x).float().numpy()
+    p_16 = card16.predict(x).float().cpu().numpy()
+    fp32_err = float(np.abs(p_card - p_cpu).max())
+    d16 = np.abs(p_16 - p_card)
+    emit({"phase": "parity", "fp32_card_vs_cpu_max": fp32_err,
+          "bf16_vs_fp32_card_max": float(d16.max()),
+          "bf16_vs_fp32_card_mean": float(d16.mean()),
+          "seconds": round(time.perf_counter() - t0, 3)})
+    if not fp32_err <= 1e-3:
+        raise AssertionError(f"fp32 card vs CPU softmax differs by {fp32_err}")
+    if not float(d16.mean()) <= 1e-2:
+        raise AssertionError(f"bf16 vs fp32 mean difference {float(d16.mean())}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the checkpoint's weights and the requests")
+    ap.add_argument("--out", type=str, default=None,
+                    help="also write every result as one JSON file here")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import prostatemr_3d_cad_cspca_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    smi = phase_build()
+    calls = trace_path_calls(BATCH)
+    rows = phase_kernels(calls, REPS)
+    summary = summarize_kernels(rows)
+    for name, s in summary.items():
+        emit({"kernel": name, "card": smi, "dtype": "bfloat16", "batch": BATCH,
+              **s, "shapes": rows[name]})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "cfg1.npz")
+        write_cfg1_checkpoint(ckpt, args.seed)
+        launches, volume = phase_serve(ckpt, args.seed, smi)
+        phase_profile(ckpt, volume)
+        phase_parity(ckpt, volume)
+
+    kernels = []
+    for name, s in summary.items():
+        src, replaces = KERNEL_INFO[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the serving path")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": smi, "summary": summary, "rows": rows,
+                       "launches": launches}, f, indent=1)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

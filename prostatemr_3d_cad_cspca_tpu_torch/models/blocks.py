@@ -1,0 +1,140 @@
+"""Network building blocks of the deterministic M1 path, port of the JAX
+package's ``models/blocks.py`` (reference network_blocks.py).
+
+Torch modules need their input widths at construction, where flax infers
+them at the first call; every block here takes them explicitly. Parameter
+names match the flax tree (``conv1/kernel``, ``norm1/scale``,
+``se_conv6/kernel`` ...), so the bridge maps one onto the other by name.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.convolution import Conv3d, ConvConfig, store_act
+from ..ops.normalization import InstanceNorm, global_spatial_mean
+from ..ops.resample import upsample_nearest
+
+
+def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.1), the sole activation of the reference backbone."""
+    return F.leaky_relu(x, 0.1)
+
+
+class ConfigurableDropout(nn.Module):
+    """Dropout that is train-gated ('standard') or always on ('monte-carlo').
+
+    This slice is inference-only and deterministic: the identity for rate 0
+    and for 'standard' mode outside training. Anything that would draw
+    random bits raises (MC sampling and training are later slices)."""
+
+    def __init__(self, rate: float, mode: str = "standard"):
+        super().__init__()
+        self.rate, self.mode = float(rate), mode
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.rate == 0.0 or (self.mode == "standard" and not train):
+            return x
+        raise NotImplementedError(
+            "stochastic dropout (training, monte-carlo) waits for the MC "
+            "inference and training slices")
+
+
+class SqueezeConv(nn.Module):
+    """A (1,1,1) conv on the (B,1,1,1,C) SE squeeze, run as ``F.linear``
+    (flax ``nn.Conv``; the JAX package leaves it to XLA likewise)."""
+
+    def __init__(self, in_channels: int, features: int, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(1, 1, 1, in_channels, features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def forward(self, s: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype if self.dtype is not None else torch.promote_types(
+            s.dtype, self.kernel.dtype)
+        w = self.kernel.reshape(self.kernel.shape[3], self.kernel.shape[4])
+        return F.linear(s.to(dt), w.t().to(dt), self.bias.to(dt))
+
+
+class SEResNetBottleNeck(nn.Module):
+    """SE-ResNet bottleneck (JAX ``blocks.py:66-151``).
+
+    conv(f/4, k, s) -> IN -> LReLU -> conv(f/4, 3^3) -> IN -> LReLU ->
+    conv(f, 1^3) -> IN; projection conv(f, k, s) + IN when the channel count
+    changes; squeeze-excite gate; the gated features combine with the
+    shortcut by MULTIPLY (reference quirk, kept), then LReLU. The input may
+    be a part list standing for its channel concat.
+    """
+
+    def __init__(self, in_channels: int, filters: int, kernel_size, strides,
+                 reduction: int, conv_cfg: ConvConfig = ConvConfig()):
+        super().__init__()
+        cfg = self.conv_cfg = conv_cfg
+        ks, st = tuple(kernel_size), tuple(strides)
+        q = filters // 4
+        self.conv1 = Conv3d(in_channels, q, ks, st, cfg)
+        self.norm1 = InstanceNorm(q)
+        self.conv2 = Conv3d(q, q, (3, 3, 3), (1, 1, 1), cfg)
+        self.norm2 = InstanceNorm(q)
+        self.conv3 = Conv3d(q, filters, (1, 1, 1), (1, 1, 1), cfg)
+        self.norm3 = InstanceNorm(filters)
+        if in_channels != filters:
+            self.conv4 = Conv3d(in_channels, filters, ks, st, cfg)
+            self.norm4 = InstanceNorm(filters)
+        else:
+            self.conv4 = self.norm4 = None
+        self.se_conv6 = SqueezeConv(filters, filters // reduction, cfg.dtype)
+        self.se_conv7 = SqueezeConv(filters // reduction, filters, cfg.dtype)
+
+    def forward(self, x) -> torch.Tensor:
+        cfg = self.conv_cfg
+        parts = list(x) if isinstance(x, (list, tuple)) else [x]
+        h = store_act(cfg, self.conv1(parts))
+        h = self.norm1(h, lrelu=True)
+        h = store_act(cfg, self.conv2(h))
+        h = self.norm2(h, lrelu=True)
+        h = store_act(cfg, self.conv3(h))
+        x_ = self.norm3(h)
+        if self.conv4 is not None:
+            residual = self.norm4(store_act(cfg, self.conv4(parts)))
+        else:
+            residual = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        s = global_spatial_mean(x_).to(x_.dtype)
+        s = torch.sigmoid(self.se_conv7(leaky_relu01(self.se_conv6(s))))
+        out = (x_ * s) * residual
+        return store_act(cfg, leaky_relu01(out))
+
+
+class GridAttentionBlock3D(nn.Module):
+    """Grid attention gate (JAX ``blocks.py:154-191``). Returns (gated
+    features, attention map)."""
+
+    def __init__(self, in_channels: int, gating_channels: int,
+                 inter_channels: int, sub_samp: Sequence[int],
+                 conv_cfg: ConvConfig = ConvConfig()):
+        super().__init__()
+        sub = tuple(sub_samp)
+        self.theta = Conv3d(in_channels, inter_channels, sub, sub, conv_cfg)
+        self.phi = Conv3d(gating_channels, inter_channels, (1, 1, 1), (1, 1, 1),
+                          conv_cfg)
+        self.psi = Conv3d(inter_channels, 1, (1, 1, 1), (1, 1, 1), conv_cfg)
+        self.out = Conv3d(in_channels, inter_channels, (1, 1, 1), (1, 1, 1),
+                          conv_cfg)
+        self.norm_out = InstanceNorm(inter_channels)
+
+    def forward(self, x: torch.Tensor, g: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        theta_x = self.theta(x)
+        phi_g = self.phi(g)
+        up1 = tuple(theta_x.shape[i + 1] // phi_g.shape[i + 1] for i in range(3))
+        f = leaky_relu01(theta_x + upsample_nearest(phi_g, up1))
+        sigm_psi_f = torch.sigmoid(self.psi(f))
+        up2 = tuple(x.shape[i + 1] // sigm_psi_f.shape[i + 1] for i in range(3))
+        sigm_psi_f = upsample_nearest(sigm_psi_f, up2)
+        w_y = self.norm_out(self.out(sigm_psi_f * x))
+        return w_y, sigm_psi_f

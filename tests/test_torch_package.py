@@ -1,0 +1,125 @@
+"""The port stands alone: it imports no jax, no flax and nothing of the JAX
+package; its entry points run on the card unless asked for the CPU; what
+this slice does not cover raises instead of running something else.
+
+Mind the name prefix: ``prostatemr_3d_cad_cspca_tpu_torch`` starts with
+``prostatemr_3d_cad_cspca_tpu``, so every check matches the JAX package's
+name only when '.', whitespace or the end of the name follows it.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import prostatemr_3d_cad_cspca_tpu_torch as port
+from prostatemr_3d_cad_cspca_tpu_torch.load import load_model_spec
+from prostatemr_3d_cad_cspca_tpu_torch.models import M1, M1Core
+from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(port.__file__)
+JAX_PKG = re.compile(r"prostatemr_3d_cad_cspca_tpu(?=[.\s]|$)")
+FORBIDDEN = ("jax", "jaxlib", "flax", "prostatemr_3d_cad_cspca_tpu")
+TINY = dict(input_spatial_dims=(4, 16, 16), input_channels=3, num_classes=2,
+            filters=(4, 8, 12, 16, 24), se_reduction=(2,) * 5, summary=False)
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PKG_DIR):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), os.path.dirname(PKG_DIR))
+                mod = rel[:-3].replace(os.sep, ".")
+                mods.append(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+@pytest.mark.parametrize("name,expect", [
+    ("prostatemr_3d_cad_cspca_tpu", True),
+    ("prostatemr_3d_cad_cspca_tpu.models.m1", True),
+    ("from prostatemr_3d_cad_cspca_tpu import serve", True),
+    ("prostatemr_3d_cad_cspca_tpu_torch", False),
+    ("prostatemr_3d_cad_cspca_tpu_torch.models.m1", False),
+])
+def test_name_check_minds_the_prefix(name, expect):
+    assert bool(JAX_PKG.search(name)) == expect
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = _port_modules()
+    assert len(mods) >= 20, mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = __import__("json").loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+    assert "prostatemr_3d_cad_cspca_tpu_torch.serve" in loaded
+
+
+IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR) for f in fs
+     if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]),
+    ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_nothing_of_jax(path):
+    with open(path) as f:
+        src = f.read()
+    for mod in IMPORT_RE.findall(src):
+        assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
+    assert not re.search(r"(import|from)\s+" + JAX_PKG.pattern, src), path
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-card refusal")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M1(**TINY)
+    model = M1(**TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceSession(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.serve.main(["--MODEL", "x.npz", "--MANIFEST", "m.csv",
+                         "--OUTPUT_DIR", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cascaded=True), dict(probabilistic=True), dict(dense_skip=True),
+    dict(deep_supervision=True),
+    dict(dropout_mode="monte-carlo", dropout_rate=0.5),
+])
+def test_unsupported_configs_raise(kw):
+    with pytest.raises(NotImplementedError):
+        M1(**{**TINY, **kw}, device="cpu")
+
+
+def test_mc_dropout_at_rate_zero_is_deterministic():
+    model = M1(**TINY, dropout_mode="monte-carlo", dropout_rate=0.0, device="cpu")
+    x = torch.randn(1, 4, 16, 16, 3)
+    assert torch.equal(model.predict(x), model.predict(x))
+
+
+def test_core_raises_for_cfg2_options():
+    with pytest.raises(NotImplementedError, match="cfg2"):
+        M1Core(3, dense_skip=True)
+
+
+@pytest.mark.parametrize("spec", ["a.npz,b.npz", "artifact.zip"])
+def test_load_spec_refuses_ensembles_and_artifacts(spec):
+    with pytest.raises(NotImplementedError):
+        load_model_spec(spec, device="cpu")
