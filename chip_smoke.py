@@ -1,31 +1,52 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's deterministic M1 serving path on one
-NVIDIA GPU and hold every hand-written kernel against its plain twin.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU (deterministic,
+Monte-Carlo and sliding-window M1 serving, and the GEMM-rate probe) and hold
+every hand-written kernel against its plain twin.
 
     python3 chip_smoke.py [--seed 0] [--out FILE]
 
 Phases (each raises on failure, so the script exits non-zero and prints no
 "ok" line):
 
-  1. build    nvidia-smi name and power limit; TF32 off for fp32 references;
-              nvcc builds csrc/*.cu for sm_90a.
-  2. kernels  K1 conv3d, K2 conv3d_transpose, K3 in_stats, K4 in_apply at
-              every distinct shape the cfg1 forward gives them at the serving
-              batch, in bf16 and fp32, against their plain twins on the card;
-              times in bf16 beside each shape's bound and, where one torch
-              call computes the same function, that call's time.
-  3. serve    a cfg1 checkpoint in the JAX npz format (weights drawn by numpy
-              from --seed, dropout 0) -> M1.load(dtype=bfloat16) ->
-              InferenceSession, 3 requests of 2 volumes of 20x160x160x3;
-              launch counters must rise by exactly 50/4/37/37 per forward.
-              Then one more request under torch.profiler, outside the counted
-              run: device busy share and device time by kernel.
-  4. parity   one fp32 volume through the card model and the same model on
-              the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
-              on the card: mean |diff| <= 1e-2.
+  1. build     nvidia-smi name and power limit; TF32 off for fp32 references;
+               nvcc builds csrc/*.cu for sm_90a.
+  2. kernels   K1 conv3d, K2 conv3d_transpose, K3 in_stats, K4 in_apply at
+               every distinct shape the cfg1 forward gives them at the serving
+               batch, in bf16 and fp32, against their plain twins on the card;
+               times in bf16 beside each shape's bound and, where one torch
+               call computes the same function, that call's time. K5
+               gemm_loop at the probe's 8 (shape, iterations): checked with 3
+               iterations (|diff|/max(1,|ref|) <= 2**-7), timed at the probe's
+               count beside its bound and the time of cuBLAS torch.mm
+               calls, one per iteration, replayed as one CUDA graph.
+  3. serve     a cfg1 checkpoint in the JAX npz format (weights drawn by numpy
+               from --seed, dropout 0) -> M1.load(dtype=bfloat16) ->
+               InferenceSession, 3 requests of 2 volumes of 20x160x160x3;
+               launch counters must rise by exactly 50/4/37/37 per forward.
+               Then one more request under torch.profiler, outside the counted
+               run: device busy share and device time by kernel.
+  4. parity    one fp32 volume through the card model and the same model on
+               the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
+               on the card: mean |diff| <= 1e-2.
+  5. serve_mc  the same weights with the CLI's default dropout (monte-carlo,
+               0.5), bf16, 3 requests of 2 volumes at mc_iter=4 (one forward
+               of 8 each); std > 0, the same seed the same outputs; at rate 0
+               std exactly 0 and the mean equal to the deterministic model's
+               output on the same stacked batch. One more request profiled.
+  6. serve_sw  serve.run on two 24x256x256x3 cases (18 tiles each) with
+               --MC_ITER 2 --TTA 1 and a 2-member fold ensemble, fp32; then
+               one 20x192x192 case of the deterministic model on the card and
+               on the CPU: max |diff| <= 1e-3.
+  7. probe     probes/gemm_rate.py's mm, loop and conv modes in-process: K5's
+               and cuBLAS's TFLOP/s per shape, K1 at conv_probe's geometry
+               beside cuDNN.
+  8. paths     K1-K4 against their twins at the distinct shapes of the
+               serve_mc (batch 8, bf16) and serve_sw (batch 16, fp32)
+               forwards.
 
-The last line is {"ok": true, "device": {...}}; the line before it lists
-every kernel with its launches on the serving run, error and times.
+Each path's launch counters are set to 0 just before it and read just
+after. The last line is {"ok": true, "device": {...}}; the line before it
+lists every kernel with its launches on its path, error and times.
 """
 
 from __future__ import annotations
@@ -54,18 +75,27 @@ CFG1 = dict(
 LAUNCHES_PER_FORWARD = {"conv3d": 50, "conv3d_transpose": 4, "in_stats": 37,
                         "in_apply": 37}
 PKG = "prostatemr_3d_cad_cspca_tpu_torch"
-KERNEL_INFO = {
-    "conv3d": (f"{PKG}/csrc/conv3d.cu", "benchmarks/r2_probe_pallas_mxu.py:80"),
+KERNEL_INFO = {  # name: (source, TPU kernel replaced, path it launches on)
+    "conv3d": (f"{PKG}/csrc/conv3d.cu", "benchmarks/r2_probe_pallas_mxu.py:80", "serve"),
     "conv3d_transpose": (f"{PKG}/csrc/conv3d.cu",
-                         "benchmarks/r2_probe_pallas_mxu.py:80"),
-    "in_stats": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198"),
-    "in_apply": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198"),
+                         "benchmarks/r2_probe_pallas_mxu.py:80", "serve"),
+    "in_stats": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198",
+                 "serve"),
+    "in_apply": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198",
+                 "serve"),
+    "gemm_loop": (f"{PKG}/csrc/gemm_loop.cu", "benchmarks/r2_probe_pallas_mxu.py:56",
+                  "probe"),
 }
+ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 BF16_ULP = 2.0 ** -7       # bf16 spacing just below 1: one rounding step
 REQUESTS, BATCH = 3, 2     # served requests, volumes per request
 REPS = 10                  # timed launches per kernel shape
+MC_ITER = 4                # posterior samples per served MC request
+GEMM_CHECK_ITERS = 3       # K5 iterations for the check against its twin
+SW_CASE, SW_DET_CASE = (24, 256, 256), (20, 192, 192)
+SW_FORWARDS = 5 * 2 * 2 + 1  # 5 chunks x 2 views x 2 members, + 1 chunk
 
 
 def emit(obj):
@@ -96,9 +126,10 @@ def phase_build():
 
 
 # ------------------------------------------------- path shapes (meta trace)
-def trace_path_calls(batch):
-    """Every kernel call of one cfg1 forward at ``batch``, found by running
-    the model on the meta device with recording wrappers."""
+def trace_path_calls(batch, dtype=None):
+    """Every kernel call of one cfg1 forward at ``batch`` in ``dtype``
+    (default bf16), found by running the model on the meta device with
+    recording wrappers."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import m1
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution, normalization
@@ -126,7 +157,7 @@ def trace_path_calls(batch):
     try:
         kw = {k: v for k, v in CFG1.items() if k != "input_spatial_dims"}
         with torch.device("meta"):
-            net = m1(**kw, dtype=torch.bfloat16)
+            net = m1(**kw, dtype=dtype or torch.bfloat16)
             x = torch.zeros((batch, *CFG1["input_spatial_dims"], 3))
             with torch.no_grad():
                 net(x)
@@ -250,7 +281,9 @@ def _conv_flops(sig, transposed):
     return 2.0 * rows * kshape[0] * kshape[1] * kshape[2] * kshape[3] * kshape[4]
 
 
-def phase_kernels(calls, reps):
+def phase_kernels(calls, reps, dtypes=None, timed=True):
+    """Each call's kernel against its plain twin in each of ``dtypes``
+    (default fp32 and bf16); with ``timed``, bf16 times beside the bound."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
@@ -260,7 +293,7 @@ def phase_kernels(calls, reps):
     rows = collections.defaultdict(list)
     for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
         row = {"count": count}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes or (torch.float32, torch.bfloat16):
             dn = str(dtype).replace("torch.", "")
             if name == "conv3d":
                 parts, kernel, bias, st = _conv_case(sig, dtype, gen)
@@ -307,7 +340,7 @@ def phase_kernels(calls, reps):
             row[f"max_abs_err_{dn}"] = abs_err
             row[f"max_rel_err_{dn}"] = rel_err
             row[f"tol_{dn}"] = limit
-            if dtype == torch.bfloat16:  # the serving path's dtype
+            if timed and dtype == torch.bfloat16:  # the serving path's dtype
                 row["kernel_ms"] = time_ms(run, reps)
                 row["plain_ms"] = time_ms(plain, reps)
                 row["library_ms"] = time_ms(lib, reps) if lib is not None else None
@@ -340,13 +373,15 @@ def summarize_kernels(rows):
 
 
 # ----------------------------------------------------------------- serve
-def write_cfg1_checkpoint(path, seed):
+def write_cfg1_checkpoint(path, seed, **overrides):
     """A cfg1 checkpoint in the JAX package's npz format, weights drawn by
-    numpy from ``seed``."""
+    numpy from ``seed``; ``overrides`` change the config (e.g. dropout),
+    never the weights."""
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
     from prostatemr_3d_cad_cspca_tpu_torch.utils.serialization import save_model
 
-    model = M1(**CFG1, summary=False, init_params=False, device="meta")
+    model = M1(**{**CFG1, **overrides}, summary=False, init_params=False,
+               device="meta")
     rng = np.random.default_rng(seed)
     flat = {}
     for name, p in model.net.named_parameters():
@@ -367,10 +402,69 @@ def write_cfg1_checkpoint(path, seed):
 
 def counters():
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import gemm
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
 
     return {"conv3d": cv.conv3d, "conv3d_transpose": cv.conv3d_transpose,
-            "in_stats": nm.in_stats, "in_apply": nm.in_apply}
+            "in_stats": nm.in_stats, "in_apply": nm.in_apply,
+            "gemm_loop": gemm.gemm_loop}
+
+
+def reset_counts():
+    """Every launch count to 0, just before a path is driven."""
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: f.launches for k, f in counters().items()}
+
+
+def forwards(n):
+    """The launch counts of ``n`` cfg1 forwards."""
+    return {**{k: v * n for k, v in LAUNCHES_PER_FORWARD.items()}, "gemm_loop": 0}
+
+
+def _serve_requests(session, requests, mc):
+    """Serve ``requests`` through ``session``; check each output and that it
+    took exactly one forward. Returns latencies (ms), outputs, launches."""
+    import torch
+
+    latencies, outputs, per_request = [], [], []
+    reset_counts()
+    for req in requests:
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs, unc = session(req)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        per_request.append({k: v - before[k] for k, v in read_counts().items()})
+        shape = (len(req), *CFG1["input_spatial_dims"], 2)
+        if probs.shape != shape or (unc is None) == mc or (mc and unc.shape != shape):
+            raise AssertionError(f"serve output {probs.shape}, uncertainty "
+                                 f"{None if unc is None else unc.shape}")
+        if not (np.isfinite(probs).all() and (unc is None or np.isfinite(unc).all())):
+            raise AssertionError("serve output is not finite")
+        sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
+        if sum_err > 4 * BF16_ULP:  # two bf16-rounded channels
+            raise AssertionError(f"softmax channels sum off by {sum_err}")
+        outputs.append((probs, unc))
+    for got in per_request:
+        if got != forwards(1):
+            raise AssertionError(f"launches per request {got}, expected {forwards(1)}")
+    return latencies, outputs, read_counts()
+
+
+def _median_after_first(latencies):
+    steady = sorted(latencies[1:] or latencies)
+    return steady[len(steady) // 2]
+
+
+def _requests(seed):
+    rng = np.random.default_rng(seed + 1)
+    return [rng.normal(size=(BATCH, *CFG1["input_spatial_dims"], 3)).astype(np.float32)
+            for _ in range(REQUESTS)]
 
 
 def phase_serve(ckpt, seed, smi):
@@ -378,57 +472,244 @@ def phase_serve(ckpt, seed, smi):
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
     from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
 
-    model = M1.load(ckpt, dtype=torch.bfloat16, device="cuda")
-    session = InferenceSession(model, device="cuda")
-    rng = np.random.default_rng(seed + 1)
-    requests = [rng.normal(size=(BATCH, *CFG1["input_spatial_dims"], 3)
-                           ).astype(np.float32) for _ in range(REQUESTS)]
-    fns = counters()
-    for fn in fns.values():  # counts start at 0 just before the main path
-        fn.launches = 0
-    latencies, per_request = [], []
-    for req in requests:
-        before = {k: f.launches for k, f in fns.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        probs, unc = session(req)
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
-        per_request.append({k: f.launches - before[k] for k, f in fns.items()})
-        if unc is not None or probs.shape != (BATCH, *CFG1["input_spatial_dims"], 2):
-            raise AssertionError(f"serve output {probs.shape}, uncertainty {unc}")
-        if not np.isfinite(probs).all():
-            raise AssertionError("serve output is not finite")
-        sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
-        if sum_err > 4 * BF16_ULP:  # two bf16-rounded channels
-            raise AssertionError(f"softmax channels sum off by {sum_err}")
-    launches = {k: f.launches for k, f in fns.items()}
-    for got in per_request:
-        if got != LAUNCHES_PER_FORWARD:
-            raise AssertionError(f"launches per forward {got}, expected "
-                                 f"{LAUNCHES_PER_FORWARD}")
-    steady = sorted(latencies[1:] or latencies)
-    med = steady[len(steady) // 2]
+    session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
+                               device="cuda")
+    requests = _requests(seed)
+    latencies, outputs, launches = _serve_requests(session, requests, mc=False)
+    med = _median_after_first(latencies)
     emit({"phase": "serve", "card": smi, "dtype": "bfloat16", "batch": BATCH,
           "requests": REQUESTS, "latency_ms": latencies,
           "median_latency_ms_after_first": med, "vol_per_s": BATCH / med * 1e3,
-          "launches": launches, "launches_per_request": per_request,
-          "softmax_sum_max_err": sum_err,
+          "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     return launches, requests[0]
 
 
-def phase_profile(ckpt, volume, top=12):
-    """One more bf16 request under torch.profiler (outside the counted run):
-    device busy share of the request's wall time and device time by kernel
-    name."""
+def phase_serve_mc(tmp, seed, smi, det_ckpt):
+    """The CLI's default dropout (monte-carlo, 0.5) on the serve path's
+    weights, bf16, mc_iter=4; then the same seed again, and rate 0 against
+    the deterministic model on the same stacked batch of 8 (the same
+    forward, so the same bits)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+
+    ckpt = os.path.join(tmp, "cfg1_mc.npz")
+    write_cfg1_checkpoint(ckpt, seed, dropout_mode="monte-carlo", dropout_rate=0.5)
+
+    def session(path):
+        return InferenceSession(M1.load(path, dtype=torch.bfloat16, device="cuda"),
+                                mc_iter=MC_ITER, seed=seed, device="cuda")
+
+    requests = _requests(seed)
+    torch.cuda.reset_peak_memory_stats()
+    latencies, outputs, launches = _serve_requests(session(ckpt), requests, mc=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase_profile(ckpt, requests[0], mc_iter=MC_ITER, path="serve_mc")
+    probs, std = outputs[0]
+    if not (float(std.min()) >= 0.0 and float(std.max()) > 0.0):
+        raise AssertionError(f"MC std in [{std.min()}, {std.max()}]")
+    again = session(ckpt)(requests[0])
+    if not (np.array_equal(again[0], probs) and np.array_equal(again[1], std)):
+        raise AssertionError("the same seed gave other MC outputs")
+    ckpt0 = os.path.join(tmp, "cfg1_mc0.npz")
+    write_cfg1_checkpoint(ckpt0, seed, dropout_mode="monte-carlo", dropout_rate=0.0)
+    mean0, std0 = session(ckpt0)(requests[0])
+    det = InferenceSession(M1.load(det_ckpt, dtype=torch.bfloat16, device="cuda"),
+                           device="cuda")
+    det_probs = det(np.concatenate([requests[0]] * MC_ITER))[0][:BATCH]
+    det_diff = float(np.abs(mean0 - det_probs).max())
+    if not (np.all(std0 == 0.0) and det_diff == 0.0):
+        raise AssertionError(f"rate 0: std max {std0.max()}, mean vs deterministic "
+                             f"{det_diff}")
+    med = _median_after_first(latencies)
+    emit({"phase": "serve_mc", "card": smi, "dtype": "bfloat16", "batch": BATCH,
+          "mc_iter": MC_ITER, "dropout": ["monte-carlo", 0.5], "requests": REQUESTS,
+          "latency_ms": latencies, "median_latency_ms_after_first": med,
+          "vol_per_s": BATCH / med * 1e3, "launches": launches,
+          "std_max": float(std.max()), "std_mean": float(std.mean()),
+          "rate0_std_max": float(std0.max()), "rate0_vs_deterministic_max": det_diff,
+          "peak_mem_gib": peak})
+    return launches
+
+
+def _write_cases(tmp, name, shapes, seed):
+    rng = np.random.default_rng(seed)
+    lines = ["p-id,image_path"]
+    for i, shape in enumerate(shapes):
+        path = os.path.join(tmp, f"{name}{i}.npy")
+        np.save(path, rng.normal(size=(*shape, 3)).astype(np.float32))
+        lines.append(f"{name}{i},{path}")
+    manifest = os.path.join(tmp, f"{name}.csv")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return manifest
+
+
+def blend_weight(full, window, overlap=0.5):
+    """The sliding window's summed Gaussian weight per voxel. Where it is
+    below the blend's 1e-8 floor (kept from the JAX package), the blended
+    probabilities sum to less than 1."""
+    import itertools
+    from prostatemr_3d_cad_cspca_tpu_torch.infer import _gaussian_importance, _tile_starts
+
+    w = _gaussian_importance(window)
+    norm = np.zeros(full, np.float64)
+    for c in itertools.product(*[_tile_starts(f, k, overlap) for f, k in zip(full, window)]):
+        norm[tuple(slice(s, s + k) for s, k in zip(c, window))] += w
+    return norm
+
+
+def phase_serve_sw(tmp, seed, smi, det_ckpt):
+    """serve.run on whole-gland cases: MC + TTA + a 2-member fold ensemble
+    by sliding window, then deterministic card-vs-CPU parity."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch import serve
+
+    members = []
+    for i in range(2):
+        members.append(os.path.join(tmp, f"fold{i}.npz"))
+        write_cfg1_checkpoint(members[-1], seed + i, dropout_mode="monte-carlo",
+                              dropout_rate=0.5)
+    manifest = _write_cases(tmp, "gland", [SW_CASE, SW_CASE], seed + 2)
+    out_dir = os.path.join(tmp, "sw_out")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = serve.main(["--MODEL", ",".join(members), "--MANIFEST", manifest,
+                          "--OUTPUT_DIR", out_dir, "--MC_ITER", "2", "--TTA", "1",
+                          "--SEED", str(seed), "--DEVICE", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    floored = blend_weight(SW_CASE, CFG1["input_spatial_dims"]) < 1e-8
+    for r in results:
+        det, unc = np.load(r["detection_path"]), np.load(r["uncertainty_path"])
+        if det.shape != (*SW_CASE, 2) or unc.shape != det.shape:
+            raise AssertionError(f"{r['p-id']}: outputs {det.shape}, {unc.shape}")
+        if not (np.isfinite(det).all() and np.isfinite(unc).all()
+                and float(unc.min()) >= 0.0 and float(unc.max()) > 0.0):
+            raise AssertionError(f"{r['p-id']}: outputs not finite or std not >= 0")
+        sums = det.sum(-1)
+        if (float(np.abs(sums[~floored] - 1.0).max()) > 1e-4
+                or float(sums.max()) > 1.0 + 1e-4):
+            raise AssertionError(f"{r['p-id']}: probabilities do not sum to 1")
+    if [r["p-id"] for r in results] != ["gland0", "gland1"]:
+        raise AssertionError(f"manifest order lost: {[r['p-id'] for r in results]}")
+
+    manifest = _write_cases(tmp, "det", [SW_DET_CASE], seed + 3)
+    t1 = time.perf_counter()
+    card = serve.main(["--MODEL", det_ckpt, "--MANIFEST", manifest, "--OUTPUT_DIR",
+                       os.path.join(tmp, "det_card"), "--DEVICE", "cuda"])
+    torch.cuda.synchronize()
+    det_seconds = time.perf_counter() - t1
+    launches = read_counts()
+    if launches != forwards(SW_FORWARDS):
+        raise AssertionError(f"sliding-window launches {launches}, expected "
+                             f"{forwards(SW_FORWARDS)}")
+    cpu = serve.main(["--MODEL", det_ckpt, "--MANIFEST", manifest, "--OUTPUT_DIR",
+                      os.path.join(tmp, "det_cpu"), "--DEVICE", "cpu"])
+    diff = float(np.abs(np.load(card[0]["detection_path"])
+                        - np.load(cpu[0]["detection_path"])).max())
+    emit({"phase": "serve_sw", "card": smi, "dtype": "float32",
+          "cases": [list(SW_CASE)] * 2, "tiles_per_case": 18, "mc_iter": 2, "tta": 1,
+          "members": 2, "seconds": seconds, "seconds_per_case": seconds / 2,
+          "voxels_below_blend_floor": int(floored.sum()),
+          "det_case": list(SW_DET_CASE), "det_case_seconds": det_seconds,
+          "det_card_vs_cpu_max": diff, "launches": launches, "peak_mem_gib": peak})
+    if not diff <= 1e-3:
+        raise AssertionError(f"sliding window card vs CPU differs by {diff}")
+    return launches
+
+
+def phase_gemm(reps):
+    """K5 at the probe's 8 (shape, iterations): checked against its twin
+    with a few iterations, then timed at the probe's count beside its bound,
+    the twin and one cuBLAS torch.mm per iteration (the loop replayed as
+    one CUDA graph)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import gemm
+    from prostatemr_3d_cad_cspca_tpu_torch.probes import gemm_rate as gr
+
+    cases = [(gr.MM_SHAPE, gr.MM_ITERS)] + [(s, gr.LOOP_ITERS[0]) for s in gr.LOOP_SHAPES]
+    rows = []
+    for (m, k, n), iters in cases:
+        a, w = gr.operands(m, k, n, "cuda", seed=m + k + n)
+        got = gemm.gemm_loop(a, w, GEMM_CHECK_ITERS)
+        ref = gemm.gemm_loop_plain(a, w, GEMM_CHECK_ITERS)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _errors(got, ref)
+        if not (np.isfinite(rel_err) and rel_err <= BF16_ULP):
+            raise AssertionError(f"gemm_loop {m}x{k}x{n}: error {rel_err} > {BF16_ULP}")
+        library = gr.cublas_loop(a, w, iters)
+        nbytes = _nbytes(a, w) + m * n * 2
+        bound, by = bound_ms(nbytes, 2.0 * m * k * n * iters)
+        rows.append({"shape": [m, k, n], "iters": iters, "check_iters": GEMM_CHECK_ITERS,
+                     "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": BF16_ULP,
+                     "kernel_ms": time_ms(lambda: gemm.gemm_loop(a, w, iters), reps),
+                     "plain_ms": time_ms(lambda: gemm.gemm_loop_plain(a, w, iters), reps),
+                     "library_ms": time_ms(library, reps), "bound_ms": bound,
+                     "bound_by": by, "blocks": -(-m // 64) * -(-n // 64)})
+    tot = lambda key: sum(r[key] for r in rows)  # noqa: E731
+    return dict(launches_per_pass=len(rows), distinct_shapes=len(rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_err=max(r["max_rel_err"] for r in rows), tol={"bfloat16": BF16_ULP},
+                kernel_ms=tot("kernel_ms"), plain_ms=tot("plain_ms"),
+                library_ms=tot("library_ms"), bound_ms=tot("bound_ms"),
+                bound_by="operations"), rows
+
+
+def phase_probe(smi):
+    """The probe entry point's three modes, in-process, on the card."""
+    from prostatemr_3d_cad_cspca_tpu_torch.probes import gemm_rate
+
+    reset_counts()
+    out = gemm_rate.run(gemm_rate.build_parser().parse_args(["mm", "loop", "conv"]))
+    launches = read_counts()
+    conv = out["conv"]
+    emit({"phase": "probe", "card": smi, "launches": launches,
+          "mm_tflops": out["mm"]["tflops"],
+          "loop_tflops": {"x".join(map(str, r["shape"])): [r["tflops"], r["library_tflops"]]
+                          for r in out["loop"]},
+          "conv_ms": conv["ms"], "conv_tflops": conv["tflops"],
+          "conv_library_ms": conv["library_ms"], "conv_max_rel_err": conv["max_rel_err"]})
+    if not conv["max_rel_err"] <= conv["tol"]:
+        raise AssertionError(f"K1 at conv_probe's geometry: error {conv['max_rel_err']}")
+    if launches["gemm_loop"] == 0 or launches["conv3d"] == 0:
+        raise AssertionError(f"the probe path launched {launches}")
+    return launches, out
+
+
+def phase_paths():
+    """K1-K4 against their twins at the distinct shapes of the serve_mc
+    (batch 2 x mc 4, bf16) and serve_sw (2 cases x 4 tiles x mc 2, fp32)
+    forwards."""
+    import torch
+
+    out = {}
+    for name, batch, dtype in (("serve_mc", BATCH * MC_ITER, torch.bfloat16),
+                               ("serve_sw", 2 * 4 * 2, torch.float32)):
+        rows = phase_kernels(trace_path_calls(batch, dtype), 0, dtypes=(dtype,),
+                             timed=False)
+        dn = str(dtype).replace("torch.", "")
+        out[name] = {k: {"shapes": len(v), "max_rel_err": max(r[f"max_rel_err_{dn}"]
+                                                              for r in v)}
+                     for k, v in rows.items()}
+    emit({"phase": "paths", "batch_checks": out})
+
+
+def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve"):
+    """One more bf16 request of ``path`` under torch.profiler (outside the
+    counted run): device busy share of the request's wall time and device
+    time by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
     from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
 
     session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
-                               device="cuda")
+                               mc_iter=mc_iter, device="cuda")
     session(volume)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -451,7 +732,8 @@ def phase_profile(ckpt, volume, top=12):
         elif e > end:
             busy += e - end
             end = e
-    emit({"phase": "profile", "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    emit({"phase": "profile", "path": path, "wall_ms": wall_us / 1e3,
+          "device_busy_ms": busy / 1e3,
           "device_busy_share": busy / wall_us if wall_us else None,
           "device_events": len(spans),
           "top_ms": {k: v / 1e3 for k, v in by_name.most_common(top)}})
@@ -500,32 +782,41 @@ def main(argv=None):
     calls = trace_path_calls(BATCH)
     rows = phase_kernels(calls, REPS)
     summary = summarize_kernels(rows)
+    summary["gemm_loop"], rows["gemm_loop"] = phase_gemm(REPS)
     for name, s in summary.items():
-        emit({"kernel": name, "card": smi, "dtype": "bfloat16", "batch": BATCH,
-              **s, "shapes": rows[name]})
+        emit({"kernel": name, "card": smi, "dtype": "bfloat16", **s,
+              "shapes": rows[name]})
 
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "cfg1.npz")
         write_cfg1_checkpoint(ckpt, args.seed)
-        launches, volume = phase_serve(ckpt, args.seed, smi)
+        launches["serve"], volume = phase_serve(ckpt, args.seed, smi)
         phase_profile(ckpt, volume)
         phase_parity(ckpt, volume)
+        launches["serve_mc"] = phase_serve_mc(tmp, args.seed, smi, ckpt)
+        launches["serve_sw"] = phase_serve_sw(tmp, args.seed, smi, ckpt)
+    launches["probe"], probe = phase_probe(smi)
+    phase_paths()
 
     kernels = []
     for name, s in summary.items():
-        src, replaces = KERNEL_INFO[name]
+        src, replaces, path = KERNEL_INFO[name]
+        n = launches[path][name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "path": path, "launches": n,
                         "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
-        if launches[name] == 0:
-            raise AssertionError(f"{name} never launched on the serving path")
+                        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                        **({"also_replaces": ALSO_REPLACES[name]}
+                           if name in ALSO_REPLACES else {})})
+        if n == 0:
+            raise AssertionError(f"{name} never launched on the {path} path")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "summary": summary, "rows": rows,
-                       "launches": launches}, f, indent=1)
+                       "launches": launches, "probe": probe}, f, indent=1)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Network building blocks of the deterministic M1 path, port of the JAX
-package's ``models/blocks.py`` (reference network_blocks.py).
+"""Network building blocks of the M1 path, port of the JAX package's
+``models/blocks.py`` (reference network_blocks.py).
 
 Torch modules need their input widths at construction, where flax infers
 them at the first call; every block here takes them explicitly. Parameter
@@ -9,7 +9,7 @@ names match the flax tree (``conv1/kernel``, ``norm1/scale``,
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +18,7 @@ from torch import nn
 from ..ops.convolution import Conv3d, ConvConfig, store_act
 from ..ops.normalization import InstanceNorm, global_spatial_mean
 from ..ops.resample import upsample_nearest
+from ..prng import is_mask_map
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
@@ -25,23 +26,63 @@ def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.1)
 
 
+def dropout(x: torch.Tensor, rate: float, rng, site: Optional[str] = None
+            ) -> torch.Tensor:
+    """Active dropout exactly as flax ``nn.Dropout``: ``keep = 1 - rate``, a
+    Bernoulli(keep) mask, ``where(mask, x / keep, 0)`` in x's dtype (keep is
+    rounded to that dtype first, as a weakly typed JAX scalar is); rate 0 is
+    the identity and rate 1 gives zeros.
+
+    ``rng`` is a ``torch.Generator`` on x's device, whose uniform draws
+    below ``keep`` are the mask, or a mapping from dropout ``site`` to a
+    keep-mask of x's shape, which is replayed and draws nothing."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    if is_mask_map(rng):
+        if site not in rng:
+            raise KeyError(f"no keep-mask for dropout site {site!r}")
+        mask = torch.as_tensor(rng[site], device=x.device).to(torch.bool)
+        if tuple(mask.shape) != tuple(x.shape):
+            raise ValueError(f"keep-mask of {site!r} has shape {tuple(mask.shape)}, "
+                             f"the activation {tuple(x.shape)}")
+    elif isinstance(rng, torch.Generator):
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    else:
+        raise ValueError(f"dropout at rate {rate} needs rng: a torch.Generator on "
+                         f"{x.device} or a mapping of keep-masks")
+    # a 0-dim tensor on x's device: CUDA would turn a Python scalar divisor
+    # into a multiply by its reciprocal, which rounds differently
+    scale = torch.full((), keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ConfigurableDropout(nn.Module):
-    """Dropout that is train-gated ('standard') or always on ('monte-carlo').
+    """Dropout that is train-gated ('standard') or always on ('monte-carlo')
+    (JAX ``blocks.py:33-50``). ``site`` names it in a mapping of keep-masks."""
 
-    This slice is inference-only and deterministic: the identity for rate 0
-    and for 'standard' mode outside training. Anything that would draw
-    random bits raises (MC sampling and training are later slices)."""
-
-    def __init__(self, rate: float, mode: str = "standard"):
+    def __init__(self, rate: float, mode: str = "standard", site: Optional[str] = None):
         super().__init__()
-        self.rate, self.mode = float(rate), mode
+        self.rate, self.mode, self.site = float(rate), mode, site
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
         if self.rate == 0.0 or (self.mode == "standard" and not train):
             return x
-        raise NotImplementedError(
-            "stochastic dropout (training, monte-carlo) waits for the MC "
-            "inference and training slices")
+        return dropout(x, self.rate, rng, self.site)
+
+
+class MonteCarloDropout(nn.Module):
+    """Always-active dropout (JAX ``blocks.py:53-63``)."""
+
+    def __init__(self, rate: float, site: Optional[str] = None):
+        super().__init__()
+        self.rate, self.site = float(rate), site
+
+    def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
+        del train
+        return dropout(x, self.rate, rng, self.site)
 
 
 class SqueezeConv(nn.Module):

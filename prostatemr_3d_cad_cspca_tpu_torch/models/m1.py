@@ -1,5 +1,6 @@
 """M1, the top-level model with the reference's constructor surface: port of
-the JAX package's ``models/m1.py`` for deterministic single-stage models.
+the JAX package's ``models/m1.py`` for single-stage models, Monte-Carlo
+dropout included.
 
 ``M1`` wraps an ``nn.Module`` (``.net``) whose parameters are fp32 and live
 on ``device``; ``dtype`` (e.g. ``torch.bfloat16``) is the compute type, cast
@@ -8,9 +9,14 @@ npz files: ``M1.load`` reads what the JAX ``M1.save`` writes and the other
 way round. ``config`` holds exactly the JAX config keys; ``device`` and
 ``dtype`` are load-time choices and are not stored.
 
+Random bits come from an explicit ``rng`` (see ``prng``): a
+``torch.Generator`` on the model's device, an int seed, or a mapping from
+dropout site to keep-mask. ``__call__`` and ``predict`` draw a fresh seed
+when an always-on (monte-carlo) model gets none, as the JAX package does;
+``apply`` and the detect head raise instead.
+
 Not in this slice (each raises ``NotImplementedError``): cascaded models,
-probabilistic models, Monte-Carlo dropout with rate > 0 (it needs random
-bits at detect), dense skips and deep supervision. ``get_packed_forward``
+probabilistic models, dense skips and deep supervision. ``get_packed_forward``
 is a TPU layout device and is not ported. ``remat`` is a training memory
 knob and changes nothing at inference.
 """
@@ -22,6 +28,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import prng
 from ..bridge import from_jax_params, to_jax_params
 from ..device import resolve_device
 from ..ops.convolution import (INITIALIZERS, Conv3d, ConvConfig, ConvTranspose3d,
@@ -132,10 +139,6 @@ class M1:
         if probabilistic:
             raise NotImplementedError(
                 "probabilistic M1 waits for the probabilistic slice")
-        if dropout_mode == "monte-carlo" and dropout_rate > 0:
-            raise NotImplementedError(
-                "Monte-Carlo dropout needs random bits at detect; it waits for "
-                "the MC inference slice")
 
         # store_config_args parity (modelio.py:20-55): the JAX config keys
         self.config: Dict[str, Any] = dict(
@@ -242,19 +245,27 @@ class M1:
             inputs = torch.from_numpy(np.ascontiguousarray(inputs, np.float32))
         return inputs.to(self.device).contiguous()
 
+    @property
+    def stochastic(self) -> bool:
+        """Dropout stays on at inference (the CLI default, cli.py:76-77)."""
+        return self.config["dropout_mode"] == "monte-carlo"
+
     def apply(self, params, inputs, train: bool = False, rng=None):
         """Forward pass (inference only in this slice: runs without
         autograd). ``params`` None uses the model's own; a state dict runs
-        those instead. ``rng`` is accepted for surface parity: the models of
-        this slice draw no random bits."""
+        those instead. ``rng`` feeds the dropout sites; active dropout
+        without one raises."""
         x = self._as_input(inputs)
+        rng = prng.as_rng(rng, self.device)
         with torch.no_grad():
             if params is None:
-                return self.net(x, train)
+                return self.net(x, train, rng)
             return torch.func.functional_call(self.net, params, (x,),
-                                              {"train": train})
+                                              {"train": train, "rng": rng})
 
     def __call__(self, inputs, train: bool = False, rng=None):
+        if rng is None and (self.stochastic or train):
+            rng = prng.fresh(self.device)
         return self.apply(None, inputs, train=train, rng=rng)
 
     def get_detect_model(self) -> Callable:
@@ -269,6 +280,8 @@ class M1:
         return detect
 
     def predict(self, inputs, rng=None) -> torch.Tensor:
+        if rng is None and self.stochastic:  # self-key, as ``__call__``
+            rng = prng.fresh(self.device)
         return self.get_detect_model()(None, inputs, rng=rng)
 
     # -------------------------------------------------------------- io

@@ -22,7 +22,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("conv3d.cu", "instance_norm.cu")
+SOURCES = ("conv3d.cu", "instance_norm.cu", "gemm_loop.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,7 @@ _SIGNATURES = {
     "pmr_conv3d_transpose": [_VP, _VP, _VP, _VP],
     "pmr_in_stats": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     "pmr_in_apply": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP],
+    "pmr_gemm_loop": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
 }
 
 

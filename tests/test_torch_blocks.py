@@ -101,13 +101,20 @@ def test_attention_gate_matches_flax(sub_samp):
 
 
 def test_dropout_is_identity_when_deterministic_and_raises_otherwise():
+    """Inactive dropout is the identity; active dropout without an rng
+    raises, as flax's does without a 'dropout' stream."""
     x = torch.ones(2, 3)
     assert tblocks.ConfigurableDropout(0.0, "monte-carlo")(x) is x
     assert tblocks.ConfigurableDropout(0.5, "standard")(x, train=False) is x
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs rng"):
         tblocks.ConfigurableDropout(0.5, "monte-carlo")(x)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs rng"):
         tblocks.ConfigurableDropout(0.5, "standard")(x, train=True)
+    with pytest.raises(ValueError, match="needs rng"):
+        tblocks.MonteCarloDropout(0.5)(x)
+    gen = torch.Generator().manual_seed(0)
+    y = tblocks.ConfigurableDropout(0.5, "monte-carlo", "s")(x, rng=gen)
+    assert set(y.unique().tolist()) <= {0.0, 2.0}
 
 
 def test_leaky_relu_slope():

@@ -1,4 +1,4 @@
-"""K1-K4 against their plain PyTorch twins on a CUDA card.
+"""K1-K5 against their plain PyTorch twins on a CUDA card.
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. This file imports no JAX, so it also runs on a
@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as tconv
+from prostatemr_3d_cad_cspca_tpu_torch.ops import gemm as tgemm
 from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as tnorm
+from prostatemr_3d_cad_cspca_tpu_torch.probes.gemm_rate import operands
 
 CONV_CASES = [  # (kernel, stride) pairs of the M1 path
     ((1, 3, 3), (1, 1, 1)), ((1, 3, 3), (1, 2, 2)), ((3, 3, 3), (1, 1, 1)),
@@ -85,3 +87,30 @@ def test_card_instance_norm_kernels_match_plain(cuda_device, c, dtype, lrelu):
     ref = tnorm.in_apply_plain(x, stats, scale, bias, lrelu)
     torch.cuda.synchronize()
     assert _card_err(got, ref) <= CARD_TOL[dtype]
+
+
+# K5: the probe shapes, ragged M/N/K edges, one tile and one element
+GEMM_CASES = [(640, 1152, 128, 3), (2560, 144, 128, 2), (5120, 1152, 256, 1),
+              (100, 40, 24, 3), (130, 16, 72, 4), (1, 8, 8, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,iters", GEMM_CASES)
+def test_card_gemm_loop_kernel_matches_plain(cuda_device, m, k, n, iters):
+    a, w = operands(m, k, n, cuda_device)
+    n0 = tgemm.gemm_loop.launches
+    got = tgemm.gemm_loop(a, w, iters)
+    torch.cuda.synchronize()
+    assert tgemm.gemm_loop.launches == n0 + 1
+    assert _card_err(got, tgemm.gemm_loop_plain(a, w, iters)) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_shape,w_shape,dtype", [
+    ((16, 12), (12, 8), torch.bfloat16), ((16, 8), (8, 12), torch.bfloat16),
+    ((16, 8), (8, 8), torch.float32)])
+def test_card_gemm_loop_refuses_what_it_does_not_take(cuda_device, a_shape, w_shape, dtype):
+    a = torch.zeros(a_shape, dtype=dtype, device=cuda_device)
+    w = torch.zeros(w_shape, dtype=dtype, device=cuda_device)
+    with pytest.raises(ValueError):
+        tgemm.gemm_loop(a, w, 1)

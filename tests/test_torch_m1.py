@@ -186,6 +186,9 @@ def test_serve_run_matches_jax(jax_model, tmp_path):
 
 
 def test_serve_refuses_what_waits_for_later_slices(jax_model, tmp_path):
+    """Sliding windows, --MC_ITER, --TTA, --SCAN_CHUNK and fold ensembles
+    serve now; a second exam (cascade), --DATA_PARALLEL and .zip artifacts
+    still raise and name their slice."""
     ckpt = str(tmp_path / "model.npz")
     jax_model.save(ckpt)
     rng = np.random.default_rng(3)
@@ -195,14 +198,39 @@ def test_serve_refuses_what_waits_for_later_slices(jax_model, tmp_path):
     with open(man, "w") as fh:
         fh.write(f"p-id,image_path\nbig,{big}\n")
     base = ["--MODEL", ckpt, "--OUTPUT_DIR", str(tmp_path / "o"), "--DEVICE", "cpu"]
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tserve.main(base + ["--MANIFEST", man])
-    small = _manifest(tmp_path, 1)
-    for extra in (["--MC_ITER", "2"], ["--TTA", "1"], ["--DATA_PARALLEL", "2"],
-                  ["--SCAN_CHUNK", "2"], ["--MODEL", f"{ckpt},{ckpt}"],
-                  ["--MODEL", "artifact.zip"]):
-        with pytest.raises(NotImplementedError):
-            tserve.main(base + ["--MANIFEST", small] + extra)
+    got = tserve.main(base + ["--MANIFEST", man])
+    assert np.load(got[0]["detection_path"]).shape == (6, 24, 24, 2)
+    small = _manifest(tmp_path, 3)
+    for extra in (["--MC_ITER", "2"], ["--TTA", "1"], ["--SCAN_CHUNK", "2"],
+                  ["--MODEL", f"{ckpt},{ckpt}"]):
+        out = tserve.main(base + ["--MANIFEST", small] + extra)
+        assert [r["p-id"] for r in out] == ["case0", "case1", "case2"]
+    casc = str(tmp_path / "casc.csv")
+    with open(casc, "w") as fh:
+        fh.write(f"p-id,image_path,image_path_2\nbig,{big},{big}\n")
+    for extra, slice_name in ((["--MANIFEST", casc], "cascade"),
+                              (["--MANIFEST", small, "--DATA_PARALLEL", "2"], "multi-GPU"),
+                              (["--MANIFEST", small, "--MODEL", "artifact.zip"], "export")):
+        with pytest.raises(NotImplementedError, match=slice_name):
+            tserve.main(base + extra)
+
+
+def test_jax_mc_dropout_checkpoint_loads_with_every_leaf_matched(tmp_path):
+    """A checkpoint of the training CLI's default dropout (monte-carlo, 0.5)
+    saved by the JAX package loads into the port: dropout has no
+    parameters, and every leaf maps onto one of the port's, unchanged."""
+    jmc = JM1(**KW, dropout_mode="monte-carlo", dropout_rate=0.5)
+    jmc.params = _redraw(jmc.params, 4)
+    path = str(tmp_path / "mc.npz")
+    jmc.save(path)
+    model = TM1.load(path, device="cpu")
+    assert model.config["dropout_mode"] == "monte-carlo"
+    assert model.config["dropout_rate"] == 0.5 and model.stochastic
+    flat = from_jax_params(jmc.params)
+    assert set(model.params) == set(flat)
+    for key, leaf in flat.items():
+        assert torch.equal(model.params[key], leaf), key
+    model.load_weights(path, strict=True)  # nothing unmatched either way
 
 
 def test_init_draws_the_reference_initializers():

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import prostatemr_3d_cad_cspca_tpu_torch as port
+from prostatemr_3d_cad_cspca_tpu_torch.ensemble import M1Ensemble
 from prostatemr_3d_cad_cspca_tpu_torch.load import load_model_spec
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1, M1Core
 from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
@@ -66,7 +67,8 @@ def test_importing_the_port_loads_no_jax():
     loaded = __import__("json").loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert bad == []
-    assert "prostatemr_3d_cad_cspca_tpu_torch.serve" in loaded
+    for mod in ("serve", "infer", "ensemble", "prng", "ops.gemm", "probes.gemm_rate"):
+        assert f"prostatemr_3d_cad_cspca_tpu_torch.{mod}" in loaded
 
 
 IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
@@ -101,7 +103,7 @@ def test_entry_points_default_to_the_card(tmp_path):
 @pytest.mark.parametrize("kw", [
     dict(cascaded=True), dict(probabilistic=True), dict(dense_skip=True),
     dict(deep_supervision=True),
-    dict(dropout_mode="monte-carlo", dropout_rate=0.5),
+    dict(cascaded=True, dropout_mode="monte-carlo", dropout_rate=0.5),
 ])
 def test_unsupported_configs_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -120,6 +122,18 @@ def test_core_raises_for_cfg2_options():
 
 
 @pytest.mark.parametrize("spec", ["a.npz,b.npz", "artifact.zip"])
-def test_load_spec_refuses_ensembles_and_artifacts(spec):
-    with pytest.raises(NotImplementedError):
-        load_model_spec(spec, device="cpu")
+def test_load_spec_refuses_ensembles_and_artifacts(spec, tmp_path, monkeypatch):
+    """Fold ensembles load now (``M1Ensemble``); exported artifacts, alone
+    or inside an ensemble spec, still raise."""
+    monkeypatch.chdir(tmp_path)
+    model = M1(**TINY, device="cpu")
+    for name in ("a.npz", "b.npz"):
+        model.save(name)
+    if spec.endswith(".zip"):
+        for bad in (spec, f"a.npz,{spec}"):
+            with pytest.raises(NotImplementedError, match="export slice"):
+                load_model_spec(bad, device="cpu")
+        return
+    ens = load_model_spec(spec, device="cpu")
+    assert isinstance(ens, M1Ensemble) and ens.num_members == 2
+    assert ens.device == torch.device("cpu")
