@@ -12,19 +12,25 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                nvcc builds csrc/*.cu for sm_90a.
   2. kernels   K1 conv3d, K2 conv3d_transpose, K3 in_stats, K4 in_apply at
                every distinct shape the cfg1 forward gives them at the serving
-               batch, in bf16 and fp32, against their plain twins on the card;
-               times in bf16 beside each shape's bound and, where one torch
-               call computes the same function, that call's time. K5
-               gemm_loop at the probe's 8 (shape, iterations): checked with 3
-               iterations (|diff|/max(1,|ref|) <= 2**-7), timed at the probe's
-               count beside its bound and the time of cuBLAS torch.mm
-               calls, one per iteration, replayed as one CUDA graph.
+               batch, in bf16 (K1/K2: the mma.sync tensor-core kernel) and
+               fp32 (K1/K2: the FMA kernel), against their plain twins on the
+               card; device times in bf16 beside each shape's bound and,
+               where one torch call computes the same function, that call's
+               time. Kernel, twin and library call are each timed alike: 10
+               calls captured in one CUDA graph, replayed between CUDA
+               events, so host dispatch stays out. At one split-K shape each,
+               K1 and K2 run twice on the same inputs and must give the same
+               bits. K5 gemm_loop at the probe's 8 (shape, iterations):
+               checked with 3 iterations (|diff|/max(1,|ref|) <= 2**-7),
+               timed at the probe's count beside its bound and the time of
+               cuBLAS torch.mm calls, one per iteration, as one CUDA graph.
   3. serve     a cfg1 checkpoint in the JAX npz format (weights drawn by numpy
                from --seed, dropout 0) -> M1.load(dtype=bfloat16) ->
                InferenceSession, 3 requests of 2 volumes of 20x160x160x3;
                launch counters must rise by exactly 50/4/37/37 per forward.
                Then one more request under torch.profiler, outside the counted
-               run: device busy share and device time by kernel.
+               run: device busy share and device time by kernel, which must
+               show conv3d_mma_kernel and splitk_reduce_kernel.
   4. parity    one fp32 volume through the card model and the same model on
                the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
                on the card: mean |diff| <= 1e-2.
@@ -46,7 +52,9 @@ Phases (each raises on failure, so the script exits non-zero and prints no
 
 Each path's launch counters are set to 0 just before it and read just
 after. The last line is {"ok": true, "device": {...}}; the line before it
-lists every kernel with its launches on its path, error and times.
+lists every kernel with its launches on its path, error and times; for K1
+and K2 also the route by dtype and ptxas's registers, static shared memory
+and spills of the bf16 kernels.
 """
 
 from __future__ import annotations
@@ -76,8 +84,9 @@ LAUNCHES_PER_FORWARD = {"conv3d": 50, "conv3d_transpose": 4, "in_stats": 37,
                         "in_apply": 37}
 PKG = "prostatemr_3d_cad_cspca_tpu_torch"
 KERNEL_INFO = {  # name: (source, TPU kernel replaced, path it launches on)
-    "conv3d": (f"{PKG}/csrc/conv3d.cu", "benchmarks/r2_probe_pallas_mxu.py:80", "serve"),
-    "conv3d_transpose": (f"{PKG}/csrc/conv3d.cu",
+    "conv3d": (f"{PKG}/csrc/conv3d_mma.cu", "benchmarks/r2_probe_pallas_mxu.py:80",
+               "serve"),
+    "conv3d_transpose": (f"{PKG}/csrc/conv3d_mma.cu",
                          "benchmarks/r2_probe_pallas_mxu.py:80", "serve"),
     "in_stats": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198",
                  "serve"),
@@ -87,6 +96,12 @@ KERNEL_INFO = {  # name: (source, TPU kernel replaced, path it launches on)
                   "probe"),
 }
 ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45"}
+CONV_KERNELS = ("conv3d", "conv3d_transpose")
+CONV_ROUTES = {"bfloat16": f"mma.sync bf16, {PKG}/csrc/conv3d_mma.cu",
+               "float32": f"fma fp32, {PKG}/csrc/conv3d.cu"}
+MMA_KERNEL_NAMES = ("conv3d_mma_kernel", "splitk_reduce_kernel")
+BUILT_KERNEL_NAMES = MMA_KERNEL_NAMES + ("conv3d_igemm_kernel", "in_partial", "in_finalize",
+                                         "in_apply_kernel", "gemm_loop_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 BF16_ULP = 2.0 ** -7       # bf16 spacing just below 1: one rounding step
@@ -117,11 +132,9 @@ def phase_build():
     t0 = time.perf_counter()
     path = cuda_lib.build()
     cuda_lib.library()
-    regs = [ln.strip() for ln in cuda_lib.build_log.splitlines()
-            if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "library": os.path.basename(path),
           "seconds": round(time.perf_counter() - t0, 3),
-          "ptxas": regs[:40]})
+          "ptxas": ptxas_report(cuda_lib.build_log, BUILT_KERNEL_NAMES)})
     return smi
 
 
@@ -172,19 +185,65 @@ def trace_path_calls(batch, dtype=None):
 
 
 # ---------------------------------------------------------------- timing
-def time_ms(fn, reps):
+def time_ms(fn, reps, capture=True):
+    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed between CUDA events, after one warm-up call and one
+    warm-up replay. The capture takes each call's launches on the current
+    stream and its ``torch.empty`` allocations; the host's work (numpy
+    packing, ctypes, Python) stays outside the replay, so kernel, twin and
+    library call are timed alike, on the device. ``capture=False`` is for a
+    ``fn`` that already replays a graph: its calls are timed as they are."""
     import torch
 
     fn()
-    fn()
+    torch.cuda.synchronize()
+    if capture:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        run = graph.replay
+    else:
+        run = lambda: [fn() for _ in range(reps)]  # noqa: E731
+    run()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def ptxas_report(log, names):
+    """Per kernel of ``names`` (a substring of the mangled name): how many
+    variants were compiled, their registers, static shared memory and spill
+    bytes, from nvcc's ``-Xptxas -v`` report (None when nothing was built in
+    this process)."""
+    if not log:
+        return None
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = next((n for n in names if n in m.group(1)), None)
+            if current:
+                out.setdefault(current, {"variants": 0, "registers": [], "smem_bytes": [],
+                                         "spill_bytes": 0})["variants"] += 1
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[current]["spill_bytes"] += int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if used:
+            out[current]["registers"].append(int(used.group(1)))
+            out[current]["smem_bytes"].append(int(used.group(2) or 0))
+    return {k: {"variants": v["variants"],
+                "registers": [min(v["registers"]), max(v["registers"])],
+                "static_smem_bytes": max(v["smem_bytes"]), "spill_bytes": v["spill_bytes"]}
+            for k, v in out.items() if v["registers"]}
 
 
 def bound_ms(nbytes, flops):
@@ -291,6 +350,7 @@ def phase_kernels(calls, reps, dtypes=None, timed=True):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     tol = {torch.float32: 2e-4, torch.bfloat16: 2 * BF16_ULP}
     rows = collections.defaultdict(list)
+    bit_checked = set()  # K1/K2: one split-K shape each, run twice
     for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
         row = {"count": count}
         for dtype in dtypes or (torch.float32, torch.bfloat16):
@@ -345,8 +405,29 @@ def phase_kernels(calls, reps, dtypes=None, timed=True):
                 row["plain_ms"] = time_ms(plain, reps)
                 row["library_ms"] = time_ms(lib, reps) if lib is not None else None
                 row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+                if name in CONV_KERNELS:
+                    row["splits"] = _splits(name, sig)
+                    if row["splits"] > 1 and name not in bit_checked:
+                        again = run()
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{name} {sig}: two split-K runs on the "
+                                                 "same inputs differ")
+                        row["bit_equal"] = True
+                        bit_checked.add(name)
         rows[name].append(row)
+    if timed and bit_checked != set(CONV_KERNELS) & set(rows):
+        raise AssertionError(f"no split-K shape checked for determinism: {bit_checked}")
     return rows
+
+
+def _splits(name, sig):
+    """K-splits of the bf16 kernel at one K1/K2 call."""
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import igemm_schedule
+
+    transposed = name == "conv3d_transpose"
+    shapes = [sig[0]] if transposed else sig[0]
+    return igemm_schedule(shapes, sig[1], sig[2], transposed)[1]["splits"]
 
 
 def summarize_kernels(rows):
@@ -649,7 +730,7 @@ def phase_gemm(reps):
                      "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": BF16_ULP,
                      "kernel_ms": time_ms(lambda: gemm.gemm_loop(a, w, iters), reps),
                      "plain_ms": time_ms(lambda: gemm.gemm_loop_plain(a, w, iters), reps),
-                     "library_ms": time_ms(library, reps), "bound_ms": bound,
+                     "library_ms": time_ms(library, reps, capture=False), "bound_ms": bound,
                      "bound_by": by, "blocks": -(-m // 64) * -(-n // 64)})
     tot = lambda key: sum(r[key] for r in rows)  # noqa: E731
     return dict(launches_per_pass=len(rows), distinct_shapes=len(rows),
@@ -702,7 +783,8 @@ def phase_paths():
 def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve"):
     """One more bf16 request of ``path`` under torch.profiler (outside the
     counted run): device busy share of the request's wall time and device
-    time by kernel name."""
+    time by kernel name (the ``top`` names, and always the bf16 conv's main
+    and split-K reduce kernels, which must have run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
@@ -732,11 +814,16 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve"):
         elif e > end:
             busy += e - end
             end = e
+    missing = [k for k in MMA_KERNEL_NAMES if k not in by_name]
+    if missing:
+        raise AssertionError(f"{path}: the profile shows no {missing}")
+    shown = dict(by_name.most_common(top))
+    shown.update({k: by_name[k] for k in MMA_KERNEL_NAMES})
     emit({"phase": "profile", "path": path, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3,
           "device_busy_share": busy / wall_us if wall_us else None,
           "device_events": len(spans),
-          "top_ms": {k: v / 1e3 for k, v in by_name.most_common(top)}})
+          "top_ms": {k: v / 1e3 for k, v in sorted(shown.items(), key=lambda kv: -kv[1])}})
 
 
 def phase_parity(ckpt, volume):
@@ -800,6 +887,9 @@ def main(argv=None):
     phase_paths()
 
     kernels = []
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
+
+    ptxas = ptxas_report(cuda_lib.build_log, MMA_KERNEL_NAMES)
     for name, s in summary.items():
         src, replaces, path = KERNEL_INFO[name]
         n = launches[path][name]
@@ -809,7 +899,9 @@ def main(argv=None):
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                         **({"also_replaces": ALSO_REPLACES[name]}
-                           if name in ALSO_REPLACES else {})})
+                           if name in ALSO_REPLACES else {}),
+                        **({"routes": CONV_ROUTES, "ptxas": ptxas}
+                           if name in CONV_KERNELS else {})})
         if n == 0:
             raise AssertionError(f"{name} never launched on the {path} path")
     if args.out:

@@ -1,5 +1,7 @@
-// K1 conv3d and K2 conv3d_transpose: implicit-GEMM 3D convolution on
-// channels-last (NDHWC) tensors, fp32 or bf16 in and out, fp32 accumulation.
+// K1 conv3d and K2 conv3d_transpose for fp32: implicit-GEMM 3D convolution
+// on channels-last (NDHWC) tensors, fp32 FMA on the CUDA cores. (bf16 inputs
+// take the tensor-core kernel in conv3d_mma.cu; both read one ConvParams,
+// conv_params.cuh.)
 //
 // Replaces: benchmarks/r2_probe_pallas_mxu.py:80 conv_probe (its body `kern`
 // at :96), the streaming (1,3,3) SAME conv + bias that built a 9-tap im2col
@@ -20,51 +22,25 @@
 // hence one set of contributing taps, so no multiply is spent on the zeros a
 // dilated input would hold.
 //
-// What bounds it on an H100: most of the path's convs sit far below the
-// card's ~295 bf16 FLOP/byte ridge (few channels at large spatial extent), so
-// the bound is bytes; the deep 3x3x3 convs at levels 2-4 are bound by
-// operations. This first version runs fp32 FMA on the CUDA cores from
-// shared-memory tiles (no tensor cores, no TMA, no double buffering), so it is
-// bounded by the FMA rate and by the integer work of the implicit gather.
-// Tile shapes follow cout so that narrow layers (cout 1..16) do not waste
-// most of each tile. wgmma/TMA and an epilogue that also emits the
-// instance-norm partial sums are later work.
+// Why fp32 stays here: the tensor cores' fp32 mode is TF32 (about 1e-3
+// relative), which cannot hold the port's fp32 limits (kernel vs twin 2e-4,
+// card vs CPU softmax 1e-3). So fp32 runs fp32 FMA from shared-memory tiles
+// (no tensor cores, no double buffering), bounded by the FMA rate and by the
+// integer work of the implicit gather. Tile shapes follow cout so that narrow
+// layers (cout 1..16) do not waste most of each tile.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "conv_params.cuh"
 
 namespace {
 
-constexpr int kMaxParts = 5;
-constexpr int kMaxPhases = 8;
-constexpr int kMaxTaps = 27;
+using pmr::ConvParams;
+using pmr::kMaxTaps;
+
 constexpr int kThreads = 256;
 constexpr int kBK = 16;
-
-struct ConvParams {
-  const void* x[kMaxParts];
-  int cin[kMaxParts];
-  int nparts;
-  int cin_total;
-  const void* w;
-  const float* bias;  // null when the conv has no bias
-  void* y;
-  int batch;
-  int in_d, in_h, in_w;
-  int out_d, out_h, out_w;
-  int g_d, g_h, g_w;  // row grid of one phase
-  int cout;
-  int in_mul[3];   // input coordinate = grid * in_mul + in_add + tap offset
-  int in_add[3];
-  int out_mul[3];  // output coordinate = grid * out_mul + phase residue
-  int w_ci_stride;  // weight (tap, ci, co) sits at
-  int w_co_stride;  //   tap * cin_total * cout + ci * w_ci_stride + co * w_co_stride
-  int nphase;
-  int ntap[kMaxPhases];
-  int res[kMaxPhases][3];
-  signed char tap[kMaxPhases][kMaxTaps][4];  // dz, dy, dx, weight tap index
-};
 
 template <typename T, int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
@@ -229,58 +205,13 @@ void launch(const ConvParams& p, cudaStream_t stream) {
   }
 }
 
-// Unpacks the wrapper's three host arrays (layout documented in
-// ops/convolution.py, _pack_conv_args) and launches on `stream`.
-int run(const void* ptrs_v, const void* meta_v, const void* taps_v, void* stream) {
-  const uint64_t* ptrs = static_cast<const uint64_t*>(ptrs_v);
-  const int* m = static_cast<const int*>(meta_v);
-  const signed char* taps = static_cast<const signed char*>(taps_v);
+// Unpacks the wrapper's three host arrays and launches on `stream`.
+int run(const void* ptrs, const void* meta, const void* taps, void* stream) {
   ConvParams p;
-  p.nparts = m[0];
-  if (p.nparts < 1 || p.nparts > kMaxParts) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < kMaxParts; ++i) {
-    p.x[i] = reinterpret_cast<const void*>(ptrs[i]);
-    p.cin[i] = m[1 + i];
-  }
-  p.w = reinterpret_cast<const void*>(ptrs[5]);
-  p.bias = m[63] ? reinterpret_cast<const float*>(ptrs[6]) : nullptr;
-  p.y = reinterpret_cast<void*>(ptrs[7]);
-  p.cin_total = m[6];
-  p.batch = m[7];
-  p.in_d = m[8];
-  p.in_h = m[9];
-  p.in_w = m[10];
-  p.out_d = m[11];
-  p.out_h = m[12];
-  p.out_w = m[13];
-  p.g_d = m[14];
-  p.g_h = m[15];
-  p.g_w = m[16];
-  p.cout = m[17];
-  for (int a = 0; a < 3; ++a) {
-    p.in_mul[a] = m[18 + a];
-    p.in_add[a] = m[21 + a];
-    p.out_mul[a] = m[24 + a];
-  }
-  p.w_ci_stride = m[27];
-  p.w_co_stride = m[28];
-  p.nphase = m[29];
-  if (p.nphase < 1 || p.nphase > kMaxPhases) return (int)cudaErrorInvalidValue;
-  for (int ph = 0; ph < kMaxPhases; ++ph) {
-    p.ntap[ph] = m[30 + ph];
-    if (p.ntap[ph] < 0 || p.ntap[ph] > kMaxTaps) return (int)cudaErrorInvalidValue;
-    for (int a = 0; a < 3; ++a) p.res[ph][a] = m[38 + ph * 3 + a];
-    for (int t = 0; t < kMaxTaps; ++t)
-      for (int c = 0; c < 4; ++c) p.tap[ph][t][c] = taps[(ph * kMaxTaps + t) * 4 + c];
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m[62] == pmr::kBFloat16) {
-    launch<__nv_bfloat16>(p, s);
-  } else if (m[62] == pmr::kFloat32) {
-    launch<float>(p, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const int rc = pmr::unpack_conv_args(ptrs, meta, taps, &p);
+  if (rc != 0) return rc;
+  if (p.dtype != pmr::kFloat32) return (int)cudaErrorInvalidValue;
+  launch<float>(p, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

@@ -41,8 +41,16 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using pmr::cp_async16;
+using pmr::cp_async_commit;
+using pmr::cp_async_wait;
+using pmr::ldmatrix_x4;
+using pmr::ldmatrix_x4_trans;
+using pmr::mma_bf16;
 
 constexpr int kBM = 64, kBN = 64, kBK = 32;
 constexpr int kPad = 8;                  // bf16 elements of row padding
@@ -50,46 +58,6 @@ constexpr int kLdA = kBK + kPad;         // 40 elements = 80 bytes
 constexpr int kLdW = kBN + kPad;         // 72 elements = 144 bytes
 constexpr int kThreads = 128;            // 4 warps, 2 x 2
 constexpr int kStages = 2;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(kThreads)
     gemm_loop_kernel(const __nv_bfloat16* __restrict__ a,

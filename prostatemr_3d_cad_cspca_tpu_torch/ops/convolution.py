@@ -12,8 +12,9 @@ on an even size the window starts ON the first voxel (pad_lo 0, pad_hi 1),
 while torch's ``padding=1`` starts one voxel before it. Both kernels below get
 their windows from :func:`forward_plan` / :func:`transpose_plan`.
 
-Two kernels live here, each with its plain PyTorch twin, its launch counter
-and its source note in ``csrc/conv3d.cu``:
+Two kernels live here, each with its plain PyTorch twin and its launch
+counter; each runs bf16 on the tensor cores (``csrc/conv3d_mma.cu``) and
+fp32 on the CUDA cores (``csrc/conv3d.cu``), whose notes say why:
 
   * K1 :func:`conv3d` — forward conv over a list of channel parts
     (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
@@ -144,21 +145,86 @@ def transpose_plan(kernel_size, strides, in_spatial):
                 out_mul=st, phases=tuple(phases))
 
 
-def _pack_conv_args(parts, kernel, bias, y, plan, transposed):
-    """The three host arrays the C entries of csrc/conv3d.cu read.
+# ------------------------------------------- the bf16 tensor-core schedule
+BM, BK = 128, 32           # block rows and K-slab depth of csrc/conv3d_mma.cu
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+# blocks of each tile width resident on one SM (the kernel's launch bounds,
+# csrc/conv3d_mma.cu resident_blocks): one wave of the grid
+RESIDENT_BLOCKS = {8: 4, 16: 4, 32: 3, 64: 2, 128: 2}
+MIN_SLABS_PER_SPLIT = 8    # K is split only while a split keeps this many slabs
+MAX_SPLITS = 64
+MAX_INDEX = 2 ** 31        # the kernel's row, voxel and element indices are int
 
-    ptrs (uint64[8]): part pointers 0..4, kernel, bias, output.
-    meta (int32[64]): 0 nparts; 1-5 cin of each part; 6 cin total; 7 batch;
+
+def tile_n(cout: int) -> int:
+    """The output-channel tile of the bf16 kernel: the least of 8, 16, 32, 64
+    that holds cout, else 128."""
+    return next((b for b in (8, 16, 32, 64) if cout <= b), 128)
+
+
+def phase_slabs(cins, ntaps):
+    """K-slabs of each phase: each part's ntap * cin rounded up to slabs."""
+    return tuple(sum(-(-nt * c // BK) for c in cins) for nt in ntaps)
+
+
+def igemm_plan(rows: int, cout: int, slabs) -> dict:
+    """Tile and split-K schedule of the bf16 kernel for ``rows`` output rows
+    per phase, ``cout`` output channels and ``slabs`` K-slabs per phase.
+
+    Output tiles alone give ``tiles`` blocks; one wave of the card holds
+    ``target`` = SMS x RESIDENT_BLOCKS of them (2-4 per SM by tile width).
+    Where the tiles fill less than a wave, K is split into the most
+    ``splits`` that still fit one wave, unless K runs out first: a split
+    keeps MIN_SLABS_PER_SPLIT slabs on average and at least one in every
+    phase. Split j of a phase of L slabs walks [L*j // splits,
+    L*(j+1) // splits). With splits > 1 the kernel writes ``workspace`` fp32
+    partials (splits x output elements) and a second kernel sums them in
+    split order.
+    """
+    slabs = tuple(slabs)
+    bn = tile_n(cout)
+    tiles = -(-rows // BM) * -(-cout // bn) * len(slabs)
+    target = SMS * RESIDENT_BLOCKS[bn]
+    cap = max(1, min(min(slabs), sum(slabs) // (len(slabs) * MIN_SLABS_PER_SPLIT),
+                     MAX_SPLITS))
+    splits = max(1, min(target // tiles, cap))
+    ranges = tuple(tuple((n * j // splits, n * (j + 1) // splits) for j in range(splits))
+                   for n in slabs)
+    return dict(bn=bn, tiles=tiles, splits=splits, blocks=tiles * splits, target=target,
+                cap=cap, slabs=slabs, ranges=ranges,
+                workspace=splits * rows * len(slabs) * cout if splits > 1 else 0)
+
+
+def gather_routes(parts, kernel):
+    """How the bf16 kernel loads each operand: "cp.async" (16-byte chunks of
+    8 channels) where the chunk axis is a multiple of 8 and the tensor is
+    16-byte aligned, else "scalar" (element by element through registers).
+    Returns (one route per part, the weights' route). The weights' chunk
+    axis is their last: Cout of K1's DHWIO kernel, Cin of K2's."""
+    def route(n, t):
+        return "cp.async" if n % 8 == 0 and t.data_ptr() % 16 == 0 else "scalar"
+
+    return [route(int(p.shape[-1]), p) for p in parts], route(int(kernel.shape[4]), kernel)
+
+
+def _pack_conv_args(parts, kernel, bias, y, plan, transposed, igemm=None, ws=None):
+    """The three host arrays the C entries of csrc/conv3d.cu and
+    csrc/conv3d_mma.cu read (csrc/conv_params.cuh unpacks them).
+
+    ptrs (uint64[9]): part pointers 0..4, kernel, bias, output, workspace.
+    meta (int32[72]): 0 nparts; 1-5 cin of each part; 6 cin total; 7 batch;
       8-10 input D,H,W; 11-13 output D,H,W; 14-16 row grid D,H,W; 17 cout;
       18-20 in_mul; 21-23 in_add; 24-26 out_mul; 27 weight ci stride;
       28 weight co stride; 29 nphase; 30-37 taps per phase; 38-61 phase
-      residues (8 x 3); 62 dtype code; 63 has bias.
+      residues (8 x 3); 62 dtype code; 63 has bias; with ``igemm`` (the
+      bf16 kernel's plan): 64 splits; 65 bit p set where part p takes the
+      cp.async gather; 66 weights by cp.async; 67 transposed; 68 tile n.
     taps (int8[8, 27, 4]): per phase and tap, (dz, dy, dx, weight tap).
     """
     cin = [int(p.shape[-1]) for p in parts]
     cin_total = sum(cin)
     cout = int(kernel.shape[3] if transposed else kernel.shape[4])
-    meta = np.zeros(64, np.int32)
+    meta = np.zeros(72, np.int32)
     meta[0] = len(parts)
     meta[1:1 + len(cin)] = cin
     meta[6] = cin_total
@@ -180,13 +246,55 @@ def _pack_conv_args(parts, kernel, bias, y, plan, transposed):
             taps[i, :len(tp)] = tp
     meta[62] = cuda_lib.DTYPE_CODES.get(parts[0].dtype, -1)
     meta[63] = bias is not None
-    ptrs = np.zeros(8, np.uint64)
+    ptrs = np.zeros(9, np.uint64)
     for i, p in enumerate(parts):
         ptrs[i] = p.data_ptr()
     ptrs[5] = kernel.data_ptr()
     ptrs[6] = bias.data_ptr() if bias is not None else 0
     ptrs[7] = y.data_ptr()
+    if igemm is not None:
+        a_routes, b_route = gather_routes(parts, kernel)
+        meta[64] = igemm["splits"]
+        meta[65] = sum(1 << i for i, r in enumerate(a_routes) if r == "cp.async")
+        meta[66] = b_route == "cp.async"
+        meta[67] = transposed
+        meta[68] = igemm["bn"]
+        ptrs[8] = ws.data_ptr() if ws is not None else 0
     return ptrs, meta, taps
+
+
+def window_plan(kernel_size, strides, in_spatial, transposed):
+    """:func:`transpose_plan` for K2, :func:`forward_plan` for K1."""
+    fn = transpose_plan if transposed else forward_plan
+    return fn(tuple(kernel_size), tuple(strides), tuple(in_spatial))
+
+
+def igemm_schedule(part_shapes, kernel_shape, strides, transposed):
+    """(window plan, :func:`igemm_plan`) of one K1/K2 call, from its shapes
+    alone."""
+    geom = window_plan(kernel_shape[:3], strides, part_shapes[0][1:4], transposed)
+    rows = int(part_shapes[0][0]) * math.prod(geom["grid"])
+    slabs = phase_slabs([int(s[-1]) for s in part_shapes],
+                        [len(taps) for _, taps in geom["phases"]])
+    return geom, igemm_plan(rows, int(kernel_shape[3 if transposed else 4]), slabs)
+
+
+def igemm_args(parts, kernel, bias, strides, transposed):
+    """Everything one launch of the bf16 kernel takes: the output, the
+    split-K workspace (None without split-K), the plan and the host arrays.
+    Device-agnostic, so the CPU tests replay the very schedule the card
+    runs."""
+    x0 = parts[0]
+    geom, igemm = igemm_schedule([tuple(p.shape) for p in parts], tuple(kernel.shape),
+                                 strides, transposed)
+    cout = int(kernel.shape[3 if transposed else 4])
+    y = torch.empty((x0.shape[0], *geom["out"], cout), dtype=x0.dtype, device=x0.device)
+    ws = None
+    if igemm["splits"] > 1:
+        ws = torch.empty((igemm["splits"], y.numel()), dtype=torch.float32,
+                         device=x0.device)
+    arrays = _pack_conv_args(parts, kernel, bias, y, geom, transposed, igemm, ws)
+    return y, ws, igemm, arrays
 
 
 def _check_cuda_args(name, parts, kernel, bias, cin_axis):
@@ -215,6 +323,30 @@ def _check_cuda_args(name, parts, kernel, bias, cin_axis):
         raise ValueError(f"{name}: bias must be contiguous float32 of {cout} "
                          f"on {x0.device}")
     cuda_lib.require_no_grad(name, *parts, kernel, bias)
+
+
+def _launch(name, fn, parts, kernel, bias, strides, transposed):
+    """Launch K1 or K2 (``fn`` is the wrapper, whose count rises by one):
+    bf16 on the tensor-core kernel, fp32 on the FMA kernel."""
+    x0 = parts[0]
+    lib = cuda_lib.library()
+    if x0.dtype == torch.bfloat16:
+        y, _ws, _, arrays = igemm_args(parts, kernel, bias, strides, transposed)
+        if max(t.numel() for t in (*parts, y)) >= MAX_INDEX:
+            raise ValueError(f"{name}: the bf16 kernel takes tensors of fewer than "
+                             f"2**31 elements")
+        entry = lib.pmr_conv3d_mma
+    else:
+        geom = window_plan(kernel.shape[:3], strides, x0.shape[1:4], transposed)
+        cout = int(kernel.shape[3 if transposed else 4])
+        y = torch.empty((x0.shape[0], *geom["out"], cout), dtype=x0.dtype,
+                        device=x0.device)
+        arrays = _pack_conv_args(parts, kernel, bias, y, geom, transposed)
+        entry = lib.pmr_conv3d_transpose if transposed else lib.pmr_conv3d
+    fn.launches += 1
+    rc = entry(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
+    cuda_lib.check(rc, name)
+    return y
 
 
 # ------------------------------------------------------------------- K1
@@ -248,25 +380,16 @@ def conv3d(parts, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
     kernel table row 1). Bound on the H100: bytes for the path's
     few-channel, large-extent convs, operations for the deep 3x3x3 ones. The
     design gathers the implicit im2col tile straight into shared memory (no
-    im2col tensor in device memory) and sizes tiles by Cout; it computes in
-    fp32 FMA, not on the tensor cores (csrc/conv3d.cu has the full note).
+    im2col tensor in device memory). bf16 runs on the tensor cores
+    (mma.sync, a 4-stage cp.async ring, deterministic split-K where the
+    output tiles underfill the card: csrc/conv3d_mma.cu); fp32 runs fp32 FMA
+    (csrc/conv3d.cu), since TF32 could not hold the fp32 limits.
     """
     parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
     if not cuda_lib.use_kernel("conv3d", parts[0]):
         return conv3d_plain(parts, kernel, bias, strides)
     _check_cuda_args("conv3d", parts, kernel, bias, cin_axis=3)
-    x0 = parts[0]
-    plan = forward_plan(tuple(kernel.shape[:3]), tuple(strides),
-                        tuple(x0.shape[1:4]))
-    y = torch.empty((x0.shape[0], *plan["out"], kernel.shape[4]),
-                    dtype=x0.dtype, device=x0.device)
-    ptrs, meta, taps = _pack_conv_args(parts, kernel, bias, y, plan, False)
-    lib = cuda_lib.library()
-    conv3d.launches += 1
-    rc = lib.pmr_conv3d(ptrs.ctypes.data, meta.ctypes.data, taps.ctypes.data,
-                        cuda_lib.stream_of(x0))
-    cuda_lib.check(rc, "conv3d")
-    return y
+    return _launch("conv3d", conv3d, parts, kernel, bias, strides, False)
 
 
 conv3d.launches = 0
@@ -299,7 +422,7 @@ def conv3d_transpose(x: torch.Tensor, kernel: torch.Tensor,
     NDHWC tensor with a ``(kd, kh, kw, Cout, Cin)`` kernel; output n * s.
 
     Replaces the transposed use of ``conv_probe`` (TPU kernel table row 1).
-    Same bound and tiles as K1; each block holds one output phase, so it
+    Same bound and kernels as K1; each block holds one output phase, so it
     multiplies only the taps that phase reads, never a dilated input's
     zeros.
     """
@@ -311,15 +434,7 @@ def conv3d_transpose(x: torch.Tensor, kernel: torch.Tensor,
     if len(plan["phases"]) > MAX_PHASES:
         raise ValueError(f"conv3d_transpose: strides {tuple(strides)} give more "
                          f"than {MAX_PHASES} phases")
-    y = torch.empty((x.shape[0], *plan["out"], kernel.shape[3]),
-                    dtype=x.dtype, device=x.device)
-    ptrs, meta, taps = _pack_conv_args([x], kernel, bias, y, plan, True)
-    lib = cuda_lib.library()
-    conv3d_transpose.launches += 1
-    rc = lib.pmr_conv3d_transpose(ptrs.ctypes.data, meta.ctypes.data,
-                                  taps.ctypes.data, cuda_lib.stream_of(x))
-    cuda_lib.check(rc, "conv3d_transpose")
-    return y
+    return _launch("conv3d_transpose", conv3d_transpose, [x], kernel, bias, strides, True)
 
 
 conv3d_transpose.launches = 0

@@ -7,6 +7,8 @@ machine that has only PyTorch; there, skip the JAX-pinning conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -70,6 +72,95 @@ def test_card_conv3d_transpose_kernel_matches_plain(cuda_device, ks, st, dtype):
     ref = tconv.conv3d_transpose_plain(x, kernel, bias, st)
     torch.cuda.synchronize()
     assert _card_err(got, ref) <= CARD_TOL[dtype]
+
+
+# Where the bf16 tensor-core kernel differs from the FMA one: narrow cout
+# (scalar weight loads, n8 tiles), a misaligned part (scalar gather), split-K.
+# Split-K does not loosen the bf16 tolerance: the partials stay fp32 and the
+# reduce rounds their fixed-order sum once, so the kernel and its twin still
+# each round one fp32 sum of the same products to bf16.
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [1, 2, 4, 8])
+def test_card_conv3d_narrow_cout(cuda_device, cout):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(2, 5, 9, 10, 16, generator=g, device=cuda_device).to(torch.bfloat16)
+    kernel = (torch.randn(3, 3, 3, 16, cout, generator=g, device=cuda_device) / 8
+              ).to(torch.bfloat16)
+    bias = torch.randn(cout, generator=g, device=cuda_device)
+    assert tconv.gather_routes([x], kernel)[1] == (
+        "cp.async" if cout == 8 else "scalar")
+    got = tconv.conv3d([x], kernel, bias)
+    ref = tconv.conv3d_plain([x], kernel, bias)
+    torch.cuda.synchronize()
+    assert _card_err(got, ref) <= CARD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_card_conv3d_misaligned_part_takes_the_scalar_gather(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    shape = (2, 5, 9, 10, 16)
+    flat = torch.randn(math.prod(shape) + 1, generator=g, device=cuda_device)
+    shifted = flat.to(torch.bfloat16)[1:].view(shape)  # contiguous, 2 bytes off
+    aligned = torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+    kernel = (torch.randn(3, 3, 3, 32, 24, generator=g, device=cuda_device) / 8
+              ).to(torch.bfloat16)
+    bias = torch.randn(24, generator=g, device=cuda_device)
+    parts = [aligned, shifted]
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert tconv.gather_routes(parts, kernel) == (["cp.async", "scalar"], "cp.async")
+    got = tconv.conv3d(parts, kernel, bias, (1, 2, 2))
+    ref = tconv.conv3d_plain(parts, kernel, bias, (1, 2, 2))
+    torch.cuda.synchronize()
+    assert _card_err(got, ref) <= CARD_TOL[torch.bfloat16]
+
+
+SPLIT_CASES = [  # (part shapes, kernel, strides, transposed): split-K at batch 2
+    ([(2, 5, 10, 10, 256)], (3, 3, 3, 256, 128), (1, 1, 1), False),
+    ([(2, 10, 20, 20, 128)] * 2, (3, 3, 3, 256, 128), (1, 1, 1), False),
+    ([(2, 5, 10, 10, 256)], (3, 3, 3, 128, 256), (2, 2, 2), True),
+]
+
+
+def _split_case(device, shapes, kshape, transposed, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    parts = [torch.randn(s, generator=g, device=device).to(torch.bfloat16) for s in shapes]
+    fan_in = math.prod(kshape[:3]) * kshape[4 if transposed else 3]
+    kernel = (torch.randn(kshape, generator=g, device=device) / fan_in ** 0.5
+              ).to(torch.bfloat16)
+    bias = torch.randn(kshape[3 if transposed else 4], generator=g, device=device)
+    return parts, kernel, bias
+
+
+def _split_run(parts, kernel, bias, st, transposed):
+    if transposed:
+        return (tconv.conv3d_transpose(parts[0], kernel, bias, st),
+                tconv.conv3d_transpose_plain(parts[0], kernel, bias, st))
+    return tconv.conv3d(parts, kernel, bias, st), tconv.conv3d_plain(parts, kernel, bias, st)
+
+
+def _splits(parts, kernel, st, transposed):
+    return tconv.igemm_schedule([p.shape for p in parts], kernel.shape, st,
+                                transposed)[1]["splits"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes,kshape,st,transposed", SPLIT_CASES)
+def test_card_split_k_matches_plain(cuda_device, shapes, kshape, st, transposed):
+    parts, kernel, bias = _split_case(cuda_device, shapes, kshape, transposed, 5)
+    assert _splits(parts, kernel, st, transposed) > 1
+    got, ref = _split_run(parts, kernel, bias, st, transposed)
+    torch.cuda.synchronize()
+    assert _card_err(got, ref) <= CARD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes,kshape,st,transposed", SPLIT_CASES)
+def test_card_split_k_is_bit_reproducible(cuda_device, shapes, kshape, st, transposed):
+    parts, kernel, bias = _split_case(cuda_device, shapes, kshape, transposed, 6)
+    first = _split_run(parts, kernel, bias, st, transposed)[0]
+    second = _split_run(parts, kernel, bias, st, transposed)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

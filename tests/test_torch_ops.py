@@ -51,48 +51,71 @@ def _t(a):
 
 
 def _emulate_igemm(parts, kernel, bias, strides, transposed):
-    """numpy replay of csrc/conv3d.cu: the same meta/tap arrays the wrapper
-    hands the C entry, walked phase by phase, tap by tap."""
-    tparts = [_t(p) for p in parts]
-    ks = tuple(kernel.shape[:3])
-    spatial = tuple(parts[0].shape[1:4])
-    plan_fn = tconv.transpose_plan if transposed else tconv.forward_plan
-    plan = plan_fn(ks, strides, spatial)
-    cout = kernel.shape[3] if transposed else kernel.shape[4]
-    y = torch.empty((parts[0].shape[0], *plan["out"], cout))
-    _, meta, taps = tconv._pack_conv_args(tparts, _t(kernel), _t(bias), y, plan,
-                                          transposed)
+    """numpy replay of csrc/conv3d_mma.cu's schedule, from the host arrays
+    and the igemm_plan that the wrapper hands the C entry: per phase and
+    split, the split's K-slabs of 32 (parts in order, tap-major within a
+    part, each part rounded up to whole slabs), each slab gathered in
+    8-channel chunks of one tap (the cp.async route) or element by element
+    (the scalar route, cin 3 and 4); the partials land in the workspace and
+    are summed in split order with the bias, as the reduce kernel does."""
+    y, ws, igemm, (_, meta, taps) = tconv.igemm_args(
+        [_t(p) for p in parts], _t(kernel), _t(bias), strides, transposed)
+    splits, a_vec = int(meta[64]), int(meta[65])
+    assert splits == igemm["splits"] and meta[67] == transposed
+    assert (ws is None if splits == 1 else ws.shape == (splits, y.numel()))
+    assert (0 if ws is None else ws.numel()) == igemm["workspace"]
     nparts, cin_total, batch = meta[0], meta[6], meta[7]
+    cins = meta[1:1 + nparts]
     ind, outd, grid = meta[8:11], meta[11:14], meta[14:17]
     cout = meta[17]
     in_mul, in_add, out_mul = meta[18:21], meta[21:24], meta[24:27]
     wci, wco = meta[27], meta[28]
-    wflat = kernel.reshape(-1)
-    out = np.full((batch, *outd, cout), np.nan, np.float64)
-    g = np.meshgrid(*[np.arange(n) for n in grid], indexing="ij")
+    wflat = kernel.reshape(-1).astype(np.float64)
+    # output rows of one phase: (batch, grid) in C order, as the kernel's m
+    rb, *g = [a.reshape(-1) for a in
+              np.meshgrid(np.arange(batch), *[np.arange(n) for n in grid], indexing="ij")]
+    workspace = np.full((splits, y.numel()), np.nan)
     for ph in range(meta[29]):
-        res = meta[38 + 3 * ph:41 + 3 * ph]
-        acc = np.zeros((batch, *grid, cout))
-        ci_base = 0
-        for p in range(nparts):
-            x, cin = parts[p], meta[1 + p]
-            for dz, dy, dx, wt in taps[ph, :meta[30 + ph]]:
-                coords = [g[a] * in_mul[a] + in_add[a] + d
-                          for a, d in enumerate((dz, dy, dx))]
-                ok = np.ones(grid, bool)
-                for a in range(3):
-                    ok &= (coords[a] >= 0) & (coords[a] < ind[a])
-                cl = [np.clip(c, 0, n - 1) for c, n in zip(coords, ind)]
-                xs = x[:, cl[0], cl[1], cl[2], :] * ok[None, ..., None]
-                idx = (int(wt) * cin_total * cout
-                       + (ci_base + np.arange(cin))[:, None] * wci
-                       + np.arange(cout)[None, :] * wco)
-                acc += xs.astype(np.float64) @ wflat[idx]
-            ci_base += cin
+        ntap, res = meta[30 + ph], meta[38 + 3 * ph:41 + 3 * ph]
         o = [g[a] * out_mul[a] + res[a] for a in range(3)]
-        out[:, o[0], o[1], o[2], :] = acc + bias
-    assert not np.isnan(out).any(), "some output voxel belongs to no phase"
-    return out
+        oofs = (((rb * outd[0] + o[0]) * outd[1] + o[1]) * outd[2] + o[2]) * cout
+        starts = np.concatenate([[0], np.cumsum(-(-ntap * cins // tconv.BK))])
+        assert starts[-1] == igemm["slabs"][ph]
+        for j in range(splits):
+            lo, hi = igemm["ranges"][ph][j]
+            assert (lo, hi) == (starts[-1] * j // splits, starts[-1] * (j + 1) // splits)
+            acc = np.zeros((rb.size, cout))
+            for s in range(lo, hi):
+                part = int(np.searchsorted(starts, s, side="right")) - 1
+                cin, ci_base = cins[part], int(cins[:part].sum())
+                x, k0 = parts[part], (s - starts[part]) * tconv.BK
+                step = 8 if (a_vec >> part) & 1 else 1
+                a = np.zeros((rb.size, tconv.BK))
+                b = np.zeros((tconv.BK, cout))
+                for kk in range(0, tconv.BK, step):  # one chunk or one element
+                    k = k0 + kk
+                    if k >= ntap * cin:
+                        continue  # zero-filled past the part's K
+                    t, ci = divmod(k, cin)
+                    dz, dy, dx, wt = taps[ph, t]
+                    coords = [g[ax] * in_mul[ax] + in_add[ax] + d
+                              for ax, d in enumerate((dz, dy, dx))]
+                    ok = np.ones(rb.size, bool)
+                    for ax in range(3):
+                        ok &= (coords[ax] >= 0) & (coords[ax] < ind[ax])
+                    cl = [np.clip(c, 0, n - 1) for c, n in zip(coords, ind)]
+                    a[:, kk:kk + step] = x[rb, cl[0], cl[1], cl[2], ci:ci + step] * ok[:, None]
+                    b[kk:kk + step] = wflat[int(wt) * cin_total * cout
+                                            + (ci_base + ci + np.arange(step))[:, None] * wci
+                                            + np.arange(cout)[None, :] * wco]
+                acc += a @ b
+            workspace[j, oofs[:, None] + np.arange(cout)[None, :]] = acc
+    assert not np.isnan(workspace).any(), "some output voxel belongs to no phase"
+    total = workspace[0].copy()
+    for j in range(1, splits):  # the reduce kernel's order
+        total += workspace[j]
+    total += np.tile(bias, y.numel() // cout)
+    return total.reshape(batch, *outd, cout)
 
 
 def _flax_split_conv(parts, kernel, bias, ks, st):
@@ -170,6 +193,109 @@ def test_transpose_plan_phases_partition_the_taps():
     assert len(plan["phases"]) == 8
     used = sorted(t[3] for _, taps in plan["phases"] for t in taps)
     assert used == list(range(27))  # each tap feeds exactly one phase
+
+
+# ------------------------------------------- K1/K2 bf16 schedule (igemm)
+@pytest.mark.parametrize("ks,st,transposed", [(ks, st, False) for ks, st in CONV_CASES]
+                         + [(ks, st, True) for ks, st in CONVT_CASES])
+def test_igemm_split_schedule_matches_flax(ks, st, transposed, monkeypatch):
+    """The cp.async route (K1 cin 16, K2 cin 64) beside the scalar one (K1
+    cin 3), with K split as finely as the plan allows (one slab in the
+    shortest phase), so the workspace and the ordered reduce are walked."""
+    monkeypatch.setattr(tconv, "MIN_SLABS_PER_SPLIT", 1)
+    rng = np.random.default_rng(_seed(ks, st, transposed, "split"))
+    if transposed:
+        (x,) = _parts(rng, SIZES["odd"], (64,))
+        kernel = (rng.normal(size=(*ks, 4, 64)) / 8).astype(np.float32)
+        parts, want_fn = [x], lambda b: _flax_convt(x, kernel, b, ks, st)
+    else:
+        parts = _parts(rng, SIZES["odd"], (16, 3))
+        kernel = rng.normal(size=(*ks, 19, 4)).astype(np.float32)
+        want_fn = lambda b: _flax_split_conv(parts, kernel, b, ks, st)  # noqa: E731
+    bias = rng.normal(size=(4,)).astype(np.float32)
+    _, _, igemm, (_, meta, _) = tconv.igemm_args([_t(p) for p in parts], _t(kernel), None,
+                                                 st, transposed)
+    assert igemm["splits"] == min(igemm["slabs"]) > 1
+    assert meta[65] == 1  # part 0 by cp.async, a K1's part 1 (cin 3) scalar
+    np.testing.assert_allclose(_emulate_igemm(parts, kernel, bias, st, transposed),
+                               want_fn(bias), atol=ATOL)
+
+
+def test_gather_routes_follow_channels_and_alignment():
+    flat = torch.zeros(2 * 4 * 4 * 4 * 16 + 1, dtype=torch.bfloat16)
+    aligned = flat[:-1].view(2, 4, 4, 4, 16)
+    shifted = flat[1:].view(2, 4, 4, 4, 16)  # 2 bytes off a 16-byte boundary
+    narrow = torch.zeros(2, 4, 4, 4, 3, dtype=torch.bfloat16)
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 2
+    k1 = torch.zeros(3, 3, 3, 35, 8, dtype=torch.bfloat16)
+    assert tconv.gather_routes([aligned, shifted, narrow], k1) == (
+        ["cp.async", "scalar", "scalar"], "cp.async")
+    k1_narrow = torch.zeros(1, 1, 1, 16, 4, dtype=torch.bfloat16)  # cout 4
+    assert tconv.gather_routes([aligned], k1_narrow)[1] == "scalar"
+    k2 = torch.zeros(3, 3, 3, 4, 16, dtype=torch.bfloat16)  # (.., Cout 4, Cin 16)
+    assert tconv.gather_routes([aligned], k2)[1] == "cp.async"
+
+
+def _path_convs(batch):
+    """Every distinct K1/K2 call of the cfg1 forward at ``batch`` (the
+    serve path's 2, serve_mc's 8, serve_sw's 16): (name, signature)."""
+    import chip_smoke
+
+    return [key for key in chip_smoke.trace_path_calls(batch)
+            if key[0] in ("conv3d", "conv3d_transpose")]
+
+
+def _path_plan(name, sig):
+    """The wrapper's launch arguments of one path call, on the meta device."""
+    transposed = name == "conv3d_transpose"
+    shapes = [sig[0]] if transposed else sig[0]
+    parts = [torch.empty(s, dtype=torch.bfloat16, device="meta") for s in shapes]
+    kernel = torch.empty(sig[1], dtype=torch.bfloat16, device="meta")
+    return tconv.igemm_args(parts, kernel, None, sig[2], transposed)
+
+
+@pytest.mark.parametrize("batch", [2, 8, 16])
+def test_igemm_plan_splits_partition_k(batch):
+    for name, sig in _path_convs(batch):
+        plan = _path_plan(name, sig)[2]
+        assert len(plan["ranges"]) == len(plan["slabs"])
+        for n, ranges in zip(plan["slabs"], plan["ranges"]):
+            assert len(ranges) == plan["splits"]
+            assert ranges[0][0] == 0 and ranges[-1][1] == n, (name, sig)
+            assert all(lo < hi for lo, hi in ranges), (name, sig)  # none empty
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("batch", [2, 8, 16])
+def test_igemm_plan_fills_the_grid_or_runs_out_of_k(batch):
+    """Split K into the most splits that keep the grid within one wave of
+    the card (the target), or as far as K allows."""
+    split_shapes = 0
+    for name, sig in _path_convs(batch):
+        plan = _path_plan(name, sig)[2]
+        slabs = plan["slabs"]
+        cap = max(1, min(min(slabs), sum(slabs) // (len(slabs) * tconv.MIN_SLABS_PER_SPLIT),
+                         tconv.MAX_SPLITS))
+        assert plan["cap"] == cap
+        assert plan["target"] == tconv.SMS * tconv.RESIDENT_BLOCKS[plan["bn"]]
+        if plan["splits"] > 1:
+            assert plan["blocks"] <= plan["target"], (name, sig, plan)
+        assert (plan["splits"] == cap  # K ran out
+                or plan["tiles"] * (plan["splits"] + 1) > plan["target"]), (name, sig, plan)
+        split_shapes += plan["splits"] > 1
+    assert split_shapes > 0  # the deep levels split at every served batch
+
+
+@pytest.mark.parametrize("batch", [2, 8, 16])
+def test_igemm_plan_workspace_is_what_the_wrapper_allocates(batch):
+    for name, sig in _path_convs(batch):
+        y, ws, plan, (ptrs, meta, _) = _path_plan(name, sig)
+        assert meta[64] == plan["splits"] and meta[68] == plan["bn"]
+        if plan["splits"] == 1:
+            assert ws is None and plan["workspace"] == 0
+        else:
+            assert ws.dtype == torch.float32 and tuple(ws.shape) == (plan["splits"], y.numel())
+            assert ws.numel() == plan["workspace"]
 
 
 # ----------------------------------------------------------------- K3/K4
