@@ -20,17 +20,20 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                calls captured in one CUDA graph, replayed between CUDA
                events, so host dispatch stays out. At one split-K shape each,
                K1 and K2 run twice on the same inputs and must give the same
-               bits. K5 gemm_loop at the probe's 8 (shape, iterations):
-               checked with 3 iterations (|diff|/max(1,|ref|) <= 2**-7),
-               timed at the probe's count beside its bound and the time of
-               cuBLAS torch.mm calls, one per iteration, as one CUDA graph.
+               bits; so does K3 at its largest path shape. K5 gemm_loop at the
+               probe's 8 (shape, iterations): checked with 3 iterations and
+               with the probe's own count (|diff|/max(1,|ref|) <= 2**-7), run
+               twice where gemm_plan splits a tile (the same bits), timed at
+               the probe's count beside its bound and the time of cuBLAS
+               torch.mm calls, one per iteration, as one CUDA graph.
   3. serve     a cfg1 checkpoint in the JAX npz format (weights drawn by numpy
                from --seed, dropout 0) -> M1.load(dtype=bfloat16) ->
                InferenceSession, 3 requests of 2 volumes of 20x160x160x3;
                launch counters must rise by exactly 50/4/37/37 per forward.
                Then one more request under torch.profiler, outside the counted
                run: device busy share and device time by kernel, which must
-               show conv3d_mma_kernel and splitk_reduce_kernel.
+               show conv3d_mma_kernel, splitk_reduce_kernel and
+               in_stats_kernel.
   4. parity    one fp32 volume through the card model and the same model on
                the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
                on the card: mean |diff| <= 1e-2.
@@ -52,9 +55,9 @@ Phases (each raises on failure, so the script exits non-zero and prints no
 
 Each path's launch counters are set to 0 just before it and read just
 after. The last line is {"ok": true, "device": {...}}; the line before it
-lists every kernel with its launches on its path, error and times; for K1
-and K2 also the route by dtype and ptxas's registers, static shared memory
-and spills of the bf16 kernels.
+lists every kernel with its launches on its path, error and times, and
+ptxas's registers, static shared memory and spills of its CUDA kernels; for
+K1 and K2 also the route by dtype.
 """
 
 from __future__ import annotations
@@ -100,8 +103,14 @@ CONV_KERNELS = ("conv3d", "conv3d_transpose")
 CONV_ROUTES = {"bfloat16": f"mma.sync bf16, {PKG}/csrc/conv3d_mma.cu",
                "float32": f"fma fp32, {PKG}/csrc/conv3d.cu"}
 MMA_KERNEL_NAMES = ("conv3d_mma_kernel", "splitk_reduce_kernel")
-BUILT_KERNEL_NAMES = MMA_KERNEL_NAMES + ("conv3d_igemm_kernel", "in_partial", "in_finalize",
-                                         "in_apply_kernel", "gemm_loop_kernel")
+PTXAS_NAMES = {  # kernel: the CUDA kernels (mangled-name substrings) it launches
+    "conv3d": MMA_KERNEL_NAMES, "conv3d_transpose": MMA_KERNEL_NAMES,
+    "in_stats": ("in_stats_kernel",), "in_apply": ("in_apply_kernel",),
+    "gemm_loop": ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")}
+BUILT_KERNEL_NAMES = MMA_KERNEL_NAMES + ("conv3d_igemm_kernel", "in_stats_kernel",
+                                         "in_apply_kernel", "gemm_loop_kernel",
+                                         "gemm_splitk_reduce_kernel")
+PROFILE_KERNEL_NAMES = MMA_KERNEL_NAMES + ("in_stats_kernel",)  # must show in a profile
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 BF16_ULP = 2.0 ** -7       # bf16 spacing just below 1: one rounding step
@@ -350,7 +359,7 @@ def phase_kernels(calls, reps, dtypes=None, timed=True):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     tol = {torch.float32: 2e-4, torch.bfloat16: 2 * BF16_ULP}
     rows = collections.defaultdict(list)
-    bit_checked = set()  # K1/K2: one split-K shape each, run twice
+    bit_checked = set()  # K1/K2: one split-K shape each, run twice; K3 its largest
     for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
         row = {"count": count}
         for dtype in dtypes or (torch.float32, torch.bfloat16):
@@ -405,6 +414,19 @@ def phase_kernels(calls, reps, dtypes=None, timed=True):
                 row["plain_ms"] = time_ms(plain, reps)
                 row["library_ms"] = time_ms(lib, reps) if lib is not None else None
                 row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+                if name == "in_stats":
+                    row["blocks"] = nm.in_stats_plan(
+                        x.shape[0], int(np.prod(x.shape[1:4])), x.shape[-1],
+                        x.element_size(), x.data_ptr() % 16 == 0)["blocks"]
+                    if sig == max((s for n, s in calls if n == name),
+                                  key=lambda s: int(np.prod(s[0]))):
+                        again = run()
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"in_stats {sig}: two runs on the same "
+                                                 "inputs differ")
+                        row["bit_equal"] = True
+                        bit_checked.add(name)
                 if name in CONV_KERNELS:
                     row["splits"] = _splits(name, sig)
                     if row["splits"] > 1 and name not in bit_checked:
@@ -416,8 +438,8 @@ def phase_kernels(calls, reps, dtypes=None, timed=True):
                         row["bit_equal"] = True
                         bit_checked.add(name)
         rows[name].append(row)
-    if timed and bit_checked != set(CONV_KERNELS) & set(rows):
-        raise AssertionError(f"no split-K shape checked for determinism: {bit_checked}")
+    if timed and bit_checked != set(CONV_KERNELS + ("in_stats",)) & set(rows):
+        raise AssertionError(f"no shape checked for determinism: {bit_checked}")
     return rows
 
 
@@ -706,9 +728,10 @@ def phase_serve_sw(tmp, seed, smi, det_ckpt):
 
 def phase_gemm(reps):
     """K5 at the probe's 8 (shape, iterations): checked against its twin
-    with a few iterations, then timed at the probe's count beside its bound,
-    the twin and one cuBLAS torch.mm per iteration (the loop replayed as
-    one CUDA graph)."""
+    with a few iterations and with the probe's count, run twice where the
+    plan splits a tile (the same bits), then timed at the probe's count
+    beside its bound, the twin and one cuBLAS torch.mm per iteration (the
+    loop replayed as one CUDA graph)."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import gemm
     from prostatemr_3d_cad_cspca_tpu_torch.probes import gemm_rate as gr
@@ -717,25 +740,44 @@ def phase_gemm(reps):
     rows = []
     for (m, k, n), iters in cases:
         a, w = gr.operands(m, k, n, "cuda", seed=m + k + n)
-        got = gemm.gemm_loop(a, w, GEMM_CHECK_ITERS)
-        ref = gemm.gemm_loop_plain(a, w, GEMM_CHECK_ITERS)
-        torch.cuda.synchronize()
-        abs_err, rel_err = _errors(got, ref)
-        if not (np.isfinite(rel_err) and rel_err <= BF16_ULP):
-            raise AssertionError(f"gemm_loop {m}x{k}x{n}: error {rel_err} > {BF16_ULP}")
+        plan = gemm.gemm_plan(m, k, n, iters)
+        row = {"shape": [m, k, n], "iters": iters, "tol": BF16_ULP}
+        for label, it in (("check", GEMM_CHECK_ITERS), ("full", iters)):
+            got = gemm.gemm_loop(a, w, it)
+            ref = gemm.gemm_loop_plain(a, w, it)
+            torch.cuda.synchronize()
+            abs_err, rel_err = _errors(got, ref)
+            if not (np.isfinite(rel_err) and rel_err <= BF16_ULP):
+                raise AssertionError(f"gemm_loop {m}x{k}x{n} at {it} iterations: error "
+                                     f"{rel_err} > {BF16_ULP}")
+            row.update({f"{label}_iters": it, f"max_abs_err_{label}": abs_err,
+                        f"max_rel_err_{label}": rel_err})
+        if plan["split"]:
+            again = gemm.gemm_loop(a, w, iters)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"gemm_loop {m}x{k}x{n}: two split runs differ")
+            row["bit_equal"] = True
         library = gr.cublas_loop(a, w, iters)
         nbytes = _nbytes(a, w) + m * n * 2
-        bound, by = bound_ms(nbytes, 2.0 * m * k * n * iters)
-        rows.append({"shape": [m, k, n], "iters": iters, "check_iters": GEMM_CHECK_ITERS,
-                     "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": BF16_ULP,
-                     "kernel_ms": time_ms(lambda: gemm.gemm_loop(a, w, iters), reps),
-                     "plain_ms": time_ms(lambda: gemm.gemm_loop_plain(a, w, iters), reps),
-                     "library_ms": time_ms(library, reps, capture=False), "bound_ms": bound,
-                     "bound_by": by, "blocks": -(-m // 64) * -(-n // 64)})
+        flops = 2.0 * m * k * n * iters
+        bound, by = bound_ms(nbytes, flops)
+        row.update({"kernel_ms": time_ms(lambda: gemm.gemm_loop(a, w, iters), reps),
+                    "plain_ms": time_ms(lambda: gemm.gemm_loop_plain(a, w, iters), reps),
+                    "library_ms": time_ms(library, reps, capture=False), "bound_ms": bound,
+                    "bound_by": by, "split": plan["split"], "blocks": plan["blocks"],
+                    "splits": plan["splits"], "units": len(gemm.plan_units(plan))})
+        row["tflops"] = flops / row["kernel_ms"] / 1e9
+        row["library_tflops"] = flops / row["library_ms"] / 1e9
+        rows.append(row)
+    if not any(r.get("bit_equal") for r in rows):
+        raise AssertionError("no split K5 case checked for determinism")
     tot = lambda key: sum(r[key] for r in rows)  # noqa: E731
     return dict(launches_per_pass=len(rows), distinct_shapes=len(rows),
-                max_abs_err=max(r["max_abs_err"] for r in rows),
-                max_err=max(r["max_rel_err"] for r in rows), tol={"bfloat16": BF16_ULP},
+                max_abs_err=max(max(r["max_abs_err_check"], r["max_abs_err_full"])
+                                for r in rows),
+                max_err=max(max(r["max_rel_err_check"], r["max_rel_err_full"])
+                            for r in rows), tol={"bfloat16": BF16_ULP},
                 kernel_ms=tot("kernel_ms"), plain_ms=tot("plain_ms"),
                 library_ms=tot("library_ms"), bound_ms=tot("bound_ms"),
                 bound_by="operations"), rows
@@ -784,7 +826,7 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve"):
     """One more bf16 request of ``path`` under torch.profiler (outside the
     counted run): device busy share of the request's wall time and device
     time by kernel name (the ``top`` names, and always the bf16 conv's main
-    and split-K reduce kernels, which must have run)."""
+    and split-K reduce kernels and K3's kernel, which must have run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
@@ -814,11 +856,11 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve"):
         elif e > end:
             busy += e - end
             end = e
-    missing = [k for k in MMA_KERNEL_NAMES if k not in by_name]
+    missing = [k for k in PROFILE_KERNEL_NAMES if k not in by_name]
     if missing:
         raise AssertionError(f"{path}: the profile shows no {missing}")
     shown = dict(by_name.most_common(top))
-    shown.update({k: by_name[k] for k in MMA_KERNEL_NAMES})
+    shown.update({k: by_name[k] for k in PROFILE_KERNEL_NAMES})
     emit({"phase": "profile", "path": path, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3,
           "device_busy_share": busy / wall_us if wall_us else None,
@@ -889,7 +931,6 @@ def main(argv=None):
     kernels = []
     from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
 
-    ptxas = ptxas_report(cuda_lib.build_log, MMA_KERNEL_NAMES)
     for name, s in summary.items():
         src, replaces, path = KERNEL_INFO[name]
         n = launches[path][name]
@@ -900,8 +941,8 @@ def main(argv=None):
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                         **({"also_replaces": ALSO_REPLACES[name]}
                            if name in ALSO_REPLACES else {}),
-                        **({"routes": CONV_ROUTES, "ptxas": ptxas}
-                           if name in CONV_KERNELS else {})})
+                        "ptxas": ptxas_report(cuda_lib.build_log, PTXAS_NAMES[name]),
+                        **({"routes": CONV_ROUTES} if name in CONV_KERNELS else {})})
         if n == 0:
             raise AssertionError(f"{name} never launched on the {path} path")
     if args.out:

@@ -1,6 +1,7 @@
-// Tensor-core building blocks in inline PTX, shared by K5 (gemm_loop.cu) and
-// the bf16 conv kernels (conv3d_mma.cu): 16-byte cp.async with zero-fill,
-// ldmatrix (plain and transposed) and mma.sync m16n8k16 bf16 -> fp32.
+// Tensor-core building blocks in inline PTX for the bf16 conv kernels
+// (conv3d_mma.cu): 16-byte cp.async with zero-fill, ldmatrix (plain and
+// transposed) and mma.sync m16n8k16 bf16 -> fp32; smem_addr also serves
+// tma.cuh and wgmma.cuh.
 #pragma once
 
 #include <stdint.h>

@@ -38,9 +38,9 @@ _SIGNATURES = {
     "pmr_conv3d": [_VP, _VP, _VP, _VP],
     "pmr_conv3d_transpose": [_VP, _VP, _VP, _VP],
     "pmr_conv3d_mma": [_VP, _VP, _VP, _VP],
-    "pmr_in_stats": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "pmr_in_stats": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "pmr_in_apply": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP],
-    "pmr_gemm_loop": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pmr_gemm_loop": [_VP, _VP, _VP, _VP, _VP, _VP],
 }
 
 

@@ -55,10 +55,61 @@ def in_stats_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([mean, var], dim=1)
 
 
-def _stat_chunks(spatial: int) -> int:
-    # ~1024 voxels per block: enough blocks to fill the card at the path's
-    # large levels, one block at its smallest
-    return max(1, min(-(-spatial // 1024), 4096))
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+STAT_TARGET_BLOCKS = 2 * SMS  # about two blocks an SM where the tensor allows
+STAT_MIN_CHUNK_BYTES = 4096   # one 16-byte load a thread of a 256-thread block
+STAT_FOLD_FLOATS = 16384      # partials that one sample's last block folds
+
+
+def in_stats_plan(batch: int, spatial: int, channels: int, itemsize: int,
+                  aligned: bool = True) -> dict:
+    """The grid of K3 (csrc/instance_norm.cu in_stats_kernel) for a (batch,
+    spatial, channels) tensor of ``itemsize``-byte elements.
+
+    The vector route loads 16 bytes (``vec`` = 8 bf16 or 4 fp32 channels)
+    where C is a multiple of ``vec`` or divides it and the base is 16-byte
+    aligned; else the scalar route (``vec`` 1). A row is ``groups`` vectors
+    (C / vec, or 1 where C divides vec), ``rows`` rows a sample. Each
+    sample's rows are cut into ``nchunk`` chunks of ``chunk_rows``: as many
+    as give STAT_TARGET_BLOCKS blocks in all, no more than leave a chunk
+    STAT_MIN_CHUNK_BYTES, and no more than STAT_FOLD_FLOATS partials to fold
+    a sample.
+    """
+    if not (1 <= batch <= 65535 and spatial >= 1 and channels >= 1):
+        raise ValueError(f"in_stats: needs 1 <= B <= 65535 and a non-empty sample, got "
+                         f"B={batch}, spatial={spatial}, C={channels}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"in_stats: takes 2- or 4-byte elements, got {itemsize}")
+    if spatial * channels >= 2 ** 31:
+        raise ValueError("in_stats: one sample exceeds 2**31 elements")
+    vec = 16 // itemsize
+    vector = (aligned and (channels % vec == 0 or vec % channels == 0)
+              and (spatial * channels) % vec == 0)
+    if not vector:
+        vec = 1
+    groups = channels // vec if channels % vec == 0 else 1
+    rows = spatial * channels // (vec * groups)
+    row_bytes = groups * vec * itemsize
+    per_sample = min(-(-STAT_TARGET_BLOCKS // batch),
+                     max(1, rows * row_bytes // STAT_MIN_CHUNK_BYTES),
+                     max(1, STAT_FOLD_FLOATS // (2 * channels)))
+    chunk_rows = -(-rows // per_sample)
+    nchunk = -(-rows // chunk_rows)
+    return dict(route="vector" if vector else "scalar", vec=vec, groups=groups, rows=rows,
+                chunk_rows=chunk_rows, nchunk=nchunk, blocks=batch * nchunk)
+
+
+_TICKETS = {}  # device -> int32 counters, one a sample, zero between calls
+
+
+def _tickets(device: torch.device, batch: int) -> torch.Tensor:
+    """K3's per-sample tickets on ``device``: zeroed once, and every call's
+    last block of a sample sets its ticket back to 0 (calls on one stream)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < batch:
+        t = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def in_stats(x: torch.Tensor) -> torch.Tensor:
@@ -67,8 +118,10 @@ def in_stats(x: torch.Tensor) -> torch.Tensor:
 
     Replaces the statistics half of ``benchmarks/r2_probe_conv.py:198`` and
     the retired ``fused_norm.py`` ``_stats_kernel`` (TPU kernel table rows 2
-    and 5). Bound on the H100: bytes (one read, two for fp32). Coalesced
-    per-chunk partials, then a fixed-order fold: deterministic, no atomics.
+    and 5). Bound on the H100: bytes (one read, two for fp32). 16-byte
+    loads over the grid of :func:`in_stats_plan`, per-chunk partials, and a
+    fixed-order fold by each sample's last block: deterministic, no atomics
+    on the sums, one launch a pass.
     """
     _check_5d("in_stats", x)
     if not cuda_lib.use_kernel("in_stats", x):
@@ -79,13 +132,15 @@ def in_stats(x: torch.Tensor) -> torch.Tensor:
     cuda_lib.require_no_grad("in_stats", x)
     b, c = int(x.shape[0]), int(x.shape[-1])
     spatial = int(x.shape[1] * x.shape[2] * x.shape[3])
-    nchunk = _stat_chunks(spatial)
-    part = torch.empty((b, nchunk, 2, c), dtype=torch.float32, device=x.device)
+    plan = in_stats_plan(b, spatial, c, x.element_size(), x.data_ptr() % 16 == 0)
+    part = torch.empty((b, plan["nchunk"], 2, c), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    tickets = _tickets(x.device, b)
     lib = cuda_lib.library()
     in_stats.launches += 1
-    rc = lib.pmr_in_stats(x.data_ptr(), part.data_ptr(), stats.data_ptr(), code,
-                          b, spatial, c, nchunk, cuda_lib.stream_of(x))
+    rc = lib.pmr_in_stats(x.data_ptr(), part.data_ptr(), stats.data_ptr(), tickets.data_ptr(),
+                          code, b, spatial, c, plan["vec"], plan["chunk_rows"],
+                          plan["nchunk"], cuda_lib.stream_of(x))
     cuda_lib.check(rc, "in_stats")
     return stats
 

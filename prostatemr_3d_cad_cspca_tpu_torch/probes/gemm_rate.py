@@ -6,16 +6,25 @@ package's ``benchmarks/r2_probe_pallas_mxu.py`` and
     python -m prostatemr_3d_cad_cspca_tpu_torch.probes.gemm_rate \\
         [mm] [loop] [conv] [--DEVICE cuda]
 
+K5 (``ops/gemm.py``, ``csrc/gemm_loop.cu``) keeps each 64-deep slab of A and
+W resident in shared memory for all the iterations of its work range, as the
+TPU kernels kept A and W in VMEM, and spreads the (tile, step) space over the
+card's 132 SMs with TMA loads feeding wgmma. One K5 call lasts tens of
+microseconds, so on a card its timings replay ``GRAPH_CALLS`` calls captured
+in one CUDA graph: the host's launch work stays out.
+
 Modes (all three when none is named):
 
   mm    ``bf16(sum_{i<200} A.W)`` at 640x1152x128 through K5: ms per
         iteration and TFLOP/s (``mm_probe``).
   loop  the same loop at the seven shapes of ``r2_probe_pallas_mm2.py``, the
         time per iteration taken as the slope between 100 and 800 iterations
-        (``_slope``); beside it the library yardstick (``xla_loop_mm``'s
-        counterpart): one cuBLAS ``torch.mm`` bf16 per iteration, the loop
-        captured in one CUDA graph so that its replay times the library's
-        kernels and no Python dispatch between them.
+        (``_slope``; K5's cost per call is not quite fixed, since its work
+        ranges and their partial sums follow the iteration count, so the
+        slope is a marginal rate); beside it the library yardstick
+        (``xla_loop_mm``'s counterpart): one cuBLAS ``torch.mm`` bf16 per
+        iteration, the loop captured in one CUDA graph so that its replay
+        times the library's kernels and no Python dispatch between them.
   conv  ``conv_probe``'s geometry through K1: a (1,3,3) SAME conv with bias on
         x = (64, 20, 160, 20, 128) bf16, 128 -> 128 channels, checked against
         K1's plain twin on the first 4 slices and timed beside cuDNN
@@ -52,6 +61,7 @@ LOOP_ITERS = (100, 800)
 CONV_SHAPE = (64, 20, 160, 20, 128)  # (B, D, H, W, C): the packed res0 geometry
 CONV_CHECK_SLICES = 4
 BF16_ULP = 2.0 ** -7
+GRAPH_CALLS = 10  # K5 calls a timed CUDA graph holds (its calls last microseconds)
 
 
 def device_label(device: torch.device) -> str:
@@ -77,22 +87,35 @@ def operands(m: int, k: int, n: int, device, seed: int = 0):
     return a, w
 
 
-def timed_ms(fn: Callable, device: torch.device, reps: int = 3) -> float:
+def timed_ms(fn: Callable, device: torch.device, reps: int = 3,
+             graph_calls: int = 1) -> float:
     """Best of ``reps`` calls after one warm-up (the probes' ``timed``):
-    CUDA events on a card, the host clock on the CPU."""
+    CUDA events on a card, the host clock on the CPU. On a card with
+    ``graph_calls`` > 1, that many calls of ``fn`` are captured in one CUDA
+    graph and a timing is one replay divided by ``graph_calls``, so that the
+    host's work before each launch stays out of a call of microseconds."""
     fn()
+    run, per = fn, 1
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        if graph_calls > 1:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(graph_calls):
+                    fn()
+            run, per = graph.replay, graph_calls
+            run()
+            torch.cuda.synchronize(device)
     best = math.inf
     for _ in range(reps):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            run()
             stop.record()
             stop.synchronize()
-            best = min(best, start.elapsed_time(stop))
+            best = min(best, start.elapsed_time(stop) / per)
         else:
             t0 = time.perf_counter()
             fn()
@@ -100,12 +123,13 @@ def timed_ms(fn: Callable, device: torch.device, reps: int = 3) -> float:
     return best
 
 
-def slope_ms(make_fn: Callable[[int], Callable], device, iters: Sequence[int]) -> float:
+def slope_ms(make_fn: Callable[[int], Callable], device, iters: Sequence[int],
+             graph_calls: int = 1) -> float:
     """Time per iteration as the slope between two iteration counts, which
     cancels the fixed cost of a launch (the probes' ``_slope``)."""
     k1, k2 = iters
-    t1 = timed_ms(make_fn(k1), device)
-    t2 = timed_ms(make_fn(k2), device)
+    t1 = timed_ms(make_fn(k1), device, graph_calls=graph_calls)
+    t2 = timed_ms(make_fn(k2), device, graph_calls=graph_calls)
     return (t2 - t1) / (k2 - k1)
 
 
@@ -125,7 +149,7 @@ def mm_probe(device, shape=MM_SHAPE, iters: int = MM_ITERS,
     device = torch.device(device)
     m, k, n = shape
     a, w = operands(m, k, n, device)
-    ms = timed_ms(lambda: gemm_loop(a, w, iters), device)
+    ms = timed_ms(lambda: gemm_loop(a, w, iters), device, graph_calls=GRAPH_CALLS)
     per = ms / iters
     return _report({"mode": "mm", "shape": [m, k, n], "iters": iters,
                     "ms": ms, "ms_per_iter": per,
@@ -162,7 +186,8 @@ def loop_probe(device, shapes=LOOP_SHAPES, iters=LOOP_ITERS, library: bool = Tru
     rows = []
     for m, k, n in shapes:
         a, w = operands(m, k, n, device)
-        per = slope_ms(lambda it: (lambda: gemm_loop(a, w, it)), device, iters)
+        per = slope_ms(lambda it: (lambda: gemm_loop(a, w, it)), device, iters,
+                       graph_calls=GRAPH_CALLS)
         lib = None
         if library:
             lib = slope_ms(lambda it: cublas_loop(a, w, it), device, iters)

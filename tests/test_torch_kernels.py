@@ -180,6 +180,69 @@ def test_card_instance_norm_kernels_match_plain(cuda_device, c, dtype, lrelu):
     assert _card_err(got, ref) <= CARD_TOL[dtype]
 
 
+# K3 at the ten distinct shapes of one cfg1 forward at batch 2 (the serve
+# path, bf16), and at channel counts that take each of the kernel's routes:
+# C 4 (one vector holds two voxels), 8 (one or two vectors a voxel), 300
+# (bf16: scalar, wider than a block; fp32: 75 vectors a voxel).
+IN_PATH_SHAPES = [(2, 20, 160, 160, 16), (2, 20, 160, 160, 4), (2, 20, 80, 80, 32),
+                  (2, 20, 80, 80, 8), (2, 20, 40, 40, 64), (2, 20, 40, 40, 16),
+                  (2, 10, 20, 20, 128), (2, 10, 20, 20, 32), (2, 5, 10, 10, 256),
+                  (2, 5, 10, 10, 64)]
+
+
+def _in_x(device, shape, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", IN_PATH_SHAPES)
+def test_card_in_stats_at_the_path_shapes(cuda_device, shape):
+    x = _in_x(cuda_device, shape, torch.bfloat16, 7)
+    n0 = tnorm.in_stats.launches
+    got = tnorm.in_stats(x)
+    torch.cuda.synchronize()
+    assert tnorm.in_stats.launches == n0 + 1
+    assert _card_err(got, tnorm.in_stats_plain(x)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [4, 8, 300])
+def test_card_in_stats_routes_match_plain(cuda_device, c, dtype):
+    x = _in_x(cuda_device, (2, 7, 19, 24, c), dtype, 8)
+    plan = tnorm.in_stats_plan(2, 7 * 19 * 24, c, x.element_size())
+    assert plan["route"] == ("scalar" if (c, dtype) == (300, torch.bfloat16) else "vector")
+    got = tnorm.in_stats(x)
+    torch.cuda.synchronize()
+    assert _card_err(got, tnorm.in_stats_plain(x)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_in_stats_is_bit_reproducible(cuda_device, dtype):
+    x = _in_x(cuda_device, (2, 20, 40, 40, 64), dtype, 9)
+    first = tnorm.in_stats(x)
+    second = tnorm.in_stats(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_in_stats_misaligned_base_takes_the_scalar_route(cuda_device, dtype):
+    shape = (2, 5, 9, 10, 16)
+    flat = _in_x(cuda_device, (math.prod(shape) + 1,), dtype, 10)
+    shifted = flat[1:].view(shape)  # contiguous, one element off 16 bytes
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    spatial = math.prod(shape[1:4])
+    assert tnorm.in_stats_plan(2, spatial, 16, shifted.element_size(),
+                               aligned=False)["route"] == "scalar"
+    got = tnorm.in_stats(shifted)
+    torch.cuda.synchronize()
+    assert _card_err(got, tnorm.in_stats_plain(shifted)) <= 1e-4
+
+
 # K5: the probe shapes, ragged M/N/K edges, one tile and one element
 GEMM_CASES = [(640, 1152, 128, 3), (2560, 144, 128, 2), (5120, 1152, 256, 1),
               (100, 40, 24, 3), (130, 16, 72, 4), (1, 8, 8, 1)]
@@ -205,3 +268,28 @@ def test_card_gemm_loop_refuses_what_it_does_not_take(cuda_device, a_shape, w_sh
     w = torch.zeros(w_shape, dtype=dtype, device=cuda_device)
     with pytest.raises(ValueError):
         tgemm.gemm_loop(a, w, 1)
+
+
+# K5 where gemm_plan splits the tiles' steps over the card (the partials'
+# fixed-order reduce), at the probe's own iteration counts, and at K = 144
+# (a last slab of one 16-deep step)
+GEMM_SPLIT_CASES = [(640, 1152, 128, 200), (640, 144, 128, 100), (2560, 1152, 256, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,iters", GEMM_SPLIT_CASES)
+def test_card_gemm_loop_split_matches_plain(cuda_device, m, k, n, iters):
+    assert tgemm.gemm_plan(m, k, n, iters)["split"]
+    a, w = operands(m, k, n, cuda_device, seed=m + k + n)
+    got = tgemm.gemm_loop(a, w, iters)
+    torch.cuda.synchronize()
+    assert _card_err(got, tgemm.gemm_loop_plain(a, w, iters)) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+def test_card_gemm_loop_split_is_bit_reproducible(cuda_device):
+    a, w = operands(640, 1152, 128, cuda_device, seed=3)
+    first = tgemm.gemm_loop(a, w, 200)
+    second = tgemm.gemm_loop(a, w, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

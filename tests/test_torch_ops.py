@@ -357,6 +357,139 @@ def test_in_stats_formulas(dtype):
     assert (stats[:, 1] >= 0).all() and (stats[:, 1, 0] == 0).all()
 
 
+# ------------------------------------------------------ K3's grid (plan)
+def _path_norm_shapes(batch):
+    """The distinct K3 input shapes of the cfg1 forward at ``batch``."""
+    import chip_smoke
+
+    return sorted({sig[0] for name, sig in chip_smoke.trace_path_calls(batch)
+                   if name == "in_stats"})
+
+
+def _thread_vectors(plan, r0, r1):
+    """The vectors (row * groups + group) that in_stats_kernel's threads
+    visit in the chunk of rows [r0, r1), as the kernel's loops walk them."""
+    g = plan["groups"]
+    if g > 256:  # each thread walks every row of groups tid, tid + 256, ...
+        return [row * g + cg for cg in range(g) for row in range(r0, r1)]
+    rpass = 256 // g
+    return [(r0 + r) * g + cg + i * rpass * g
+            for r in range(rpass) for cg in range(g)
+            for i in range(-(-(r1 - r0 - r) // rpass))]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_in_stats_plan_covers_every_element_of_the_path_shapes_once(itemsize):
+    shapes = _path_norm_shapes(2)
+    assert len(shapes) == 10
+    for shape in shapes:
+        b, c = shape[0], shape[-1]
+        spatial = int(np.prod(shape[1:4]))
+        plan = tnorm.in_stats_plan(b, spatial, c, itemsize)
+        assert plan["route"] == "vector" and plan["vec"] == 16 // itemsize
+        assert plan["rows"] * plan["groups"] * plan["vec"] == spatial * c
+        bounds = [(k * plan["chunk_rows"], min(plan["rows"], (k + 1) * plan["chunk_rows"]))
+                  for k in range(plan["nchunk"])]
+        assert bounds[0][0] == 0 and bounds[-1][1] == plan["rows"]
+        assert all(lo < hi for lo, hi in bounds) and all(
+            x[1] == y[0] for x, y in zip(bounds, bounds[1:]))
+        for lo, hi in (bounds[0], bounds[-1]):  # every vector of a chunk once
+            assert sorted(_thread_vectors(plan, lo, hi)) == list(
+                range(lo * plan["groups"], hi * plan["groups"])), shape
+        assert plan["nchunk"] == 1 or 2 * c * plan["nchunk"] <= tnorm.STAT_FOLD_FLOATS
+
+
+def test_in_stats_plan_fills_the_card_where_the_tensor_is_large_enough():
+    """At least 132 blocks for every path shape of 1 MB or more a sample
+    whose partials fit the fold (C <= 64 at batch 2); fewer only where a
+    cap binds: 4 KB chunks or the fold's 16K floats."""
+    for shape in _path_norm_shapes(2):
+        b, c = shape[0], shape[-1]
+        spatial = int(np.prod(shape[1:4]))
+        plan = tnorm.in_stats_plan(b, spatial, c, 2)
+        if spatial * c * 2 >= 2 ** 20 and c <= 64:
+            assert plan["blocks"] >= tnorm.SMS, (shape, plan)
+        elif plan["blocks"] < tnorm.SMS:
+            chunk_bytes = plan["chunk_rows"] * plan["groups"] * plan["vec"] * 2
+            assert (chunk_bytes >= tnorm.STAT_MIN_CHUNK_BYTES
+                    or 2 * c * plan["nchunk"] * 2 > tnorm.STAT_FOLD_FLOATS), (shape, plan)
+
+
+@pytest.mark.parametrize("c,itemsize,aligned,route,vec,groups", [
+    (4, 2, True, "vector", 8, 1), (8, 2, True, "vector", 8, 1), (16, 2, True, "vector", 8, 2),
+    (8, 4, True, "vector", 4, 2), (300, 4, True, "vector", 4, 75), (12, 2, True, "scalar", 1, 12),
+    (300, 2, True, "scalar", 1, 300), (16, 2, False, "scalar", 1, 16)])
+def test_in_stats_plan_routes(c, itemsize, aligned, route, vec, groups):
+    plan = tnorm.in_stats_plan(2, 6 * 16 * 16, c, itemsize, aligned)
+    assert (plan["route"], plan["vec"], plan["groups"]) == (route, vec, groups)
+
+
+@pytest.mark.parametrize("batch,spatial,c,itemsize", [
+    (0, 8, 4, 2), (65536, 8, 4, 2), (2, 0, 4, 2), (2, 8, 0, 2), (2, 8, 4, 8),
+    (1, 2 ** 28, 8, 2)])
+def test_in_stats_plan_refuses_what_the_kernel_does_not_take(batch, spatial, c, itemsize):
+    with pytest.raises(ValueError):
+        tnorm.in_stats_plan(batch, spatial, c, itemsize)
+
+
+def _emulate_in_stats(xv, itemsize):
+    """numpy replay of csrc/instance_norm.cu in_stats_kernel on the values
+    ``xv`` (B, D, H, W, C): the plan's rows of ``groups`` vectors, each
+    lane's channel as the kernel computes it ((group * vec + lane) % C),
+    per-chunk partials, and the fold: bf16 one pass, fp32 two passes about
+    the first pass's mean."""
+    b, c = xv.shape[0], xv.shape[-1]
+    spatial = int(np.prod(xv.shape[1:4]))
+    plan = tnorm.in_stats_plan(b, spatial, c, itemsize)
+    vec, g, rows, cr = plan["vec"], plan["groups"], plan["rows"], plan["chunk_rows"]
+    flat = xv.reshape(b, rows, g, vec).astype(np.float64)
+    ch = (np.arange(g)[:, None] * vec + np.arange(vec)[None, :]) % c
+    elem = (np.arange(rows)[:, None, None] * g + np.arange(g)[None, :, None]) * vec \
+        + np.arange(vec)
+    assert ((elem % c) == ch[None]).all()  # a lane always meets its own channel
+
+    def one_pass(center):
+        part = np.zeros((b, plan["nchunk"], 2, c))
+        for k in range(plan["nchunk"]):
+            blk = flat[:, k * cr:min(rows, (k + 1) * cr)]
+            if center is not None:
+                blk = blk - center[:, ch][:, None]
+            for i in range(b):
+                np.add.at(part[i, k, 0], ch, blk[i].sum(0))
+                np.add.at(part[i, k, 1], ch, (blk[i] ** 2).sum(0))
+        return part.sum(1) / spatial  # the fold: (B, 2, C)
+
+    first = one_pass(None)
+    mean = first[:, 0]
+    if itemsize == 2:
+        var = np.maximum(first[:, 1] - mean ** 2, 0.0)
+    else:
+        var = one_pass(mean)[:, 1]
+    return torch.from_numpy(np.stack([mean, var], 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("c", [4, 8, 12, 16, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_in_stats_kernel_emulation_matches_jax(c, dtype):
+    """The kernel's partition and channel map, through K4's twin, against
+    the JAX package's instance norm."""
+    x, _, _ = _in_inputs(7 + c, c=c, spatial=(3, 8, 10))
+    rng = np.random.default_rng(c)
+    scale = (1 + 0.3 * rng.normal(size=(c,))).astype(np.float32)
+    bias = (0.3 * rng.normal(size=(c,))).astype(np.float32)
+    xt = _t(x).to(getattr(torch, dtype))
+    stats = _emulate_in_stats(xt.float().numpy(), xt.element_size())
+    got = tnorm.in_apply_plain(xt, stats, _t(scale), _t(bias)).float().numpy()
+    xj = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    want = np.asarray(jnorm.instance_norm(xj, jnp.asarray(scale), jnp.asarray(bias))
+                      .astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    else:
+        err = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+        assert err.max() <= BF16_REL, err.max()
+
+
 def test_global_spatial_mean_matches_jax():
     x, _, _ = _in_inputs(4)
     want = np.asarray(jnorm.global_spatial_mean(jnp.asarray(x)))

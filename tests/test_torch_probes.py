@@ -152,3 +152,143 @@ def test_cli_cpu_path_runs_every_mode(monkeypatch, capsys):
     assert out["conv"]["max_rel_err"] == 0.0  # the CPU path is the twin itself
     printed = capsys.readouterr().out.strip().splitlines()
     assert len(printed) == 1 + 7 + 1 and all('"device": "cpu"' in ln for ln in printed)
+
+
+# ------------------------------------------------- K5's schedule (gemm_plan)
+PROBE_CASES = [(gemm_rate.MM_SHAPE, gemm_rate.MM_ITERS)] + [
+    (s, gemm_rate.LOOP_ITERS[0]) for s in gemm_rate.LOOP_SHAPES]
+FEW_STEP_CASES = [(100, 40, 24, 3), (130, 16, 72, 4), (1, 8, 8, 1), (2560, 144, 128, 2)]
+
+
+def _step_weight(plan, s):
+    j = s // plan["iters"]
+    return tgemm.K16 if j < plan["k_tiles"] - 1 else plan["last_k16"]
+
+
+@pytest.mark.parametrize("m,k,n,iters", [(*s, it) for s, it in PROBE_CASES]
+                         + FEW_STEP_CASES + [(200, 144, 136, 5), (640, 1152, 128, 3)])
+def test_gemm_plan_covers_every_step_of_every_tile_once(m, k, n, iters):
+    plan = tgemm.gemm_plan(m, k, n, iters)
+    assert plan["steps"] == iters * plan["k_tiles"] == iters * -(-k // tgemm.BK)
+    seen = {t: [] for t in range(plan["tiles"])}
+    last_block = -1
+    for b, t, s0, s1 in tgemm.plan_units(plan):
+        assert b >= last_block and 0 <= s0 < s1 <= plan["steps"]
+        last_block = b
+        seen[t].append((s0, s1))
+    for t, ranges in seen.items():  # in order, back to back, from 0 to steps
+        assert ranges[0][0] == 0 and ranges[-1][1] == plan["steps"], (t, ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    if plan["split"]:  # the reduce's view: first and last block of each tile
+        units = tgemm.plan_units(plan)
+        for t in range(plan["tiles"]):
+            blocks = [b for b, tt, _, _ in units if tt == t]
+            assert (plan["tile_first"][t], plan["tile_last"][t]) == (blocks[0], blocks[-1])
+        slots = [b + t for b, t, _, _ in units]  # workspace slots, one a unit
+        assert len(set(slots)) == len(slots)
+        assert max(slots) < plan["workspace"] // (tgemm.BM * tgemm.BN)
+
+
+@pytest.mark.parametrize("shape,iters", PROBE_CASES)
+def test_gemm_plan_fills_the_card_at_the_probe_cases(shape, iters):
+    plan = tgemm.gemm_plan(*shape, iters)
+    assert plan["split"] and plan["blocks"] == tgemm.SMS
+    units = tgemm.plan_units(plan)
+    assert len(units) >= tgemm.SMS
+    work = [0] * plan["blocks"]
+    for b, _, s0, s1 in units:
+        work[b] += sum(_step_weight(plan, s) for s in range(s0, s1))
+    # equal work: each end of a range is snapped up by less than one step
+    assert max(work) - min(work) < 2 * tgemm.K16
+    assert sum(work) == plan["tiles"] * iters * (
+        tgemm.K16 * (plan["k_tiles"] - 1) + plan["last_k16"])
+
+
+@pytest.mark.parametrize("m,k,n,iters", FEW_STEP_CASES)
+def test_gemm_plan_owns_each_tile_whole_where_its_steps_are_few(m, k, n, iters):
+    plan = tgemm.gemm_plan(m, k, n, iters)
+    assert not plan["split"] and plan["splits"] == 1 and plan["workspace"] == 0
+    assert plan["blocks"] == plan["tiles"] == -(-m // tgemm.BM) * -(-n // tgemm.BN)
+
+
+@pytest.mark.parametrize("m,k,n,iters", [
+    (0, 8, 8, 1), (16, 12, 8, 1), (16, 8, 12, 1), (16, 0, 8, 1), (16, 8, 8, 0),
+    (16, 8, 8, tgemm.MAX_ITERS + 1)])
+def test_gemm_plan_refuses_what_the_kernel_does_not_take(m, k, n, iters):
+    with pytest.raises(ValueError):
+        tgemm.gemm_plan(m, k, n, iters)
+
+
+def _emulate_gemm_loop(a, w, iters):
+    """numpy replay of csrc/gemm_loop.cu from the int64 array the wrapper
+    hands the C entry: each block walks its flat steps tile by tile, a slab
+    at a time for all the iterations of its range, in chains of at most 32
+    16-deep steps summed into the fp32 accumulator; a unit that covers its
+    tile rounds it to bf16, the others leave partials in slot block + tile,
+    which the reduce adds in block order and rounds once."""
+    m, k = a.shape
+    n = w.shape[1]
+    meta = tgemm.gemm_meta(tgemm.gemm_plan(m, k, n, iters))
+    _, _, _, it, tiles_n, tiles, k_tiles, last_k16, steps, blocks, split = meta[:11]
+    sms = tgemm.SMS
+    bm, bn, bk = tgemm.BM, tgemm.BN, tgemm.BK
+    tiles_m = tiles // tiles_n
+    ap = np.zeros((tiles_m * bm, k_tiles * bk), np.float64)
+    wp = np.zeros((k_tiles * bk, tiles_n * bn), np.float64)
+    ap[:m, :k], wp[:k, :n] = a, w  # TMA's zero fill
+    out = np.full((tiles_m * bm, tiles_n * bn), np.nan, np.float32)
+    slots = {}
+    for b in range(blocks):
+        g0, g1 = (meta[11 + b], meta[12 + b]) if split else (b * steps, (b + 1) * steps)
+        g = g0
+        while g < g1:
+            t = g // steps
+            s0, s1 = g - t * steps, min(g1, (t + 1) * steps) - t * steps
+            rows, cols = slice(t // tiles_n * bm, (t // tiles_n + 1) * bm), \
+                slice(t % tiles_n * bn, (t % tiles_n + 1) * bn)
+            acc = np.zeros((bm, bn), np.float32)
+            for j in range(s0 // it, (s1 - 1) // it + 1):
+                reps = min(s1, (j + 1) * it) - max(s0, j * it)
+                nk = last_k16 if j == k_tiles - 1 else tgemm.K16
+                depth = slice(j * bk, j * bk + 16 * nk)
+                prod = ap[rows, depth] @ wp[depth, cols]
+                chain = 32 // nk
+                for r0 in range(0, reps, chain):
+                    acc += np.float32(min(reps - r0, chain) * prod)
+            if s0 == 0 and s1 == steps:
+                out[rows, cols] = acc
+            else:
+                slots[b + t] = acc
+            g = (t * steps) + s1
+    for t in range(tiles if split else 0):
+        first, last = meta[12 + sms + t], meta[12 + 2 * sms + t]
+        if first == last:
+            continue
+        rows, cols = slice(t // tiles_n * bm, (t // tiles_n + 1) * bm), \
+            slice(t % tiles_n * bn, (t % tiles_n + 1) * bn)
+        total = slots[first + t].copy()
+        for b in range(first + 1, last + 1):
+            total += slots[b + t]
+        out[rows, cols] = total
+    assert not np.isnan(out[:m, :n]).any(), "some output element belongs to no unit"
+    return torch.from_numpy(out[:m, :n].copy()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n,iters", [(200, 144, 136, 5), (130, 72, 16, 40),
+                                         (640, 1152, 128, 3), (100, 40, 24, 3)])
+def test_gemm_schedule_emulation_matches_the_plain_twin(m, k, n, iters):
+    """The schedule the card walks (split where the plan splits) gives the
+    plain twin's function to one bf16 rounding."""
+    a, w = gemm_rate.operands(m, k, n, "cpu", seed=m + k + n)
+    got = _emulate_gemm_loop(a.float().numpy(), w.float().numpy(), iters)
+    _check_twin(got, tgemm.gemm_loop_plain(a, w, iters).float().numpy())
+
+
+def test_gemm_meta_is_what_the_c_entry_reads():
+    plan = tgemm.gemm_plan(640, 1152, 128, 200)
+    meta = tgemm.gemm_meta(plan)
+    assert meta.dtype == np.int64 and meta.shape == (tgemm.META_LEN,) == (408,)
+    assert list(meta[:11]) == [640, 1152, 128, 200, 1, 5, 18, 4, 3600, 132, 1]
+    assert tuple(meta[11:11 + 133]) == plan["starts"]
+    assert tuple(meta[12 + 132:12 + 132 + 5]) == plan["tile_first"]
+    assert tuple(meta[12 + 264:12 + 264 + 5]) == plan["tile_last"]
