@@ -12,15 +12,18 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                nvcc builds csrc/*.cu for sm_90a.
   2. kernels   K1 conv3d, K2 conv3d_transpose, K3 in_stats, K4 in_apply at
                every distinct shape the cfg1 forward gives them at the serving
-               batch, in bf16 (K1/K2: the mma.sync tensor-core kernel) and
-               fp32 (K1/K2: the FMA kernel), against their plain twins on the
-               card; device times in bf16 beside each shape's bound and,
-               where one torch call computes the same function, that call's
-               time. Kernel, twin and library call are each timed alike: 10
-               calls captured in one CUDA graph, replayed between CUDA
-               events, so host dispatch stays out. At one split-K shape each,
-               K1 and K2 run twice on the same inputs and must give the same
-               bits; so does K3 at its largest path shape. K5 gemm_loop at the
+               batch, in bf16 and fp32 (K1/K2: the mma.sync tensor-core
+               kernel, fp32 as 3xTF32), against their plain twins on the
+               card; device times in both dtypes beside each shape's bound
+               and, where one torch call computes the same function, that
+               call's time (fp32 K1/K2: cuDNN with TF32 off). Kernel, twin
+               and library call are each timed alike: 10 calls captured in
+               one CUDA graph, replayed between CUDA events, so host dispatch
+               stays out. At one split-K shape each, K1 and K2 run twice on
+               the same inputs and must give the same bits; so does K3 at its
+               largest path shape; in each dtype. fp32 K1 at its deepest and
+               its largest path shape against the fp64 product (<= 2e-4,
+               beside the twin's own error). K5 gemm_loop at the
                probe's 8 (shape, iterations): checked with 3 iterations and
                with the probe's own count (|diff|/max(1,|ref|) <= 2**-7), run
                twice where gemm_plan splits a tile (the same bits), timed at
@@ -32,8 +35,8 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                launch counters must rise by exactly 50/4/37/37 per forward.
                Then one more request under torch.profiler, outside the counted
                run: device busy share and device time by kernel, which must
-               show conv3d_mma_kernel, splitk_reduce_kernel and
-               in_stats_kernel.
+               show conv3d_mma_kernel, splitk_reduce_kernel, in_stats_kernel
+               and in_apply_kernel.
   4. parity    one fp32 volume through the card model and the same model on
                the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
                on the card: mean |diff| <= 1e-2.
@@ -45,19 +48,21 @@ Phases (each raises on failure, so the script exits non-zero and prints no
   6. serve_sw  serve.run on two 24x256x256x3 cases (18 tiles each) with
                --MC_ITER 2 --TTA 1 and a 2-member fold ensemble, fp32; then
                one 20x192x192 case of the deterministic model on the card and
-               on the CPU: max |diff| <= 1e-3.
+               on the CPU: max |diff| <= 1e-3. One serve_sw forward (fp32,
+               16 volumes: 8 under MC 2) profiled as in phase 3.
   7. probe     probes/gemm_rate.py's mm, loop and conv modes in-process: K5's
                and cuBLAS's TFLOP/s per shape, K1 at conv_probe's geometry
                beside cuDNN.
   8. paths     K1-K4 against their twins at the distinct shapes of the
-               serve_mc (batch 8, bf16) and serve_sw (batch 16, fp32)
-               forwards.
+               serve_mc (batch 8, bf16 and fp32) and serve_sw (batch 16,
+               fp32) forwards.
 
 Each path's launch counters are set to 0 just before it and read just
 after. The last line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its launches on its path, error and times, and
-ptxas's registers, static shared memory and spills of its CUDA kernels; for
-K1 and K2 also the route by dtype.
+ptxas's registers, static shared memory and spills of its CUDA kernels, in
+bf16 on the serve path and in fp32 on the serve_sw path; for K1 and K2 also
+the route.
 """
 
 from __future__ import annotations
@@ -100,19 +105,25 @@ KERNEL_INFO = {  # name: (source, TPU kernel replaced, path it launches on)
 }
 ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45"}
 CONV_KERNELS = ("conv3d", "conv3d_transpose")
-CONV_ROUTES = {"bfloat16": f"mma.sync bf16, {PKG}/csrc/conv3d_mma.cu",
-               "float32": f"fma fp32, {PKG}/csrc/conv3d.cu"}
+CONV_ROUTES = {"bfloat16": "mma.sync bf16", "float32": "mma.sync 3xTF32"}
+DTYPE_NAMES = ("bfloat16", "float32")
+FP32_PATH = "serve_sw"     # the path that runs K1-K4 in fp32
 MMA_KERNEL_NAMES = ("conv3d_mma_kernel", "splitk_reduce_kernel")
-PTXAS_NAMES = {  # kernel: the CUDA kernels (mangled-name substrings) it launches
+PTXAS_NAMES = {  # kernel: the CUDA kernels it launches
     "conv3d": MMA_KERNEL_NAMES, "conv3d_transpose": MMA_KERNEL_NAMES,
     "in_stats": ("in_stats_kernel",), "in_apply": ("in_apply_kernel",),
     "gemm_loop": ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")}
-BUILT_KERNEL_NAMES = MMA_KERNEL_NAMES + ("conv3d_igemm_kernel", "in_stats_kernel",
-                                         "in_apply_kernel", "gemm_loop_kernel",
-                                         "gemm_splitk_reduce_kernel")
-PROFILE_KERNEL_NAMES = MMA_KERNEL_NAMES + ("in_stats_kernel",)  # must show in a profile
+# the template argument's start in a mangled name, by element type
+MANGLED_TYPE = {"bfloat16": "I13__nv_bfloat16", "float32": "If"}
+BUILT_KERNEL_NAMES = {f"{k}[{dn}]": k + MANGLED_TYPE[dn] for dn in DTYPE_NAMES
+                      for k in MMA_KERNEL_NAMES + ("in_stats_kernel", "in_apply_kernel")}
+BUILT_KERNEL_NAMES.update({k: k for k in ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")})
+PROFILE_KERNEL_NAMES = MMA_KERNEL_NAMES + ("in_stats_kernel", "in_apply_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32 tensor-core peak
+FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+FP32_LIMIT = 2e-4          # fp32 kernel vs twin (and vs fp64), |diff|/max(1,|ref|)
 BF16_ULP = 2.0 ** -7       # bf16 spacing just below 1: one rounding step
 REQUESTS, BATCH = 3, 2     # served requests, volumes per request
 REPS = 10                  # timed launches per kernel shape
@@ -143,6 +154,7 @@ def phase_build():
     cuda_lib.library()
     emit({"phase": "build", "library": os.path.basename(path),
           "seconds": round(time.perf_counter() - t0, 3),
+          "nvcc_seconds": cuda_lib.build_seconds,
           "ptxas": ptxas_report(cuda_lib.build_log, BUILT_KERNEL_NAMES)})
     return smi
 
@@ -225,17 +237,17 @@ def time_ms(fn, reps, capture=True):
 
 
 def ptxas_report(log, names):
-    """Per kernel of ``names`` (a substring of the mangled name): how many
-    variants were compiled, their registers, static shared memory and spill
-    bytes, from nvcc's ``-Xptxas -v`` report (None when nothing was built in
-    this process)."""
+    """Per label of ``names`` ({label: a substring of the mangled name}): how
+    many variants were compiled, their registers, static shared memory and
+    spill bytes, from nvcc's ``-Xptxas -v`` report (None when nothing was
+    built in this process)."""
     if not log:
         return None
     out, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            current = next((n for n in names if n in m.group(1)), None)
+            current = next((n for n, sub in names.items() if sub in m.group(1)), None)
             if current:
                 out.setdefault(current, {"variants": 0, "registers": [], "smem_bytes": [],
                                          "spill_bytes": 0})["variants"] += 1
@@ -255,9 +267,11 @@ def ptxas_report(log, names):
             for k, v in out.items() if v["registers"]}
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
+    """The least time for ``nbytes`` moved once and ``flops`` at the card's
+    peak for their type: (ms, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -349,21 +363,30 @@ def _conv_flops(sig, transposed):
     return 2.0 * rows * kshape[0] * kshape[1] * kshape[2] * kshape[3] * kshape[4]
 
 
+def _dn(dtype):
+    return str(dtype).replace("torch.", "")
+
+
 def phase_kernels(calls, reps, dtypes=None, timed=True):
     """Each call's kernel against its plain twin in each of ``dtypes``
-    (default fp32 and bf16); with ``timed``, bf16 times beside the bound."""
+    (default fp32 and bf16); with ``timed``, each dtype's times beside the
+    bound, and in each dtype one K1/K2 split-K shape and K3's largest shape
+    run twice on the same inputs (the same bits)."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    tol = {torch.float32: 2e-4, torch.bfloat16: 2 * BF16_ULP}
+    dtypes = dtypes or (torch.float32, torch.bfloat16)
+    tol = {torch.float32: FP32_LIMIT, torch.bfloat16: 2 * BF16_ULP}
     rows = collections.defaultdict(list)
-    bit_checked = set()  # K1/K2: one split-K shape each, run twice; K3 its largest
+    bit_checked = set()  # (kernel, dtype): a K1/K2 split-K shape; K3's largest
+    largest_in = max((s for n, s in calls if n == "in_stats"), key=lambda s: int(np.prod(s[0])),
+                     default=None)
     for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
         row = {"count": count}
-        for dtype in dtypes or (torch.float32, torch.bfloat16):
-            dn = str(dtype).replace("torch.", "")
+        for dtype in dtypes:
+            dn = _dn(dtype)
             if name == "conv3d":
                 parts, kernel, bias, st = _conv_case(sig, dtype, gen)
                 run = lambda: cv.conv3d(parts, kernel, bias, st)  # noqa: E731
@@ -409,69 +432,135 @@ def phase_kernels(calls, reps, dtypes=None, timed=True):
             row[f"max_abs_err_{dn}"] = abs_err
             row[f"max_rel_err_{dn}"] = rel_err
             row[f"tol_{dn}"] = limit
-            if timed and dtype == torch.bfloat16:  # the serving path's dtype
-                row["kernel_ms"] = time_ms(run, reps)
-                row["plain_ms"] = time_ms(plain, reps)
-                row["library_ms"] = time_ms(lib, reps) if lib is not None else None
-                row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
-                if name == "in_stats":
-                    row["blocks"] = nm.in_stats_plan(
-                        x.shape[0], int(np.prod(x.shape[1:4])), x.shape[-1],
-                        x.element_size(), x.data_ptr() % 16 == 0)["blocks"]
-                    if sig == max((s for n, s in calls if n == name),
-                                  key=lambda s: int(np.prod(s[0]))):
-                        again = run()
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, again):
-                            raise AssertionError(f"in_stats {sig}: two runs on the same "
-                                                 "inputs differ")
-                        row["bit_equal"] = True
-                        bit_checked.add(name)
-                if name in CONV_KERNELS:
-                    row["splits"] = _splits(name, sig)
-                    if row["splits"] > 1 and name not in bit_checked:
-                        again = run()
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, again):
-                            raise AssertionError(f"{name} {sig}: two split-K runs on the "
-                                                 "same inputs differ")
-                        row["bit_equal"] = True
-                        bit_checked.add(name)
+            if not timed:
+                continue
+            # K1/K2 on the tensor cores at their type's rate (fp32: three
+            # TF32 products each); K3/K4 compute in fp32 on the CUDA cores
+            rate = {"conv3d": None, "conv3d_transpose": None}.get(name, FP32_FLOP_PER_S)
+            if rate is None:
+                rate = TF32_FLOP_PER_S / 3 if dtype == torch.float32 else BF16_FLOP_PER_S
+            row[f"ms_{dn}"] = time_ms(run, reps)
+            row[f"plain_ms_{dn}"] = time_ms(plain, reps)
+            row[f"library_ms_{dn}"] = time_ms(lib, reps) if lib is not None else None
+            row[f"bound_ms_{dn}"], row[f"bound_by_{dn}"] = bound_ms(nbytes, flops, rate)
+            twice = False
+            if name == "in_stats":
+                row[f"blocks_{dn}"] = nm.in_stats_plan(
+                    x.shape[0], int(np.prod(x.shape[1:4])), x.shape[-1], x.element_size(),
+                    x.data_ptr() % 16 == 0)["blocks"]
+                twice = sig == largest_in
+            elif name == "in_apply":
+                row[f"blocks_{dn}"] = nm.in_apply_plan(
+                    x.shape[0], int(np.prod(x.shape[1:4])), x.shape[-1], x.element_size(),
+                    x.data_ptr() % 16 == 0)["blocks"]
+            else:
+                row[f"splits_{dn}"] = _splits(name, sig, dtype)
+                twice = row[f"splits_{dn}"] > 1 and (name, dn) not in bit_checked
+            if twice:
+                again = run()
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {dn} {sig}: two runs on the same inputs "
+                                         "differ")
+                row[f"bit_equal_{dn}"] = True
+                bit_checked.add((name, dn))
         rows[name].append(row)
-    if timed and bit_checked != set(CONV_KERNELS + ("in_stats",)) & set(rows):
-        raise AssertionError(f"no shape checked for determinism: {bit_checked}")
+    want = {(n, _dn(d)) for n in CONV_KERNELS + ("in_stats",) if n in rows for d in dtypes}
+    if timed and bit_checked != want:
+        raise AssertionError(f"no shape checked for determinism: {want - bit_checked}")
     return rows
 
 
-def _splits(name, sig):
-    """K-splits of the bf16 kernel at one K1/K2 call."""
+def _splits(name, sig, dtype):
+    """K-splits of the kernel at one K1/K2 call in ``dtype``."""
     from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import igemm_schedule
 
     transposed = name == "conv3d_transpose"
     shapes = [sig[0]] if transposed else sig[0]
-    return igemm_schedule(shapes, sig[1], sig[2], transposed)[1]["splits"]
+    return igemm_schedule(shapes, sig[1], sig[2], transposed, dtype)[1]["splits"]
 
 
-def summarize_kernels(rows):
+def summarize_kernels(rows, dtypes=DTYPE_NAMES):
+    """Per kernel: launches and shapes of one forward, and per dtype the
+    largest errors and the sums over the forward of the device times and
+    bounds."""
     out = {}
     for name, shape_rows in rows.items():
-        tot = lambda key: sum(r[key] * r["count"] for r in shape_rows)  # noqa: E731
-        lib = None if any(r["library_ms"] is None for r in shape_rows) \
-            else tot("library_ms")
-        by_bytes = sum(r["bound_ms"] * r["count"] for r in shape_rows
-                       if r["bound_by"] == "bytes")
-        out[name] = dict(
-            launches_per_forward=sum(r["count"] for r in shape_rows),
-            distinct_shapes=len(shape_rows),
-            max_abs_err=max(max(r["max_abs_err_float32"], r["max_abs_err_bfloat16"])
-                            for r in shape_rows),
-            max_err=max(max(r["max_rel_err_float32"], r["max_rel_err_bfloat16"])
-                        for r in shape_rows),
-            tol={"float32": shape_rows[0]["tol_float32"],
-                 "bfloat16": shape_rows[0]["tol_bfloat16"]},
-            kernel_ms=tot("kernel_ms"), plain_ms=tot("plain_ms"),
-            library_ms=lib, bound_ms=tot("bound_ms"),
-            bound_by="bytes" if by_bytes >= tot("bound_ms") / 2 else "operations")
+        out[name] = dict(launches_per_forward=sum(r["count"] for r in shape_rows),
+                         distinct_shapes=len(shape_rows))
+        for dn in dtypes:
+            tot = lambda key: sum(r[f"{key}_{dn}"] * r["count"] for r in shape_rows)  # noqa
+            lib = None if any(r[f"library_ms_{dn}"] is None for r in shape_rows) \
+                else tot("library_ms")
+            by_bytes = sum(r[f"bound_ms_{dn}"] * r["count"] for r in shape_rows
+                           if r[f"bound_by_{dn}"] == "bytes")
+            out[name][dn] = dict(
+                max_abs_err=max(r[f"max_abs_err_{dn}"] for r in shape_rows),
+                max_err=max(r[f"max_rel_err_{dn}"] for r in shape_rows),
+                tol=shape_rows[0][f"tol_{dn}"], kernel_ms=tot("ms"), plain_ms=tot("plain_ms"),
+                library_ms=lib, bound_ms=tot("bound_ms"),
+                bound_by="bytes" if by_bytes >= tot("bound_ms") / 2 else "operations")
+    return out
+
+
+def _conv_fp64(parts, kernel, bias, strides):
+    """K1's function in fp64, the exact product's stand-in: the parts'
+    concat padded as XLA SAME pads, one fp64 matmul (cuBLAS) a tap over the
+    strided window, summed, + bias; NDHWC."""
+    import torch
+    import torch.nn.functional as F
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import same_pads
+
+    x = torch.cat(parts, dim=-1).double()
+    ks, st = tuple(kernel.shape[:3]), tuple(strides)
+    pads, out = [0, 0], []
+    for axis in (2, 1, 0):  # F.pad lists the last axis first: C, W, H, D
+        o, lo, hi = same_pads(int(x.shape[1 + axis]), ks[axis], st[axis])
+        pads += [lo, hi]
+        out.insert(0, o)
+    x = F.pad(x, pads)
+    w = kernel.double()
+    y = torch.zeros((x.shape[0], *out, kernel.shape[4]), dtype=torch.float64, device=x.device)
+    for a in range(ks[0]):
+        for b in range(ks[1]):
+            for c in range(ks[2]):
+                win = x[:, a:a + (out[0] - 1) * st[0] + 1:st[0],
+                        b:b + (out[1] - 1) * st[1] + 1:st[1],
+                        c:c + (out[2] - 1) * st[2] + 1:st[2]]
+                y += win @ w[a, b, c]
+    return y + bias.double()
+
+
+def phase_fp64(calls):
+    """fp32 K1 at its deepest path shape (most taps x channels) and its
+    largest (most output elements, then deepest) against the fp64 product;
+    the twin's own error beside it."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    sigs = [s for n, s in calls if n == "conv3d"]
+    depth = lambda s: int(np.prod(s[1][:4]))  # noqa: E731
+    size = lambda s: s[0][0][0] * int(np.prod(  # noqa: E731
+        cv.forward_plan(tuple(s[1][:3]), tuple(s[2]), tuple(s[0][0][1:4]))["out"])) * s[1][4]
+    out = {}
+    for label, sig in (("deepest", max(sigs, key=depth)),
+                       ("largest", max(sigs, key=lambda s: (size(s), depth(s))))):
+        parts, kernel, bias, st = _conv_case(sig, torch.float32, gen)
+        got = cv.conv3d(parts, kernel, bias, st)
+        twin = cv.conv3d_plain(parts, kernel, bias, st)
+        exact = _conv_fp64(parts, kernel, bias, st)
+        torch.cuda.synchronize()
+        out[label] = {"parts": sig[0], "kernel": sig[1], "strides": sig[2], "k": depth(sig),
+                      "kernel_vs_fp64": _errors(got.double(), exact)[1],
+                      "twin_vs_fp64": _errors(twin.double(), exact)[1],
+                      "kernel_vs_twin": _errors(got, twin)[1]}
+        del parts, kernel, got, twin, exact
+    emit({"phase": "fp32_vs_fp64", "tol": FP32_LIMIT, **out})
+    for label, r in out.items():
+        if not r["kernel_vs_fp64"] <= FP32_LIMIT:
+            raise AssertionError(f"fp32 K1 at its {label} shape: {r['kernel_vs_fp64']} "
+                                 "from the fp64 product")
     return out
 
 
@@ -715,6 +804,9 @@ def phase_serve_sw(tmp, seed, smi, det_ckpt):
                       os.path.join(tmp, "det_cpu"), "--DEVICE", "cpu"])
     diff = float(np.abs(np.load(card[0]["detection_path"])
                         - np.load(cpu[0]["detection_path"])).max())
+    window = np.random.default_rng(seed + 4).normal(
+        size=(8, *CFG1["input_spatial_dims"], 3)).astype(np.float32)
+    phase_profile(members[0], window, mc_iter=2, path="serve_sw", dtype=torch.float32)
     emit({"phase": "serve_sw", "card": smi, "dtype": "float32",
           "cases": [list(SW_CASE)] * 2, "tiles_per_case": 18, "mc_iter": 2, "tta": 1,
           "members": 2, "seconds": seconds, "seconds_per_case": seconds / 2,
@@ -758,13 +850,16 @@ def phase_gemm(reps):
             if not torch.equal(got, again):
                 raise AssertionError(f"gemm_loop {m}x{k}x{n}: two split runs differ")
             row["bit_equal"] = True
-        library = gr.cublas_loop(a, w, iters)
         nbytes = _nbytes(a, w) + m * n * 2
         flops = 2.0 * m * k * n * iters
         bound, by = bound_ms(nbytes, flops)
         row.update({"kernel_ms": time_ms(lambda: gemm.gemm_loop(a, w, iters), reps),
-                    "plain_ms": time_ms(lambda: gemm.gemm_loop_plain(a, w, iters), reps),
-                    "library_ms": time_ms(library, reps, capture=False), "bound_ms": bound,
+                    "plain_ms": time_ms(lambda: gemm.gemm_loop_plain(a, w, iters), reps)})
+        # captured just before its replay: a graph captured in between (each
+        # capture starts by emptying the allocator's cache) could free memory
+        # that cuBLAS's captured launches still name
+        library = gr.cublas_loop(a, w, iters)
+        row.update({"library_ms": time_ms(library, reps, capture=False), "bound_ms": bound,
                     "bound_by": by, "split": plan["split"], "blocks": plan["blocks"],
                     "splits": plan["splits"], "units": len(gemm.plan_units(plan))})
         row["tflops"] = flops / row["kernel_ms"] / 1e9
@@ -774,13 +869,13 @@ def phase_gemm(reps):
         raise AssertionError("no split K5 case checked for determinism")
     tot = lambda key: sum(r[key] for r in rows)  # noqa: E731
     return dict(launches_per_pass=len(rows), distinct_shapes=len(rows),
-                max_abs_err=max(max(r["max_abs_err_check"], r["max_abs_err_full"])
-                                for r in rows),
-                max_err=max(max(r["max_rel_err_check"], r["max_rel_err_full"])
-                            for r in rows), tol={"bfloat16": BF16_ULP},
-                kernel_ms=tot("kernel_ms"), plain_ms=tot("plain_ms"),
-                library_ms=tot("library_ms"), bound_ms=tot("bound_ms"),
-                bound_by="operations"), rows
+                bfloat16=dict(max_abs_err=max(max(r["max_abs_err_check"],
+                                                  r["max_abs_err_full"]) for r in rows),
+                              max_err=max(max(r["max_rel_err_check"], r["max_rel_err_full"])
+                                          for r in rows), tol=BF16_ULP,
+                              kernel_ms=tot("kernel_ms"), plain_ms=tot("plain_ms"),
+                              library_ms=tot("library_ms"), bound_ms=tot("bound_ms"),
+                              bound_by="operations")), rows
 
 
 def phase_probe(smi):
@@ -806,33 +901,36 @@ def phase_probe(smi):
 
 def phase_paths():
     """K1-K4 against their twins at the distinct shapes of the serve_mc
-    (batch 2 x mc 4, bf16) and serve_sw (2 cases x 4 tiles x mc 2, fp32)
-    forwards."""
+    (batch 2 x mc 4; bf16 as served, and fp32) and serve_sw (2 cases x 4
+    tiles x mc 2, fp32) forwards."""
     import torch
 
     out = {}
     for name, batch, dtype in (("serve_mc", BATCH * MC_ITER, torch.bfloat16),
+                               ("serve_mc", BATCH * MC_ITER, torch.float32),
                                ("serve_sw", 2 * 4 * 2, torch.float32)):
         rows = phase_kernels(trace_path_calls(batch, dtype), 0, dtypes=(dtype,),
                              timed=False)
-        dn = str(dtype).replace("torch.", "")
-        out[name] = {k: {"shapes": len(v), "max_rel_err": max(r[f"max_rel_err_{dn}"]
-                                                              for r in v)}
-                     for k, v in rows.items()}
+        dn = _dn(dtype)
+        out[f"{name}.{dn}"] = {k: {"shapes": len(v),
+                                   "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v)}
+                               for k, v in rows.items()}
     emit({"phase": "paths", "batch_checks": out})
 
 
-def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve"):
-    """One more bf16 request of ``path`` under torch.profiler (outside the
-    counted run): device busy share of the request's wall time and device
-    time by kernel name (the ``top`` names, and always the bf16 conv's main
-    and split-K reduce kernels and K3's kernel, which must have run)."""
+def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
+    """One more request of ``path`` (bf16 unless ``dtype`` says otherwise)
+    under torch.profiler (outside the counted run): device busy share of
+    the request's wall time and device time by kernel name (the ``top``
+    names, and always the conv's main and split-K reduce kernels, K3's and
+    K4's, which must have run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
     from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
 
-    session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
+    dtype = dtype or torch.bfloat16
+    session = InferenceSession(M1.load(ckpt, dtype=dtype, device="cuda"),
                                mc_iter=mc_iter, device="cuda")
     session(volume)  # warm
     torch.cuda.synchronize()
@@ -861,7 +959,8 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve"):
         raise AssertionError(f"{path}: the profile shows no {missing}")
     shown = dict(by_name.most_common(top))
     shown.update({k: by_name[k] for k in PROFILE_KERNEL_NAMES})
-    emit({"phase": "profile", "path": path, "wall_ms": wall_us / 1e3,
+    emit({"phase": "profile", "path": path, "dtype": _dn(dtype),
+          "volumes": len(volume) * mc_iter, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3,
           "device_busy_share": busy / wall_us if wall_us else None,
           "device_events": len(spans),
@@ -911,10 +1010,10 @@ def main(argv=None):
     calls = trace_path_calls(BATCH)
     rows = phase_kernels(calls, REPS)
     summary = summarize_kernels(rows)
+    fp64 = phase_fp64(calls)
     summary["gemm_loop"], rows["gemm_loop"] = phase_gemm(REPS)
     for name, s in summary.items():
-        emit({"kernel": name, "card": smi, "dtype": "bfloat16", **s,
-              "shapes": rows[name]})
+        emit({"kernel": name, "card": smi, **s, "shapes": rows[name]})
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -933,22 +1032,30 @@ def main(argv=None):
 
     for name, s in summary.items():
         src, replaces, path = KERNEL_INFO[name]
-        n = launches[path][name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "path": path, "launches": n,
-                        "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
-                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-                        **({"also_replaces": ALSO_REPLACES[name]}
-                           if name in ALSO_REPLACES else {}),
-                        "ptxas": ptxas_report(cuda_lib.build_log, PTXAS_NAMES[name]),
-                        **({"routes": CONV_ROUTES} if name in CONV_KERNELS else {})})
-        if n == 0:
-            raise AssertionError(f"{name} never launched on the {path} path")
+        for dn in DTYPE_NAMES:  # bf16 on its own path; K1-K4 in fp32 on serve_sw
+            if dn not in s:
+                continue
+            on = path if dn == "bfloat16" else FP32_PATH
+            n, d = launches[on][name], s[dn]
+            names = {k: k + (MANGLED_TYPE[dn] if name != "gemm_loop" else "")
+                     for k in PTXAS_NAMES[name]}
+            kernels.append({"name": name if dn == "bfloat16" else f"{name}.fp32",
+                            "dtype": dn, "route": "cuda", "source": src,
+                            "replaces": replaces, "path": on, "launches": n,
+                            "max_abs_err": d["max_abs_err"], "ms": d["kernel_ms"],
+                            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+                            **({"also_replaces": ALSO_REPLACES[name]}
+                               if name in ALSO_REPLACES else {}),
+                            "ptxas": ptxas_report(cuda_lib.build_log, names),
+                            **({"kernel_route": CONV_ROUTES[dn]}
+                               if name in CONV_KERNELS else {})})
+            if n == 0:
+                raise AssertionError(f"{name} never launched on the {on} path")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "summary": summary, "rows": rows,
+            json.dump({"card": smi, "summary": summary, "rows": rows, "fp32_vs_fp64": fp64,
                        "launches": launches, "probe": probe}, f, indent=1)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,56 +1,100 @@
-// K1 conv3d and K2 conv3d_transpose for bf16: implicit-GEMM 3D convolution on
-// channels-last (NDHWC) tensors on the tensor cores, bf16 in, fp32
-// accumulation, bf16 out (rounded once).
+// K1 conv3d and K2 conv3d_transpose: implicit-GEMM 3D convolution on
+// channels-last (NDHWC) tensors on the tensor cores, fp32 accumulation, the
+// output rounded once to the input's type. bf16 runs mma.sync m16n8k16;
+// fp32 runs mma.sync m16n8k8 on TF32 operands, error-compensated (3xTF32).
 //
 // Replaces: benchmarks/r2_probe_pallas_mxu.py:80 conv_probe (its body `kern`
 // at :96), the streaming (1,3,3) SAME conv + bias that built a 9-tap im2col in
 // VMEM and ran one deep-K matmul on the MXU. Here the im2col is implicit: each
-// block gathers its (128 rows x 32) slab of the virtual im2col matrix straight
-// from the NDHWC parts into shared memory. The GEMM view, the SAME tap tables
-// and K2's gather form by output phase are those of conv3d.cu (its note has
-// them); both kernels read one ConvParams (conv_params.cuh).
+// block gathers its (128 rows x one K-slab) tile of the virtual im2col matrix
+// straight from the NDHWC parts into shared memory, so no im2col tensor ever
+// reaches device memory. Generalized to every conv of the M1 path: kernels
+// (1,3,3), (3,3,3), (1,1,1); strides (1,1,1), (1,2,2), (2,2,2); a list of up
+// to five channel parts summed into one output (SplitInputConv); and the
+// TF-convention transposed conv (K2). Both kernels read one ConvParams
+// (conv_params.cuh).
+//
+// GEMM view: rows M = output voxels, columns N = output channels, depth
+// K = taps x input channels. XLA SAME padding is asymmetric for even sizes at
+// stride 2 (pad_lo = 0, pad_hi = 1); the Python wrapper computes it and hands
+// the kernel one table of tap offsets, so the kernel knows nothing of padding
+// rules. The transposed conv runs in gather form, split by output phase
+// (output coordinate mod stride): every row of a block shares one phase and
+// hence one set of contributing taps, so no multiply is spent on the zeros a
+// dilated input would hold.
 //
 // What bounds it on an H100. Levels 0-1 (20x160x160 and 20x80x80, 4-64
 // channels) sit far below the card's ~295 bf16 FLOP/byte ridge: bytes bound,
 // and the implicit gather re-reads each input voxel once per tap from L2. The
 // deep 3x3x3 stitches at levels 2-4 (K up to 6,912) are bound by operations,
 // but at batch 2 their output tiles alone give 8-63 blocks for 132 SMs, so
-// what bounds them in practice is grid fill. The design:
+// what bounds them in practice is grid fill. fp32 moves twice the bytes and
+// does three TF32 products for each one (495 TFLOP/s TF32 peak: 1/6 of the
+// bf16 rate for the same convolution). The design:
 //
-//  * Tensor cores through mma.sync m16n8k16 bf16 -> fp32, fragments by
-//    ldmatrix (the building blocks of K5, mma.cuh). Not wgmma: the path is
-//    bound by bytes and by grid fill, not by the peak tensor rate (the whole
-//    forward is 186 GFLOP, 0.19 ms at the 989 TFLOP/s peak, against a byte
-//    bound of 0.34 ms), and mma.sync takes the model's narrow outputs (cout
-//    1..16) at n8 granularity where wgmma's 64-row warpgroup tile would not
-//    pay. The consumer (`mma_k16`) only reads shared tiles, so a later wgmma
-//    consumer replaces it without touching the gather (`load_a`, `load_b`).
-//  * 8 warps, a 128 x BN block tile with BN in {8, 16, 32, 64, 128} picked by
-//    the wrapper from cout; K advances in slabs of 32.
+//  * Tensor cores through mma.sync (the building blocks of K5, mma.cuh). Not
+//    wgmma: the path is bound by bytes and by grid fill, not by the peak
+//    tensor rate (the whole bf16 forward is 186 GFLOP, 0.19 ms at the 989
+//    TFLOP/s peak, against a byte bound of 0.34 ms), and mma.sync takes the
+//    model's narrow outputs (cout 1..16) at n8 granularity where wgmma's
+//    64-row warpgroup tile would not pay. The consumer (`mma_step`) only
+//    reads shared tiles, so a later wgmma consumer replaces it without
+//    touching the gather (`load_a`, `load_b`).
+//  * 8 warps, a 128 x BN block tile with BN in {8, 16, 32, 64, 128} (fp32:
+//    up to 64) picked by the wrapper from cout; K advances in slabs of 64
+//    bytes a row: 32 bf16 or 16 fp32 elements, two mma steps (k16 bf16, k8
+//    fp32) a slab.
 //  * A 4-stage shared-memory ring with one __syncthreads per slab; the next
-//    slab's loads are issued between the current slab's two k16 steps, and
+//    slab's loads are issued between the current slab's two mma steps, and
 //    each thread advances its (tap, channel) cursor without a division. A is
-//    gathered by 16-byte cp.async, 8 channels of one tap of one voxel, with
-//    padding taps and rows past the end zero-filled through cp.async's
-//    src-size operand. A part whose channel count is not a multiple of 8
-//    (the stem's 3, level 0's bottleneck width 4) or whose address is not
-//    16-byte aligned is gathered element by element through registers into
-//    the same bf16 tiles; the wrapper picks the route per part. Weights take
-//    cp.async too: K1's DHWIO kernel is K x N with co contiguous (ldmatrix
-//    .trans), K2's (kd,kh,kw,Cout,Cin) kernel is N x K with ci contiguous
-//    (plain ldmatrix); a cout (K1) or cin (K2) that is not a multiple of 8
-//    takes a scalar, zero-filled load. Shared rows are padded so the eight
-//    16-byte rows of each ldmatrix phase fall in distinct banks.
+//    gathered by 16-byte cp.async, 8 bf16 or 4 fp32 channels of one tap of
+//    one voxel, with padding taps and rows past the end zero-filled through
+//    cp.async's src-size operand. A part whose channel count is not a
+//    multiple of the chunk (the stem's 3; in bf16 also level 0's bottleneck
+//    width 4) or whose address is not 16-byte aligned is gathered element by
+//    element through registers into the same tiles; the wrapper picks the
+//    route per part (ops/convolution.py, gather_routes). Weights take
+//    cp.async too: K1's DHWIO kernel is K x N with co contiguous, K2's
+//    (kd,kh,kw,Cout,Cin) kernel is N x K with ci contiguous; a cout (K1) or
+//    cin (K2) that is not a multiple of the chunk takes a scalar, zero-filled
+//    load.
+//  * Fragments. bf16: ldmatrix (K1's K-major B by ldmatrix .trans); rows are
+//    padded so the eight 16-byte rows of each ldmatrix phase fall in
+//    distinct banks. fp32: A and K2's N-major B by plain ldmatrix, whose
+//    8 rows of 16 bytes hand lane (g, t) the 32-bit element (g, t): the TF32
+//    fragment order. K1's K-major B has no 32-bit transposing load, so each
+//    lane reads its two elements with lds.32 from rows padded to BN + 8
+//    floats (8 for BN 8): the four rows t = 0..3 a load reads then start 8
+//    banks apart and the 32 lanes hit 32 distinct banks.
+//  * fp32 by 3xTF32. The tensor cores take fp32 only as TF32 (10 mantissa
+//    bits, ~1e-3 relative), which alone cannot hold the port's fp32 limits
+//    (kernel vs twin 2e-4, card vs CPU softmax 1e-3). Each fragment value x
+//    is split in registers as it is read: hi = tf32(x), lo = tf32(x - hi),
+//    both rounded as cvt.rna rounds (split_tf32: four integer and float ops
+//    a value where cvt.rna takes six or seven); a product is lo*hi + hi*lo,
+//    then hi*hi, three TF32 mmas into one fp32 accumulator (lo*lo, ~2^-22
+//    relative, is dropped).
+//    The tensor core's fp32 sums lose accuracy over long chains (K5's
+//    finding), so the mmas accumulate into a chain that is added into plain
+//    fp32 registers every kChainSlabs slabs (ops/convolution.py mirrors the
+//    count for the CPU replay). At the path's deepest K (6,912) on an H100,
+//    against an fp64 product: 2.8e-6 relative with chains of 8 slabs,
+//    1.1e-5 with 32, 8e-5 with none (the fp32 twin: 7e-6), at device times
+//    within 2 % of each other. fp32 tiles stop at BN 64 and fewer of their
+//    blocks fit an SM: each holds twice the accumulators.
+//  * ptxas: the bf16 variants keep their registers (59-126, no spills).
+//    fp32 takes 75-128; K2's BN 64 variant, at the 128-register cap of two
+//    blocks an SM, spills 28 bytes.
 //  * Parts are walked in order into one accumulator (no concat); within a
 //    part k is tap-major, each part's K rounded up to whole slabs.
 //  * Deterministic split-K for grids below ~2 waves: the wrapper picks the
 //    split count (ops/convolution.py, igemm_plan); split j of a phase walks
 //    slabs [L*j/S, L*(j+1)/S) and writes fp32 partials to a workspace the
 //    wrapper allocates; splitk_reduce_kernel then sums the splits in order
-//    0..S-1, adds the fp32 bias and rounds once to bf16. No float atomics:
-//    the same inputs give the same bits.
+//    0..S-1, adds the fp32 bias and rounds once to the output type. No float
+//    atomics: the same inputs give the same bits.
 //  * Without split-K the epilogue adds the fp32 bias to the fp32 accumulator
-//    and rounds once to bf16, as the FMA kernel does.
+//    and rounds once to the output type.
 
 #include <stdint.h>
 
@@ -67,42 +111,84 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBM = 128;
-constexpr int kBK = 32;
 constexpr int kStages = 4;
-constexpr int kLdA = kBK + 8;  // 40 elements = 80 bytes a row
+constexpr int kChainSlabs = 8;  // fp32: slabs (16 k8 steps, 48 mmas) a tensor-core chain
 
-template <int BN, bool kNK>
+// Per element type: the K-slab depth (64 bytes a row), one mma step's depth
+// and the elements of a 16-byte chunk.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  static constexpr int kBK = 32, kKS = 16, kVec = 8;
+};
+template <>
+struct Elem<float> {
+  static constexpr int kBK = 16, kKS = 8, kVec = 4;
+};
+
+template <typename T, int BN, bool kNK>
 struct Tile {
+  static constexpr int kBK = Elem<T>::kBK;
+  static constexpr int kLdA = kBK + Elem<T>::kVec;  // 80 bytes a row
   // K1 keeps the weight slab K x N (row = k), K2 keeps it N x K (row = n).
-  static constexpr int kLdB = kNK ? kLdA : (BN == 8 ? 24 : BN + 8);
+  static constexpr int kLdB =
+      kNK ? kLdA : (sizeof(T) == 2 ? (BN == 8 ? 24 : BN + 8) : (BN == 8 ? 8 : BN + 8));
   static constexpr int kAElems = kBM * kLdA;
   static constexpr int kBElems = kNK ? BN * kLdA : kBK * kLdB;
-  static constexpr int kSmemBytes = kStages * (kAElems + kBElems) * (int)sizeof(bf16);
+  static constexpr int kSmemBytes = kStages * (kAElems + kBElems) * (int)sizeof(T);
 };
 
 __device__ __forceinline__ bool inside(int z, int y, int x, int d, int h, int w) {
   return (unsigned)z < (unsigned)d && (unsigned)y < (unsigned)h && (unsigned)x < (unsigned)w;
 }
 
-// Blocks resident on one SM, by tile width: narrow tiles hold few
-// accumulators, so more of their blocks fit (registers capped to match);
-// ops/convolution.py's RESIDENT_BLOCKS mirrors this for the split-K plan.
-constexpr int resident_blocks(int bn) { return bn <= 16 ? 4 : bn <= 32 ? 3 : 2; }
+// Blocks resident on one SM, by element type and tile width: narrow tiles
+// hold few accumulators, so more of their blocks fit (registers capped to
+// match); ops/convolution.py's RESIDENT_BLOCKS mirrors this for the split-K
+// plan.
+template <typename T>
+constexpr int resident_blocks(int bn) {
+  return sizeof(T) == 2 ? (bn <= 16 ? 4 : bn <= 32 ? 3 : 2) : (bn <= 16 ? 3 : 2);
+}
+
+__device__ __forceinline__ void store_pair(bf16* dst, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ void store_pair(float* dst, float v0, float v1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi), each rounded
+// as cvt.rna.tf32.f32 rounds a finite value (half a TF32 step added to the
+// magnitude, the low 13 bits dropped), in integer ops: cvt.rna adds an
+// infinity/NaN test and a select to each value. hi's low bits are cleared
+// here, since x - hi must be exact; lo's are left to the tensor core, which
+// reads only the top 19 bits of a TF32 operand.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) + 0x1000u;
+}
 
 // Warp tile WM x WN = (kBM / WARPS_M) x (BN / (8 / WARPS_M)): MT x NT mma tiles.
-template <int BN, int WARPS_M, bool kNK>
-__global__ void __launch_bounds__(kThreads, resident_blocks(BN))
+template <typename T, int BN, int WARPS_M, bool kNK>
+__global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
     conv3d_mma_kernel(const ConvParams p) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kBK = Elem<T>::kBK, kKS = Elem<T>::kKS, kVec = Elem<T>::kVec;
   constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int WM = kBM / WARPS_M, WN = BN / WARPS_N;
   constexpr int MT = WM / 16, NT = WN / 8;
   static_assert(WARPS_M * WARPS_N == 8 && MT >= 1 && NT >= 1, "8 warps tile the block");
   static_assert(NT == 1 || NT % 2 == 0, "B fragments load in pairs");
-  using T = Tile<BN, kNK>;
+  static_assert(kBK / kVec == 4 && kBK == 2 * kKS, "four chunks, two mma steps a slab row");
+  using Tl = Tile<T, BN, kNK>;
+  constexpr int kLdA = Tl::kLdA;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* const sa = reinterpret_cast<bf16*>(smem);
-  bf16* const sb = sa + kStages * T::kAElems;
+  T* const sa = reinterpret_cast<T*>(smem);
+  T* const sb = sa + kStages * Tl::kAElems;
   __shared__ int4 row_in[kBM];        // (batch or -1, z0, y0, x0)
   __shared__ int row_vox[kBM];        // input voxel index of (z0, y0, x0)
   __shared__ int row_out[kBM];       // output element offset or -1
@@ -173,20 +259,21 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
     vvox[j] = row_vox[(tid >> 2) + j * 64];
   }
 
-  const bf16* const wgt = static_cast<const bf16*>(p.w);
+  const T* const wgt = static_cast<const T*>(p.w);
   const int w_tap_stride = p.cin_total * p.cout;
 
   // ---------------------------------------------------------- producer
   // The slabs of this split are loaded in order, so each thread keeps a
   // cursor: the part, the slab within it, and the (tap, channel) of each k
-  // it loads, advanced 32 a slab without a division (one per part).
-  constexpr int kBChunks = (kBK * BN / 8 + kThreads - 1) / kThreads;
+  // it loads, advanced one slab at a time without a division (one per part).
+  constexpr int kBChunks = (kBK * BN / kVec + kThreads - 1) / kThreads;
   int b_koff[kBChunks], b_n[kBChunks];
 #pragma unroll
   for (int j = 0; j < kBChunks; ++j) {
     const int c = tid + j * kThreads;  // may lie past the slab: b_n >= BN then
-    b_n[j] = kNK ? c / (kBK / 8) : (c % (BN / 8)) * 8 + (c / (BN / 8) >= kBK ? BN : 0);
-    b_koff[j] = kNK ? (c % (kBK / 8)) * 8 : (c / (BN / 8)) % kBK;
+    b_n[j] = kNK ? c / (kBK / kVec)
+                 : (c % (BN / kVec)) * kVec + (c / (BN / kVec) >= kBK ? BN : 0);
+    b_koff[j] = kNK ? (c % (kBK / kVec)) * kVec : (c / (BN / kVec)) % kBK;
   }
   int part = 0, pslab = 0, part_nslab = 0, cin = 1, ci_base = 0;
   bool avec = false;
@@ -201,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
     part_nslab = part_slab[part + 1] - part_slab[part];
     cin = p.cin[part];
     avec = (p.a_vec >> part) & 1;
-    a_k = avec ? (tid & 3) * 8 : tid & 31;
+    a_k = avec ? (tid & 3) * kVec : tid & (kBK - 1);
     const int k0 = pslab * kBK;
     a_t = (k0 + a_k) / cin;
     a_ci = k0 + a_k - a_t * cin;
@@ -211,13 +298,13 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
       b_ci[j] = k0 + b_koff[j] - b_t[j] * cin;
     }
   };
-  auto step = [&](int& t, int& ci) {  // k += 32
+  auto step = [&](int& t, int& ci) {  // k += kBK
     ci += kBK;
     if (ci >= cin) {
       if (ci < 2 * cin) {
         ci -= cin;
         ++t;
-      } else {  // cin < 32: the narrow parts only
+      } else {  // cin < kBK: the narrow parts only
         t += ci / cin;
         ci %= cin;
       }
@@ -233,10 +320,10 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
     for (int j = 0; j < kBChunks; ++j) step(b_t[j], b_ci[j]);
   };
 
-  // A: 128 rows x 32 k of the implicit im2col matrix, into ring stage `stage`
+  // A: 128 rows x kBK k of the implicit im2col matrix, into ring stage `stage`
   auto load_a = [&](int stage) {
-    bf16* const ta = sa + stage * T::kAElems;
-    const bf16* const xp = static_cast<const bf16*>(p.x[part]);
+    T* const ta = sa + stage * Tl::kAElems;
+    const T* const xp = static_cast<const T*>(p.x[part]);
     const bool k_ok = a_t < ntap;
     const int4 tp = taps[k_ok ? a_t : 0];
     const int tv = tap_vox[k_ok ? a_t : 0];
@@ -246,36 +333,36 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
         const bool ok = k_ok && vrow[j].x >= 0 &&
                         inside(vrow[j].y + tp.x, vrow[j].z + tp.y, vrow[j].w + tp.z, p.in_d,
                                p.in_h, p.in_w);
-        const bf16* src = ok ? xp + (size_t)(vvox[j] + tv) * cin + a_ci : xp;
+        const T* src = ok ? xp + (size_t)(vvox[j] + tv) * cin + a_ci : xp;
         pmr::cp_async16_l1(ta + ((tid >> 2) + j * 64) * kLdA + a_k, src, ok ? 16 : 0);
       }
     } else {
 #pragma unroll 4
-      for (int j = 0; j < kBM / 8; ++j) {
-        const int r = (tid >> 5) + j * 8;
+      for (int j = 0; j < kBM * kBK / kThreads; ++j) {
+        const int r = (tid >> (kBK == 32 ? 5 : 4)) + j * (kThreads / kBK);  // tid / kBK
         const int4 info = row_in[r];
         const bool ok = k_ok && info.x >= 0 &&
                         inside(info.y + tp.x, info.z + tp.y, info.w + tp.z, p.in_d, p.in_h,
                                p.in_w);
         ta[r * kLdA + a_k] =
-            ok ? xp[(size_t)(row_vox[r] + tv) * cin + a_ci] : __float2bfloat16(0.f);
+            ok ? xp[(size_t)(row_vox[r] + tv) * cin + a_ci] : pmr::from_f32<T>(0.f);
       }
     }
   };
 
-  // B: the 32 x BN weight slab, into ring stage `stage`
+  // B: the kBK x BN weight slab, into ring stage `stage`
   auto load_b = [&](int stage) {
-    bf16* const tb = sb + stage * T::kBElems;
+    T* const tb = sb + stage * Tl::kBElems;
     if (p.b_vec) {
 #pragma unroll
       for (int j = 0; j < kBChunks; ++j) {
         if (b_n[j] >= BN) continue;
         const int co = n0 + b_n[j];
         const bool ok = b_t[j] < ntap && co < p.cout;
-        const bf16* src = ok ? wgt + taps[b_t[j]].w * w_tap_stride +
-                                   (ci_base + b_ci[j]) * p.w_ci_stride + co * p.w_co_stride
-                             : wgt;
-        bf16* dst = kNK ? tb + b_n[j] * T::kLdB + b_koff[j] : tb + b_koff[j] * T::kLdB + b_n[j];
+        const T* src = ok ? wgt + taps[b_t[j]].w * w_tap_stride +
+                                (ci_base + b_ci[j]) * p.w_ci_stride + co * p.w_co_stride
+                          : wgt;
+        T* dst = kNK ? tb + b_n[j] * Tl::kLdB + b_koff[j] : tb + b_koff[j] * Tl::kLdB + b_n[j];
         pmr::cp_async16(dst, src, ok ? 16 : 0);
       }
     } else {
@@ -284,71 +371,112 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
         const int kk = kNK ? e % kBK : e / BN;
         const int n = kNK ? e / kBK : e % BN;
         const int k = k0 + kk, co = n0 + n;
-        bf16 v = __float2bfloat16(0.f);
+        T v = pmr::from_f32<T>(0.f);
         if (k < k_total && co < p.cout) {
           const int t = k / cin;
           const int ci = k - t * cin;
           v = wgt[taps[t].w * w_tap_stride + (ci_base + ci) * p.w_ci_stride +
                   co * p.w_co_stride];
         }
-        tb[kNK ? n * T::kLdB + kk : kk * T::kLdB + n] = v;
+        tb[kNK ? n * Tl::kLdB + kk : kk * Tl::kLdB + n] = v;
       }
     }
   };
 
   // ---------------------------------------------------------- consumer
-  float acc[MT][NT][4];
+  // bf16: the mmas accumulate in acc. fp32: in chain, added into acc every
+  // kChainSlabs slabs (promote).
+  float acc[MT][NT][4], chain[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = chain[i][j][e] = 0.f;
+  auto promote = [&]() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][j][e] += chain[i][j][e];
+          chain[i][j][e] = 0.f;
+        }
+  };
 
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  // ldmatrix row addresses. A (and K1's K-major B): matrices (rows 0-7, k 0),
-  // (rows 8-15, k 0), (rows 0-7, k 8), (rows 8-15, k 8). K2's N-major B:
-  // (n 0-7, k 0), (n 0-7, k 8), (n 8-15, k 0), (n 8-15, k 8).
+  // ldmatrix row addresses. A (and bf16 K1's K-major B): matrices (rows 0-7,
+  // k 0), (rows 8-15, k 0), (rows 0-7, k +16 B), (rows 8-15, k +16 B). K2's
+  // N-major B: (n 0-7, k 0), (n 0-7, k +16 B), (n 8-15, k 0), (n 8-15, k +16 B).
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int lcol = (lane >> 4) * 8;
+  const int lcol = (lane >> 4) * kVec;
   const int nrow = (lane & 7) + (lane >> 4) * 8;
-  const int ncol = ((lane >> 3) & 1) * 8;
+  const int ncol = ((lane >> 3) & 1) * kVec;
 
-  // One k16 step of the block tile from ring stage `stage`.
-  auto mma_k16 = [&](int stage, int kk) {
-    const bf16* const ta = sa + stage * T::kAElems;
-    const bf16* const tb = sb + stage * T::kBElems;
+  // One mma step (k16 bf16, k8 fp32) of the block tile from ring stage `stage`.
+  auto mma_step = [&](int stage, int kk) {
+    const T* const ta = sa + stage * Tl::kAElems;
+    const T* const tb = sb + stage * Tl::kBElems;
     uint32_t af[MT][4], bfr[NT][2];
 #pragma unroll
     for (int i = 0; i < MT; ++i)
       pmr::ldmatrix_x4(af[i], ta + (wm * WM + i * 16 + lrow) * kLdA + kk + lcol);
-    if constexpr (NT == 1) {
+    if constexpr (kF32 && !kNK) {
+      const T* const col0 = tb + (kk + (lane & 3)) * Tl::kLdB + wn * WN + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const T* col = col0 + j * 8;
+        bfr[j][0] = __float_as_uint(col[0]);
+        bfr[j][1] = __float_as_uint(col[4 * Tl::kLdB]);
+      }
+    } else if constexpr (NT == 1) {
       if constexpr (kNK)
-        pmr::ldmatrix_x2(bfr[0], tb + (wn * WN + (lane & 7)) * T::kLdB + kk + ncol);
+        pmr::ldmatrix_x2(bfr[0], tb + (wn * WN + (lane & 7)) * Tl::kLdB + kk + ncol);
       else
-        pmr::ldmatrix_x2_trans(bfr[0], tb + (kk + (lane & 15)) * T::kLdB + wn * WN);
+        pmr::ldmatrix_x2_trans(bfr[0], tb + (kk + (lane & 15)) * Tl::kLdB + wn * WN);
     } else {
 #pragma unroll
       for (int jj = 0; jj < NT / 2; ++jj) {
         uint32_t r[4];
         if constexpr (kNK)
-          pmr::ldmatrix_x4(r, tb + (wn * WN + jj * 16 + nrow) * T::kLdB + kk + ncol);
+          pmr::ldmatrix_x4(r, tb + (wn * WN + jj * 16 + nrow) * Tl::kLdB + kk + ncol);
         else
-          pmr::ldmatrix_x4_trans(r, tb + (kk + lrow) * T::kLdB + wn * WN + jj * 16 + lcol);
+          pmr::ldmatrix_x4_trans(r, tb + (kk + lrow) * Tl::kLdB + wn * WN + jj * 16 + lcol);
         bfr[2 * jj][0] = r[0];
         bfr[2 * jj][1] = r[1];
         bfr[2 * jj + 1][0] = r[2];
         bfr[2 * jj + 1][1] = r[3];
       }
     }
+    if constexpr (kF32) {
+      uint32_t bhi[NT][2], blo[NT][2];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) pmr::mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+        for (int h = 0; h < 2; ++h) split_tf32(bfr[j][h], bhi[j][h], blo[j][h]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(af[i][e], ahi[e], alo[e]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          pmr::mma_tf32(chain[i][j], alo, bhi[j][0], bhi[j][1]);
+          pmr::mma_tf32(chain[i][j], ahi, blo[j][0], blo[j][1]);
+          pmr::mma_tf32(chain[i][j], ahi, bhi[j][0], bhi[j][1]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) pmr::mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
   };
 
   // ------------------------------------------------------------ the ring
-  // Slab i + 3's loads are issued between slab i's two k16 steps, so the
+  // Slab i + 3's loads are issued between slab i's two mma steps, so the
   // gather's integer work overlaps the tensor cores.
   if (nslab > 0) seek(s_begin);
   for (int s = 0; s < kStages - 1; ++s) {
@@ -365,14 +493,18 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
     const int next = i + kStages - 1;
     const int stage = i % kStages;
     if (next < nslab) load_a(next % kStages);
-    mma_k16(stage, 0);
+    mma_step(stage, 0);
     if (next < nslab) {
       load_b(next % kStages);
       advance();
     }
     pmr::cp_async_commit();
-    mma_k16(stage, 16);
+    mma_step(stage, kKS);
+    if constexpr (kF32) {
+      if ((i + 1) % kChainSlabs == 0) promote();
+    }
   }
+  if constexpr (kF32) promote();
 
   // ------------------------------------------------------------ epilogue
   // C fragment: c0, c1 at (g, 2t..2t+1); c2, c3 at (g + 8, 2t..2t+1).
@@ -380,7 +512,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
   const bool pairs = (p.cout & 1) == 0;
   const int out_numel = p.batch * p.out_d * p.out_h * p.out_w * p.cout;
   float* const part_out = p.splits > 1 ? p.ws + (size_t)split * out_numel : nullptr;
-  bf16* const y = static_cast<bf16*>(p.y);
+  T* const y = static_cast<T*>(p.y);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -407,35 +539,36 @@ __global__ void __launch_bounds__(kThreads, resident_blocks(BN))
           v0 += p.bias[co];
           if (both) v1 += p.bias[co + 1];
         }
-        bf16* dst = y + oofs + co;
+        T* dst = y + oofs + co;
         if (both && pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+          store_pair(dst, v0, v1);
         } else {
-          dst[0] = __float2bfloat16(v0);
-          if (both) dst[1] = __float2bfloat16(v1);
+          dst[0] = pmr::from_f32<T>(v0);
+          if (both) dst[1] = pmr::from_f32<T>(v1);
         }
       }
     }
 }
 
-// y = bf16(sum_{j < splits} ws[j] + bias), the splits summed in order.
+// y = T(sum_{j < splits} ws[j] + bias), the splits summed in order.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     splitk_reduce_kernel(const float* __restrict__ ws, int splits, long long numel, int cout,
-                         const float* __restrict__ bias, bf16* __restrict__ y) {
+                         const float* __restrict__ bias, T* __restrict__ y) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < numel;
        e += stride) {
     float s = ws[e];
     for (int j = 1; j < splits; ++j) s += ws[(size_t)j * numel + e];
     if (bias != nullptr) s += bias[e % cout];
-    y[e] = __float2bfloat16(s);
+    y[e] = pmr::from_f32<T>(s);
   }
 }
 
-template <int BN, int WARPS_M, bool kNK>
+template <typename T, int BN, int WARPS_M, bool kNK>
 int launch_tile(const ConvParams& p, cudaStream_t stream) {
-  auto kernel = conv3d_mma_kernel<BN, WARPS_M, kNK>;
-  constexpr int smem = Tile<BN, kNK>::kSmemBytes;
+  auto kernel = conv3d_mma_kernel<T, BN, WARPS_M, kNK>;
+  constexpr int smem = Tile<T, BN, kNK>::kSmemBytes;
   static bool configured = false;  // the attribute is per kernel, set once
   if (!configured) {
     const cudaError_t err =
@@ -450,36 +583,44 @@ int launch_tile(const ConvParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kNK>
+template <typename T, bool kNK>
 int launch_bn(const ConvParams& p, cudaStream_t stream) {
   switch (p.bn) {
-    case 8: return launch_tile<8, 8, kNK>(p, stream);
-    case 16: return launch_tile<16, 8, kNK>(p, stream);
-    case 32: return launch_tile<32, 4, kNK>(p, stream);
-    case 64: return launch_tile<64, 4, kNK>(p, stream);
-    case 128: return launch_tile<128, 2, kNK>(p, stream);
+    case 8: return launch_tile<T, 8, 8, kNK>(p, stream);
+    case 16: return launch_tile<T, 16, 8, kNK>(p, stream);
+    case 32: return launch_tile<T, 32, 4, kNK>(p, stream);
+    case 64: return launch_tile<T, 64, 4, kNK>(p, stream);
+    case 128:
+      if constexpr (sizeof(T) == 2) return launch_tile<T, 128, 2, kNK>(p, stream);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// K1 and K2 in bf16 (the wrapper's meta[67] says which): the main kernel
-// and, with split-K, the reduce, both on `stream`.
-extern "C" int pmr_conv3d_mma(const void* ptrs, const void* meta, const void* taps,
-                              void* stream) {
-  ConvParams p;
-  int rc = pmr::unpack_conv_args(ptrs, meta, taps, &p);
-  if (rc != 0) return rc;
-  if (p.dtype != pmr::kBFloat16 || p.splits < 1 || p.splits > 64 ||
-      (p.splits > 1 && p.ws == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rc = p.transposed ? launch_bn<true>(p, s) : launch_bn<false>(p, s);
+template <typename T>
+int run(const ConvParams& p, cudaStream_t s) {
+  int rc = p.transposed ? launch_bn<T, true>(p, s) : launch_bn<T, false>(p, s);
   if (rc != 0 || p.splits == 1) return rc;
   const long long numel = (long long)p.batch * p.out_d * p.out_h * p.out_w * p.cout;
   const long long blocks = (numel + kThreads - 1) / kThreads;
-  splitk_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads, 0, s>>>(
-      p.ws, p.splits, numel, p.cout, p.bias, static_cast<bf16*>(p.y));
+  splitk_reduce_kernel<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads, 0, s>>>(
+      p.ws, p.splits, numel, p.cout, p.bias, static_cast<T*>(p.y));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1 and K2 in bf16 or fp32 (meta[62] and meta[67] say which): the main
+// kernel and, with split-K, the reduce, both on `stream`.
+extern "C" int pmr_conv3d_mma(const void* ptrs, const void* meta, const void* taps,
+                              void* stream) {
+  ConvParams p;
+  const int rc = pmr::unpack_conv_args(ptrs, meta, taps, &p);
+  if (rc != 0) return rc;
+  if (p.splits < 1 || p.splits > 64 || (p.splits > 1 && p.ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.dtype == pmr::kBFloat16) return run<bf16>(p, s);
+  if (p.dtype == pmr::kFloat32) return run<float>(p, s);
+  return (int)cudaErrorInvalidValue;
 }

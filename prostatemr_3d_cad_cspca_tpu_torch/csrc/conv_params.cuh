@@ -1,7 +1,7 @@
-// The parameters of one implicit-GEMM conv launch (K1 or K2), shared by the
-// fp32 FMA kernel (conv3d.cu) and the bf16 tensor-core kernel
-// (conv3d_mma.cu), and their unpacking from the wrapper's three host arrays
-// (layout documented in ops/convolution.py, _pack_conv_args).
+// The parameters of one implicit-GEMM conv launch (K1 or K2, bf16 or fp32)
+// of the tensor-core kernel (conv3d_mma.cu), and their unpacking from the
+// wrapper's three host arrays (layout documented in ops/convolution.py,
+// _pack_conv_args).
 #pragma once
 
 #include <stdint.h>
@@ -37,7 +37,7 @@ struct ConvParams {
   int res[kMaxPhases][3];
   signed char tap[kMaxPhases][kMaxTaps][4];  // dz, dy, dx, weight tap index
   int dtype;  // pmr::DType
-  // read by the bf16 tensor-core kernel only
+  // the schedule (ops/convolution.py, igemm_plan and gather_routes)
   float* ws;        // split-K partials, splits x output elements (fp32)
   int splits;       // K splits per output tile (1: no workspace)
   int a_vec;        // bit p: part p is gathered by 16-byte cp.async

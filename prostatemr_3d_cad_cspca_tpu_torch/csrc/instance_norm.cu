@@ -21,9 +21,7 @@
 //
 // What bounds them on an H100: bytes. Both do a handful of flops per element;
 // K3 reads the tensor once (bf16) or twice (fp32) and K4 reads it once and
-// writes it once. K4 keeps loads coalesced (consecutive threads read
-// consecutive channels of consecutive voxels) and its coefficients in shared
-// memory.
+// writes it once.
 //
 // K3's design (ops/normalization.py in_stats_plan computes its grid):
 //  * 16-byte loads: a lane vector of 8 bf16 or 4 fp32 channels, 8 loads in
@@ -46,6 +44,37 @@
 //    chunks (float4 loads of 4 channels, a few lanes each, every lane's
 //    chunks in order and the lanes combined in order) and resets the ticket
 //    for the next call. No second launch.
+//  * ptxas: the fp32 16-byte variant keeps one 32-bit value in an 8-byte
+//    stack frame (16 bytes of spill traffic: stored once on entry, loaded
+//    three times, each in the fold after the last-block test; the high word
+//    of the sign-extended channel count that the 64-bit offsets use). Not
+//    register pressure: it uses 48 of 255 registers. Unsigned offsets, 1/n
+//    by __frcp_rn, or both, moved the spill (16 bytes either way) but did
+//    not remove it, and 1/n from the host made the bf16 variant spill too;
+//    it costs a few loads a block, so the code stays as it is.
+//
+// K4's design (ops/normalization.py in_apply_plan computes its grid): a
+// stream at 16 bytes a lane, as K3 reads.
+//  * 16-byte loads and stores: a vector of 8 bf16 or 4 fp32 channels,
+//    kApplyUnroll vectors in flight a thread; consecutive threads take
+//    consecutive vectors. A thread's first loads are issued before it builds
+//    its coefficients, so on the small deep shapes (one round a thread) the
+//    two latencies overlap.
+//  * Fixed channels per thread: each sample's `active` threads are a
+//    multiple of G (= C / VEC vectors a voxel, or 1 where C divides VEC), so
+//    a thread's stride of `active` vectors keeps it on the same VEC channels
+//    in every vector. It builds their coefficients once, in registers,
+//    straight from stats, scale and bias: no per-element modulo, no shared
+//    table, no __syncthreads.
+//    Where C is a multiple of VEC, those channels are whole float4s of
+//    stats, scale and bias, read by 16-byte loads (4 or 8 of them a thread
+//    instead of 4 VEC scalar loads; on the deep shapes, where each thread
+//    streams one round, building the coefficients is most of its time).
+//  * Other widths, and a base that is not 16-byte aligned, take the scalar
+//    route (VEC = 1, G = C) through the same code.
+//  * A grid sized from bytes: about 32 KB in flight an SM where the tensor
+//    is large (the level-0 shapes), and only as many blocks as one pass of
+//    kApplyUnroll vectors a thread needs on the small deep shapes.
 
 #include <stdint.h>
 
@@ -326,55 +355,149 @@ int stats_route(const void* x, void* part, void* stats, void* tickets, int batch
   return (int)cudaErrorInvalidValue;
 }
 
-// Grid (blocks_per_batch, batch). Each block builds its batch's coefficients
-// in shared memory, then streams a strided share of that batch's elements.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    in_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
-                    const float* __restrict__ scale, const float* __restrict__ bias,
-                    T* __restrict__ y, int per_batch, int channels, float eps,
-                    int lrelu) {
-  extern __shared__ float coef[];  // [3][channels]: center, a, b
-  const int b = blockIdx.y;
-  const float* st = stats + (size_t)b * 2 * channels;
-  for (int c = threadIdx.x; c < channels; c += blockDim.x) {
-    const float mean = st[c];
-    const float a = rsqrtf(st[channels + c] + eps) * scale[c];
-    if (sizeof(T) == 4) {
-      coef[c] = mean;
-      coef[channels + c] = a;
-      coef[2 * channels + c] = bias[c];
-    } else {
-      const float bb = bias[c] - mean * a;
-      coef[c] = 0.f;
-      coef[channels + c] = pmr::to_f32<T>(pmr::from_f32<T>(a));
-      coef[2 * channels + c] = pmr::to_f32<T>(pmr::from_f32<T>(bb));
-    }
+// 16-byte (or one-element) stores of VEC fp32 values rounded to T.
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
   }
-  __syncthreads();
-  const T* xb = x + (size_t)b * per_batch;
-  T* yb = y + (size_t)b * per_batch;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < per_batch;
-       i += gridDim.x * blockDim.x) {
-    const int c = i % channels;
-    float v = fmaf(pmr::to_f32<T>(xb[i]) - coef[c], coef[channels + c],
-                   coef[2 * channels + c]);
-    if (lrelu) v = v >= 0.f ? v : 0.1f * v;
-    yb[i] = pmr::from_f32<T>(v);
-  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 template <typename T>
-int apply_impl(const T* x, const float* stats, const float* scale, const float* bias,
-               T* y, int batch, int per_batch, int channels, float eps, int lrelu,
-               cudaStream_t stream) {
-  int blocks = (per_batch + kThreads * 8 - 1) / (kThreads * 8);
-  blocks = blocks < 1 ? 1 : (blocks > 4096 ? 4096 : blocks);
-  const dim3 grid(blocks, batch);
-  const size_t smem = 3 * (size_t)channels * sizeof(float);
-  in_apply_kernel<T><<<grid, kThreads, smem, stream>>>(x, stats, scale, bias, y,
-                                                       per_batch, channels, eps, lrelu);
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[1]) {
+  *p = pmr::from_f32<T>(v[0]);
+}
+
+constexpr int kApplyUnroll = 4;  // vectors in flight a thread
+
+// Grid (blocks a sample, batch). Thread i < active of sample b applies the
+// coefficients of channels ((i % groups) * VEC + l) % C, l < VEC, to vectors
+// i, i + active, ... of the sample (`active` is a multiple of `groups`),
+// kApplyUnroll of them a round.
+// fp32: y = (x - mean) * a + bias; bf16: y = x * a' + b' (a', b' rounded to
+// bf16); a = rsqrt(var + eps) * scale; then LReLU(0.1) on request.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    in_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    T* __restrict__ y, int per_batch, int channels, int groups, int active,
+                    float eps, int lrelu, int coef_vec) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= active) return;
+  const int b = blockIdx.y, C = channels;
+  const long long nvec = per_batch / VEC, stride = active;
+  const T* xb = x + (size_t)b * per_batch;
+  T* yb = y + (size_t)b * per_batch;
+  // One round: vectors v + k * stride (k < kApplyUnroll) that lie in the
+  // sample. The first round's loads are in flight while the coefficients
+  // are built.
+  float u[kApplyUnroll][VEC];
+  auto load_round = [&](long long v) {
+#pragma unroll
+    for (int k = 0; k < kApplyUnroll; ++k)
+      if (v + k * stride < nvec) load_vec(xb + (v + k * stride) * VEC, u[k]);
+  };
+  long long v = i;
+  load_round(v);
+
+  const float* st = stats + (size_t)b * 2 * C;
+  const int ch0 = (i % groups) * VEC;
+  float mean[VEC], var[VEC], sc[VEC], bi[VEC];
+  bool loaded = false;
+  if constexpr (VEC % 4 == 0) {
+    if (coef_vec) {
+#pragma unroll
+      for (int q = 0; q < VEC; q += 4) {
+        load_vec(st + ch0 + q, reinterpret_cast<float(&)[4]>(mean[q]));
+        load_vec(st + C + ch0 + q, reinterpret_cast<float(&)[4]>(var[q]));
+        load_vec(scale + ch0 + q, reinterpret_cast<float(&)[4]>(sc[q]));
+        load_vec(bias + ch0 + q, reinterpret_cast<float(&)[4]>(bi[q]));
+      }
+      loaded = true;
+    }
+  }
+  if (!loaded) {
+#pragma unroll
+    for (int l = 0; l < VEC; ++l) {
+      const int ch = (ch0 + l) % C;
+      mean[l] = st[ch];
+      var[l] = st[C + ch];
+      sc[l] = scale[ch];
+      bi[l] = bias[ch];
+    }
+  }
+  float center[VEC], a[VEC], c[VEC];
+#pragma unroll
+  for (int l = 0; l < VEC; ++l) {
+    const float av = rsqrtf(var[l] + eps) * sc[l];
+    if (sizeof(T) == 4) {
+      center[l] = mean[l];
+      a[l] = av;
+      c[l] = bi[l];
+    } else {
+      const float bb = bi[l] - mean[l] * av;
+      center[l] = 0.f;
+      a[l] = pmr::to_f32<T>(pmr::from_f32<T>(av));
+      c[l] = pmr::to_f32<T>(pmr::from_f32<T>(bb));
+    }
+  }
+  while (true) {
+#pragma unroll
+    for (int k = 0; k < kApplyUnroll; ++k) {
+      if (v + k * stride >= nvec) continue;
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) {
+        const float r = fmaf(u[k][l] - center[l], a[l], c[l]);
+        u[k][l] = lrelu && r < 0.f ? 0.1f * r : r;
+      }
+      store_vec(yb + (v + k * stride) * VEC, u[k]);
+    }
+    v += kApplyUnroll * stride;
+    if (v >= nvec) break;
+    load_round(v);
+  }
+}
+
+template <typename T, int VEC>
+int apply_impl(const void* x, const float* stats, const float* scale, const float* bias,
+               void* y, int batch, int per_batch, int channels, float eps, int lrelu,
+               int blocks, int active, int coef_vec, cudaStream_t stream) {
+  const int groups = channels % VEC == 0 ? channels / VEC : 1;
+  if (active < groups || active % groups != 0 || active > blocks * kThreads)
+    return (int)cudaErrorInvalidValue;
+  in_apply_kernel<T, VEC><<<dim3(blocks, batch), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), stats, scale, bias, static_cast<T*>(y), per_batch, channels,
+      groups, active, eps, lrelu, coef_vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int apply_route(const void* x, const float* stats, const float* scale, const float* bias,
+                void* y, int batch, int per_batch, int channels, float eps, int lrelu, int vec,
+                int blocks, int active, cudaStream_t stream) {
+  if (vec == VEC) {
+    if (!(channels % VEC == 0 || VEC % channels == 0) || per_batch % VEC != 0 ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    // Coefficients in 16-byte loads where each thread's VEC channels are
+    // whole float4s of aligned arrays (C a multiple of VEC).
+    const int coef_vec = VEC % 4 == 0 && channels % VEC == 0 &&
+                         (reinterpret_cast<uintptr_t>(stats) | reinterpret_cast<uintptr_t>(scale) |
+                          reinterpret_cast<uintptr_t>(bias)) % 16 == 0;
+    return apply_impl<T, VEC>(x, stats, scale, bias, y, batch, per_batch, channels, eps, lrelu,
+                              blocks, active, coef_vec, stream);
+  }
+  if (vec == 1)
+    return apply_impl<T, 1>(x, stats, scale, bias, y, batch, per_batch, channels, eps, lrelu,
+                            blocks, active, 0, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -399,23 +522,24 @@ extern "C" int pmr_in_stats(const void* x, void* part, void* stats, void* ticket
   return (int)cudaErrorInvalidValue;
 }
 
-// x, y: (B, per_batch) contiguous with channels fastest; stats (B, 2, C).
+// x, y: (B, per_batch) contiguous with channels fastest; stats (B, 2, C);
+// vec: 1 (scalar route) or 16 bytes of elements; blocks (a sample) and
+// active (threads a sample) from ops/normalization.py in_apply_plan.
 extern "C" int pmr_in_apply(const void* x, const void* stats, const void* scale,
-                            const void* bias, void* y, int dtype, int batch,
-                            int per_batch, int channels, float eps, int lrelu,
-                            void* stream) {
-  if (batch < 1 || per_batch < 1 || channels < 1 || batch > 65535)
+                            const void* bias, void* y, int dtype, int batch, int per_batch,
+                            int channels, float eps, int lrelu, int vec, int blocks,
+                            int active, void* stream) {
+  if (batch < 1 || per_batch < 1 || channels < 1 || batch > 65535 || blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* st = static_cast<const float*>(stats);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   if (dtype == pmr::kBFloat16)
-    return apply_impl(static_cast<const __nv_bfloat16*>(x), st, sc, bi,
-                      static_cast<__nv_bfloat16*>(y), batch, per_batch, channels, eps,
-                      lrelu, s);
+    return apply_route<__nv_bfloat16, 8>(x, st, sc, bi, y, batch, per_batch, channels, eps,
+                                         lrelu, vec, blocks, active, s);
   if (dtype == pmr::kFloat32)
-    return apply_impl(static_cast<const float*>(x), st, sc, bi, static_cast<float*>(y),
-                      batch, per_batch, channels, eps, lrelu, s);
+    return apply_route<float, 4>(x, st, sc, bi, y, batch, per_batch, channels, eps, lrelu,
+                                 vec, blocks, active, s);
   return (int)cudaErrorInvalidValue;
 }

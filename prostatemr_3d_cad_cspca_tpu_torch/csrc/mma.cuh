@@ -1,7 +1,7 @@
-// Tensor-core building blocks in inline PTX for the bf16 conv kernels
+// Tensor-core building blocks in inline PTX for the conv kernels
 // (conv3d_mma.cu): 16-byte cp.async with zero-fill, ldmatrix (plain and
-// transposed) and mma.sync m16n8k16 bf16 -> fp32; smem_addr also serves
-// tma.cuh and wgmma.cuh.
+// transposed), mma.sync m16n8k16 bf16 -> fp32 and m16n8k8 tf32 -> fp32;
+// smem_addr also serves tma.cuh and wgmma.cuh.
 #pragma once
 
 #include <stdint.h>
@@ -66,6 +66,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b on one 16x8x8 tile of TF32 operands (the tensor core reads the
+// top 19 bits of each 32-bit register), fp32 accumulation. The fragments
+// hold one 32-bit element a register: a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); c as
+// mma_bf16's (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -13,8 +13,8 @@ while torch's ``padding=1`` starts one voxel before it. Both kernels below get
 their windows from :func:`forward_plan` / :func:`transpose_plan`.
 
 Two kernels live here, each with its plain PyTorch twin and its launch
-counter; each runs bf16 on the tensor cores (``csrc/conv3d_mma.cu``) and
-fp32 on the CUDA cores (``csrc/conv3d.cu``), whose notes say why:
+counter; both run on the tensor cores (``csrc/conv3d_mma.cu``, whose note
+says how), bf16 directly and fp32 as error-compensated TF32 (3xTF32):
 
   * K1 :func:`conv3d` — forward conv over a list of channel parts
     (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
@@ -145,34 +145,43 @@ def transpose_plan(kernel_size, strides, in_spatial):
                 out_mul=st, phases=tuple(phases))
 
 
-# ------------------------------------------- the bf16 tensor-core schedule
-BM, BK = 128, 32           # block rows and K-slab depth of csrc/conv3d_mma.cu
+# ------------------------------------------------ the tensor-core schedule
+BM = 128                   # block rows of csrc/conv3d_mma.cu
+# per element type (csrc/conv3d_mma.cu Elem, resident_blocks): the K-slab
+# depth (64 bytes a row), the tile widths, and the blocks of each tile width
+# resident on one SM (the kernel's launch bounds): one wave of the grid
+BK = {torch.bfloat16: 32, torch.float32: 16}
+TILES_N = {torch.bfloat16: (8, 16, 32, 64, 128), torch.float32: (8, 16, 32, 64)}
+RESIDENT_BLOCKS = {torch.bfloat16: {8: 4, 16: 4, 32: 3, 64: 2, 128: 2},
+                   torch.float32: {8: 3, 16: 3, 32: 2, 64: 2}}
+CHAIN_SLABS = 8            # fp32: slabs a tensor-core chain runs (kChainSlabs)
 SMS = 132                  # streaming multiprocessors of an H100 SXM
-# blocks of each tile width resident on one SM (the kernel's launch bounds,
-# csrc/conv3d_mma.cu resident_blocks): one wave of the grid
-RESIDENT_BLOCKS = {8: 4, 16: 4, 32: 3, 64: 2, 128: 2}
 MIN_SLABS_PER_SPLIT = 8    # K is split only while a split keeps this many slabs
 MAX_SPLITS = 64
 MAX_INDEX = 2 ** 31        # the kernel's row, voxel and element indices are int
 
 
-def tile_n(cout: int) -> int:
-    """The output-channel tile of the bf16 kernel: the least of 8, 16, 32, 64
-    that holds cout, else 128."""
-    return next((b for b in (8, 16, 32, 64) if cout <= b), 128)
+def tile_n(cout: int, dtype: torch.dtype) -> int:
+    """The output-channel tile of the kernel: the least of TILES_N[dtype]
+    that holds cout, else the widest."""
+    widths = TILES_N[dtype]
+    return next((b for b in widths if cout <= b), widths[-1])
 
 
-def phase_slabs(cins, ntaps):
-    """K-slabs of each phase: each part's ntap * cin rounded up to slabs."""
-    return tuple(sum(-(-nt * c // BK) for c in cins) for nt in ntaps)
+def phase_slabs(cins, ntaps, dtype: torch.dtype):
+    """K-slabs of each phase: each part's ntap * cin rounded up to slabs of
+    BK[dtype]."""
+    return tuple(sum(-(-nt * c // BK[dtype]) for c in cins) for nt in ntaps)
 
 
-def igemm_plan(rows: int, cout: int, slabs) -> dict:
-    """Tile and split-K schedule of the bf16 kernel for ``rows`` output rows
-    per phase, ``cout`` output channels and ``slabs`` K-slabs per phase.
+def igemm_plan(rows: int, cout: int, slabs, dtype: torch.dtype) -> dict:
+    """Tile and split-K schedule of the kernel in ``dtype`` for ``rows``
+    output rows per phase, ``cout`` output channels and ``slabs`` K-slabs
+    per phase.
 
     Output tiles alone give ``tiles`` blocks; one wave of the card holds
-    ``target`` = SMS x RESIDENT_BLOCKS of them (2-4 per SM by tile width).
+    ``target`` = SMS x RESIDENT_BLOCKS of them (2-4 per SM by type and tile
+    width).
     Where the tiles fill less than a wave, K is split into the most
     ``splits`` that still fit one wave, unless K runs out first: a split
     keeps MIN_SLABS_PER_SPLIT slabs on average and at least one in every
@@ -182,9 +191,9 @@ def igemm_plan(rows: int, cout: int, slabs) -> dict:
     split order.
     """
     slabs = tuple(slabs)
-    bn = tile_n(cout)
+    bn = tile_n(cout, dtype)
     tiles = -(-rows // BM) * -(-cout // bn) * len(slabs)
-    target = SMS * RESIDENT_BLOCKS[bn]
+    target = SMS * RESIDENT_BLOCKS[dtype][bn]
     cap = max(1, min(min(slabs), sum(slabs) // (len(slabs) * MIN_SLABS_PER_SPLIT),
                      MAX_SPLITS))
     splits = max(1, min(target // tiles, cap))
@@ -196,29 +205,31 @@ def igemm_plan(rows: int, cout: int, slabs) -> dict:
 
 
 def gather_routes(parts, kernel):
-    """How the bf16 kernel loads each operand: "cp.async" (16-byte chunks of
-    8 channels) where the chunk axis is a multiple of 8 and the tensor is
-    16-byte aligned, else "scalar" (element by element through registers).
-    Returns (one route per part, the weights' route). The weights' chunk
-    axis is their last: Cout of K1's DHWIO kernel, Cin of K2's."""
+    """How the kernel loads each operand: "cp.async" (16-byte chunks: 8 bf16
+    or 4 fp32 channels, by each tensor's element size) where the chunk axis
+    is a multiple of the chunk and the tensor is 16-byte aligned, else
+    "scalar" (element by element through registers). Returns (one route per
+    part, the weights' route). The weights' chunk axis is their last: Cout
+    of K1's DHWIO kernel, Cin of K2's."""
     def route(n, t):
-        return "cp.async" if n % 8 == 0 and t.data_ptr() % 16 == 0 else "scalar"
+        chunk = 16 // t.element_size()
+        return "cp.async" if n % chunk == 0 and t.data_ptr() % 16 == 0 else "scalar"
 
     return [route(int(p.shape[-1]), p) for p in parts], route(int(kernel.shape[4]), kernel)
 
 
-def _pack_conv_args(parts, kernel, bias, y, plan, transposed, igemm=None, ws=None):
-    """The three host arrays the C entries of csrc/conv3d.cu and
-    csrc/conv3d_mma.cu read (csrc/conv_params.cuh unpacks them).
+def _pack_conv_args(parts, kernel, bias, y, plan, transposed, igemm, ws):
+    """The three host arrays the C entry of csrc/conv3d_mma.cu reads
+    (csrc/conv_params.cuh unpacks them).
 
     ptrs (uint64[9]): part pointers 0..4, kernel, bias, output, workspace.
     meta (int32[72]): 0 nparts; 1-5 cin of each part; 6 cin total; 7 batch;
       8-10 input D,H,W; 11-13 output D,H,W; 14-16 row grid D,H,W; 17 cout;
       18-20 in_mul; 21-23 in_add; 24-26 out_mul; 27 weight ci stride;
       28 weight co stride; 29 nphase; 30-37 taps per phase; 38-61 phase
-      residues (8 x 3); 62 dtype code; 63 has bias; with ``igemm`` (the
-      bf16 kernel's plan): 64 splits; 65 bit p set where part p takes the
-      cp.async gather; 66 weights by cp.async; 67 transposed; 68 tile n.
+      residues (8 x 3); 62 dtype code; 63 has bias; from ``igemm`` (the
+      plan): 64 splits; 65 bit p set where part p takes the cp.async
+      gather; 66 weights by cp.async; 67 transposed; 68 tile n.
     taps (int8[8, 27, 4]): per phase and tap, (dz, dy, dx, weight tap).
     """
     cin = [int(p.shape[-1]) for p in parts]
@@ -252,14 +263,13 @@ def _pack_conv_args(parts, kernel, bias, y, plan, transposed, igemm=None, ws=Non
     ptrs[5] = kernel.data_ptr()
     ptrs[6] = bias.data_ptr() if bias is not None else 0
     ptrs[7] = y.data_ptr()
-    if igemm is not None:
-        a_routes, b_route = gather_routes(parts, kernel)
-        meta[64] = igemm["splits"]
-        meta[65] = sum(1 << i for i, r in enumerate(a_routes) if r == "cp.async")
-        meta[66] = b_route == "cp.async"
-        meta[67] = transposed
-        meta[68] = igemm["bn"]
-        ptrs[8] = ws.data_ptr() if ws is not None else 0
+    a_routes, b_route = gather_routes(parts, kernel)
+    meta[64] = igemm["splits"]
+    meta[65] = sum(1 << i for i, r in enumerate(a_routes) if r == "cp.async")
+    meta[66] = b_route == "cp.async"
+    meta[67] = transposed
+    meta[68] = igemm["bn"]
+    ptrs[8] = ws.data_ptr() if ws is not None else 0
     return ptrs, meta, taps
 
 
@@ -269,24 +279,24 @@ def window_plan(kernel_size, strides, in_spatial, transposed):
     return fn(tuple(kernel_size), tuple(strides), tuple(in_spatial))
 
 
-def igemm_schedule(part_shapes, kernel_shape, strides, transposed):
-    """(window plan, :func:`igemm_plan`) of one K1/K2 call, from its shapes
-    alone."""
+def igemm_schedule(part_shapes, kernel_shape, strides, transposed, dtype):
+    """(window plan, :func:`igemm_plan`) of one K1/K2 call in ``dtype``,
+    from its shapes alone."""
     geom = window_plan(kernel_shape[:3], strides, part_shapes[0][1:4], transposed)
     rows = int(part_shapes[0][0]) * math.prod(geom["grid"])
     slabs = phase_slabs([int(s[-1]) for s in part_shapes],
-                        [len(taps) for _, taps in geom["phases"]])
-    return geom, igemm_plan(rows, int(kernel_shape[3 if transposed else 4]), slabs)
+                        [len(taps) for _, taps in geom["phases"]], dtype)
+    return geom, igemm_plan(rows, int(kernel_shape[3 if transposed else 4]), slabs, dtype)
 
 
 def igemm_args(parts, kernel, bias, strides, transposed):
-    """Everything one launch of the bf16 kernel takes: the output, the
-    split-K workspace (None without split-K), the plan and the host arrays.
-    Device-agnostic, so the CPU tests replay the very schedule the card
-    runs."""
+    """Everything one launch of the kernel takes: the output, the split-K
+    workspace (None without split-K), the plan (by the parts' dtype) and
+    the host arrays. Device-agnostic, so the CPU tests replay the very
+    schedule the card runs."""
     x0 = parts[0]
     geom, igemm = igemm_schedule([tuple(p.shape) for p in parts], tuple(kernel.shape),
-                                 strides, transposed)
+                                 strides, transposed, x0.dtype)
     cout = int(kernel.shape[3 if transposed else 4])
     y = torch.empty((x0.shape[0], *geom["out"], cout), dtype=x0.dtype, device=x0.device)
     ws = None
@@ -326,25 +336,15 @@ def _check_cuda_args(name, parts, kernel, bias, cin_axis):
 
 
 def _launch(name, fn, parts, kernel, bias, strides, transposed):
-    """Launch K1 or K2 (``fn`` is the wrapper, whose count rises by one):
-    bf16 on the tensor-core kernel, fp32 on the FMA kernel."""
+    """Launch K1 or K2 on the tensor-core kernel (``fn`` is the wrapper,
+    whose count rises by one)."""
     x0 = parts[0]
     lib = cuda_lib.library()
-    if x0.dtype == torch.bfloat16:
-        y, _ws, _, arrays = igemm_args(parts, kernel, bias, strides, transposed)
-        if max(t.numel() for t in (*parts, y)) >= MAX_INDEX:
-            raise ValueError(f"{name}: the bf16 kernel takes tensors of fewer than "
-                             f"2**31 elements")
-        entry = lib.pmr_conv3d_mma
-    else:
-        geom = window_plan(kernel.shape[:3], strides, x0.shape[1:4], transposed)
-        cout = int(kernel.shape[3 if transposed else 4])
-        y = torch.empty((x0.shape[0], *geom["out"], cout), dtype=x0.dtype,
-                        device=x0.device)
-        arrays = _pack_conv_args(parts, kernel, bias, y, geom, transposed)
-        entry = lib.pmr_conv3d_transpose if transposed else lib.pmr_conv3d
+    y, _ws, _, arrays = igemm_args(parts, kernel, bias, strides, transposed)
+    if max(t.numel() for t in (*parts, y)) >= MAX_INDEX:
+        raise ValueError(f"{name}: the kernel takes tensors of fewer than 2**31 elements")
     fn.launches += 1
-    rc = entry(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
+    rc = lib.pmr_conv3d_mma(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
     cuda_lib.check(rc, name)
     return y
 
@@ -380,10 +380,11 @@ def conv3d(parts, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
     kernel table row 1). Bound on the H100: bytes for the path's
     few-channel, large-extent convs, operations for the deep 3x3x3 ones. The
     design gathers the implicit im2col tile straight into shared memory (no
-    im2col tensor in device memory). bf16 runs on the tensor cores
-    (mma.sync, a 4-stage cp.async ring, deterministic split-K where the
-    output tiles underfill the card: csrc/conv3d_mma.cu); fp32 runs fp32 FMA
-    (csrc/conv3d.cu), since TF32 could not hold the fp32 limits.
+    im2col tensor in device memory) and runs on the tensor cores (mma.sync,
+    a 4-stage cp.async ring, deterministic split-K where the output tiles
+    underfill the card: csrc/conv3d_mma.cu); fp32 as 3xTF32 (each operand
+    split into two TF32 halves, three products), which holds the fp32
+    limits where TF32 alone could not.
     """
     parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
     if not cuda_lib.use_kernel("conv3d", parts[0]):

@@ -1,11 +1,11 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use one ``nvcc`` call compiles every source under ``csrc/`` for
-``sm_90a`` into one shared library with a plain C interface, which ``ctypes``
-loads. The library goes to ``build/kernels/`` beside the package, named by a
-hash of the sources and flags, so an edited source rebuilds and an unchanged
-one is reused. Nothing here runs at import time: the CPU path never needs a
-compiler.
+At first use one ``nvcc`` a source, all started together, compiles the
+sources under ``csrc/`` for ``sm_90a``; one more links them into a shared
+library with a plain C interface, which ``ctypes`` loads. The library goes
+to ``build/kernels/`` beside the package, named by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused. Nothing
+here runs at import time: the CPU path never needs a compiler.
 """
 
 from __future__ import annotations
@@ -15,16 +15,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("conv3d.cu", "conv3d_mma.cu", "instance_norm.cu", "gemm_loop.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("conv3d_mma.cu", "instance_norm.cu", "gemm_loop.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 # dtype codes of csrc/common.cuh (pmr::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,14 +35,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lock = threading.Lock()
 _lib = None
 build_log = ""  # nvcc's stderr of the last build (ptxas register/spill report)
+build_seconds = {}  # each source's compile and the link, in the last build
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pmr_conv3d": [_VP, _VP, _VP, _VP],
-    "pmr_conv3d_transpose": [_VP, _VP, _VP, _VP],
     "pmr_conv3d_mma": [_VP, _VP, _VP, _VP],
     "pmr_in_stats": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
-    "pmr_in_apply": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _VP],
+    "pmr_in_apply": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP],
     "pmr_gemm_loop": [_VP, _VP, _VP, _VP, _VP, _VP],
 }
 
@@ -57,7 +59,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for name in sorted(os.listdir(CSRC_DIR)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC_DIR, name), "rb") as f:
@@ -67,21 +69,51 @@ def _digest() -> str:
 
 def build() -> str:
     """Compile the kernels if no library for these sources exists; return
-    the library's path."""
-    global build_log
+    the library's path. Each source compiles in its own ``nvcc`` process,
+    all at once; then one links the objects."""
+    global build_log, build_seconds
     out = os.path.join(BUILD_DIR, f"libpmr_kernels_{_digest()}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-8000:]}")
-    os.replace(tmp, out)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{src}.{tag}.o") for src in SOURCES]
+    logs = [tempfile.TemporaryFile("w+") for _ in SOURCES]
+    t0 = time.perf_counter()
+    try:
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", obj,
+                                   os.path.join(CSRC_DIR, src)],
+                                  stdout=log, stderr=subprocess.STDOUT, text=True)
+                 for src, obj, log in zip(SOURCES, objs, logs)]
+        seconds = {}
+        for src, proc in zip(SOURCES, procs):
+            proc.wait()
+            seconds[src] = round(time.perf_counter() - t0, 3)
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read())
+        build_log = "".join(texts)
+        failed = [(src, p.returncode, text) for src, p, text in zip(SOURCES, procs, texts)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{src} (code {rc}):\n{text[-6000:]}" for src, rc, text in failed))
+        tmp = f"{out}.{tag}"
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n"
+                               f"{link.stderr[-6000:]}")
+        seconds["link"] = round(time.perf_counter() - t0, 3)
+        build_seconds = seconds
+        os.replace(tmp, out)
+    finally:
+        for log in logs:
+            log.close()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return out
 
 

@@ -56,9 +56,38 @@ def in_stats_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 SMS = 132                     # streaming multiprocessors of an H100 SXM
+THREADS = 256                 # threads a block of K3 and K4
 STAT_TARGET_BLOCKS = 2 * SMS  # about two blocks an SM where the tensor allows
 STAT_MIN_CHUNK_BYTES = 4096   # one 16-byte load a thread of a 256-thread block
 STAT_FOLD_FLOATS = 16384      # partials that one sample's last block folds
+APPLY_UNROLL = 4              # K4's vectors in flight a thread (kApplyUnroll)
+APPLY_INFLIGHT_BYTES = 32768  # K4's bytes in flight an SM where the tensor allows
+
+
+def _check_plan_args(name, batch, spatial, channels, itemsize):
+    if not (1 <= batch <= 65535 and spatial >= 1 and channels >= 1):
+        raise ValueError(f"{name}: needs 1 <= B <= 65535 and a non-empty sample, got "
+                         f"B={batch}, spatial={spatial}, C={channels}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"{name}: takes 2- or 4-byte elements, got {itemsize}")
+    if spatial * channels >= 2 ** 31:
+        raise ValueError(f"{name}: one sample exceeds 2**31 elements")
+
+
+def _vector_route(spatial, channels, itemsize, aligned):
+    """(route, vec, groups): 16-byte vectors (8 bf16 or 4 fp32 channels)
+    where C is a multiple of the vector or divides it, the sample's elements
+    fill whole vectors and the base is 16-byte aligned; else one element a
+    load. A voxel's channels are ``groups`` vectors (1 where C divides vec),
+    so a thread whose stride is a multiple of ``groups`` vectors meets the
+    same channels in every vector."""
+    vec = 16 // itemsize
+    vector = (aligned and (channels % vec == 0 or vec % channels == 0)
+              and (spatial * channels) % vec == 0)
+    if not vector:
+        vec = 1
+    return ("vector" if vector else "scalar"), vec, (channels // vec if channels % vec == 0
+                                                       else 1)
 
 
 def in_stats_plan(batch: int, spatial: int, channels: int, itemsize: int,
@@ -75,19 +104,8 @@ def in_stats_plan(batch: int, spatial: int, channels: int, itemsize: int,
     STAT_MIN_CHUNK_BYTES, and no more than STAT_FOLD_FLOATS partials to fold
     a sample.
     """
-    if not (1 <= batch <= 65535 and spatial >= 1 and channels >= 1):
-        raise ValueError(f"in_stats: needs 1 <= B <= 65535 and a non-empty sample, got "
-                         f"B={batch}, spatial={spatial}, C={channels}")
-    if itemsize not in (2, 4):
-        raise ValueError(f"in_stats: takes 2- or 4-byte elements, got {itemsize}")
-    if spatial * channels >= 2 ** 31:
-        raise ValueError("in_stats: one sample exceeds 2**31 elements")
-    vec = 16 // itemsize
-    vector = (aligned and (channels % vec == 0 or vec % channels == 0)
-              and (spatial * channels) % vec == 0)
-    if not vector:
-        vec = 1
-    groups = channels // vec if channels % vec == 0 else 1
+    _check_plan_args("in_stats", batch, spatial, channels, itemsize)
+    route, vec, groups = _vector_route(spatial, channels, itemsize, aligned)
     rows = spatial * channels // (vec * groups)
     row_bytes = groups * vec * itemsize
     per_sample = min(-(-STAT_TARGET_BLOCKS // batch),
@@ -95,7 +113,7 @@ def in_stats_plan(batch: int, spatial: int, channels: int, itemsize: int,
                      max(1, STAT_FOLD_FLOATS // (2 * channels)))
     chunk_rows = -(-rows // per_sample)
     nchunk = -(-rows // chunk_rows)
-    return dict(route="vector" if vector else "scalar", vec=vec, groups=groups, rows=rows,
+    return dict(route=route, vec=vec, groups=groups, rows=rows,
                 chunk_rows=chunk_rows, nchunk=nchunk, blocks=batch * nchunk)
 
 
@@ -166,6 +184,31 @@ def in_apply_plain(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
+def in_apply_plan(batch: int, spatial: int, channels: int, itemsize: int,
+                  aligned: bool = True) -> dict:
+    """The grid of K4 (csrc/instance_norm.cu in_apply_kernel) for a (batch,
+    spatial, channels) tensor of ``itemsize``-byte elements; ``aligned``:
+    input and output bases both 16-byte aligned.
+
+    Routes as :func:`in_stats_plan`'s. A sample's ``vectors`` are streamed
+    by ``active`` threads (a multiple of ``groups``, so each thread keeps
+    its channels), thread i taking vectors i, i + active, ...; ``blocks`` a
+    sample of THREADS threads. Their number is the least of: enough blocks
+    in all to keep APPLY_INFLIGHT_BYTES in flight on each SM (APPLY_UNROLL
+    16-byte vectors a thread), and one pass of APPLY_UNROLL vectors a
+    thread over the sample; never fewer than ``groups`` threads need.
+    """
+    _check_plan_args("in_apply", batch, spatial, channels, itemsize)
+    route, vec, groups = _vector_route(spatial, channels, itemsize, aligned)
+    vectors = spatial * channels // vec
+    target = SMS * APPLY_INFLIGHT_BYTES // (THREADS * APPLY_UNROLL * 16)
+    per_sample = max(-(-groups // THREADS),
+                     min(-(-target // batch), -(-vectors // (THREADS * APPLY_UNROLL))))
+    active = per_sample * THREADS // groups * groups
+    return dict(route=route, vec=vec, groups=groups, vectors=vectors,
+                blocks_per_sample=per_sample, active=active, blocks=batch * per_sample)
+
+
 def in_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
              bias: torch.Tensor, lrelu: bool = False,
              epsilon: float = EPSILON) -> torch.Tensor:
@@ -176,9 +219,9 @@ def in_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
 
     Replaces the apply + LReLU half of ``benchmarks/r2_probe_conv.py:198``
     and the retired ``fused_norm.py`` ``_norm_kernel`` (TPU kernel table
-    rows 2 and 5). Bound on the H100: bytes (one read, one write). Each
-    block keeps its sample's coefficients in shared memory and streams
-    coalesced elements.
+    rows 2 and 5). Bound on the H100: bytes (one read, one write). A
+    16-byte stream over the grid of :func:`in_apply_plan`; each thread keeps
+    the coefficients of its fixed channels in registers.
     """
     _check_5d("in_apply", x)
     if not cuda_lib.use_kernel("in_apply", x):
@@ -193,16 +236,18 @@ def in_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
                              f"{shape} on {x.device}")
     if not x.is_contiguous():
         raise ValueError("in_apply: x must be contiguous NDHWC")
-    per_batch = x.numel() // max(b, 1)
-    if per_batch >= 2 ** 31:
-        raise ValueError("in_apply: one sample exceeds 2**31 elements")
+    spatial = int(x.shape[1] * x.shape[2] * x.shape[3])
     cuda_lib.require_no_grad("in_apply", x, scale, bias)
     y = torch.empty_like(x)
+    plan = in_apply_plan(b, spatial, c, x.element_size(),
+                         x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     lib = cuda_lib.library()
     in_apply.launches += 1
     rc = lib.pmr_in_apply(x.data_ptr(), stats.data_ptr(), scale.data_ptr(),
-                          bias.data_ptr(), y.data_ptr(), code, b, per_batch, c,
-                          float(epsilon), int(bool(lrelu)), cuda_lib.stream_of(x))
+                          bias.data_ptr(), y.data_ptr(), code, b, spatial * c, c,
+                          float(epsilon), int(bool(lrelu)), plan["vec"],
+                          plan["blocks_per_sample"], plan["active"],
+                          cuda_lib.stream_of(x))
     cuda_lib.check(rc, "in_apply")
     return y
 

@@ -16,6 +16,7 @@ from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as tconv
 from prostatemr_3d_cad_cspca_tpu_torch.ops import gemm as tgemm
 from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as tnorm
 from prostatemr_3d_cad_cspca_tpu_torch.probes.gemm_rate import operands
+from chip_smoke import _conv_fp64  # the fp64 product, one cuBLAS matmul a tap
 
 CONV_CASES = [  # (kernel, stride) pairs of the M1 path
     ((1, 3, 3), (1, 1, 1)), ((1, 3, 3), (1, 2, 2)), ((3, 3, 3), (1, 1, 1)),
@@ -34,8 +35,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# fp32: kernel (fp32 FMA) vs cuDNN fp32 differ by summation order only;
-# bf16: both round one fp32 result, so at most one bf16 step apart.
+# fp32: the kernel's 3xTF32 products (~2**-22 relative each) and cuDNN's
+# fp32 ones differ by that and by summation order; bf16: both round one fp32
+# result, so at most one bf16 step apart.
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
@@ -74,36 +76,37 @@ def test_card_conv3d_transpose_kernel_matches_plain(cuda_device, ks, st, dtype):
     assert _card_err(got, ref) <= CARD_TOL[dtype]
 
 
-# Where the bf16 tensor-core kernel differs from the FMA one: narrow cout
-# (scalar weight loads, n8 tiles), a misaligned part (scalar gather), split-K.
-# Split-K does not loosen the bf16 tolerance: the partials stay fp32 and the
-# reduce rounds their fixed-order sum once, so the kernel and its twin still
-# each round one fp32 sum of the same products to bf16.
+# The kernel's other routes: narrow cout (scalar weight loads below a 16-byte
+# chunk, n8 tiles), a misaligned part (scalar gather), split-K. Split-K does
+# not loosen the tolerance: the partials stay fp32 and the reduce rounds
+# their fixed-order sum once, so the kernel and its twin still each round one
+# fp32 sum of the same products.
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cout", [1, 2, 4, 8])
-def test_card_conv3d_narrow_cout(cuda_device, cout):
+def test_card_conv3d_narrow_cout(cuda_device, cout, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(3)
-    x = torch.randn(2, 5, 9, 10, 16, generator=g, device=cuda_device).to(torch.bfloat16)
-    kernel = (torch.randn(3, 3, 3, 16, cout, generator=g, device=cuda_device) / 8
-              ).to(torch.bfloat16)
+    x = torch.randn(2, 5, 9, 10, 16, generator=g, device=cuda_device).to(dtype)
+    kernel = (torch.randn(3, 3, 3, 16, cout, generator=g, device=cuda_device) / 8).to(dtype)
     bias = torch.randn(cout, generator=g, device=cuda_device)
-    assert tconv.gather_routes([x], kernel)[1] == (
-        "cp.async" if cout == 8 else "scalar")
+    chunk = 16 // x.element_size()
+    assert tconv.gather_routes([x], kernel)[1] == ("cp.async" if cout % chunk == 0
+                                                   else "scalar")
     got = tconv.conv3d([x], kernel, bias)
     ref = tconv.conv3d_plain([x], kernel, bias)
     torch.cuda.synchronize()
-    assert _card_err(got, ref) <= CARD_TOL[torch.bfloat16]
+    assert _card_err(got, ref) <= CARD_TOL[dtype]
 
 
 @pytest.mark.cuda
-def test_card_conv3d_misaligned_part_takes_the_scalar_gather(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_conv3d_misaligned_part_takes_the_scalar_gather(cuda_device, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(4)
     shape = (2, 5, 9, 10, 16)
     flat = torch.randn(math.prod(shape) + 1, generator=g, device=cuda_device)
-    shifted = flat.to(torch.bfloat16)[1:].view(shape)  # contiguous, 2 bytes off
-    aligned = torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
-    kernel = (torch.randn(3, 3, 3, 32, 24, generator=g, device=cuda_device) / 8
-              ).to(torch.bfloat16)
+    shifted = flat.to(dtype)[1:].view(shape)  # contiguous, one element off
+    aligned = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    kernel = (torch.randn(3, 3, 3, 32, 24, generator=g, device=cuda_device) / 8).to(dtype)
     bias = torch.randn(24, generator=g, device=cuda_device)
     parts = [aligned, shifted]
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
@@ -111,7 +114,24 @@ def test_card_conv3d_misaligned_part_takes_the_scalar_gather(cuda_device):
     got = tconv.conv3d(parts, kernel, bias, (1, 2, 2))
     ref = tconv.conv3d_plain(parts, kernel, bias, (1, 2, 2))
     torch.cuda.synchronize()
-    assert _card_err(got, ref) <= CARD_TOL[torch.bfloat16]
+    assert _card_err(got, ref) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_card_fp32_deepest_stitch_holds_the_fp32_limit(cuda_device):
+    """The path's deepest K (3x3x3 over 128 + 128 channels, K = 6,912): the
+    3xTF32 kernel against its fp32 twin and against the fp64 product."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    parts = [torch.randn(2, 10, 20, 20, 128, generator=g, device=cuda_device)
+             for _ in range(2)]
+    kernel = torch.randn(3, 3, 3, 256, 128, generator=g, device=cuda_device) / 6912 ** 0.5
+    bias = 0.1 * torch.randn(128, generator=g, device=cuda_device)
+    got = tconv.conv3d(parts, kernel, bias)
+    ref = tconv.conv3d_plain(parts, kernel, bias)
+    exact = _conv_fp64(parts, kernel, bias, (1, 1, 1))
+    torch.cuda.synchronize()
+    assert _card_err(got, ref) <= 2e-4
+    assert _card_err(got, exact) <= 2e-4
 
 
 SPLIT_CASES = [  # (part shapes, kernel, strides, transposed): split-K at batch 2
@@ -121,12 +141,11 @@ SPLIT_CASES = [  # (part shapes, kernel, strides, transposed): split-K at batch 
 ]
 
 
-def _split_case(device, shapes, kshape, transposed, seed):
+def _split_case(device, shapes, kshape, transposed, seed, dtype):
     g = torch.Generator(device=device).manual_seed(seed)
-    parts = [torch.randn(s, generator=g, device=device).to(torch.bfloat16) for s in shapes]
+    parts = [torch.randn(s, generator=g, device=device).to(dtype) for s in shapes]
     fan_in = math.prod(kshape[:3]) * kshape[4 if transposed else 3]
-    kernel = (torch.randn(kshape, generator=g, device=device) / fan_in ** 0.5
-              ).to(torch.bfloat16)
+    kernel = (torch.randn(kshape, generator=g, device=device) / fan_in ** 0.5).to(dtype)
     bias = torch.randn(kshape[3 if transposed else 4], generator=g, device=device)
     return parts, kernel, bias
 
@@ -139,24 +158,26 @@ def _split_run(parts, kernel, bias, st, transposed):
 
 
 def _splits(parts, kernel, st, transposed):
-    return tconv.igemm_schedule([p.shape for p in parts], kernel.shape, st,
-                                transposed)[1]["splits"]
+    return tconv.igemm_schedule([p.shape for p in parts], kernel.shape, st, transposed,
+                                parts[0].dtype)[1]["splits"]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shapes,kshape,st,transposed", SPLIT_CASES)
-def test_card_split_k_matches_plain(cuda_device, shapes, kshape, st, transposed):
-    parts, kernel, bias = _split_case(cuda_device, shapes, kshape, transposed, 5)
+def test_card_split_k_matches_plain(cuda_device, shapes, kshape, st, transposed, dtype):
+    parts, kernel, bias = _split_case(cuda_device, shapes, kshape, transposed, 5, dtype)
     assert _splits(parts, kernel, st, transposed) > 1
     got, ref = _split_run(parts, kernel, bias, st, transposed)
     torch.cuda.synchronize()
-    assert _card_err(got, ref) <= CARD_TOL[torch.bfloat16]
+    assert _card_err(got, ref) <= CARD_TOL[dtype]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shapes,kshape,st,transposed", SPLIT_CASES)
-def test_card_split_k_is_bit_reproducible(cuda_device, shapes, kshape, st, transposed):
-    parts, kernel, bias = _split_case(cuda_device, shapes, kshape, transposed, 6)
+def test_card_split_k_is_bit_reproducible(cuda_device, shapes, kshape, st, transposed, dtype):
+    parts, kernel, bias = _split_case(cuda_device, shapes, kshape, transposed, 6, dtype)
     first = _split_run(parts, kernel, bias, st, transposed)[0]
     second = _split_run(parts, kernel, bias, st, transposed)[0]
     torch.cuda.synchronize()
@@ -216,6 +237,76 @@ def test_card_in_stats_routes_match_plain(cuda_device, c, dtype):
     got = tnorm.in_stats(x)
     torch.cuda.synchronize()
     assert _card_err(got, tnorm.in_stats_plain(x)) <= 1e-4
+
+
+# K4 at the same shapes and routes, both dtypes, with and without LReLU
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", IN_PATH_SHAPES)
+def test_card_in_apply_at_the_path_shapes(cuda_device, shape, dtype):
+    x = _in_x(cuda_device, shape, dtype, 12)
+    c = shape[-1]
+    scale = 1 + 0.1 * _in_x(cuda_device, (c,), torch.float32, 13)
+    bias = 0.1 * _in_x(cuda_device, (c,), torch.float32, 14)
+    stats = tnorm.in_stats_plain(x)
+    for lrelu in (False, True):
+        n0 = tnorm.in_apply.launches
+        got = tnorm.in_apply(x, stats, scale, bias, lrelu)
+        torch.cuda.synchronize()
+        assert tnorm.in_apply.launches == n0 + 1
+        assert _card_err(got, tnorm.in_apply_plain(x, stats, scale, bias, lrelu)) <= \
+            CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [4, 8, 300])
+def test_card_in_apply_routes_match_plain(cuda_device, c, dtype):
+    x = _in_x(cuda_device, (2, 7, 19, 24, c), dtype, 15)
+    plan = tnorm.in_apply_plan(2, 7 * 19 * 24, c, x.element_size())
+    assert plan["route"] == ("scalar" if (c, dtype) == (300, torch.bfloat16) else "vector")
+    scale, bias = torch.ones(c, device=cuda_device), torch.zeros(c, device=cuda_device)
+    stats = tnorm.in_stats_plain(x)
+    got = tnorm.in_apply(x, stats, scale, bias, True)
+    torch.cuda.synchronize()
+    assert _card_err(got, tnorm.in_apply_plain(x, stats, scale, bias, True)) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_in_apply_misaligned_base_takes_the_scalar_route(cuda_device, dtype):
+    shape = (2, 5, 9, 10, 16)
+    flat = _in_x(cuda_device, (math.prod(shape) + 1,), dtype, 16)
+    shifted = flat[1:].view(shape)  # contiguous, one element off 16 bytes
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert tnorm.in_apply_plan(2, math.prod(shape[1:4]), 16, shifted.element_size(),
+                               aligned=False)["route"] == "scalar"
+    scale = torch.linspace(0.5, 1.5, 16, device=cuda_device)
+    bias = torch.linspace(-0.2, 0.2, 16, device=cuda_device)
+    stats = tnorm.in_stats_plain(shifted)
+    got = tnorm.in_apply(shifted, stats, scale, bias, True)
+    torch.cuda.synchronize()
+    assert _card_err(got, tnorm.in_apply_plain(shifted, stats, scale, bias, True)) <= \
+        CARD_TOL[dtype]
+
+
+# x on the vector route, but stats, scale and bias one float off 16 bytes:
+# the coefficients take scalar loads instead of float4s.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_in_apply_misaligned_coefficients(cuda_device, dtype):
+    shape, c = (2, 5, 9, 10, 16), 16
+    x = _in_x(cuda_device, shape, dtype, 17)
+    assert tnorm.in_apply_plan(2, math.prod(shape[1:4]), c, x.element_size())["route"] == \
+        "vector"
+    stats = torch.empty(2 * 2 * c + 1, device=cuda_device)[1:].view(2, 2, c)
+    stats.copy_(tnorm.in_stats_plain(x))
+    scale = (1 + 0.1 * _in_x(cuda_device, (c + 1,), torch.float32, 18))[1:]
+    bias = (0.1 * _in_x(cuda_device, (c + 1,), torch.float32, 19))[1:]
+    assert all(t.data_ptr() % 16 != 0 for t in (stats, scale, bias))
+    got = tnorm.in_apply(x, stats, scale, bias, True)
+    torch.cuda.synchronize()
+    assert _card_err(got, tnorm.in_apply_plain(x, stats, scale, bias, True)) <= CARD_TOL[dtype]
 
 
 @pytest.mark.cuda

@@ -8,6 +8,9 @@ arrays the CUDA entries read) is replayed in numpy and held to flax too, so
 the windows, phases and strides the card will use are checked here.
 """
 
+import collections
+import functools
+import itertools
 import zlib
 
 import jax.numpy as jnp
@@ -50,16 +53,45 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _emulate_igemm(parts, kernel, bias, strides, transposed):
-    """numpy replay of csrc/conv3d_mma.cu's schedule, from the host arrays
-    and the igemm_plan that the wrapper hands the C entry: per phase and
-    split, the split's K-slabs of 32 (parts in order, tap-major within a
-    part, each part rounded up to whole slabs), each slab gathered in
-    8-channel chunks of one tap (the cp.async route) or element by element
-    (the scalar route, cin 3 and 4); the partials land in the workspace and
-    are summed in split order with the bias, as the reduce kernel does."""
+def _tf32(a):
+    """cvt.rna.tf32.f32 on the int32 view: the magnitude rounded to 10
+    mantissa bits, ties away from zero, the low 13 bits cleared."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mma_3xtf32(chain, a, b, terms):
+    """One k8 step of the fp32 kernel into ``chain`` (fp32): each operand
+    split as hi = tf32(x), lo = tf32(x - hi); the products in the kernel's
+    order, lo*hi, hi*lo, hi*hi (``terms`` ("hh",) keeps hi*hi alone, plain
+    TF32)."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    ahi, bhi = _tf32(a), _tf32(b)
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    for t in terms:
+        x, w = {"lh": (alo, bhi), "hl": (ahi, blo), "hh": (ahi, bhi)}[t]
+        chain += x @ w
+    return chain
+
+
+def _emulate_igemm(parts, kernel, bias, strides, transposed, dtype=torch.bfloat16,
+                   arith="float64"):
+    """numpy replay of csrc/conv3d_mma.cu's schedule in ``dtype``, from the
+    host arrays and the igemm_plan that the wrapper hands the C entry: per
+    phase and split, the split's K-slabs of BK[dtype] (parts in order,
+    tap-major within a part, each part rounded up to whole slabs), each slab
+    gathered in 16-byte chunks of one tap (the cp.async route: 8 bf16 or 4
+    fp32 channels) or element by element (the scalar route); the partials
+    land in the workspace and are summed in split order with the bias, as
+    the reduce kernel does. ``arith`` "float64" sums exactly enough to check
+    the schedule; "3xtf32" (fp32 only) runs the kernel's arithmetic: k8
+    steps of three TF32 products into an fp32 chain added into fp32 sums
+    every CHAIN_SLABS slabs; "tf32" the same with hi*hi alone."""
     y, ws, igemm, (_, meta, taps) = tconv.igemm_args(
-        [_t(p) for p in parts], _t(kernel), _t(bias), strides, transposed)
+        [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), strides, transposed)
+    assert arith == "float64" or dtype == torch.float32
+    acc_t = np.float64 if arith == "float64" else np.float32
+    bk = tconv.BK[dtype]
     splits, a_vec = int(meta[64]), int(meta[65])
     assert splits == igemm["splits"] and meta[67] == transposed
     assert (ws is None if splits == 1 else ws.shape == (splits, y.numel()))
@@ -70,29 +102,31 @@ def _emulate_igemm(parts, kernel, bias, strides, transposed):
     cout = meta[17]
     in_mul, in_add, out_mul = meta[18:21], meta[21:24], meta[24:27]
     wci, wco = meta[27], meta[28]
-    wflat = kernel.reshape(-1).astype(np.float64)
+    wflat = kernel.reshape(-1).astype(acc_t)
     # output rows of one phase: (batch, grid) in C order, as the kernel's m
     rb, *g = [a.reshape(-1) for a in
               np.meshgrid(np.arange(batch), *[np.arange(n) for n in grid], indexing="ij")]
-    workspace = np.full((splits, y.numel()), np.nan)
+    workspace = np.full((splits, y.numel()), np.nan, acc_t)
     for ph in range(meta[29]):
         ntap, res = meta[30 + ph], meta[38 + 3 * ph:41 + 3 * ph]
         o = [g[a] * out_mul[a] + res[a] for a in range(3)]
         oofs = (((rb * outd[0] + o[0]) * outd[1] + o[1]) * outd[2] + o[2]) * cout
-        starts = np.concatenate([[0], np.cumsum(-(-ntap * cins // tconv.BK))])
+        starts = np.concatenate([[0], np.cumsum(-(-ntap * cins // bk))])
         assert starts[-1] == igemm["slabs"][ph]
         for j in range(splits):
             lo, hi = igemm["ranges"][ph][j]
             assert (lo, hi) == (starts[-1] * j // splits, starts[-1] * (j + 1) // splits)
-            acc = np.zeros((rb.size, cout))
+            acc = np.zeros((rb.size, cout), acc_t)
+            chain = np.zeros((rb.size, cout), acc_t)
             for s in range(lo, hi):
                 part = int(np.searchsorted(starts, s, side="right")) - 1
                 cin, ci_base = cins[part], int(cins[:part].sum())
-                x, k0 = parts[part], (s - starts[part]) * tconv.BK
-                step = 8 if (a_vec >> part) & 1 else 1
-                a = np.zeros((rb.size, tconv.BK))
-                b = np.zeros((tconv.BK, cout))
-                for kk in range(0, tconv.BK, step):  # one chunk or one element
+                x, k0 = parts[part], (s - starts[part]) * bk
+                step = 16 // torch.empty((), dtype=dtype).element_size() \
+                    if (a_vec >> part) & 1 else 1
+                a = np.zeros((rb.size, bk), acc_t)
+                b = np.zeros((bk, cout), acc_t)
+                for kk in range(0, bk, step):  # one chunk or one element
                     k = k0 + kk
                     if k >= ntap * cin:
                         continue  # zero-filled past the part's K
@@ -108,13 +142,22 @@ def _emulate_igemm(parts, kernel, bias, strides, transposed):
                     b[kk:kk + step] = wflat[int(wt) * cin_total * cout
                                             + (ci_base + ci + np.arange(step))[:, None] * wci
                                             + np.arange(cout)[None, :] * wco]
-                acc += a @ b
+                if arith == "float64":
+                    acc += a @ b
+                    continue
+                terms = ("lh", "hl", "hh") if arith == "3xtf32" else ("hh",)
+                for kk in range(0, bk, 8):  # the slab's two k8 mma steps
+                    _mma_3xtf32(chain, a[:, kk:kk + 8], b[kk:kk + 8], terms)
+                if (s - lo + 1) % tconv.CHAIN_SLABS == 0:
+                    acc += chain
+                    chain[:] = 0
+            acc += chain
             workspace[j, oofs[:, None] + np.arange(cout)[None, :]] = acc
     assert not np.isnan(workspace).any(), "some output voxel belongs to no phase"
     total = workspace[0].copy()
     for j in range(1, splits):  # the reduce kernel's order
         total += workspace[j]
-    total += np.tile(bias, y.numel() // cout)
+    total += np.tile(bias, y.numel() // cout).astype(acc_t)
     return total.reshape(batch, *outd, cout)
 
 
@@ -213,12 +256,104 @@ def test_igemm_split_schedule_matches_flax(ks, st, transposed, monkeypatch):
         kernel = rng.normal(size=(*ks, 19, 4)).astype(np.float32)
         want_fn = lambda b: _flax_split_conv(parts, kernel, b, ks, st)  # noqa: E731
     bias = rng.normal(size=(4,)).astype(np.float32)
-    _, _, igemm, (_, meta, _) = tconv.igemm_args([_t(p) for p in parts], _t(kernel), None,
-                                                 st, transposed)
+    _, _, igemm, (_, meta, _) = tconv.igemm_args(
+        [_t(p).to(torch.bfloat16) for p in parts], _t(kernel).to(torch.bfloat16), None, st,
+        transposed)
     assert igemm["splits"] == min(igemm["slabs"]) > 1
     assert meta[65] == 1  # part 0 by cp.async, a K1's part 1 (cin 3) scalar
     np.testing.assert_allclose(_emulate_igemm(parts, kernel, bias, st, transposed),
                                want_fn(bias), atol=ATOL)
+
+
+# --------------------------------------------- K1/K2 fp32 by 3xTF32 (replay)
+FP32_LIMIT = 2e-4  # kernel vs twin in fp32, |diff| / max(1, |ref|)
+
+
+def _rel_err(got, want):
+    return float((np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max())
+
+
+def test_tf32_rounding_is_nearest_with_ties_away():
+    tie = 1 + 2.0 ** -11  # halfway between 1 and the next TF32 value
+    x = np.array([tie, -tie, tie - 2.0 ** -23, 1 + 3 * 2.0 ** -11, 2.0 ** -11], np.float32)
+    want = np.array([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1, 1 + 2.0 ** -9, 2.0 ** -11],
+                    np.float32)
+    np.testing.assert_array_equal(_tf32(x), want)
+    r = np.random.default_rng(0).normal(size=1000).astype(np.float32)
+    assert not (_tf32(r).view(np.uint32) & 0x1FFF).any()
+    assert np.abs(_tf32(r) - r).max() <= 2.0 ** -11 * np.abs(r).max()
+
+
+def _fp32_case(ks, st, transposed, spatial, widths, cout, batch=2):
+    """Inputs drawn by numpy, the kernel scaled by 1/sqrt(fan-in) as the
+    model's weights are, and flax's fp32 conv of them."""
+    rng = np.random.default_rng(_seed(ks, st, transposed, widths, "fp32"))
+    parts = _parts(rng, spatial, widths, batch)
+    fan_in = int(np.prod(ks)) * sum(widths)
+    kshape = (*ks, cout, widths[0]) if transposed else (*ks, sum(widths), cout)
+    kernel = (rng.normal(size=kshape) / np.sqrt(fan_in)).astype(np.float32)
+    bias = (0.1 * rng.normal(size=(cout,))).astype(np.float32)
+    want = (_flax_convt(parts[0], kernel, bias, ks, st) if transposed
+            else _flax_split_conv(parts, kernel, bias, ks, st))
+    return parts, kernel, bias, want
+
+
+@pytest.mark.parametrize("ks,st,transposed", [(ks, st, False) for ks, st in CONV_CASES]
+                         + [(ks, st, True) for ks, st in CONVT_CASES])
+def test_fp32_3xtf32_replay_matches_flax(ks, st, transposed):
+    """The fp32 schedule (16-deep slabs, 4-channel cp.async chunks beside
+    the scalar gather of cin 3) in the kernel's arithmetic holds the fp32
+    limit against flax at every conv of the path, K1 and K2."""
+    widths, cout = ((12,), 4) if transposed else ((16, 3), 8)
+    parts, kernel, bias, want = _fp32_case(ks, st, transposed, SIZES["odd"], widths, cout)
+    got = _emulate_igemm(parts, kernel, bias, st, transposed, torch.float32, "3xtf32")
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert _rel_err(got, want) <= FP32_LIMIT
+
+
+@functools.lru_cache(maxsize=1)
+def _deepest_stitch():
+    """The deepest stitch of the path in miniature: two 128-channel parts,
+    3x3x3 taps, K = 6,912 (split-K walks 54 splits of 8 slabs)."""
+    return _fp32_case((3, 3, 3), (1, 1, 1), False, (3, 4, 5), (128, 128), 8, batch=1)
+
+
+@pytest.mark.parametrize("arith,holds", [("3xtf32", True), ("tf32", False)])
+def test_fp32_limit_at_the_deepest_stitch_needs_the_compensation(arith, holds):
+    """3xTF32 holds 2e-4 at K = 6,912; one TF32 product (hi*hi) misses it."""
+    parts, kernel, bias, want = _deepest_stitch()
+    plan = tconv.igemm_args([_t(p) for p in parts], _t(kernel), None, (1, 1, 1), False)[2]
+    assert plan["slabs"] == (6912 // 16,) and plan["splits"] > 1
+    err = _rel_err(_emulate_igemm(parts, kernel, bias, (1, 1, 1), False, torch.float32, arith),
+                   want)
+    assert (err <= FP32_LIMIT) == holds, err
+
+
+def test_gather_routes_take_the_element_size():
+    """A 16-byte chunk is 4 fp32 channels: fp32 cin 4 (level 0's bottleneck
+    width) and cout 4 take cp.async, which bf16 (8 a chunk) cannot."""
+    flat = torch.zeros(2 * 4 * 4 * 4 * 4 + 1)
+    aligned = flat[:-1].view(2, 4, 4, 4, 4)
+    shifted = flat[1:].view(2, 4, 4, 4, 4)  # 4 bytes off a 16-byte boundary
+    stem = torch.zeros(2, 4, 4, 4, 3)
+    k1 = torch.zeros(3, 3, 3, 11, 4)
+    assert tconv.gather_routes([aligned, shifted, stem], k1) == (
+        ["cp.async", "scalar", "scalar"], "cp.async")
+    assert tconv.gather_routes([aligned], torch.zeros(1, 1, 1, 4, 2))[1] == "scalar"
+    assert tconv.gather_routes([aligned], torch.zeros(3, 3, 3, 2, 4))[1] == "cp.async"  # K2
+    assert tconv.gather_routes([aligned.to(torch.bfloat16)], k1.to(torch.bfloat16)) == (
+        ["scalar"], "scalar")
+
+
+def test_fp32_level0_bottleneck_takes_the_vector_gather():
+    narrow = [(name, sig) for name, sig in _path_convs(2)
+              if name == "conv3d" and any(s[-1] == 4 for s in sig[0])]
+    assert narrow  # level 0's bottleneck convs read 4-channel parts
+    for name, sig in narrow:
+        bits = {dt: int(_path_plan(name, sig, dt)[3][1][65]) for dt in DTYPES}
+        for i, shape in enumerate(sig[0]):
+            assert (bits[torch.float32] >> i) & 1 == 1
+            assert (bits[torch.bfloat16] >> i) & 1 == (shape[-1] % 8 == 0)
 
 
 def test_gather_routes_follow_channels_and_alignment():
@@ -245,19 +380,24 @@ def _path_convs(batch):
             if key[0] in ("conv3d", "conv3d_transpose")]
 
 
-def _path_plan(name, sig):
-    """The wrapper's launch arguments of one path call, on the meta device."""
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _path_plan(name, sig, dtype):
+    """The wrapper's launch arguments of one path call in ``dtype``, on the
+    meta device."""
     transposed = name == "conv3d_transpose"
     shapes = [sig[0]] if transposed else sig[0]
-    parts = [torch.empty(s, dtype=torch.bfloat16, device="meta") for s in shapes]
-    kernel = torch.empty(sig[1], dtype=torch.bfloat16, device="meta")
+    parts = [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
+    kernel = torch.empty(sig[1], dtype=dtype, device="meta")
     return tconv.igemm_args(parts, kernel, None, sig[2], transposed)
 
 
 @pytest.mark.parametrize("batch", [2, 8, 16])
 def test_igemm_plan_splits_partition_k(batch):
-    for name, sig in _path_convs(batch):
-        plan = _path_plan(name, sig)[2]
+    for (name, sig), dtype in itertools.product(_path_convs(batch), DTYPES):
+        plan = _path_plan(name, sig, dtype)[2]
+        assert plan["bn"] in tconv.TILES_N[dtype]
         assert len(plan["ranges"]) == len(plan["slabs"])
         for n, ranges in zip(plan["slabs"], plan["ranges"]):
             assert len(ranges) == plan["splits"]
@@ -270,26 +410,27 @@ def test_igemm_plan_splits_partition_k(batch):
 def test_igemm_plan_fills_the_grid_or_runs_out_of_k(batch):
     """Split K into the most splits that keep the grid within one wave of
     the card (the target), or as far as K allows."""
-    split_shapes = 0
-    for name, sig in _path_convs(batch):
-        plan = _path_plan(name, sig)[2]
+    split_shapes = collections.Counter()
+    for (name, sig), dtype in itertools.product(_path_convs(batch), DTYPES):
+        plan = _path_plan(name, sig, dtype)[2]
         slabs = plan["slabs"]
         cap = max(1, min(min(slabs), sum(slabs) // (len(slabs) * tconv.MIN_SLABS_PER_SPLIT),
                          tconv.MAX_SPLITS))
         assert plan["cap"] == cap
-        assert plan["target"] == tconv.SMS * tconv.RESIDENT_BLOCKS[plan["bn"]]
+        assert plan["target"] == tconv.SMS * tconv.RESIDENT_BLOCKS[dtype][plan["bn"]]
         if plan["splits"] > 1:
             assert plan["blocks"] <= plan["target"], (name, sig, plan)
         assert (plan["splits"] == cap  # K ran out
                 or plan["tiles"] * (plan["splits"] + 1) > plan["target"]), (name, sig, plan)
-        split_shapes += plan["splits"] > 1
-    assert split_shapes > 0  # the deep levels split at every served batch
+        split_shapes[dtype] += plan["splits"] > 1
+    assert min(split_shapes[d] for d in DTYPES) > 0  # the deep levels split at every batch
 
 
 @pytest.mark.parametrize("batch", [2, 8, 16])
 def test_igemm_plan_workspace_is_what_the_wrapper_allocates(batch):
-    for name, sig in _path_convs(batch):
-        y, ws, plan, (ptrs, meta, _) = _path_plan(name, sig)
+    for (name, sig), dtype in itertools.product(_path_convs(batch), DTYPES):
+        y, ws, plan, (ptrs, meta, _) = _path_plan(name, sig, dtype)
+        assert meta[62] == {torch.bfloat16: 1, torch.float32: 0}[dtype]
         assert meta[64] == plan["splits"] and meta[68] == plan["bn"]
         if plan["splits"] == 1:
             assert ws is None and plan["workspace"] == 0
@@ -483,6 +624,137 @@ def test_in_stats_kernel_emulation_matches_jax(c, dtype):
     xj = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
     want = np.asarray(jnorm.instance_norm(xj, jnp.asarray(scale), jnp.asarray(bias))
                       .astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    else:
+        err = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+        assert err.max() <= BF16_REL, err.max()
+
+
+# ------------------------------------------------------ K4's grid (plan)
+def _apply_visits(plan):
+    """How often in_apply_kernel's threads visit each vector of a sample,
+    walking the kernel's loop: thread i < active takes rounds of vectors
+    v + k * active (k < APPLY_UNROLL, those inside the sample) from v = i,
+    v advancing APPLY_UNROLL * active a round while it lies in the sample."""
+    nvec, active, unroll = plan["vectors"], plan["active"], tnorm.APPLY_UNROLL
+    assert plan["groups"] <= active <= plan["blocks_per_sample"] * tnorm.THREADS
+    assert active % plan["groups"] == 0
+    hits = np.zeros(nvec, np.int64)
+    v = np.arange(active)
+    while (live := v < nvec).any():
+        for k in range(unroll):
+            idx = v[live] + k * active
+            hits[idx[idx < nvec]] += 1
+        v = v + unroll * active
+    return hits
+
+
+def _apply_channels(plan, c):
+    """(vectors, vec) channels of each lane as the kernel builds them, from
+    the thread's fixed group: ((i % groups) * vec + lane) % C, i = v % active;
+    held to each element's own channel."""
+    vec = plan["vec"]
+    v = np.arange(plan["vectors"])
+    ch = (((v % plan["active"]) % plan["groups"])[:, None] * vec + np.arange(vec)) % c
+    assert (ch == (v[:, None] * vec + np.arange(vec)) % c).all()
+    return ch
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_in_apply_plan_covers_every_element_of_the_path_shapes_once(itemsize):
+    shapes = _path_norm_shapes(2)
+    assert len(shapes) == 10
+    for shape in shapes:
+        b, c = shape[0], shape[-1]
+        spatial = int(np.prod(shape[1:4]))
+        plan = tnorm.in_apply_plan(b, spatial, c, itemsize)
+        assert plan["route"] == "vector" and plan["vec"] == 16 // itemsize
+        assert plan["vectors"] * plan["vec"] == spatial * c
+        assert (_apply_visits(plan) == 1).all(), shape
+        _apply_channels(plan, c)
+
+
+def test_in_apply_plan_sizes_the_grid_from_bytes():
+    """The level-0 shapes get the blocks that keep APPLY_INFLIGHT_BYTES in
+    flight on every SM; the small deep shapes only one pass's worth."""
+    target = tnorm.SMS * tnorm.APPLY_INFLIGHT_BYTES // (
+        tnorm.THREADS * tnorm.APPLY_UNROLL * 16)
+    assert target == 2 * tnorm.SMS
+    for shape in _path_norm_shapes(2):
+        b, c = shape[0], shape[-1]
+        plan = tnorm.in_apply_plan(b, int(np.prod(shape[1:4])), c, 2)
+        one_pass = -(-plan["vectors"] // (tnorm.THREADS * tnorm.APPLY_UNROLL))
+        assert plan["blocks_per_sample"] == min(-(-target // b), one_pass), (shape, plan)
+        if shape[2] == 160:
+            assert plan["blocks"] == target
+        if shape[1] * shape[2] * shape[3] * c * 2 <= 100_000:
+            assert plan["blocks"] <= 32
+
+
+@pytest.mark.parametrize("c,itemsize,aligned,route,vec,groups", [
+    (4, 2, True, "vector", 8, 1), (8, 2, True, "vector", 8, 1), (16, 2, True, "vector", 8, 2),
+    (8, 4, True, "vector", 4, 2), (300, 4, True, "vector", 4, 75), (12, 2, True, "scalar", 1, 12),
+    (300, 2, True, "scalar", 1, 300), (16, 2, False, "scalar", 1, 16)])
+def test_in_apply_plan_routes(c, itemsize, aligned, route, vec, groups):
+    plan = tnorm.in_apply_plan(2, 6 * 16 * 16, c, itemsize, aligned)
+    assert (plan["route"], plan["vec"], plan["groups"]) == (route, vec, groups)
+    assert (_apply_visits(plan) == 1).all()
+
+
+@pytest.mark.parametrize("batch,spatial,c,itemsize", [
+    (0, 8, 4, 2), (65536, 8, 4, 2), (2, 0, 4, 2), (2, 8, 0, 2), (2, 8, 4, 8),
+    (1, 2 ** 28, 8, 2)])
+def test_in_apply_plan_refuses_what_the_kernel_does_not_take(batch, spatial, c, itemsize):
+    with pytest.raises(ValueError):
+        tnorm.in_apply_plan(batch, spatial, c, itemsize)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _emulate_in_apply(xt, stats, scale, bias, lrelu, eps=tnorm.EPSILON):
+    """numpy replay of csrc/instance_norm.cu in_apply_kernel: the plan's
+    partition, each thread's coefficients for its fixed channels, fp32
+    arithmetic (bf16: a and b rounded to bf16 first), one rounding."""
+    b, c = xt.shape[0], xt.shape[-1]
+    plan = tnorm.in_apply_plan(b, int(np.prod(xt.shape[1:4])), c, xt.element_size())
+    assert (_apply_visits(plan) == 1).all()
+    ch = _apply_channels(plan, c)
+    st = stats.numpy().astype(np.float32)
+    mean, var = st[:, 0][:, ch], st[:, 1][:, ch]
+    a = np.float32(1) / np.sqrt(var + np.float32(eps)) * scale.numpy()[ch]
+    if xt.dtype == torch.float32:
+        center, off = mean, bias.numpy()[ch]
+    else:
+        center, off, a = np.float32(0), _bf16(bias.numpy()[ch] - mean * a), _bf16(a)
+    y = (xt.float().numpy().reshape(b, -1, plan["vec"]) - center) * a + off
+    if lrelu:
+        y = np.where(y < 0, np.float32(0.1) * y, y)
+    return torch.from_numpy(y.astype(np.float32).reshape(xt.shape)).to(xt.dtype)
+
+
+@pytest.mark.parametrize("lrelu", [False, True])
+@pytest.mark.parametrize("c", [4, 8, 12, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_in_apply_kernel_emulation_matches_jax(dtype, c, lrelu):
+    """K4's partition and channel map, on K3's replayed statistics, against
+    the JAX package's instance norm (+ LReLU 0.1)."""
+    x, _, _ = _in_inputs(20 + c, c=c, spatial=(3, 8, 10))
+    rng = np.random.default_rng(c + 1)
+    scale = (1 + 0.3 * rng.normal(size=(c,))).astype(np.float32)
+    bias = (0.3 * rng.normal(size=(c,))).astype(np.float32)
+    xt = _t(x).to(getattr(torch, dtype))
+    stats = _emulate_in_stats(xt.float().numpy(), xt.element_size())
+    got = _emulate_in_apply(xt, stats, _t(scale), _t(bias), lrelu)
+    assert got.dtype == xt.dtype
+    xj = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    want = jnorm.instance_norm(xj, jnp.asarray(scale), jnp.asarray(bias))
+    if lrelu:
+        want = fnn.leaky_relu(want, 0.1)
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
     if dtype == "float32":
         np.testing.assert_allclose(got, want, atol=ATOL)
     else:

@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Device time of the port's model-path kernels (K1-K4) over one cfg1
+forward, per dtype, on one GPU, and each CUDA kernel's ptxas report.
+
+    python3 tools/kernel_times.py [--batch 2] [--dtypes float32 bfloat16]
+                                  [--library] [--out FILE]
+
+Every distinct kernel call of the cfg1 forward at ``--batch`` is timed as
+``chip_smoke.py`` times it (10 calls captured in one CUDA graph, replayed
+between CUDA events, after warm-up) and weighted by its count in the
+forward; ``--library`` also times the one torch call computing the same
+function (cuDNN fp32 with TF32 off for fp32 K1/K2). Inputs are drawn on the
+card from a fixed seed. Run it from the root of a checkout: it uses that
+checkout's package and ``chip_smoke.py``, and builds that checkout's
+kernels, so ``ptxas`` lists each compiled variant's registers and spills
+(empty where the library was already built). To compare two versions,
+unpack one into a directory of the other and run the script from each root
+in turns, on one card: A, B, B, A. Prints one JSON line: the card, then
+per dtype and kernel the sum over the forward (ms); ``--out`` gets the same
+with each shape's time and the ptxas report.
+"""
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+PTXAS_KERNELS = ("conv3d_mma_kernel", "splitk_reduce_kernel", "in_stats_kernel",
+                 "in_apply_kernel")
+
+
+def ptxas_variants(log):
+    """{mangled name: [registers, spill bytes (stores + loads)]} of the
+    kernels in PTXAS_KERNELS, from nvcc's -Xptxas -v report."""
+    out, current = {}, None
+    for line in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1) if any(k in m.group(1) for k in PTXAS_KERNELS) else None
+            if current:
+                out[current] = [None, 0]
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[current][1] += int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[current][0] = int(used.group(1))
+    return out
+
+
+def _calls(cs, cv, nm, name, sig, dtype, gen):
+    """(the kernel call, its library call or None) at one path signature."""
+    import torch
+
+    if name == "conv3d":
+        parts, kernel, bias, st = cs._conv_case(sig, dtype, gen)
+        return (lambda: cv.conv3d(parts, kernel, bias, st)), cs._conv_library(parts, kernel, st)
+    if name == "conv3d_transpose":
+        x, kernel, bias, st = cs._convt_case(sig, dtype, gen)
+        return ((lambda: cv.conv3d_transpose(x, kernel, bias, st)),
+                cs._convt_library(x, kernel, st))
+    x, scale, bias = cs._in_case(sig[0], dtype, gen)
+    if name == "in_stats":
+        return (lambda: nm.in_stats(x)), (
+            lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0))
+    stats = nm.in_stats_plain(x)
+    return (lambda: nm.in_apply(x, stats, scale, bias, sig[1])), None
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--library", action="store_true")
+    ap.add_argument("--out", type=str, default=None)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import chip_smoke as cs
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cuda_lib.library()
+    out = {"checkout": os.getcwd(), "card": smi, "batch": args.batch,
+           "ptxas": ptxas_variants(cuda_lib.build_log)}
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    for dn in args.dtypes:
+        dtype = getattr(torch, dn)
+        calls = cs.trace_path_calls(args.batch, dtype)
+        per = {}
+        for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
+            run, lib = _calls(cs, cv, nm, name, sig, dtype, gen)
+            row = {"sig": sig, "count": count, "ms": cs.time_ms(run, args.reps)}
+            if args.library and lib is not None:
+                row["library_ms"] = cs.time_ms(lib, args.reps)
+            per.setdefault(name, []).append(row)
+        out[dn] = {}
+        for name, rows in per.items():
+            out[dn][name] = {"sum_ms": sum(r["ms"] * r["count"] for r in rows), "shapes": rows}
+            if args.library and all("library_ms" in r for r in rows):
+                out[dn][name]["library_sum_ms"] = sum(r["library_ms"] * r["count"] for r in rows)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f)
+    print(json.dumps({**{k: out[k] for k in ("checkout", "card", "batch")},
+                      **{dn: {name: {k: v for k, v in s.items() if k != "shapes"}
+                              for name, s in out[dn].items()} for dn in args.dtypes}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
