@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU (deterministic,
-Monte-Carlo and sliding-window M1 serving, and the GEMM-rate probe) and hold
-every hand-written kernel against its plain twin.
+Monte-Carlo and sliding-window M1 serving, cfg2, the probabilistic and the
+cascaded M1, and the GEMM-rate probe) and hold every hand-written kernel
+against its plain twin.
 
     python3 chip_smoke.py [--seed 0] [--out FILE]
 
@@ -54,15 +55,39 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                and cuBLAS's TFLOP/s per shape, K1 at conv_probe's geometry
                beside cuDNN.
   8. paths     K1-K4 against their twins at the distinct shapes of the
-               serve_mc (batch 8, bf16 and fp32) and serve_sw (batch 16,
-               fp32) forwards.
+               serve_mc (batch 8, bf16 and fp32), serve_sw (batch 16,
+               fp32), serve_prob (batch 8, bf16) and serve_cascade's
+               whole-gland (batch 4, fp32) forwards.
+  9. serve_cfg2     bench cfg2 (dense skips + deep supervision) at cfg1
+               width: 3 bf16 requests of 2 volumes (median latency), fp32
+               card vs CPU softmax <= 1e-3, bf16 vs fp32 mean <= 1e-2, one
+               request profiled.
+ 10. serve_prob     the reference README's model (probabilistic, latent
+               dims (3,2,1,0), deep supervision, monte-carlo dropout 0.5, 4
+               input channels): 3 bf16 requests of 2 volumes at mc_iter 4;
+               the same seed the same bits, std >= 0 and > 0 somewhere;
+               fp32 card vs CPU <= 1e-3 of one forward with every dropout
+               mask and latent drawn by numpy on the host and replayed on
+               both (a CUDA and a CPU generator draw different bits); one
+               request profiled.
+ 11. serve_cascade  the two-stage cascade (noisy-or), deterministic: 3 bf16
+               requests of 2 two-exam volumes; serve.run on one 24x256x256
+               two-exam case (an image_path_2 manifest, fp32); fp32 card vs
+               CPU <= 1e-3 of one window; one request profiled.
+
+The kernels phase (2) also checks and times every K1-K4 shape of the three
+model paths above (their detect heads, and the full forwards of cfg2 and of
+the probabilistic model: deep-supervision heads, posterior) and of a
+dense-skip probabilistic model (whose ladder stitches six parts), at batch 2
+in both dtypes; those rows carry their calls per forward of each path.
 
 Each path's launch counters are set to 0 just before it and read just
-after. The last line is {"ok": true, "device": {...}}; the line before it
-lists every kernel with its launches on its path, error and times, and
-ptxas's registers, static shared memory and spills of its CUDA kernels, in
-bf16 on the serve path and in fp32 on the serve_sw path; for K1 and K2 also
-the route.
+after; each request of the model paths must launch exactly what a
+meta-device trace of its detect head counts. The last line is {"ok": true,
+"device": {...}}; the line before it lists every kernel with its launches
+on its path and on every path, error and times, and ptxas's registers,
+static shared memory and spills of its CUDA kernels, in bf16 on the serve
+path and in fp32 on the serve_sw path; for K1 and K2 also the route.
 """
 
 from __future__ import annotations
@@ -88,6 +113,16 @@ CFG1 = dict(
     se_reduction=(8, 8, 8, 8, 8),
     att_sub_samp=((1, 1, 1), (1, 1, 1), (1, 1, 1), (1, 1, 1)),
     dropout_rate=0.0, dropout_mode="standard")
+# bench cfg2 (benchmarks/bench_core.py:87-96, 300-341); the reference README's
+# model (JAX models/m1.py:7-12) at cfg1 width, its 4th input channel the label
+# that test-mode images carry as zeros; the cascade (noisy-or fusion)
+CFG2 = dict(CFG1, dense_skip=True, deep_supervision=True)
+PROB = dict(CFG1, input_channels=4, probabilistic=True, prob_latent_dims=(3, 2, 1, 0),
+            deep_supervision=True, dropout_mode="monte-carlo", dropout_rate=0.5)
+CASCADE = dict(CFG1, cascaded="noisy-or")
+PROB_DENSE = dict(PROB, dense_skip=True)  # kernels phase only: a 6-part stitch
+MODEL_PATHS = {"serve_cfg2": CFG2, "serve_prob": PROB, "serve_cascade": CASCADE}
+CASCADE_CASE = (24, 256, 256)
 LAUNCHES_PER_FORWARD = {"conv3d": 50, "conv3d_transpose": 4, "in_stats": 37,
                         "in_apply": 37}
 PKG = "prostatemr_3d_cad_cspca_tpu_torch"
@@ -160,12 +195,14 @@ def phase_build():
 
 
 # ------------------------------------------------- path shapes (meta trace)
-def trace_path_calls(batch, dtype=None):
-    """Every kernel call of one cfg1 forward at ``batch`` in ``dtype``
-    (default bf16), found by running the model on the meta device with
-    recording wrappers."""
+def trace_model_calls(cfg, batch, dtype=None, head="detect"):
+    """Every kernel call of one forward of the model ``cfg`` at ``batch`` in
+    ``dtype`` (default bf16) through ``head`` ("detect": what serving runs,
+    or "forward"), found by running it on the meta device with recording
+    wrappers (a CPU generator draws the meta tensors of dropout and
+    latents)."""
     import torch
-    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import m1
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution, normalization
 
     calls = []
@@ -189,20 +226,39 @@ def trace_path_calls(batch, dtype=None):
     record(normalization, "in_apply", lambda x, stats, scale, bias, lrelu=False,
            epsilon=1e-3: (tuple(x.shape), bool(lrelu)))
     try:
-        kw = {k: v for k, v in CFG1.items() if k != "input_spatial_dims"}
-        with torch.device("meta"):
-            net = m1(**kw, dtype=dtype or torch.bfloat16)
-            x = torch.zeros((batch, *CFG1["input_spatial_dims"], 3))
-            with torch.no_grad():
-                net(x)
+        model = M1(**cfg, summary=False, init_params=False, device="meta",
+                   dtype=dtype or torch.bfloat16)
+        x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]),
+                        device="meta")
+        kw = {"train": False} if head == "forward" else {}
+        with torch.no_grad():
+            getattr(model.net, head)((x, x) if cfg.get("cascaded") else x,
+                                     rng=torch.Generator().manual_seed(0), **kw)
     finally:
         for (mod, name), orig in originals.items():
             setattr(mod, name, orig)
-    counts = collections.Counter(name for name, _ in calls)
+    return collections.Counter(calls)
+
+
+def trace_path_calls(batch, dtype=None):
+    """Every kernel call of one cfg1 forward at ``batch`` in ``dtype``
+    (default bf16); raises unless they are LAUNCHES_PER_FORWARD."""
+    calls = trace_model_calls(CFG1, batch, dtype, head="forward")
+    counts = collections.Counter()
+    for (name, _), n in calls.items():
+        counts[name] += n
     if dict(counts) != LAUNCHES_PER_FORWARD:
         raise AssertionError(f"cfg1 forward calls {dict(counts)}, expected "
                              f"{LAUNCHES_PER_FORWARD}")
-    return collections.Counter(calls)
+    return calls
+
+
+def launch_counts(calls, forwards=1):
+    """Launches per kernel of ``forwards`` forwards of a traced model."""
+    out = {k: 0 for k in (*LAUNCHES_PER_FORWARD, "gemm_loop")}
+    for (name, _), n in calls.items():
+        out[name] += n * forwards
+    return out
 
 
 # ---------------------------------------------------------------- timing
@@ -367,11 +423,12 @@ def _dn(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def phase_kernels(calls, reps, dtypes=None, timed=True):
+def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None):
     """Each call's kernel against its plain twin in each of ``dtypes``
     (default fp32 and bf16); with ``timed``, each dtype's times beside the
     bound, and in each dtype one K1/K2 split-K shape and K3's largest shape
-    run twice on the same inputs (the same bits)."""
+    run twice on the same inputs (the same bits). ``per_path`` ({path:
+    calls}) adds each row's calls per forward of each path."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
@@ -385,6 +442,9 @@ def phase_kernels(calls, reps, dtypes=None, timed=True):
                      default=None)
     for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
         row = {"count": count}
+        if per_path:
+            row["per_forward"] = {p: c[(name, sig)] for p, c in per_path.items()
+                                  if (name, sig) in c}
         for dtype in dtypes:
             dn = _dn(dtype)
             if name == "conv3d":
@@ -485,9 +545,11 @@ def summarize_kernels(rows, dtypes=DTYPE_NAMES):
     largest errors and the sums over the forward of the device times and
     bounds."""
     out = {}
-    for name, shape_rows in rows.items():
+    for name, all_rows in rows.items():
+        shape_rows = [r for r in all_rows if r["count"]]  # cfg1's forward
         out[name] = dict(launches_per_forward=sum(r["count"] for r in shape_rows),
-                         distinct_shapes=len(shape_rows))
+                         distinct_shapes=len(shape_rows),
+                         shapes_checked=len(all_rows))
         for dn in dtypes:
             tot = lambda key: sum(r[f"{key}_{dn}"] * r["count"] for r in shape_rows)  # noqa
             lib = None if any(r[f"library_ms_{dn}"] is None for r in shape_rows) \
@@ -581,8 +643,8 @@ def write_cfg1_checkpoint(path, seed, **overrides):
         leaf = key.rsplit("/", 1)[-1]
         parent = key.rsplit("/", 2)[-2]
         if leaf == "kernel":
-            fan_in = int(np.prod(shape[:3])) * (shape[4] if "convtd" in parent
-                                                 else shape[3])
+            transposed = parent.startswith(("convtd", "dec_hi"))
+            fan_in = int(np.prod(shape[:3])) * (shape[4] if transposed else shape[3])
             val = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
         elif leaf == "scale":
             val = 1.0 + 0.1 * rng.normal(size=shape)
@@ -617,11 +679,13 @@ def forwards(n):
     return {**{k: v * n for k, v in LAUNCHES_PER_FORWARD.items()}, "gemm_loop": 0}
 
 
-def _serve_requests(session, requests, mc):
+def _serve_requests(session, requests, mc, expect=None):
     """Serve ``requests`` through ``session``; check each output and that it
-    took exactly one forward. Returns latencies (ms), outputs, launches."""
+    took exactly one forward (``expect``: its launches, default cfg1's).
+    Returns latencies (ms), outputs, launches."""
     import torch
 
+    expect = expect or forwards(1)
     latencies, outputs, per_request = [], [], []
     reset_counts()
     for req in requests:
@@ -632,7 +696,8 @@ def _serve_requests(session, requests, mc):
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
         per_request.append({k: v - before[k] for k, v in read_counts().items()})
-        shape = (len(req), *CFG1["input_spatial_dims"], 2)
+        shape = (len(req[0] if isinstance(req, tuple) else req),
+                 *CFG1["input_spatial_dims"], 2)
         if probs.shape != shape or (unc is None) == mc or (mc and unc.shape != shape):
             raise AssertionError(f"serve output {probs.shape}, uncertainty "
                                  f"{None if unc is None else unc.shape}")
@@ -643,8 +708,8 @@ def _serve_requests(session, requests, mc):
             raise AssertionError(f"softmax channels sum off by {sum_err}")
         outputs.append((probs, unc))
     for got in per_request:
-        if got != forwards(1):
-            raise AssertionError(f"launches per request {got}, expected {forwards(1)}")
+        if got != expect:
+            raise AssertionError(f"launches per request {got}, expected {expect}")
     return latencies, outputs, read_counts()
 
 
@@ -653,9 +718,9 @@ def _median_after_first(latencies):
     return steady[len(steady) // 2]
 
 
-def _requests(seed):
+def _requests(seed, channels=3):
     rng = np.random.default_rng(seed + 1)
-    return [rng.normal(size=(BATCH, *CFG1["input_spatial_dims"], 3)).astype(np.float32)
+    return [rng.normal(size=(BATCH, *CFG1["input_spatial_dims"], channels)).astype(np.float32)
             for _ in range(REQUESTS)]
 
 
@@ -901,21 +966,214 @@ def phase_probe(smi):
 
 def phase_paths():
     """K1-K4 against their twins at the distinct shapes of the serve_mc
-    (batch 2 x mc 4; bf16 as served, and fp32) and serve_sw (2 cases x 4
-    tiles x mc 2, fp32) forwards."""
+    (batch 2 x mc 4; bf16 as served, and fp32), serve_sw (2 cases x 4
+    tiles x mc 2, fp32), serve_prob (batch 2 x mc 4, bf16) and
+    serve_cascade's whole-gland (4 tiles, fp32) forwards."""
     import torch
 
     out = {}
-    for name, batch, dtype in (("serve_mc", BATCH * MC_ITER, torch.bfloat16),
-                               ("serve_mc", BATCH * MC_ITER, torch.float32),
-                               ("serve_sw", 2 * 4 * 2, torch.float32)):
-        rows = phase_kernels(trace_path_calls(batch, dtype), 0, dtypes=(dtype,),
-                             timed=False)
+    for name, cfg, batch, dtype in (
+            ("serve_mc", CFG1, BATCH * MC_ITER, torch.bfloat16),
+            ("serve_mc", CFG1, BATCH * MC_ITER, torch.float32),
+            ("serve_sw", CFG1, 2 * 4 * 2, torch.float32),
+            ("serve_prob", PROB, BATCH * MC_ITER, torch.bfloat16),
+            ("serve_cascade", CASCADE, 4, torch.float32)):
+        calls = (trace_path_calls(batch, dtype) if cfg is CFG1
+                 else trace_model_calls(cfg, batch, dtype))
+        rows = phase_kernels(calls, 0, dtypes=(dtype,), timed=False)
         dn = _dn(dtype)
         out[f"{name}.{dn}"] = {k: {"shapes": len(v),
                                    "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v)}
                                for k, v in rows.items()}
     emit({"phase": "paths", "batch_checks": out})
+
+
+# ------------------------------------------------------------- model paths
+def _card_vs_cpu(ckpt, x, rng=None):
+    """The detect head in fp32 on the card and on the CPU (plain twins),
+    and in bf16 on the card, on the same input (and replayed draws): (max
+    |fp32 card - cpu| over every output, bf16-vs-fp32 |diff| mean, max)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+
+    def run(device, dtype=None):
+        out = M1.load(ckpt, device=device, dtype=dtype).predict(x, rng=rng)
+        outs = out if isinstance(out, tuple) else (out,)
+        return [o.float().cpu().numpy() for o in outs]
+
+    card, cpu, card16 = run("cuda"), run("cpu"), run("cuda", torch.bfloat16)
+    fp32 = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+    d16 = np.concatenate([np.abs(a - b).ravel() for a, b in zip(card16, card)])
+    if not all(np.isfinite(a).all() for a in card + cpu + card16):
+        raise AssertionError("detect output is not finite")
+    return fp32, float(d16.mean()), float(d16.max())
+
+
+def _check_parity(name, fp32, d16_mean):
+    if not fp32 <= 1e-3:
+        raise AssertionError(f"{name}: fp32 card vs CPU differs by {fp32}")
+    if not d16_mean <= 1e-2:
+        raise AssertionError(f"{name}: bf16 vs fp32 mean difference {d16_mean}")
+
+
+def _serve_model_path(name, ckpt, requests, smi, mc_iter=1, seed=0):
+    """Requests through a bf16 session of ``ckpt``, each launching exactly
+    one traced detect forward; then one profiled request."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+
+    cfg = MODEL_PATHS[name]
+    expect = launch_counts(trace_model_calls(cfg, BATCH * mc_iter))
+    torch.cuda.reset_peak_memory_stats()
+    session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
+                               mc_iter=mc_iter, seed=seed, device="cuda")
+    latencies, outputs, launches = _serve_requests(session, requests, mc_iter > 1, expect)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase_profile(ckpt, requests[0], mc_iter=mc_iter, path=name)
+    med = _median_after_first(latencies)
+    result = {"card": smi, "dtype": "bfloat16", "batch": BATCH, "requests": REQUESTS,
+              "latency_ms": latencies, "median_latency_ms_after_first": med,
+              "vol_per_s": BATCH / med * 1e3, "launches": launches,
+              "launches_per_request": expect, "peak_mem_gib": peak}
+    return result, outputs, launches
+
+
+def phase_serve_cfg2(tmp, seed, smi):
+    """Bench cfg2 (dense skips + deep supervision) at cfg1 width: bf16
+    requests; fp32 card vs CPU and bf16 vs fp32 on one volume."""
+    ckpt = os.path.join(tmp, "cfg2.npz")
+    write_cfg1_checkpoint(ckpt, seed, **CFG2)
+    requests = _requests(seed)
+    result, _, launches = _serve_model_path("serve_cfg2", ckpt, requests, smi)
+    fp32, d16_mean, d16_max = _card_vs_cpu(ckpt, requests[0][:1])
+    emit({"phase": "serve_cfg2", **result, "fp32_card_vs_cpu_max": fp32,
+          "bf16_vs_fp32_card_mean": d16_mean, "bf16_vs_fp32_card_max": d16_max})
+    _check_parity("serve_cfg2", fp32, d16_mean)
+    return launches
+
+
+def prob_detect_draws(cfg, batch, seed):
+    """Every draw of one detect forward of the probabilistic model ``cfg``
+    at ``batch``, made by numpy on the host: the prior trunk's and the
+    sampling ladder's keep-masks and the ladder's latents, under the paths
+    ``prng`` names (fused passes)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.blocks import ConfigurableDropout
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+
+    model = M1(**cfg, summary=False, init_params=False, device="meta")
+    prior, dims = model.net.prior, model.net.prior.prob_latent_dims
+    shapes, hooks = {}, []
+    for name, mod in prior.named_modules():
+        if isinstance(mod, ConfigurableDropout):
+            scope = "p_sample" if mod.site.startswith("dropp") else "prior"
+            key = f"{scope}/{mod.site}"
+        elif name.startswith("mu_logsig_") and "." not in name:
+            key = f"p_sample/z_{name[-1]}"
+        else:
+            continue
+        hooks.append(mod.register_forward_hook(
+            lambda _m, _i, out, key=key: shapes.update({key: tuple(out.shape)})))
+    x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]), device="meta")
+    with torch.no_grad():
+        model.net.detect(x, rng=torch.Generator().manual_seed(0))
+    for h in hooks:
+        h.remove()
+    rng = np.random.default_rng(seed)
+    draws = {}
+    for key, shape in sorted(shapes.items()):
+        if "/z_" in key:
+            d = dims[int(key[-1])]
+            draws[key] = rng.standard_normal((*shape[:-1], d)).astype(np.float32)
+        else:
+            draws[key] = rng.random(shape) < 1.0 - cfg["dropout_rate"]
+    return draws
+
+
+def phase_serve_prob(tmp, seed, smi):
+    """The reference README's probabilistic model: bf16 MC requests, the
+    same seed the same bits, std >= 0 and > 0 somewhere; fp32 card vs CPU
+    of one forward with host-drawn masks and latents replayed on both."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+
+    ckpt = os.path.join(tmp, "prob.npz")
+    write_cfg1_checkpoint(ckpt, seed, **PROB)
+    requests = _requests(seed, channels=PROB["input_channels"])
+    result, outputs, launches = _serve_model_path("serve_prob", ckpt, requests, smi,
+                                                  mc_iter=MC_ITER, seed=seed)
+    probs, std = outputs[0]
+    if not (float(std.min()) >= 0.0 and float(std.max()) > 0.0):
+        raise AssertionError(f"serve_prob: std in [{std.min()}, {std.max()}]")
+    again = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
+                             mc_iter=MC_ITER, seed=seed, device="cuda")(requests[0])
+    if not (np.array_equal(again[0], probs) and np.array_equal(again[1], std)):
+        raise AssertionError("serve_prob: the same seed gave other outputs")
+    draws = prob_detect_draws(PROB, 1, seed + 7)
+    fp32, d16_mean, d16_max = _card_vs_cpu(ckpt, requests[0][:1], rng=draws)
+    emit({"phase": "serve_prob", **result, "mc_iter": MC_ITER,
+          "prob_latent_dims": list(PROB["prob_latent_dims"]),
+          "std_max": float(std.max()), "std_mean": float(std.mean()),
+          "replayed_draws": len(draws), "fp32_card_vs_cpu_max": fp32,
+          "bf16_vs_fp32_card_mean": d16_mean, "bf16_vs_fp32_card_max": d16_max})
+    _check_parity("serve_prob", fp32, d16_mean)
+    return launches
+
+
+def phase_serve_cascade(tmp, seed, smi):
+    """The cascade (noisy-or): bf16 requests of two-exam volumes; serve.run
+    on one whole-gland two-exam case (image_path_2, fp32); fp32 card vs
+    CPU of one window."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch import serve
+
+    ckpt = os.path.join(tmp, "cascade.npz")
+    write_cfg1_checkpoint(ckpt, seed, **CASCADE)
+    first, second = _requests(seed), _requests(seed + 10)
+    requests = list(zip(first, second))
+    result, _, launches = _serve_model_path("serve_cascade", ckpt, requests, smi)
+
+    rng = np.random.default_rng(seed + 5)
+    paths = []
+    for col in ("image_path", "image_path_2"):
+        paths.append(os.path.join(tmp, f"cascade_{col}.npy"))
+        np.save(paths[-1], rng.normal(size=(*CASCADE_CASE, 3)).astype(np.float32))
+    manifest = os.path.join(tmp, "cascade.csv")
+    with open(manifest, "w") as f:
+        f.write(f"p-id,image_path,image_path_2\ngland,{paths[0]},{paths[1]}\n")
+    from prostatemr_3d_cad_cspca_tpu_torch.infer import _tile_starts
+
+    tiles = int(np.prod([len(_tile_starts(f, w, 0.5)) for f, w in
+                         zip(CASCADE_CASE, CFG1["input_spatial_dims"])]))
+    chunks = -(-tiles // 4)  # the sliding window's chunks of 4 tiles
+    expect = launch_counts(trace_model_calls(CASCADE, 4, torch.float32), chunks)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve.main(["--MODEL", ckpt, "--MANIFEST", manifest, "--OUTPUT_DIR",
+                      os.path.join(tmp, "cascade_out"), "--DEVICE", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sw_launches = read_counts()
+    det = np.load(out[0]["detection_path"])
+    floored = blend_weight(CASCADE_CASE, CFG1["input_spatial_dims"]) < 1e-8
+    if det.shape != (*CASCADE_CASE, 2) or not np.isfinite(det).all() \
+            or float(np.abs(det.sum(-1)[~floored] - 1.0).max()) > 1e-4:
+        raise AssertionError(f"serve_cascade whole gland: output {det.shape} not a "
+                             "finite softmax")
+    if sw_launches != expect:
+        raise AssertionError(f"serve_cascade whole gland: launches {sw_launches}, "
+                             f"expected {expect}")
+    fp32, d16_mean, d16_max = _card_vs_cpu(ckpt, (first[0][:1], second[0][:1]))
+    emit({"phase": "serve_cascade", **result, "fusion": CASCADE["cascaded"],
+          "gland_case": list(CASCADE_CASE), "gland_tiles": tiles, "gland_dtype": "float32",
+          "gland_seconds": seconds, "gland_launches": sw_launches,
+          "fp32_card_vs_cpu_max": fp32, "bf16_vs_fp32_card_mean": d16_mean,
+          "bf16_vs_fp32_card_max": d16_max})
+    _check_parity("serve_cascade", fp32, d16_mean)
+    return launches
 
 
 def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
@@ -959,8 +1217,9 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
         raise AssertionError(f"{path}: the profile shows no {missing}")
     shown = dict(by_name.most_common(top))
     shown.update({k: by_name[k] for k in PROFILE_KERNEL_NAMES})
+    batch = len(volume[0] if isinstance(volume, tuple) else volume)
     emit({"phase": "profile", "path": path, "dtype": _dn(dtype),
-          "volumes": len(volume) * mc_iter, "wall_ms": wall_us / 1e3,
+          "volumes": batch * mc_iter, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3,
           "device_busy_share": busy / wall_us if wall_us else None,
           "device_events": len(spans),
@@ -1008,7 +1267,15 @@ def main(argv=None):
 
     smi = phase_build()
     calls = trace_path_calls(BATCH)
-    rows = phase_kernels(calls, REPS)
+    per_path = {"serve": calls}
+    per_path.update({name: trace_model_calls(cfg, BATCH) for name, cfg in MODEL_PATHS.items()})
+    per_path["prob_dense"] = trace_model_calls(PROB_DENSE, BATCH)
+    for name in ("serve_cfg2", "serve_prob"):  # + deep-supervision heads, posterior
+        per_path[f"{name}.forward"] = trace_model_calls(MODEL_PATHS[name], BATCH,
+                                                         head="forward")
+    every = collections.Counter({key: 0 for c in per_path.values() for key in c})
+    every.update(calls)  # a row's count: its calls per cfg1 forward
+    rows = phase_kernels(every, REPS, per_path=per_path)
     summary = summarize_kernels(rows)
     fp64 = phase_fp64(calls)
     summary["gemm_loop"], rows["gemm_loop"] = phase_gemm(REPS)
@@ -1024,6 +1291,9 @@ def main(argv=None):
         phase_parity(ckpt, volume)
         launches["serve_mc"] = phase_serve_mc(tmp, args.seed, smi, ckpt)
         launches["serve_sw"] = phase_serve_sw(tmp, args.seed, smi, ckpt)
+        launches["serve_cfg2"] = phase_serve_cfg2(tmp, args.seed, smi)
+        launches["serve_prob"] = phase_serve_prob(tmp, args.seed, smi)
+        launches["serve_cascade"] = phase_serve_cascade(tmp, args.seed, smi)
     launches["probe"], probe = phase_probe(smi)
     phase_paths()
 
@@ -1045,6 +1315,8 @@ def main(argv=None):
                             "max_abs_err": d["max_abs_err"], "ms": d["kernel_ms"],
                             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
                             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+                            "launches_by_path": {p: c[name] for p, c in launches.items()
+                                                 if c[name]},
                             **({"also_replaces": ALSO_REPLACES[name]}
                                if name in ALSO_REPLACES else {}),
                             "ptxas": ptxas_report(cuda_lib.build_log, names),

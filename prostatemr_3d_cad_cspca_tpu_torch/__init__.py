@@ -7,9 +7,10 @@ NDHWC and its checkpoints are the JAX package's npz files. Entry points run
 on the card unless the caller passes ``device="cpu"``; on the CPU each kernel
 wrapper runs its plain PyTorch twin.
 
-It serves the M1 detector the training CLI builds by default:
-  - models.M1 / m1 / M1Core / M1Net — model surface and backbone, with
-    Monte-Carlo dropout
+It serves every M1 detector the JAX package builds:
+  - models.M1 / m1 / M1Core / M1Net / M1CascadedNet — model surface and
+    backbone: Monte-Carlo dropout, dense skips and deep supervision, the
+    hierarchical probabilistic ladder, the two-stage cascade
   - infer — mc_predict, sliding-window inference, chunked batches
   - ensemble — fold ensembles (M1Ensemble) and flip TTA (tta_detect)
   - serve.InferenceSession / serve.run — batched serving, MC mean and std,

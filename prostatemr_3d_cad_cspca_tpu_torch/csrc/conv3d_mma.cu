@@ -10,7 +10,7 @@
 // straight from the NDHWC parts into shared memory, so no im2col tensor ever
 // reaches device memory. Generalized to every conv of the M1 path: kernels
 // (1,3,3), (3,3,3), (1,1,1); strides (1,1,1), (1,2,2), (2,2,2); a list of up
-// to five channel parts summed into one output (SplitInputConv); and the
+// to six channel parts summed into one output (SplitInputConv); and the
 // TF-convention transposed conv (K2). Both kernels read one ConvParams
 // (conv_params.cuh).
 //

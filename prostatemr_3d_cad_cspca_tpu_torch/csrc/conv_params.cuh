@@ -10,14 +10,18 @@
 
 namespace pmr {
 
-constexpr int kMaxParts = 5;
+// a dense-skip ladder's stage-0 stitch has 6 parts; ops/convolution.py MAX_PARTS
+constexpr int kMaxParts = 6;
 constexpr int kMaxPhases = 8;
 constexpr int kMaxTaps = 27;
 
+// nparts sits between x and cin: in this order the bf16 kernels compile to
+// the registers they had with five parts (with nparts after cin, the BN-16
+// K2 variant took one register fewer)
 struct ConvParams {
   const void* x[kMaxParts];
-  int cin[kMaxParts];
   int nparts;
+  int cin[kMaxParts];
   int cin_total;
   const void* w;
   const float* bias;  // null when the conv has no bias
@@ -46,11 +50,14 @@ struct ConvParams {
   int bn;           // output-channel tile
 };
 
-// Returns 0, or a cudaError_t for arguments out of range.
+// Returns 0, or a cudaError_t for arguments out of range. ptrs: the parts,
+// then kernel, bias, output, workspace; meta: nparts, the parts' cin, then
+// the fields f[] (ops/convolution.py, _pack_conv_args, lists them).
 inline int unpack_conv_args(const void* ptrs_v, const void* meta_v, const void* taps_v,
                             ConvParams* p) {
   const uint64_t* ptrs = static_cast<const uint64_t*>(ptrs_v);
   const int* m = static_cast<const int*>(meta_v);
+  const int* f = m + 1 + kMaxParts;
   const signed char* taps = static_cast<const signed char*>(taps_v);
   p->nparts = m[0];
   if (p->nparts < 1 || p->nparts > kMaxParts) return (int)cudaErrorInvalidValue;
@@ -58,44 +65,44 @@ inline int unpack_conv_args(const void* ptrs_v, const void* meta_v, const void* 
     p->x[i] = reinterpret_cast<const void*>(ptrs[i]);
     p->cin[i] = m[1 + i];
   }
-  p->w = reinterpret_cast<const void*>(ptrs[5]);
-  p->bias = m[63] ? reinterpret_cast<const float*>(ptrs[6]) : nullptr;
-  p->y = reinterpret_cast<void*>(ptrs[7]);
-  p->ws = reinterpret_cast<float*>(ptrs[8]);
-  p->cin_total = m[6];
-  p->batch = m[7];
-  p->in_d = m[8];
-  p->in_h = m[9];
-  p->in_w = m[10];
-  p->out_d = m[11];
-  p->out_h = m[12];
-  p->out_w = m[13];
-  p->g_d = m[14];
-  p->g_h = m[15];
-  p->g_w = m[16];
-  p->cout = m[17];
+  p->w = reinterpret_cast<const void*>(ptrs[kMaxParts]);
+  p->bias = f[57] ? reinterpret_cast<const float*>(ptrs[kMaxParts + 1]) : nullptr;
+  p->y = reinterpret_cast<void*>(ptrs[kMaxParts + 2]);
+  p->ws = reinterpret_cast<float*>(ptrs[kMaxParts + 3]);
+  p->cin_total = f[0];
+  p->batch = f[1];
+  p->in_d = f[2];
+  p->in_h = f[3];
+  p->in_w = f[4];
+  p->out_d = f[5];
+  p->out_h = f[6];
+  p->out_w = f[7];
+  p->g_d = f[8];
+  p->g_h = f[9];
+  p->g_w = f[10];
+  p->cout = f[11];
   for (int a = 0; a < 3; ++a) {
-    p->in_mul[a] = m[18 + a];
-    p->in_add[a] = m[21 + a];
-    p->out_mul[a] = m[24 + a];
+    p->in_mul[a] = f[12 + a];
+    p->in_add[a] = f[15 + a];
+    p->out_mul[a] = f[18 + a];
   }
-  p->w_ci_stride = m[27];
-  p->w_co_stride = m[28];
-  p->nphase = m[29];
+  p->w_ci_stride = f[21];
+  p->w_co_stride = f[22];
+  p->nphase = f[23];
   if (p->nphase < 1 || p->nphase > kMaxPhases) return (int)cudaErrorInvalidValue;
   for (int ph = 0; ph < kMaxPhases; ++ph) {
-    p->ntap[ph] = m[30 + ph];
+    p->ntap[ph] = f[24 + ph];
     if (p->ntap[ph] < 0 || p->ntap[ph] > kMaxTaps) return (int)cudaErrorInvalidValue;
-    for (int a = 0; a < 3; ++a) p->res[ph][a] = m[38 + ph * 3 + a];
+    for (int a = 0; a < 3; ++a) p->res[ph][a] = f[32 + ph * 3 + a];
     for (int t = 0; t < kMaxTaps; ++t)
       for (int c = 0; c < 4; ++c) p->tap[ph][t][c] = taps[(ph * kMaxTaps + t) * 4 + c];
   }
-  p->dtype = m[62];
-  p->splits = m[64];
-  p->a_vec = m[65];
-  p->b_vec = m[66];
-  p->transposed = m[67];
-  p->bn = m[68];
+  p->dtype = f[56];
+  p->splits = f[58];
+  p->a_vec = f[59];
+  p->b_vec = f[60];
+  p->transposed = f[61];
+  p->bn = f[62];
   return 0;
 }
 

@@ -32,7 +32,8 @@ def tta_detect(detect_fn: Callable, flip_axes: Sequence[int] = (AXIAL_LR_AXIS,)
     included) flips the input, predicts and flips the prediction back; the
     views are averaged on the device. Axes count from the right of
     ``(..., D, H, W, C)``. With an ``rng``, view i draws from
-    ``fold_in(rng, i)``."""
+    ``fold_in(rng, i)``. A cascade's tuple inputs flip element-wise, and its
+    tuple outputs unflip and average element-wise."""
     flip_axes = tuple(int(a) for a in flip_axes)
     for a in flip_axes:
         if a >= -1:
@@ -69,6 +70,7 @@ class M1Ensemble:
     runs those; with an ``rng`` member i draws from ``fold_in(rng, i)``.
     ``reduce``: 'mean' (member-mean probabilities), 'mean_std' ((mean,
     population std) over members) or None (the stacked (K, ...) outputs).
+    Cascaded members' (stage 1, stage 2) pairs reduce element-wise.
     """
 
     def __init__(self, models: Sequence, reduce: Optional[str] = "mean"):
@@ -126,20 +128,19 @@ class M1Ensemble:
 
             if reduce is None:
                 return tree_map(lambda *ts: torch.stack(ts), *[call(i) for i in range(k)])
-            mean = m2 = None
-            for i in range(k):
-                out = call(i)
-                dtype = out.dtype
-                out = out.float()
-                if mean is None:
-                    mean, m2 = out, torch.zeros_like(out)
-                    continue
-                delta = out - mean
-                mean = mean + delta / (i + 1)
-                m2 = m2 + delta * (out - mean)
+            first = call(0)  # a tensor, or a cascade's (stage 1, stage 2)
+            mean = tree_map(lambda t: t.float(), first)
+            m2 = tree_map(torch.zeros_like, mean)
+            for i in range(1, k):
+                out = tree_map(lambda t: t.float(), call(i))
+                delta = tree_map(torch.sub, out, mean)
+                mean = tree_map(lambda m, d: m + d / (i + 1), mean, delta)
+                m2 = tree_map(lambda a, d, o, m: a + d * (o - m), m2, delta, out, mean)
+            back = lambda t, like: t.to(like.dtype)  # noqa: E731
             if reduce == "mean":
-                return mean.to(dtype)
-            return mean.to(dtype), torch.sqrt(m2 / k).to(dtype)
+                return tree_map(back, mean, first)
+            return (tree_map(back, mean, first),
+                    tree_map(lambda a, like: torch.sqrt(a / k).to(like.dtype), m2, first))
 
         return detect
 

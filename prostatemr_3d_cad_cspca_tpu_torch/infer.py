@@ -37,22 +37,29 @@ def _as_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32))
 
 
+def _leading(tree) -> int:
+    """The batch size of a tensor or of a (cascade) tuple of tensors."""
+    return int((tree[0] if isinstance(tree, (tuple, list)) else tree).shape[0])
+
+
 def mc_predict(detect_fn: Callable, params, inputs, rng, num_samples: int = 1,
                reduce: Optional[str] = "mean"):
     """N Monte-Carlo posterior samples of ``detect_fn(params, x, rng=...)``.
 
     The draws stack sample-major on the batch axis (rows ``s*B + b``) and
-    go through one forward, which draws every sample's dropout masks from
-    ``rng``. A mapping of keep-masks holds masks of the stacked shape
-    (N*B, ...).
+    go through one forward, which draws every sample's dropout masks and
+    latents from ``rng``. A mapping holds masks and latents of the stacked
+    shape (N*B, ...). Inputs and outputs may be tuples (a cascade's two
+    exams, its two stages' outputs).
 
     reduce: 'mean' | 'mean_std' | None (the stacked (N, B, ...) samples).
     """
     if reduce not in ("mean", "mean_std", None):
         raise ValueError(f"reduce must be 'mean', 'mean_std' or None, got {reduce!r}")
-    x = _as_tensor(inputs)
-    n, b = int(num_samples), int(x.shape[0])
-    out = detect_fn(params, x.repeat(n, *([1] * (x.dim() - 1))), rng=rng)
+    x = tree_map(_as_tensor, inputs)
+    n, b = int(num_samples), _leading(x)
+    out = detect_fn(params, tree_map(lambda t: t.repeat(n, *([1] * (t.dim() - 1))), x),
+                    rng=rng)
     samples = tree_map(lambda t: t.reshape(n, b, *t.shape[1:]), out)
     if reduce == "mean":
         return tree_map(lambda s: s.mean(0), samples)
@@ -67,14 +74,15 @@ def make_chunked_batch_fn(apply_fn: Callable, chunk: int, n_chunks: int,
     """``run(x)`` applies ``apply_fn`` to ``n_chunks`` batch chunks of size
     ``chunk`` in turn and concatenates the outputs: peak activation memory
     stays at one chunk's. With ``rng_per_chunk`` it is ``run(x, rng)`` and
-    chunk i gets ``apply_fn(x_i, fold_in(rng, i))``."""
+    chunk i gets ``apply_fn(x_i, fold_in(rng, i))``. ``x`` may be a tuple
+    of same-batch tensors (a cascade's exams)."""
 
     def run(x, rng=None):
-        if int(x.shape[0]) != chunk * n_chunks:
-            raise ValueError(f"batch {x.shape[0]} is not {n_chunks} chunks of {chunk}")
+        if _leading(x) != chunk * n_chunks:
+            raise ValueError(f"batch {_leading(x)} is not {n_chunks} chunks of {chunk}")
         outs = []
         for i in range(n_chunks):
-            xb = x[i * chunk:(i + 1) * chunk]
+            xb = tree_map(lambda t: t[i * chunk:(i + 1) * chunk], x)
             outs.append(apply_fn(xb, prng.fold_in(rng, i)) if rng_per_chunk
                         else apply_fn(xb))
         return tree_map(lambda *ts: torch.cat(ts, 0), *outs)

@@ -1,4 +1,4 @@
-"""Model family of the deterministic path: blocks, M1Core, M1Net, M1."""
+"""The M1 model family: blocks, M1Core, M1Net, M1CascadedNet, M1."""
 
 from .blocks import (  # noqa: F401
     ConfigurableDropout,
@@ -7,5 +7,5 @@ from .blocks import (  # noqa: F401
     leaky_relu01,
 )
 from .m1_core import M1Core  # noqa: F401
-from .m1_net import M1Net  # noqa: F401
+from .m1_net import M1CascadedNet, M1Net, decision_fusion  # noqa: F401
 from .m1 import M1, m1  # noqa: F401

@@ -35,7 +35,8 @@ def dropout(x: torch.Tensor, rate: float, rng, site: Optional[str] = None
 
     ``rng`` is a ``torch.Generator`` on x's device, whose uniform draws
     below ``keep`` are the mask, or a mapping from dropout ``site`` to a
-    keep-mask of x's shape, which is replayed and draws nothing."""
+    keep-mask of x's shape, which is replayed and draws nothing (see
+    ``prng`` for the sites' paths)."""
     if rate == 0.0:
         return x
     if rate == 1.0:
@@ -179,3 +180,16 @@ class GridAttentionBlock3D(nn.Module):
         sigm_psi_f = upsample_nearest(sigm_psi_f, up2)
         w_y = self.norm_out(self.out(sigm_psi_f * x))
         return w_y, sigm_psi_f
+
+
+class StitchingProbDecoder(nn.Module):
+    """Final 1x1x1 logits over the ladder's decoder features (JAX
+    ``blocks.py:194-205``; parameters ``logits/kernel``, ``logits/bias``)."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 conv_cfg: ConvConfig = ConvConfig()):
+        super().__init__()
+        self.logits = Conv3d(in_channels, num_classes, (1, 1, 1), (1, 1, 1), conv_cfg)
+
+    def forward(self, decoder_features: torch.Tensor) -> torch.Tensor:
+        return self.logits(decoder_features)

@@ -1,6 +1,7 @@
 """M1, the top-level model with the reference's constructor surface: port of
-the JAX package's ``models/m1.py`` for single-stage models, Monte-Carlo
-dropout included.
+the JAX package's ``models/m1.py``: deterministic, Monte-Carlo dropout,
+dense skips and deep supervision, the hierarchical probabilistic ladder and
+the two-stage cascade (``cascaded`` True or a fusion name).
 
 ``M1`` wraps an ``nn.Module`` (``.net``) whose parameters are fp32 and live
 on ``device``; ``dtype`` (e.g. ``torch.bfloat16``) is the compute type, cast
@@ -10,15 +11,13 @@ way round. ``config`` holds exactly the JAX config keys; ``device`` and
 ``dtype`` are load-time choices and are not stored.
 
 Random bits come from an explicit ``rng`` (see ``prng``): a
-``torch.Generator`` on the model's device, an int seed, or a mapping from
-dropout site to keep-mask. ``__call__`` and ``predict`` draw a fresh seed
-when an always-on (monte-carlo) model gets none, as the JAX package does;
-``apply`` and the detect head raise instead.
+``torch.Generator`` on the model's device, an int seed, or a mapping of
+keep-masks and latents. ``__call__`` and ``predict`` draw a fresh seed when
+a probabilistic or always-on (monte-carlo) model gets none, as the JAX
+package does; ``apply`` and the detect head raise where they must draw.
 
-Not in this slice (each raises ``NotImplementedError``): cascaded models,
-probabilistic models, dense skips and deep supervision. ``get_packed_forward``
-is a TPU layout device and is not ported. ``remat`` is a training memory
-knob and changes nothing at inference.
+``get_packed_forward`` is a TPU layout device and is not ported. ``remat``
+is a training memory knob and changes nothing at inference.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ from ..ops.convolution import (INITIALIZERS, Conv3d, ConvConfig, ConvTranspose3d
                                resolve_initializer)
 from ..ops.normalization import InstanceNorm
 from .blocks import SqueezeConv
-from .m1_net import M1Net
+from .m1_net import M1CascadedNet, M1Net, decision_fusion
 
 
 def _resolve_l2(spec, default=1e-4) -> float:
@@ -66,8 +65,8 @@ def _dtype_name(dtype) -> Optional[str]:
     return None if dtype is None else str(_torch_dtype(dtype)).replace("torch.", "")
 
 
-def m1(input_channels: int, num_classes: int = 2,
-       dropout_mode: str = "standard", dropout_rate: float = 0.50,
+def _m1_kwargs(num_classes: int = 2,
+               dropout_mode: str = "standard", dropout_rate: float = 0.50,
        filters=(32, 64, 128, 256, 512),
        strides=((1, 1, 1), (1, 2, 2), (1, 2, 2), (2, 2, 2), (1, 2, 2)),
        kernel_sizes=((1, 3, 3), (1, 3, 3), (3, 3, 3), (3, 3, 3), (3, 3, 3)),
@@ -76,22 +75,49 @@ def m1(input_channels: int, num_classes: int = 2,
        kernel_initializer=None, bias_initializer=None,
        kernel_regularizer=1e-4, bias_regularizer=1e-4,
        dense_skip: bool = False, deep_supervision: bool = False,
-       probabilistic: bool = False, act_store: Any = None, dtype: Any = None,
-       **_ignored) -> M1Net:
-    """Mid-level factory (reference networks.py:232-392): the module."""
+       probabilistic: bool = False, prob_latent_dims=(1, 1, 1, 1),
+       fused_prob_passes: bool = True, strict_reference_slicing: bool = False,
+       act_store: Any = None, dtype: Any = None, **_ignored) -> Dict[str, Any]:
+    """``M1Net``'s keyword arguments (all but ``input_channels``) from the
+    reference factory's (networks.py:232-392)."""
     conv_cfg = ConvConfig(kernel_init=kernel_initializer or "orthogonal",
                           bias_init=bias_initializer or "truncated_normal",
                           kernel_l2=_resolve_l2(kernel_regularizer),
                           bias_l2=_resolve_l2(bias_regularizer),
                           dtype=_torch_dtype(dtype), act_store=act_store)
-    return M1Net(
-        input_channels, probabilistic=probabilistic, num_classes=num_classes,
+    prob_latent_dims = _as_nested_tuple(prob_latent_dims)
+    if len(prob_latent_dims) == 3:
+        # M1's default has 3 entries (networks.py:53), the core needs 4
+        # (res 3,2,1,0); the reference CLI always passes 4. Pad with 0.
+        prob_latent_dims = prob_latent_dims + (0,)
+    return dict(
+        probabilistic=probabilistic, num_classes=num_classes,
+        prob_latent_dims=prob_latent_dims, fused_prob_passes=fused_prob_passes,
+        strict_reference_slicing=strict_reference_slicing,
         dropout_mode=dropout_mode, dropout_rate=dropout_rate,
         filters=_as_nested_tuple(filters), strides=_as_nested_tuple(strides),
         kernel_sizes=_as_nested_tuple(kernel_sizes),
         se_reduction=_as_nested_tuple(se_reduction),
         att_sub_samp=_as_nested_tuple(att_sub_samp), conv_cfg=conv_cfg,
         dense_skip=dense_skip, deep_supervision=deep_supervision)
+
+
+class _Method(torch.nn.Module):
+    """``net``'s method ``name`` as a module's forward, so that
+    ``torch.func.functional_call`` can run it on given parameters."""
+
+    def __init__(self, net: torch.nn.Module, name: str):
+        super().__init__()
+        self.net, self.name = net, name
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.net, self.name)(*args, **kwargs)
+
+
+def m1(input_channels: int, **kwargs) -> M1Net:
+    """Mid-level factory (reference networks.py:232-392): the single-stage
+    module, from the reference factory's keyword arguments."""
+    return M1Net(input_channels, **_m1_kwargs(**kwargs))
 
 
 class M1:
@@ -134,11 +160,6 @@ class M1:
         if len(input_spatial_dims) != 3:
             raise ValueError(f"M1 takes 3 spatial dims, got {input_spatial_dims!r}")
         dev = resolve_device(device)
-        if cascaded:
-            raise NotImplementedError("cascaded M1 waits for the cascade slice")
-        if probabilistic:
-            raise NotImplementedError(
-                "probabilistic M1 waits for the probabilistic slice")
 
         # store_config_args parity (modelio.py:20-55): the JAX config keys
         self.config: Dict[str, Any] = dict(
@@ -188,15 +209,28 @@ class M1:
             bias_initializer=bias_initializer,
             kernel_regularizer=kernel_regularizer,
             bias_regularizer=bias_regularizer, dense_skip=dense_skip,
-            deep_supervision=deep_supervision, act_store=self.config["act_store"],
-            dtype=self.dtype)
+            deep_supervision=deep_supervision, probabilistic=probabilistic,
+            prob_latent_dims=prob_latent_dims, fused_prob_passes=fused_prob_passes,
+            strict_reference_slicing=strict_reference_slicing,
+            act_store=self.config["act_store"], dtype=self.dtype)
         with torch.device(dev):
-            self.net = m1(**self._net_kwargs)
+            self.net = self._build()
         self.net.eval()
         if init_params:
             self.init(seed)
         if summary:
             self.summary()
+
+    def _build(self):
+        """The network module: ``M1Net``, or ``M1CascadedNet`` whose fusion is
+        the ``cascaded`` string ('identity' for True)."""
+        kw = dict(self._net_kwargs)
+        channels = kw.pop("input_channels")
+        if not self.cascaded:
+            return m1(channels, **kw)
+        stage = _m1_kwargs(**kw)
+        fusion = self.cascaded if isinstance(self.cascaded, str) else "identity"
+        return M1CascadedNet(channels, stage.pop("num_classes"), fusion, **stage)
 
     # ------------------------------------------------------------ params
     @property
@@ -240,7 +274,15 @@ class M1:
         return self.params
 
     # ----------------------------------------------------------- forward
-    def _as_input(self, inputs) -> torch.Tensor:
+    def example_inputs(self, batch_size: int = 1):
+        """Zeros of the model's input shape; a pair for a cascade."""
+        x = torch.zeros((batch_size, *self.input_spatial_dims, self.input_channels),
+                        device=self.device)
+        return (x, x) if self.cascaded else x
+
+    def _as_input(self, inputs):
+        if isinstance(inputs, (tuple, list)):  # a cascade's (image_1, image_2)
+            return tuple(self._as_input(x) for x in inputs)
         if not torch.is_tensor(inputs):
             inputs = torch.from_numpy(np.ascontiguousarray(inputs, np.float32))
         return inputs.to(self.device).contiguous()
@@ -250,37 +292,43 @@ class M1:
         """Dropout stays on at inference (the CLI default, cli.py:76-77)."""
         return self.config["dropout_mode"] == "monte-carlo"
 
-    def apply(self, params, inputs, train: bool = False, rng=None):
+    def apply(self, params, inputs, train: bool = False, rng=None,
+              method: str = "forward"):
         """Forward pass (inference only in this slice: runs without
-        autograd). ``params`` None uses the model's own; a state dict runs
-        those instead. ``rng`` feeds the dropout sites; active dropout
-        without one raises."""
+        autograd), or with ``method="detect"`` the inference head's
+        computation. ``params`` None uses the model's own; a state dict runs
+        those instead. ``rng`` feeds the dropout sites and latent samples;
+        a draw without one raises."""
         x = self._as_input(inputs)
         rng = prng.as_rng(rng, self.device)
+        kw = {"rng": rng} if method == "detect" else {"train": train, "rng": rng}
         with torch.no_grad():
             if params is None:
-                return self.net(x, train, rng)
-            return torch.func.functional_call(self.net, params, (x,),
-                                              {"train": train, "rng": rng})
+                return getattr(self.net, method)(x, **kw)
+            return torch.func.functional_call(
+                _Method(self.net, method), {f"net.{k}": v for k, v in params.items()},
+                (x,), kw)
 
     def __call__(self, inputs, train: bool = False, rng=None):
-        if rng is None and (self.stochastic or train):
+        if rng is None and (self.probabilistic or self.stochastic or train):
             rng = prng.fresh(self.device)
         return self.apply(None, inputs, train=train, rng=rng)
 
     def get_detect_model(self) -> Callable:
-        """Inference head (reference networks.py:196-206):
-        ``detect(params, inputs, rng=None) -> y_softmax[..., :num_classes]``."""
-        nc = self.num_classes
+        """Inference head (reference networks.py:196-206, JAX ``m1.py:
+        299-321``): ``detect(params, inputs, rng=None)`` returns
+        y_softmax[..., :nc]; infer_softmax for a probabilistic model; for a
+        cascade the pair of its stages' (stage 1, stage 2)."""
 
         def detect(params, inputs, rng=None):
-            return self.apply(params, inputs, train=False, rng=rng)[
-                "y_softmax"][..., :nc]
+            return self.apply(params, inputs, rng=rng, method="detect")
 
         return detect
 
-    def predict(self, inputs, rng=None) -> torch.Tensor:
-        if rng is None and self.stochastic:  # self-key, as ``__call__``
+    decision_fusion = staticmethod(decision_fusion)
+
+    def predict(self, inputs, rng=None):
+        if rng is None and (self.probabilistic or self.stochastic):  # as ``__call__``
             rng = prng.fresh(self.device)
         return self.get_detect_model()(None, inputs, rng=rng)
 
@@ -337,7 +385,7 @@ class M1:
         """Per-module output-shape dump (reference M1Core.summary), traced
         on the meta device: no compute, no memory."""
         with torch.device("meta"):
-            net = m1(**self._net_kwargs)
+            net = self._build()
         lines = []
 
         def hook(name):
@@ -354,8 +402,8 @@ class M1:
                 mod.register_forward_hook(hook(n.replace(".", "/")))
         x = torch.zeros((batch_size, *self.input_spatial_dims,
                          self.input_channels), device="meta")
-        with torch.no_grad():
-            net(x)
+        with torch.no_grad():  # a CPU generator draws meta tensors (shapes only)
+            net((x, x) if self.cascaded else x, rng=torch.Generator().manual_seed(0))
         for line in lines[:max_lines]:
             print(line)
         if len(lines) > max_lines:
@@ -364,8 +412,10 @@ class M1:
 
     def summary(self):
         n_params = sum(p.numel() for p in self.net.parameters())
+        kind = ("Cascaded " if self.cascaded else "") + (
+            "Hierarchical Prob. 3D U-Net" if self.probabilistic else "Deterministic 3D U-Net")
         print("-" * 68)
-        print(f"Deterministic 3D U-Net (Type: M1)  —  params: {n_params:,}")
+        print(f"{kind} (Type: M1)  —  params: {n_params:,}")
         print(f"Input: {self.input_spatial_dims} x {self.input_channels}ch  "
               f"classes: {self.num_classes}  device: {self.device}")
         print("-" * 68)

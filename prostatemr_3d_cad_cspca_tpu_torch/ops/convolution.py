@@ -16,8 +16,8 @@ Two kernels live here, each with its plain PyTorch twin and its launch
 counter; both run on the tensor cores (``csrc/conv3d_mma.cu``, whose note
 says how), bf16 directly and fp32 as error-compensated TF32 (3xTF32):
 
-  * K1 :func:`conv3d` — forward conv over a list of channel parts
-    (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
+  * K1 :func:`conv3d` — forward conv over a list of up to MAX_PARTS channel
+    parts (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
     conv(part_i, W_i)``), with fp32 bias and fp32 accumulation;
   * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``.
 
@@ -39,7 +39,8 @@ from torch import nn
 
 from . import cuda_lib
 
-MAX_PARTS = 5
+MAX_PARTS = 6   # csrc/conv_params.cuh kMaxParts: a dense-skip ladder's stage-0 stitch
+META0 = 1 + MAX_PARTS  # where the fields after the parts' cin start in meta
 MAX_PHASES = 8
 MAX_TAPS = 27
 
@@ -220,16 +221,17 @@ def gather_routes(parts, kernel):
 
 def _pack_conv_args(parts, kernel, bias, y, plan, transposed, igemm, ws):
     """The three host arrays the C entry of csrc/conv3d_mma.cu reads
-    (csrc/conv_params.cuh unpacks them).
+    (csrc/conv_params.cuh unpacks them; P = MAX_PARTS, f = meta[META0:]).
 
-    ptrs (uint64[9]): part pointers 0..4, kernel, bias, output, workspace.
-    meta (int32[72]): 0 nparts; 1-5 cin of each part; 6 cin total; 7 batch;
-      8-10 input D,H,W; 11-13 output D,H,W; 14-16 row grid D,H,W; 17 cout;
-      18-20 in_mul; 21-23 in_add; 24-26 out_mul; 27 weight ci stride;
-      28 weight co stride; 29 nphase; 30-37 taps per phase; 38-61 phase
-      residues (8 x 3); 62 dtype code; 63 has bias; from ``igemm`` (the
-      plan): 64 splits; 65 bit p set where part p takes the cp.async
-      gather; 66 weights by cp.async; 67 transposed; 68 tile n.
+    ptrs (uint64[P + 4]): part pointers 0..P-1, then kernel, bias, output,
+      workspace.
+    meta (int32[72]): 0 nparts; 1..P cin of each part; then f: 0 cin total;
+      1 batch; 2-4 input D,H,W; 5-7 output D,H,W; 8-10 row grid D,H,W;
+      11 cout; 12-14 in_mul; 15-17 in_add; 18-20 out_mul; 21 weight ci
+      stride; 22 weight co stride; 23 nphase; 24-31 taps per phase; 32-55
+      phase residues (8 x 3); 56 dtype code; 57 has bias; from ``igemm``
+      (the plan): 58 splits; 59 bit p set where part p takes the cp.async
+      gather; 60 weights by cp.async; 61 transposed; 62 tile n.
     taps (int8[8, 27, 4]): per phase and tap, (dz, dy, dx, weight tap).
     """
     cin = [int(p.shape[-1]) for p in parts]
@@ -238,38 +240,39 @@ def _pack_conv_args(parts, kernel, bias, y, plan, transposed, igemm, ws):
     meta = np.zeros(72, np.int32)
     meta[0] = len(parts)
     meta[1:1 + len(cin)] = cin
-    meta[6] = cin_total
-    meta[7] = parts[0].shape[0]
-    meta[8:11] = parts[0].shape[1:4]
-    meta[11:14] = plan["out"]
-    meta[14:17] = plan["grid"]
-    meta[17] = cout
-    meta[18:21] = plan["in_mul"]
-    meta[21:24] = plan["in_add"]
-    meta[24:27] = plan["out_mul"]
-    meta[27:29] = (1, cin_total) if transposed else (cout, 1)
-    meta[29] = len(plan["phases"])
+    f = meta[META0:]  # a view
+    f[0] = cin_total
+    f[1] = parts[0].shape[0]
+    f[2:5] = parts[0].shape[1:4]
+    f[5:8] = plan["out"]
+    f[8:11] = plan["grid"]
+    f[11] = cout
+    f[12:15] = plan["in_mul"]
+    f[15:18] = plan["in_add"]
+    f[18:21] = plan["out_mul"]
+    f[21:23] = (1, cin_total) if transposed else (cout, 1)
+    f[23] = len(plan["phases"])
     taps = np.zeros((MAX_PHASES, MAX_TAPS, 4), np.int8)
     for i, (res, tp) in enumerate(plan["phases"]):
-        meta[30 + i] = len(tp)
-        meta[38 + 3 * i:41 + 3 * i] = res
+        f[24 + i] = len(tp)
+        f[32 + 3 * i:35 + 3 * i] = res
         if tp:
             taps[i, :len(tp)] = tp
-    meta[62] = cuda_lib.DTYPE_CODES.get(parts[0].dtype, -1)
-    meta[63] = bias is not None
-    ptrs = np.zeros(9, np.uint64)
+    f[56] = cuda_lib.DTYPE_CODES.get(parts[0].dtype, -1)
+    f[57] = bias is not None
+    ptrs = np.zeros(MAX_PARTS + 4, np.uint64)
     for i, p in enumerate(parts):
         ptrs[i] = p.data_ptr()
-    ptrs[5] = kernel.data_ptr()
-    ptrs[6] = bias.data_ptr() if bias is not None else 0
-    ptrs[7] = y.data_ptr()
+    ptrs[MAX_PARTS] = kernel.data_ptr()
+    ptrs[MAX_PARTS + 1] = bias.data_ptr() if bias is not None else 0
+    ptrs[MAX_PARTS + 2] = y.data_ptr()
+    ptrs[MAX_PARTS + 3] = ws.data_ptr() if ws is not None else 0
     a_routes, b_route = gather_routes(parts, kernel)
-    meta[64] = igemm["splits"]
-    meta[65] = sum(1 << i for i, r in enumerate(a_routes) if r == "cp.async")
-    meta[66] = b_route == "cp.async"
-    meta[67] = transposed
-    meta[68] = igemm["bn"]
-    ptrs[8] = ws.data_ptr() if ws is not None else 0
+    f[58] = igemm["splits"]
+    f[59] = sum(1 << i for i, r in enumerate(a_routes) if r == "cp.async")
+    f[60] = b_route == "cp.async"
+    f[61] = transposed
+    f[62] = igemm["bn"]
     return ptrs, meta, taps
 
 
@@ -350,24 +353,30 @@ def _launch(name, fn, parts, kernel, bias, strides, transposed):
 
 
 # ------------------------------------------------------------------- K1
+def _acc(t: torch.Tensor) -> torch.dtype:
+    # the plain twins' arithmetic type: fp32, or fp64 for an fp64 reference
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def conv3d_plain(parts, kernel, bias=None, strides=(1, 1, 1)):
-    """Plain twin of K1: per-part SAME conv in fp32, summed, + bias, rounded
-    once to the input dtype."""
+    """Plain twin of K1: per-part SAME conv in fp32 (fp64 for fp64 input),
+    summed, + bias, rounded once to the input dtype."""
     ks, st = tuple(kernel.shape[:3]), tuple(strides)
+    acc = _acc(parts[0])
     y, off = None, 0
     for p in parts:
         ci = int(p.shape[-1])
-        w = kernel[..., off:off + ci, :].float().permute(4, 3, 0, 1, 2)
+        w = kernel[..., off:off + ci, :].to(acc).permute(4, 3, 0, 1, 2)
         off += ci
         pads = []
         for axis in (2, 1, 0):  # F.pad lists the last axis first
             _, lo, hi = same_pads(int(p.shape[1 + axis]), ks[axis], st[axis])
             pads += [lo, hi]
-        xt = F.pad(p.float().permute(0, 4, 1, 2, 3), pads)
+        xt = F.pad(p.to(acc).permute(0, 4, 1, 2, 3), pads)
         yi = F.conv3d(xt, w, stride=st)
         y = yi if y is None else y + yi
     if bias is not None:
-        y = y + bias.float().view(1, -1, 1, 1, 1)
+        y = y + bias.to(acc).view(1, -1, 1, 1, 1)
     return y.permute(0, 2, 3, 4, 1).contiguous().to(parts[0].dtype)
 
 
@@ -399,10 +408,12 @@ conv3d.launches = 0
 # ------------------------------------------------------------------- K2
 def conv3d_transpose_plain(x, kernel, bias=None, strides=(1, 1, 1)):
     """Plain twin of K2: torch's full transposed conv (padding 0), cropped
-    to the SAME window [c, c + n*s) per axis, in fp32."""
+    to the SAME window [c, c + n*s) per axis, in fp32 (fp64 for fp64
+    input)."""
     ks, st = tuple(kernel.shape[:3]), tuple(strides)
-    y = F.conv_transpose3d(x.float().permute(0, 4, 1, 2, 3),
-                           kernel.float().permute(4, 3, 0, 1, 2), stride=st)
+    acc = _acc(x)
+    y = F.conv_transpose3d(x.to(acc).permute(0, 4, 1, 2, 3),
+                           kernel.to(acc).permute(4, 3, 0, 1, 2), stride=st)
     for axis in range(3):
         c = transpose_offset(ks[axis], st[axis])
         size = int(x.shape[1 + axis]) * st[axis]
@@ -412,7 +423,7 @@ def conv3d_transpose_plain(x, kernel, bias=None, strides=(1, 1, 1)):
             y = F.pad(y, pad)
         y = y.narrow(2 + axis, c, size)
     if bias is not None:
-        y = y + bias.float().view(1, -1, 1, 1, 1)
+        y = y + bias.to(acc).view(1, -1, 1, 1, 1)
     return y.permute(0, 2, 3, 4, 1).contiguous().to(x.dtype)
 
 
@@ -448,6 +459,14 @@ def _compute_dtype(cfg: ConvConfig, x: torch.Tensor, kernel: torch.Tensor):
         x.dtype, kernel.dtype)
 
 
+def _check_width(parts, cin: int) -> None:
+    # the plain twins slice the kernel per part, so they would take too few
+    # channels silently; flax refuses the mismatch, and so does the port
+    got = sum(int(p.shape[-1]) for p in parts)
+    if got != cin:
+        raise ValueError(f"the conv's kernel takes {cin} input channels, got {got}")
+
+
 class Conv3d(nn.Module):
     """SAME 3D conv over one tensor or a part list (JAX ``nn.Conv`` /
     ``SplitInputConv``; parameters ``kernel`` DHWIO and ``bias``)."""
@@ -464,6 +483,7 @@ class Conv3d(nn.Module):
 
     def forward(self, parts) -> torch.Tensor:
         parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
+        _check_width(parts, self.kernel.shape[3])
         dt = _compute_dtype(self.cfg, parts[0], self.kernel)
         parts = [p.to(dt) for p in parts]
         bias = self.bias.float() if self.bias is not None else None
@@ -485,6 +505,7 @@ class ConvTranspose3d(nn.Module):
             if cfg.use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _check_width([x], self.kernel.shape[4])
         dt = _compute_dtype(self.cfg, x, self.kernel)
         bias = self.bias.float() if self.bias is not None else None
         return conv3d_transpose(x.to(dt), self.kernel.to(dt), bias, self.strides)

@@ -37,17 +37,23 @@ def _check_5d(name, x):
 
 def global_spatial_mean(x: torch.Tensor) -> torch.Tensor:
     """fp32-accumulated mean over all spatial dims, keepdims (the SE
-    squeeze), returned in fp32."""
-    return x.float().mean(dim=tuple(range(1, x.dim() - 1)), keepdim=True)
+    squeeze), returned in fp32 (fp64 for fp64 input)."""
+    return x.to(_acc(x)).mean(dim=tuple(range(1, x.dim() - 1)), keepdim=True)
+
+
+def _acc(x: torch.Tensor) -> torch.dtype:
+    # the plain twins' arithmetic type: fp32, or fp64 for an fp64 reference
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 # ------------------------------------------------------------------- K3
 def in_stats_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K3: (B, 2, C) fp32 [mean, var] over the spatial axes."""
+    """Plain twin of K3: (B, 2, C) fp32 [mean, var] over the spatial axes
+    (fp64 for fp64 input, by the fp32 formula)."""
     axes = tuple(range(1, x.dim() - 1))
-    xf = x.float()
+    xf = x.to(_acc(x))
     mean = xf.mean(dim=axes)
-    if x.dtype == torch.float32:
+    if x.dtype != torch.bfloat16:
         var = (xf - mean.view(mean.shape[0], *([1] * len(axes)), -1)
                ).square().mean(dim=axes)
     else:
@@ -170,12 +176,13 @@ in_stats.launches = 0
 def in_apply_plain(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, lrelu: bool = False,
                    epsilon: float = EPSILON) -> torch.Tensor:
-    """Plain twin of K4, the same arithmetic in fp32, rounded once."""
+    """Plain twin of K4, the same arithmetic in fp32 (fp64 for fp64 input),
+    rounded once."""
     shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
     mean = stats[:, 0].reshape(shape)
-    a = torch.rsqrt(stats[:, 1].reshape(shape) + epsilon) * scale.float()
-    if x.dtype == torch.float32:
-        y = (x - mean) * a + bias.float()
+    a = torch.rsqrt(stats[:, 1].reshape(shape) + epsilon) * scale.to(_acc(x))
+    if x.dtype != torch.bfloat16:
+        y = (x - mean) * a + bias.to(_acc(x))
     else:
         b = (bias.float() - mean * a).to(x.dtype).float()
         y = x.float() * a.to(x.dtype).float() + b
@@ -259,7 +266,7 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
                   epsilon: float = EPSILON, lrelu: bool = False) -> torch.Tensor:
     """Functional instance norm over all dims but batch (0) and channel
     (-1); ``lrelu`` fuses the LeakyReLU(0.1) that follows most norms."""
-    return in_apply(x, in_stats(x), scale.float(), bias.float(), lrelu, epsilon)
+    return in_apply(x, in_stats(x), scale.to(_acc(x)), bias.to(_acc(x)), lrelu, epsilon)
 
 
 class InstanceNorm(nn.Module):

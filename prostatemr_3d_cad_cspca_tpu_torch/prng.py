@@ -7,11 +7,36 @@ it is drawn from. The port treats a generator's seed as its key:
 a fixed function of the parent's seed and an integer, so the same parent and
 index give the same bits whatever was drawn from the parent before. The bits
 differ from JAX's for the same seed; the tests hand both packages the same
-keep-masks instead (see ``models.blocks.dropout``).
+keep-masks and latents instead.
 
 ``rng`` arguments of the port take a generator, an int seed, None, or a
-mapping from dropout site to keep-mask (a replay of given masks, which draws
-nothing).
+mapping (a replay of given draws, which draws nothing). One forward draws
+from one generator in a fixed order, the order in which the forward reaches
+each draw:
+
+  * a network's trunk: its dropout sites ``drope1``-``drope4``, then
+    ``dropd3``-``dropd0``, each a uniform tensor of the activation's shape;
+  * a ladder pass (probabilistic models): for each level i = 0..3 the
+    latent noise ``eps`` (a standard normal of the latent's shape, fp32)
+    where the level samples its latent, then the level's dropout site
+    ``dropp_i``;
+  * a probabilistic ``M1Net``: the passes q_sample, q_mean, p_sample,
+    p_sample_z_q, p_sample_z_q_mean in turn; with fused passes each
+    network's trunk runs once, just before its first pass's ladder (the
+    posterior's before q_sample, the prior's before p_sample), else every
+    pass runs its own trunk before its ladder; the detect head runs only
+    the passes it needs, in that order (p_sample; for a cascade's stage 1
+    q_mean, p_sample, p_sample_z_q_mean);
+  * a cascade: stage 1's forward, then stage 2's.
+
+Sites that are inactive (rate 0, or 'standard' dropout at inference) draw
+nothing. A mapping replays a forward: it maps a site path to its keep-mask
+and a latent path to its latent. Paths join scope names with '/': the
+scopes are ``stage1``/``stage2`` in a cascade, then in a probabilistic net
+``prior``/``posterior`` for a fused trunk and the pass name (``q_sample``
+...) for a ladder and an unfused trunk; the leaf is the site (``drope1``,
+``dropp_2``) or ``z_<level>`` for the latent a sampling level draws. A
+single-stage deterministic net's sites sit at the root (``drope1``).
 """
 
 from __future__ import annotations
@@ -38,9 +63,34 @@ def is_mask_map(rng: Any) -> bool:
     return isinstance(rng, Mapping)
 
 
+class Scoped(Mapping):
+    """The entries of ``base`` under ``prefix`` + '/', with the prefix
+    dropped: what one scope of a forward replays."""
+
+    def __init__(self, base: Mapping, prefix: str):
+        self.base, self.prefix = base, prefix + "/"
+
+    def __getitem__(self, key):
+        return self.base[self.prefix + key]
+
+    def __iter__(self):
+        n = len(self.prefix)
+        return (k[n:] for k in self.base if k.startswith(self.prefix))
+
+    def __len__(self):
+        return sum(1 for _ in self)
+
+
+def scope(rng: Any, name: str):
+    """``rng`` for the part of a forward named ``name``: a mapping's entries
+    under ``name/``; a generator or None as it is (the draws' order keeps
+    the parts apart)."""
+    return Scoped(rng, name) if is_mask_map(rng) else rng
+
+
 def as_rng(rng: Any, device):
-    """Normalize an ``rng`` argument: None and mask mappings pass through, an
-    int becomes a generator on ``device``, a generator must live there."""
+    """Normalize an ``rng`` argument: None and mappings pass through, an int
+    becomes a generator on ``device``, a generator must live there."""
     if rng is None or is_mask_map(rng):
         return rng
     if isinstance(rng, (int, np.integer)):
@@ -51,7 +101,7 @@ def as_rng(rng: Any, device):
                              f"live on {device}")
         return rng
     raise TypeError(f"rng must be None, an int, a torch.Generator or a mapping "
-                    f"of keep-masks, got {type(rng).__name__}")
+                    f"of keep-masks and latents, got {type(rng).__name__}")
 
 
 def fold_in(rng: torch.Generator, data: int) -> torch.Generator:

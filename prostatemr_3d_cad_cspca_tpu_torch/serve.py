@@ -10,12 +10,16 @@
     left-right flip; ``--SCAN_CHUNK`` runs large batches chunk by chunk;
   * optional device-side output slimming before the host pull
     (``--TRANSFER_DTYPE float16``, ``--TRANSFER_CHANNELS foreground``);
+  * cascaded models take two exams: a manifest's ``image_path_2`` column
+    supplies the second (its absence feeds the one exam to both stages; a
+    single-stage model ignores the column), and the served detection is
+    stage 2's;
   * outputs: ``<p-id>_detection.npy`` (+ ``_uncertainty.npy``) and
     ``predictions.json`` with ranked lesion candidates
     (train.metrics.extract_lesion_candidates), in manifest order.
 
-Cascaded models (an ``image_path_2`` column), exported ``.zip`` artifacts
-and ``--DATA_PARALLEL`` raise and name the slice they wait for.
+Exported ``.zip`` artifacts and ``--DATA_PARALLEL`` raise and name the slice
+they wait for.
 
 CLI:
   python -m prostatemr_3d_cad_cspca_tpu_torch.serve \\
@@ -81,11 +85,13 @@ class InferenceSession:
     """Detect wrapper around a loaded M1 (or ``ensemble.M1Ensemble``) on one
     device.
 
-    ``__call__(batch)`` takes a (B, D, H, W, C) array and returns
-    ``(probs, uncertainty)`` as fp32 numpy; the uncertainty is the MC std
-    when ``mc_iter > 1`` on a Monte-Carlo model, else None. Each call of a
-    Monte-Carlo model draws from ``fold_in(generator(seed), n)`` for the
-    call's number n, so a session's outputs depend only on its seed.
+    ``__call__(batch)`` takes a (B, D, H, W, C) array (for a cascade an
+    ``(image_1, image_2)`` pair of them, or one array that feeds both
+    stages) and returns ``(probs, uncertainty)`` as fp32 numpy, a cascade's
+    from its stage 2; the uncertainty is the MC std when ``mc_iter > 1`` on
+    a Monte-Carlo or probabilistic model, else None. Each such call draws
+    from ``fold_in(generator(seed), n)`` for the call's number n, so a
+    session's outputs depend only on its seed.
     """
 
     def __init__(self, model, mc_iter: int = 1, seed: int = 0, mesh=None,
@@ -130,7 +136,9 @@ class InferenceSession:
         self._draws += 1
         return sub
 
-    def _to_device(self, x) -> torch.Tensor:
+    def _to_device(self, x):
+        if isinstance(x, (tuple, list)):
+            return tuple(self._to_device(t) for t in x)
         if not torch.is_tensor(x):
             x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         return x.to(self.device)
@@ -154,15 +162,19 @@ class InferenceSession:
 
     def __call__(self, batch):
         """Batch -> (probs, uncertainty | None), fp32 numpy."""
+        casc = bool(self.model.cascaded)
+        if casc and not isinstance(batch, tuple):
+            batch = (batch, batch)
         x = self._to_device(batch)
-        b = int(x.shape[0])
+        b = int((x[0] if casc else x).shape[0])
         rng = self._next_rng() if self._needs_rng else None
         with torch.no_grad():
             if self._scan_chunk and b > self._scan_chunk:
                 ck = self._scan_chunk
                 pad = (-b) % ck
                 if pad:  # duplicate the last case up to whole chunks
-                    x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], 0)
+                    x = tree_map(lambda t: torch.cat([t, t[-1:].expand(pad, *t.shape[1:])], 0),
+                                 x)
                 run = make_chunked_batch_fn(self._body, ck, (b + pad) // ck,
                                             rng_per_chunk=self._needs_rng)
                 out = run(x, rng) if self._needs_rng else run(x)
@@ -171,8 +183,10 @@ class InferenceSession:
         host = tree_map(lambda a: a.float().cpu().numpy()[:b], out)
         if self.mc_iter > 1 and self._needs_rng:
             mean, std = host
+            if casc:  # stage 2's detection and uncertainty
+                mean, std = mean[-1], std[-1]
             return self._unpack_mean(mean), self._unpack_std(std)
-        return self._unpack_mean(host), None
+        return self._unpack_mean(host[-1] if casc else host), None
 
     # host-side inverses of the device-side foreground-channel drop
     def _unpack_mean(self, fg: np.ndarray) -> np.ndarray:
@@ -187,15 +201,27 @@ class InferenceSession:
         # num_classes == 2 here (see __init__): std(1 - p) == std(p)
         return np.concatenate([fg, fg], axis=-1)
 
+    def _stacked(self, volume):
+        """A case as the sliding window takes it: a cascade's exams (one
+        exam feeds both) concatenated on the channel axis."""
+        if not self.model.cascaded:
+            return np.asarray(volume)
+        vols = volume if isinstance(volume, tuple) else (volume, volume)
+        return np.concatenate(vols, axis=-1)
+
     def predict_case(self, volume, sw_overlap: float = 0.5):
-        """One whole (D, H, W, C) case; sliding windows when it is larger
-        than the training window. Returns (probs, uncertainty | None)."""
+        """One whole (D, H, W, C) case (a cascade's ``(image_1, image_2)``
+        pair); sliding windows when it is larger than the training window.
+        Returns (probs, uncertainty | None)."""
         window = tuple(self.model.input_spatial_dims)
-        if tuple(volume.shape[:-1]) == window:
-            probs, unc = self(np.asarray(volume)[None])
+        vols = volume if isinstance(volume, tuple) else (volume,)
+        if tuple(vols[0].shape[:-1]) == window:
+            batch = tuple(np.asarray(v)[None] for v in vols)
+            probs, unc = self(batch if self.model.cascaded else batch[0])
             return probs[0], (unc[0] if unc is not None else None)
-        run, out_mult = self._sw_program(tuple(volume.shape), float(sw_overlap), cases=1)
-        x = self._to_device(volume)
+        stacked = self._stacked(volume)
+        run, out_mult = self._sw_program(tuple(stacked.shape), float(sw_overlap), cases=1)
+        x = self._to_device(stacked)
         with torch.no_grad():
             out = run(x, self._next_rng()) if self._needs_rng else run(x)
         return self._split_sw(out.float().cpu().numpy(), out_mult)
@@ -210,8 +236,9 @@ class InferenceSession:
         return self._unpack_mean(out), None
 
     def _sw_program(self, shape, sw_overlap: float, cases: int):
-        """The sliding window for one volume shape, cached. Returns
-        ``(run, out_mult)``; out_mult 2 means ``run`` emits
+        """The sliding window for one volume shape (a cascade's exams
+        stacked on the channel axis: both tile at the same coordinates),
+        cached. Returns ``(run, out_mult)``; out_mult 2 means ``run`` emits
         ``cat([mean, std], -1)`` over ``mc_iter`` draws per tile, blended
         like the probabilities (a blend of per-tile MC stds, not the std of
         the blended means)."""
@@ -223,9 +250,12 @@ class InferenceSession:
         mc = self.mc_iter if (needs_rng and self.mc_iter > 1) else 1
         detect = self._detect  # the same (TTA/ensemble-wrapped) head as __call__
         fgo = self._fg_only
+        casc, c = bool(self.model.cascaded), self.model.input_channels
 
         def fwd(tiles, rng=None):
-            out = detect(None, tiles, rng=rng) if needs_rng else detect(None, tiles)
+            inp = (tiles[..., :c], tiles[..., c:]) if casc else tiles
+            out = detect(None, inp, rng=rng) if needs_rng else detect(None, inp)
+            out = out[-1] if casc else out  # a cascade's stage-2 detection
             return out[..., 1:] if fgo else out
 
         ncp = self.model.num_classes - (1 if fgo else 0)
@@ -249,15 +279,16 @@ class InferenceSession:
         group one sliding window over K cases (the last group padded with a
         duplicate, so every group has one shape). Returns
         ``[(probs, uncertainty | None), ...]`` aligned with ``volumes``."""
+        stacked = [self._stacked(v) for v in volumes]
         if (len(volumes) == 1 or int(group_size) < 2
-                or len({tuple(v.shape) for v in volumes}) != 1):
+                or len({tuple(v.shape) for v in stacked}) != 1):
             return [self.predict_case(v, sw_overlap=sw_overlap) for v in volumes]
         k = min(int(group_size), len(volumes))
-        run_k, out_mult = self._sw_program(tuple(volumes[0].shape), float(sw_overlap),
+        run_k, out_mult = self._sw_program(tuple(stacked[0].shape), float(sw_overlap),
                                            cases=k)
         out: List[tuple] = []
-        for i in range(0, len(volumes), k):
-            group = list(volumes[i:i + k])
+        for i in range(0, len(stacked), k):
+            group = stacked[i:i + k]
             block = self._to_device(np.stack(group + [group[0]] * (k - len(group))))
             with torch.no_grad():
                 probs = run_k(block, self._next_rng()) if self._needs_rng else run_k(block)
@@ -266,8 +297,12 @@ class InferenceSession:
         return out
 
 
-def _load_case(row: Dict[str, str], train_obj: str, channels: int,
-               whiten: bool) -> np.ndarray:
+def _load_one(row: Dict[str, str], train_obj: str, channels: int,
+              whiten: bool) -> np.ndarray:
+    """One exam's first ``channels`` channels, as the JAX package reads it
+    (``serve.py:528-540``). For a probabilistic model ``channels`` counts the
+    label channels too, which a test-mode image does not carry: a 3-channel
+    image stays 3 channels for a 4-channel model, as in the JAX package."""
     from .data.generators import load_image
 
     vol = load_image(row, train_obj=train_obj)[..., :channels]
@@ -277,6 +312,21 @@ def _load_case(row: Dict[str, str], train_obj: str, channels: int,
         vol = np.stack([whitening(vol[..., c]) for c in range(vol.shape[-1])],
                        axis=-1)
     return vol
+
+
+def _load_case(row: Dict[str, str], train_obj: str, channels: int,
+               whiten: bool, cascaded: bool = False):
+    """One case; for a cascaded model (two same-geometry exams, reference
+    networks.py:111-112) the pair (exam, second exam), the second from the
+    ``image_path_2`` column, else the one exam twice. A single-stage model
+    ignores the column (JAX ``serve.py:543-554``)."""
+    vol = _load_one(row, train_obj, channels, whiten)
+    if not cascaded:
+        return vol
+    if row.get("image_path_2"):
+        return vol, _load_one(dict(row, image_path=row["image_path_2"]), train_obj,
+                              channels, whiten)
+    return vol, vol
 
 
 def run(args) -> List[Dict]:
@@ -324,7 +374,11 @@ def run(args) -> List[Dict]:
         if not pending:
             return
         ids, vols = zip(*pending)
-        probs, unc = session(np.stack(vols))
+        if model.cascaded:
+            batch = (np.stack([v[0] for v in vols]), np.stack([v[1] for v in vols]))
+        else:
+            batch = np.stack(vols)
+        probs, unc = session(batch)
         for i, pid in enumerate(ids):
             results.append(_emit(pid, probs[i], unc[i] if unc is not None else None))
         pending.clear()
@@ -342,18 +396,16 @@ def run(args) -> List[Dict]:
     order: List[str] = []
     for row in rows:
         pid = row.get("p-id", os.path.basename(row["image_path"]))
-        if row.get("image_path_2"):
-            raise NotImplementedError(
-                f"{pid}: a second exam (image_path_2) feeds cascaded models, "
-                "which wait for the cascade slice")
         order.append(pid)
-        vol = _load_case(row, args.TRAIN_OBJ, model.input_channels, bool(args.WHITEN))
-        if tuple(vol.shape[:-1]) == window:
+        vol = _load_case(row, args.TRAIN_OBJ, model.input_channels, bool(args.WHITEN),
+                         cascaded=bool(model.cascaded))
+        shape_src = vol[0] if isinstance(vol, tuple) else vol
+        if tuple(shape_src.shape[:-1]) == window:
             pending.append((pid, vol))
             if len(pending) >= args.BATCH_SIZE:
                 flush()
         else:
-            items = pending_sw.setdefault(tuple(vol.shape), [])
+            items = pending_sw.setdefault(tuple(shape_src.shape), [])
             items.append((pid, vol))
             if len(items) >= sw_group:  # host memory stays O(group)
                 flush_sw(items)

@@ -134,6 +134,50 @@ def test_card_fp32_deepest_stitch_holds_the_fp32_limit(cuda_device):
     assert _card_err(got, exact) <= 2e-4
 
 
+# The probabilistic ladder's shapes at cfg1 width (latent dims 3, 2, 1, 0):
+# dec_hi takes [z, features], cin 259 / 130 / 65, none a multiple of the
+# 16-byte chunk, so both of K2's gathers take the scalar route; mu_logsig is
+# a 1x1x1 conv to 2 x dims channels; a dense-skip ladder's stage-0 stitch
+# has six parts.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,kshape,st", [
+    ((2, 5, 10, 10, 259), (3, 3, 3, 128, 259), (2, 2, 2)),
+    ((2, 20, 40, 40, 65), (3, 3, 3, 32, 65), (1, 2, 2)),
+])
+def test_card_conv3d_transpose_scalar_route(cuda_device, xshape, kshape, st, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.randn(xshape, generator=g, device=cuda_device).to(dtype)
+    kernel = (torch.randn(kshape, generator=g, device=cuda_device)
+              / (27 * kshape[4]) ** 0.5).to(dtype)
+    bias = torch.randn(kshape[3], generator=g, device=cuda_device)
+    assert tconv.gather_routes([x], kernel) == (["scalar"], "scalar")
+    got = tconv.conv3d_transpose(x, kernel, bias, st)
+    ref = tconv.conv3d_transpose_plain(x, kernel, bias, st)
+    torch.cuda.synchronize()
+    assert _card_err(got, ref) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths,ks,cout", [
+    ((16,) * 6, (1, 3, 3), 4),            # sersp_3's conv1 at cfg1 width
+    ((8, 5, 16, 3, 8, 4), (3, 3, 3), 24),  # mixed widths and gather routes
+    ((256,), (1, 1, 1), 6),               # mu_logsig_0
+])
+def test_card_conv3d_six_parts_and_narrow_heads(cuda_device, widths, ks, cout, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    parts = [torch.randn(2, 5, 20, 20, c, generator=g, device=cuda_device).to(dtype)
+             for c in widths]
+    kernel = (torch.randn(*ks, sum(widths), cout, generator=g, device=cuda_device)
+              / (math.prod(ks) * sum(widths)) ** 0.5).to(dtype)
+    bias = torch.randn(cout, generator=g, device=cuda_device)
+    got = tconv.conv3d(parts, kernel, bias)
+    ref = tconv.conv3d_plain(parts, kernel, bias)
+    torch.cuda.synchronize()
+    assert _card_err(got, ref) <= CARD_TOL[dtype]
+
+
 SPLIT_CASES = [  # (part shapes, kernel, strides, transposed): split-K at batch 2
     ([(2, 5, 10, 10, 256)], (3, 3, 3, 256, 128), (1, 1, 1), False),
     ([(2, 10, 20, 20, 128)] * 2, (3, 3, 3, 256, 128), (1, 1, 1), False),

@@ -187,8 +187,8 @@ def test_serve_run_matches_jax(jax_model, tmp_path):
 
 def test_serve_refuses_what_waits_for_later_slices(jax_model, tmp_path):
     """Sliding windows, --MC_ITER, --TTA, --SCAN_CHUNK and fold ensembles
-    serve now; a second exam (cascade), --DATA_PARALLEL and .zip artifacts
-    still raise and name their slice."""
+    serve now (a second exam too: tests/test_torch_cascade.py);
+    --DATA_PARALLEL and .zip artifacts still raise and name their slice."""
     ckpt = str(tmp_path / "model.npz")
     jax_model.save(ckpt)
     rng = np.random.default_rng(3)
@@ -205,11 +205,7 @@ def test_serve_refuses_what_waits_for_later_slices(jax_model, tmp_path):
                   ["--MODEL", f"{ckpt},{ckpt}"]):
         out = tserve.main(base + ["--MANIFEST", small] + extra)
         assert [r["p-id"] for r in out] == ["case0", "case1", "case2"]
-    casc = str(tmp_path / "casc.csv")
-    with open(casc, "w") as fh:
-        fh.write(f"p-id,image_path,image_path_2\nbig,{big},{big}\n")
-    for extra, slice_name in ((["--MANIFEST", casc], "cascade"),
-                              (["--MANIFEST", small, "--DATA_PARALLEL", "2"], "multi-GPU"),
+    for extra, slice_name in ((["--MANIFEST", small, "--DATA_PARALLEL", "2"], "multi-GPU"),
                               (["--MANIFEST", small, "--MODEL", "artifact.zip"], "export")):
         with pytest.raises(NotImplementedError, match=slice_name):
             tserve.main(base + extra)

@@ -92,23 +92,24 @@ def _emulate_igemm(parts, kernel, bias, strides, transposed, dtype=torch.bfloat1
     assert arith == "float64" or dtype == torch.float32
     acc_t = np.float64 if arith == "float64" else np.float32
     bk = tconv.BK[dtype]
-    splits, a_vec = int(meta[64]), int(meta[65])
-    assert splits == igemm["splits"] and meta[67] == transposed
+    f = meta[tconv.META0:]  # the fields after the parts' cin
+    splits, a_vec = int(f[58]), int(f[59])
+    assert splits == igemm["splits"] and f[61] == transposed
     assert (ws is None if splits == 1 else ws.shape == (splits, y.numel()))
     assert (0 if ws is None else ws.numel()) == igemm["workspace"]
-    nparts, cin_total, batch = meta[0], meta[6], meta[7]
+    nparts, cin_total, batch = meta[0], f[0], f[1]
     cins = meta[1:1 + nparts]
-    ind, outd, grid = meta[8:11], meta[11:14], meta[14:17]
-    cout = meta[17]
-    in_mul, in_add, out_mul = meta[18:21], meta[21:24], meta[24:27]
-    wci, wco = meta[27], meta[28]
+    ind, outd, grid = f[2:5], f[5:8], f[8:11]
+    cout = f[11]
+    in_mul, in_add, out_mul = f[12:15], f[15:18], f[18:21]
+    wci, wco = f[21], f[22]
     wflat = kernel.reshape(-1).astype(acc_t)
     # output rows of one phase: (batch, grid) in C order, as the kernel's m
     rb, *g = [a.reshape(-1) for a in
               np.meshgrid(np.arange(batch), *[np.arange(n) for n in grid], indexing="ij")]
     workspace = np.full((splits, y.numel()), np.nan, acc_t)
-    for ph in range(meta[29]):
-        ntap, res = meta[30 + ph], meta[38 + 3 * ph:41 + 3 * ph]
+    for ph in range(f[23]):
+        ntap, res = f[24 + ph], f[32 + 3 * ph:35 + 3 * ph]
         o = [g[a] * out_mul[a] + res[a] for a in range(3)]
         oofs = (((rb * outd[0] + o[0]) * outd[1] + o[1]) * outd[2] + o[2]) * cout
         starts = np.concatenate([[0], np.cumsum(-(-ntap * cins // bk))])
@@ -192,6 +193,52 @@ def test_conv3d_matches_flax(ks, st, size, nparts):
         _emulate_igemm(parts, kernel, bias, st, transposed=False), want, atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ks", [(1, 3, 3), (3, 3, 3)])
+def test_six_part_stitch_schedule_matches_flax(ks, dtype, monkeypatch):
+    """A dense-skip ladder's stage-0 stitch has six parts (the upsampled
+    features, four decoder parts, the gated skip): the kernel's replay over
+    MAX_PARTS parts of mixed widths and routes (5 and 3 channels take the
+    scalar gather, 8 and 16 the cp.async one), K split finely."""
+    monkeypatch.setattr(tconv, "MIN_SLABS_PER_SPLIT", 1)
+    rng = np.random.default_rng(_seed(ks, str(dtype), "six"))
+    widths = (8, 5, 16, 3, 8, 4)
+    assert len(widths) == tconv.MAX_PARTS
+    parts = _parts(rng, SIZES["odd"], widths)
+    kernel = (rng.normal(size=(*ks, sum(widths), 6)) / 8).astype(np.float32)
+    bias = rng.normal(size=(6,)).astype(np.float32)
+    want = _flax_split_conv(parts, kernel, bias, ks, (1, 1, 1))
+    got = tconv.conv3d([_t(p) for p in parts], _t(kernel), _t(bias))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    if dtype == torch.bfloat16:  # the schedule in exact arithmetic on bf16 operands
+        rp = [_t(p).bfloat16().float().numpy() for p in parts]
+        rk = _t(kernel).bfloat16().float().numpy()
+        np.testing.assert_allclose(_emulate_igemm(rp, rk, bias, (1, 1, 1), False, dtype),
+                                   _flax_split_conv(rp, rk, bias, ks, (1, 1, 1)), atol=ATOL)
+    else:
+        np.testing.assert_allclose(
+            _emulate_igemm(parts, kernel, bias, (1, 1, 1), False, dtype), want, atol=ATOL)
+    _, _, _, (ptrs, meta, _) = tconv.igemm_args(
+        [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), (1, 1, 1), False)
+    assert meta[0] == 6 and list(meta[1:7]) == list(widths) and ptrs.size == 6 + 4
+    chunk = 16 // torch.empty((), dtype=dtype).element_size()
+    assert meta[tconv.META0 + 59] == sum(1 << i for i, w in enumerate(widths)
+                                         if w % chunk == 0)
+    with pytest.raises(ValueError, match="parts"):
+        tconv._check_cuda_args("conv3d", [_t(parts[0])] * 7, _t(kernel), None, 3)
+
+
+def test_part_limit_is_the_kernels():
+    """MAX_PARTS and the kernel's kMaxParts (csrc/conv_params.cuh) agree."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(tconv.__file__), "..", "csrc", "conv_params.cuh")
+    with open(src) as f:
+        got = int(re.search(r"constexpr int kMaxParts = (\d+);", f.read()).group(1))
+    assert got == tconv.MAX_PARTS == 6 and tconv.META0 == 1 + got
+
+
 def test_conv3d_module_takes_a_part_list():
     rng = np.random.default_rng(1)
     parts = _parts(rng, (4, 6, 6), (2, 3))
@@ -260,7 +307,7 @@ def test_igemm_split_schedule_matches_flax(ks, st, transposed, monkeypatch):
         [_t(p).to(torch.bfloat16) for p in parts], _t(kernel).to(torch.bfloat16), None, st,
         transposed)
     assert igemm["splits"] == min(igemm["slabs"]) > 1
-    assert meta[65] == 1  # part 0 by cp.async, a K1's part 1 (cin 3) scalar
+    assert meta[tconv.META0 + 59] == 1  # part 0 by cp.async, a K1's part 1 (cin 3) scalar
     np.testing.assert_allclose(_emulate_igemm(parts, kernel, bias, st, transposed),
                                want_fn(bias), atol=ATOL)
 
@@ -350,7 +397,8 @@ def test_fp32_level0_bottleneck_takes_the_vector_gather():
               if name == "conv3d" and any(s[-1] == 4 for s in sig[0])]
     assert narrow  # level 0's bottleneck convs read 4-channel parts
     for name, sig in narrow:
-        bits = {dt: int(_path_plan(name, sig, dt)[3][1][65]) for dt in DTYPES}
+        bits = {dt: int(_path_plan(name, sig, dt)[3][1][tconv.META0 + 59])
+                for dt in DTYPES}
         for i, shape in enumerate(sig[0]):
             assert (bits[torch.float32] >> i) & 1 == 1
             assert (bits[torch.bfloat16] >> i) & 1 == (shape[-1] % 8 == 0)
@@ -430,8 +478,9 @@ def test_igemm_plan_fills_the_grid_or_runs_out_of_k(batch):
 def test_igemm_plan_workspace_is_what_the_wrapper_allocates(batch):
     for (name, sig), dtype in itertools.product(_path_convs(batch), DTYPES):
         y, ws, plan, (ptrs, meta, _) = _path_plan(name, sig, dtype)
-        assert meta[62] == {torch.bfloat16: 1, torch.float32: 0}[dtype]
-        assert meta[64] == plan["splits"] and meta[68] == plan["bn"]
+        f = meta[tconv.META0:]
+        assert f[56] == {torch.bfloat16: 1, torch.float32: 0}[dtype]
+        assert f[58] == plan["splits"] and f[62] == plan["bn"]
         if plan["splits"] == 1:
             assert ws is None and plan["workspace"] == 0
         else:

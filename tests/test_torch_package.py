@@ -1,6 +1,6 @@
 """The port stands alone: it imports no jax, no flax and nothing of the JAX
 package; its entry points run on the card unless asked for the CPU; what
-this slice does not cover raises instead of running something else.
+the port does not cover yet raises instead of running something else.
 
 Mind the name prefix: ``prostatemr_3d_cad_cspca_tpu_torch`` starts with
 ``prostatemr_3d_cad_cspca_tpu``, so every check matches the JAX package's
@@ -18,7 +18,7 @@ import torch
 import prostatemr_3d_cad_cspca_tpu_torch as port
 from prostatemr_3d_cad_cspca_tpu_torch.ensemble import M1Ensemble
 from prostatemr_3d_cad_cspca_tpu_torch.load import load_model_spec
-from prostatemr_3d_cad_cspca_tpu_torch.models import M1, M1Core
+from prostatemr_3d_cad_cspca_tpu_torch.models import M1
 from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,25 +100,10 @@ def test_entry_points_default_to_the_card(tmp_path):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(cascaded=True), dict(probabilistic=True), dict(dense_skip=True),
-    dict(deep_supervision=True),
-    dict(cascaded=True, dropout_mode="monte-carlo", dropout_rate=0.5),
-])
-def test_unsupported_configs_raise(kw):
-    with pytest.raises(NotImplementedError):
-        M1(**{**TINY, **kw}, device="cpu")
-
-
 def test_mc_dropout_at_rate_zero_is_deterministic():
     model = M1(**TINY, dropout_mode="monte-carlo", dropout_rate=0.0, device="cpu")
     x = torch.randn(1, 4, 16, 16, 3)
     assert torch.equal(model.predict(x), model.predict(x))
-
-
-def test_core_raises_for_cfg2_options():
-    with pytest.raises(NotImplementedError, match="cfg2"):
-        M1Core(3, dense_skip=True)
 
 
 @pytest.mark.parametrize("spec", ["a.npz,b.npz", "artifact.zip"])

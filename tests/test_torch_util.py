@@ -1,0 +1,155 @@
+"""Helpers shared by the port's CPU tests of the cfg2, probabilistic and
+cascaded M1 against the JAX package (tests/test_torch_{cfg2,prob,cascade}.py);
+this module holds no test of its own.
+
+The models are the JAX tests' tiny config: filters 4/8/12/16/24, SE
+reduction 2, the bench cfg1 strides and kernels, a 4x16x16 volume
+(tests/test_tf_prob_oracle.py:34-40). Flax parameters are redrawn by numpy so
+every weight differs from its initializer's constant; the port loads them
+through the bridge.
+
+JAX draws its own latents, which the port cannot reproduce: ``record`` runs
+an eager flax forward, records the latent each sampling ladder pass used
+(``flax.linen.intercept_methods`` on ``M1Core.ladder``) and returns them as
+the port's mapping of latents (paths as ``prng`` names them).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+
+from prostatemr_3d_cad_cspca_tpu.models import M1 as JM1
+from prostatemr_3d_cad_cspca_tpu.models.m1_core import M1Core as JM1Core
+from prostatemr_3d_cad_cspca_tpu_torch.bridge import from_jax_params
+from prostatemr_3d_cad_cspca_tpu_torch.models import M1 as TM1
+
+ATOL = 2e-5  # fp32: the repo's oracle tolerance (tests/test_tf_parity.py:43)
+SPATIAL = (4, 16, 16)
+TINY = dict(input_spatial_dims=SPATIAL, num_classes=2, filters=(4, 8, 12, 16, 24),
+            strides=((1, 1, 1), (1, 2, 2), (1, 2, 2), (2, 2, 2), (2, 2, 2)),
+            kernel_sizes=((1, 3, 3), (1, 3, 3), (3, 3, 3), (3, 3, 3), (3, 3, 3)),
+            se_reduction=(2, 2, 2, 2, 2), summary=False)
+DIMS = (2, 1, 1, 0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tiny models' CPU convs run one thread each: with a thread per
+    core, every small conv3d waits on a team of threads that the workers
+    running beside it also want (30-100x slower here)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def redraw(params, seed):
+    """Every leaf drawn by numpy: kernels N(0, 1/fan_in), IN scales
+    1 + N(0, 0.3), biases N(0, 0.3)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            return jnp.asarray(rng.normal(0, fan_in ** -0.5, shape), jnp.float32)
+        if name == "scale":
+            return jnp.asarray(1 + 0.3 * rng.normal(size=shape), jnp.float32)
+        return jnp.asarray(0.3 * rng.normal(size=shape), jnp.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
+def jax_model(seed=0, **kw):
+    """A JAX M1 with numpy-drawn parameters; the tree's shapes come from
+    ``jax.eval_shape`` of the flax init, which traces but compiles nothing."""
+    model = JM1(**{**TINY, **kw}, init_params=False)
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: model.net.init(
+        {"params": key, "dropout": key, "latent": key}, model.example_inputs(),
+        train=False)["params"])
+    model.params = redraw(shapes, seed)
+    return model
+
+
+def port_model(jmodel, **overrides):
+    """The port's M1 of ``jmodel``'s config on the CPU, with its parameters."""
+    config = {**jmodel.config, "summary": False, **overrides}
+    model = TM1(**config, device="cpu", init_params=False)
+    model.params = from_jax_params(jmodel.params)
+    return model
+
+
+def inputs(seed, channels, batch=2, spatial=SPATIAL):
+    return np.random.default_rng(seed).normal(size=(batch, *spatial, channels)).astype(
+        np.float32)
+
+
+def to_np(tree):
+    if isinstance(tree, dict):
+        return {k: to_np(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(to_np(v) for v in tree)
+    if torch.is_tensor(tree):
+        return tree.detach().to(torch.promote_types(tree.dtype, torch.float32)).numpy()
+    return None if tree is None else np.asarray(tree, np.promote_types(
+        np.asarray(tree).dtype, np.float32))
+
+
+def _pass_name(module, kwargs):
+    """The port's name of a JAX ladder call that samples (None otherwise)."""
+    if kwargs.get("prob_mean") or kwargs.get("prob_z_q") is not None:
+        return None
+    return {"prior": "p_sample", "posterior": "q_sample"}[module.name]
+
+
+def record(jmodel, x, seed=0):
+    """An eager flax forward of ``jmodel.net`` with latent key ``seed``:
+    (output, {latent path: latent}) where each sampling ladder call's
+    latents sit under its scope path (``[stage/]<pass>/z_<level>``)."""
+    latents = {}
+
+    def interceptor(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if isinstance(context.module, JM1Core) and context.method_name == "ladder":
+            name = _pass_name(context.module, kwargs)
+            if name is not None:
+                scope = "/".join((*context.module.path[:-1], name))
+                for i, z in enumerate(out["prob_used_latents"]):
+                    if z is not None:
+                        latents[f"{scope}/z_{i}"] = np.array(z, np.float32)
+        return out
+
+    key = jax.random.PRNGKey(seed)
+    x = tuple(jnp.asarray(t) for t in x) if isinstance(x, tuple) else jnp.asarray(x)
+    with nn.intercept_methods(interceptor):
+        out = jmodel.net.apply({"params": jmodel.params}, x, train=False,
+                               rngs={"dropout": key, "latent": jax.random.fold_in(key, 1)})
+    return out, latents
+
+
+def assert_tree_close(got, want, atol=ATOL, path="", scaled=False):
+    """Every leaf of ``got`` within ``atol`` of ``want``'s; with ``scaled``,
+    within ``atol * max(1, |want|)`` (the kernels' limit form): atol itself
+    wherever |want| <= 1, a relative bound above it."""
+    if isinstance(want, dict):
+        assert set(got) >= set(want), (path, set(want) - set(got))
+        for k in want:
+            assert_tree_close(got[k], want[k], atol, f"{path}/{k}", scaled)
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_tree_close(g, w, atol, f"{path}/{i}", scaled)
+    elif want is None:
+        assert got is None, path
+    else:
+        g, w = to_np(got), to_np(want)
+        assert g.shape == w.shape, (path, g.shape, w.shape)
+        if scaled:
+            err = float((np.abs(g - w) / np.maximum(1.0, np.abs(w))).max())
+            assert err <= atol, (path, err)
+        else:
+            np.testing.assert_allclose(g, w, atol=atol, err_msg=path)

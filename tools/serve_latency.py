@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Request latency of the port's bf16 cfg1 serving on one GPU, over many
-requests in one process: the deterministic model and the CLI's default MC
-model (dropout 0.5, ``mc_iter`` 4), 2 volumes a request, weights drawn by
-numpy from a seed as ``chip_smoke.py`` draws them.
+"""Request latency of the port's bf16 serving on one GPU, over many
+requests in one process: at cfg1 width the deterministic model, the CLI's
+default MC model (dropout 0.5, ``mc_iter`` 4), cfg2, the probabilistic
+README model (``mc_iter`` 4) and the noisy-or cascade (``chip_smoke.py``'s
+configurations), 2 volumes a request, weights drawn by numpy from a seed as
+``chip_smoke.py`` draws them.
 
     python3 tools/serve_latency.py [--requests 41] [--seed 0]
 
@@ -29,7 +31,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -40,13 +41,17 @@ def main(argv=None):
     from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
 
     out = {"checkout": os.getcwd(), "card": torch.cuda.get_device_name(0)}
-    rng = np.random.default_rng(args.seed + 1)
-    requests = [rng.normal(size=(chip_smoke.BATCH, *chip_smoke.CFG1["input_spatial_dims"], 3))
-                .astype(np.float32) for _ in range(3)]
     with tempfile.TemporaryDirectory() as tmp:
         for name, overrides, mc_iter in (
                 ("mc", dict(dropout_mode="monte-carlo", dropout_rate=0.5), chip_smoke.MC_ITER),
-                ("deterministic", {}, 1)):
+                ("deterministic", {}, 1),
+                ("cfg2", chip_smoke.CFG2, 1),
+                ("prob", chip_smoke.PROB, chip_smoke.MC_ITER),
+                ("cascade", chip_smoke.CASCADE, 1)):
+            cfg = {**chip_smoke.CFG1, **overrides}
+            requests = chip_smoke._requests(args.seed, cfg["input_channels"])
+            if cfg.get("cascaded"):  # two exams a volume
+                requests = list(zip(requests, chip_smoke._requests(args.seed + 10)))
             ckpt = os.path.join(tmp, f"{name}.npz")
             chip_smoke.write_cfg1_checkpoint(ckpt, args.seed, **overrides)
             session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
