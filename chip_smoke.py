@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU (deterministic,
 Monte-Carlo and sliding-window M1 serving, cfg2, the probabilistic and the
-cascaded M1, and the GEMM-rate probe) and hold every hand-written kernel
-against its plain twin.
+cascaded M1, the GEMM-rate probe, a train step of the CLI's default recipe
+and evaluate.run) and hold every hand-written kernel against its
+plain twin.
 
     python3 chip_smoke.py [--seed 0] [--out FILE]
 
@@ -74,6 +75,33 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                requests of 2 two-exam volumes; serve.run on one 24x256x256
                two-exam case (an image_path_2 manifest, fp32); fp32 card vs
                CPU <= 1e-3 of one window; one request profiled.
+ 12. train     the CLI's default recipe at cfg1 width (monte-carlo dropout
+               0.5, focal (1, 1) gamma 2, Keras amsgrad 1e-3 on CALR, L2
+               1e-5), fp32: one step on the card against the same step on
+               the CPU (batch 1, host-drawn keep-masks replayed on both)
+               and the CPU's fp64 evaluation: loss <= 1e-4 relative;
+               every gradient leaf max|diff| / max(1, max|ref|) <= 5e-2
+               and all leaves together <= 1e-3 (relative L2), each leaf's
+               distance to fp64 and the leaves over 1e-3 reported (the
+               CPU's own fp32 step lies up to ~2e-2 from fp64 on deep
+               leaves); then 8 steps at batch 2, each
+               launching exactly what a meta trace of the step counts
+               (K1-K4, K6 conv3d_wgrad, K7 in_backward), every loss finite;
+               median step wall (steps 2-8), peak memory, one step profiled
+               (busy share; K6's and K7's CUDA kernels must show); one bf16
+               step with a finite loss and the same launches.
+ 13. evaluate  evaluate.run (fp32, lesion task) on a cfg1 checkpoint and 4
+               labelled window-sized cases, two with a lesion: the JAX
+               package's metric keys, values in [0, 1], AUROC defined; each
+               case's probabilities within 1e-3 of the CPU path's; one
+               detect forward a case.
+
+The train step's own shapes (its meta trace, batch 2) are checked and timed
+after the kernels phase, in both dtypes: the data gradients' K1/K2 calls
+(K2 of the output gradient with K1's kernel; K1 for K2), K6 (and cuDNN's
+conv3d_weight beside it) and K7, with K6 and K7 rerun for the same bits and
+fp32 K6 at its deepest shape against the fp64 product; a train_kernels
+line sums each kernel over one step.
 
 The kernels phase (2) also checks and times every K1-K4 shape of the three
 model paths above (their detect heads, and the full forwards of cfg2 and of
@@ -137,8 +165,14 @@ KERNEL_INFO = {  # name: (source, TPU kernel replaced, path it launches on)
                  "serve"),
     "gemm_loop": (f"{PKG}/csrc/gemm_loop.cu", "benchmarks/r2_probe_pallas_mxu.py:56",
                   "probe"),
+    "conv3d_wgrad": (f"{PKG}/csrc/conv3d_wgrad.cu", "benchmarks/r2_probe_pallas_mxu.py:80",
+                     "train"),
+    "in_backward": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198",
+                    "train"),
 }
-ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45"}
+ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45",
+                 "in_backward": "ops/pallas/fused_norm.py:181 (git cef1717^, the "
+                                "custom_vjp backward of :47 and :70)"}
 CONV_KERNELS = ("conv3d", "conv3d_transpose")
 CONV_ROUTES = {"bfloat16": "mma.sync bf16", "float32": "mma.sync 3xTF32"}
 DTYPE_NAMES = ("bfloat16", "float32")
@@ -147,13 +181,29 @@ MMA_KERNEL_NAMES = ("conv3d_mma_kernel", "splitk_reduce_kernel")
 PTXAS_NAMES = {  # kernel: the CUDA kernels it launches
     "conv3d": MMA_KERNEL_NAMES, "conv3d_transpose": MMA_KERNEL_NAMES,
     "in_stats": ("in_stats_kernel",), "in_apply": ("in_apply_kernel",),
-    "gemm_loop": ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")}
+    "gemm_loop": ("gemm_loop_kernel", "gemm_splitk_reduce_kernel"),
+    "conv3d_wgrad": ("wgrad_kernel", "wgrad_reduce_kernel"),
+    "in_backward": ("in_bwd_reduce_kernel", "in_bwd_apply_kernel")}
+BACKWARD_KERNELS = ("conv3d_wgrad", "in_backward")
+TRAIN_KERNELS = (*LAUNCHES_PER_FORWARD, *BACKWARD_KERNELS)
 # the template argument's start in a mangled name, by element type
 MANGLED_TYPE = {"bfloat16": "I13__nv_bfloat16", "float32": "If"}
 BUILT_KERNEL_NAMES = {f"{k}[{dn}]": k + MANGLED_TYPE[dn] for dn in DTYPE_NAMES
-                      for k in MMA_KERNEL_NAMES + ("in_stats_kernel", "in_apply_kernel")}
+                      for k in MMA_KERNEL_NAMES + ("in_stats_kernel", "in_apply_kernel")
+                      + PTXAS_NAMES["conv3d_wgrad"] + PTXAS_NAMES["in_backward"]}
 BUILT_KERNEL_NAMES.update({k: k for k in ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")})
 PROFILE_KERNEL_NAMES = MMA_KERNEL_NAMES + ("in_stats_kernel", "in_apply_kernel")
+TRAIN_PROFILE_NAMES = PROFILE_KERNEL_NAMES + PTXAS_NAMES["conv3d_wgrad"] + \
+    PTXAS_NAMES["in_backward"]
+# the CLI's training defaults (prostatemr_3d_cad_cspca_tpu/cli.py:54-102):
+# monte-carlo dropout 0.5, L2 1e-5, focal alpha (1, 1) gamma 2, Keras amsgrad
+# at 1e-3 on CALR (2, 1, 1e-3) over 250 epochs, batch 2, fp32
+TRAIN_CFG = dict(CFG1, dropout_mode="monte-carlo", dropout_rate=0.5,
+                 kernel_regularizer=1e-5, bias_regularizer=1e-5)
+TRAIN_STEPS = 8
+GRAD_LEAF_TOL, GRAD_L2_TOL = 5e-2, 1e-3  # card vs CPU train-step gradients (phase_train)
+TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = TRAIN_STEPS, 250
+EVAL_CASES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32 tensor-core peak
@@ -198,9 +248,10 @@ def phase_build():
 def trace_model_calls(cfg, batch, dtype=None, head="detect"):
     """Every kernel call of one forward of the model ``cfg`` at ``batch`` in
     ``dtype`` (default bf16) through ``head`` ("detect": what serving runs,
-    or "forward"), found by running it on the meta device with recording
-    wrappers (a CPU generator draws the meta tensors of dropout and
-    latents)."""
+    "forward", or "train": the train step's forward in training mode, the
+    focal loss + L2 and the backward), found by running it on the meta
+    device with recording wrappers (a CPU generator draws the meta tensors
+    of dropout and latents)."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution, normalization
@@ -225,15 +276,27 @@ def trace_model_calls(cfg, batch, dtype=None, head="detect"):
     record(normalization, "in_stats", lambda x: (tuple(x.shape),))
     record(normalization, "in_apply", lambda x, stats, scale, bias, lrelu=False,
            epsilon=1e-3: (tuple(x.shape), bool(lrelu)))
+    record(convolution, "conv3d_wgrad", lambda a, b, kernel_size, strides=(1, 1, 1): (
+        tuple(a.shape), tuple(b.shape), tuple(kernel_size), tuple(strides)))
+    record(normalization, "in_backward", lambda x, g, stats, scale, bias, lrelu=False,
+           epsilon=1e-3: (tuple(x.shape), bool(lrelu)))
     try:
         model = M1(**cfg, summary=False, init_params=False, device="meta",
                    dtype=dtype or torch.bfloat16)
         x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]),
                         device="meta")
-        kw = {"train": False} if head == "forward" else {}
-        with torch.no_grad():
-            getattr(model.net, head)((x, x) if cfg.get("cascaded") else x,
-                                     rng=torch.Generator().manual_seed(0), **kw)
+        gen = torch.Generator().manual_seed(0)
+        if head == "train":  # the train step's forward and backward
+            from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import l2_penalty
+            from prostatemr_3d_cad_cspca_tpu_torch.train.trainer import make_loss
+
+            out = model.net(x, train=True, rng=gen)
+            y = torch.zeros(out["y_softmax"].shape, device="meta")
+            (make_loss()(y, out["y_softmax"]) + l2_penalty(model.net, 1e-5, 1e-5)).backward()
+        else:
+            kw = {"train": False} if head == "forward" else {}
+            with torch.no_grad():
+                getattr(model.net, head)((x, x) if cfg.get("cascaded") else x, rng=gen, **kw)
     finally:
         for (mod, name), orig in originals.items():
             setattr(mod, name, orig)
@@ -255,7 +318,7 @@ def trace_path_calls(batch, dtype=None):
 
 def launch_counts(calls, forwards=1):
     """Launches per kernel of ``forwards`` forwards of a traced model."""
-    out = {k: 0 for k in (*LAUNCHES_PER_FORWARD, "gemm_loop")}
+    out = {k: 0 for k in (*LAUNCHES_PER_FORWARD, "gemm_loop", *BACKWARD_KERNELS)}
     for (name, _), n in calls.items():
         out[name] += n * forwards
     return out
@@ -374,6 +437,32 @@ def _in_case(shape, dtype, gen):
     return x, scale, bias
 
 
+def _wgrad_case(sig, dtype, gen):
+    import torch
+
+    ashape, bshape, ks, st = sig
+    a = torch.randn(ashape, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(bshape, generator=gen, device="cuda").to(dtype)
+    return a, b, tuple(ks), tuple(st)
+
+
+def _wgrad_library(a, b, ks, st):
+    """One cuDNN call computing K6's function (as an NCDHW weight gradient):
+    A padded as XLA SAME pads, outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import same_pads
+
+    pads = []
+    for axis in (2, 1, 0):
+        _, lo, hi = same_pads(a.shape[1 + axis], ks[axis], st[axis])
+        pads += [lo, hi]
+    ap = F.pad(a.permute(0, 4, 1, 2, 3), pads).contiguous(memory_format=torch.channels_last_3d)
+    bt = b.permute(0, 4, 1, 2, 3)
+    size = (b.shape[-1], a.shape[-1], *ks)
+    return lambda: torch.nn.grad.conv3d_weight(ap, size, bt, stride=st)
+
+
 def _conv_library(parts, kernel, strides):
     """One cuDNN call computing K1's function: the parts' concat and the XLA
     SAME asymmetric padding are prepared outside the timed call."""
@@ -423,12 +512,15 @@ def _dn(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None):
+def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
+                  bit_kernels=CONV_KERNELS + ("in_stats",)):
     """Each call's kernel against its plain twin in each of ``dtypes``
     (default fp32 and bf16); with ``timed``, each dtype's times beside the
-    bound, and in each dtype one K1/K2 split-K shape and K3's largest shape
-    run twice on the same inputs (the same bits). ``per_path`` ({path:
-    calls}) adds each row's calls per forward of each path."""
+    bound, and in each dtype one K1/K2 split-K shape, K3's largest shape,
+    one K6 shape with split rows and K7's largest shape run twice on the
+    same inputs (the same bits); each of ``bit_kernels`` present must have
+    had one. ``per_path`` ({path: calls}) adds each row's calls per
+    forward of each path."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
@@ -440,8 +532,10 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None):
     bit_checked = set()  # (kernel, dtype): a K1/K2 split-K shape; K3's largest
     largest_in = max((s for n, s in calls if n == "in_stats"), key=lambda s: int(np.prod(s[0])),
                      default=None)
+    largest_bwd = max((s for n, s in calls if n == "in_backward"),
+                      key=lambda s: int(np.prod(s[0])), default=None)
     for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
-        row = {"count": count}
+        row = {"count": count, "sig": sig}
         if per_path:
             row["per_forward"] = {p: c[(name, sig)] for p, c in per_path.items()
                                   if (name, sig) in c}
@@ -463,6 +557,26 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None):
                 nbytes = _nbytes(x, kernel, bias) + _nbytes(run())
                 flops = _conv_flops(sig, True)
                 row["shape"] = {"x": sig[0], "kernel": sig[1], "strides": sig[2]}
+            elif name == "conv3d_wgrad":
+                a, b, ks, st = _wgrad_case(sig, dtype, gen)
+                run = lambda: cv.conv3d_wgrad(a, b, ks, st)  # noqa: E731
+                plain = lambda: cv.conv3d_wgrad_plain(a, b, ks, st)  # noqa: E731
+                lib = _wgrad_library(a, b, ks, st)
+                nbytes = _nbytes(a, b) + int(np.prod(ks)) * a.shape[-1] * b.shape[-1] * \
+                    a.element_size()
+                flops = 2.0 * np.prod(ks) * a.shape[-1] * b.shape[-1] * np.prod(b.shape[:4])
+                row["shape"] = {"a": sig[0], "b": sig[1], "kernel": sig[2], "strides": sig[3]}
+            elif name == "in_backward":
+                x, scale, bias = _in_case(sig[0], dtype, gen)
+                gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+                stats = nm.in_stats_plain(x)
+                lr = sig[1]
+                run = lambda: nm.in_backward(x, gy, stats, scale, bias, lr)  # noqa: E731
+                plain = lambda: nm.in_backward_plain(x, gy, stats, scale, bias, lr)  # noqa: E731
+                lib = None
+                nbytes = 3 * _nbytes(x) + 2 * _nbytes(stats) + _nbytes(scale, bias)
+                flops = 12.0 * x.numel()
+                row["shape"] = {"x": sig[0], "lrelu": lr}
             elif name == "in_stats":
                 x, _, _ = _in_case(sig[0], dtype, gen)
                 run = lambda: nm.in_stats(x)  # noqa: E731
@@ -484,7 +598,19 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None):
             got = run()
             ref = plain()
             torch.cuda.synchronize()
+            if name == "in_backward":  # dx in the dtype; the fp32 sums as K3's
+                sums_err = _errors(got[1], ref[1])[1]
+                if not (np.isfinite(sums_err) and sums_err <= 1e-4):
+                    raise AssertionError(f"{name} {dn} {sig}: sums error {sums_err} > 1e-4")
+                row[f"sums_rel_err_{dn}"] = sums_err
+                first_sums, got, ref = got[1], got[0], ref[0]
             abs_err, rel_err = _errors(got, ref)
+            if name == "conv3d_wgrad":
+                # each element sums up to 1 M products, whose rounding
+                # scales with the sums' size, not the element's: held
+                # against the largest |ref| of the output (the fp64 check
+                # at the deepest shape stays per element)
+                rel_err = abs_err / max(1.0, float(ref.float().abs().max()))
             limit = 1e-4 if name == "in_stats" else tol[dtype]
             if not (np.isfinite(rel_err) and rel_err <= limit):
                 raise AssertionError(
@@ -496,7 +622,8 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None):
                 continue
             # K1/K2 on the tensor cores at their type's rate (fp32: three
             # TF32 products each); K3/K4 compute in fp32 on the CUDA cores
-            rate = {"conv3d": None, "conv3d_transpose": None}.get(name, FP32_FLOP_PER_S)
+            rate = {"conv3d": None, "conv3d_transpose": None,
+                    "conv3d_wgrad": None}.get(name, FP32_FLOP_PER_S)
             if rate is None:
                 rate = TF32_FLOP_PER_S / 3 if dtype == torch.float32 else BF16_FLOP_PER_S
             row[f"ms_{dn}"] = time_ms(run, reps)
@@ -513,20 +640,29 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None):
                 row[f"blocks_{dn}"] = nm.in_apply_plan(
                     x.shape[0], int(np.prod(x.shape[1:4])), x.shape[-1], x.element_size(),
                     x.data_ptr() % 16 == 0)["blocks"]
+            elif name == "in_backward":
+                twice = sig == largest_bwd
+            elif name == "conv3d_wgrad":
+                plan = cv.wgrad_plan(int(np.prod(ks)) * a.shape[-1], b.shape[-1],
+                                     int(np.prod(b.shape[:4])))
+                row[f"chunks_{dn}"], row[f"blocks_{dn}"] = plan["chunks"], plan["blocks"]
+                twice = plan["chunks"] > 1 and (name, dn) not in bit_checked
             else:
                 row[f"splits_{dn}"] = _splits(name, sig, dtype)
                 twice = row[f"splits_{dn}"] > 1 and (name, dn) not in bit_checked
             if twice:
                 again = run()
                 torch.cuda.synchronize()
-                if not torch.equal(got, again):
+                if name == "in_backward":
+                    again = again[0] if torch.equal(again[1], first_sums) else None
+                if again is None or not torch.equal(got, again):
                     raise AssertionError(f"{name} {dn} {sig}: two runs on the same inputs "
                                          "differ")
                 row[f"bit_equal_{dn}"] = True
                 bit_checked.add((name, dn))
         rows[name].append(row)
-    want = {(n, _dn(d)) for n in CONV_KERNELS + ("in_stats",) if n in rows for d in dtypes}
-    if timed and bit_checked != want:
+    want = {(n, _dn(d)) for n in bit_kernels if n in rows for d in dtypes}
+    if timed and want - bit_checked:
         raise AssertionError(f"no shape checked for determinism: {want - bit_checked}")
     return rows
 
@@ -562,6 +698,62 @@ def summarize_kernels(rows, dtypes=DTYPE_NAMES):
                 tol=shape_rows[0][f"tol_{dn}"], kernel_ms=tot("ms"), plain_ms=tot("plain_ms"),
                 library_ms=lib, bound_ms=tot("bound_ms"),
                 bound_by="bytes" if by_bytes >= tot("bound_ms") / 2 else "operations")
+    return out
+
+
+def train_summary(calls, rows, dtypes=DTYPE_NAMES):
+    """Per kernel, sums over one train step (``calls``: its meta trace)
+    of the timed rows of each call's shape: launches, device ms, plain ms,
+    library ms (None where a shape has none), bound ms, largest error."""
+    by_sig = {(name, r["sig"]): r for name, rs in rows.items() for r in rs}
+    out = {}
+    for (name, sig), n in calls.items():
+        r = by_sig[(name, sig)]
+        o = out.setdefault(name, {"launches_per_step": 0, "distinct_shapes": 0})
+        o["launches_per_step"] += n
+        o["distinct_shapes"] += 1
+        for dn in dtypes:
+            d = o.setdefault(dn, {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                  "bound_ms": 0.0, "bytes_bound_ms": 0.0, "max_abs_err": 0.0,
+                                  "max_err": 0.0, "tol": r[f"tol_{dn}"]})
+            for key in ("kernel_ms", "plain_ms", "bound_ms"):
+                d[key] += n * r[f"{'ms' if key == 'kernel_ms' else key}_{dn}"]
+            lib = r[f"library_ms_{dn}"]
+            d["library_ms"] = None if lib is None or d["library_ms"] is None else \
+                d["library_ms"] + n * lib
+            if r[f"bound_by_{dn}"] == "bytes":
+                d["bytes_bound_ms"] += n * r[f"bound_ms_{dn}"]
+            d["max_abs_err"] = max(d["max_abs_err"], r[f"max_abs_err_{dn}"])
+            d["max_err"] = max(d["max_err"], r[f"max_rel_err_{dn}"])
+    for o in out.values():
+        for dn in dtypes:
+            d = o[dn]
+            d["bound_by"] = "bytes" if d.pop("bytes_bound_ms") >= d["bound_ms"] / 2 \
+                else "operations"
+    return out
+
+
+def phase_wgrad_fp64(calls):
+    """fp32 K6 at its deepest train-path shape (most taps x CA x CB) against
+    the fp64 product (its twin in fp64: one cuBLAS matmul a tap)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+
+    gen = torch.Generator(device="cuda").manual_seed(4322)
+    sig = max((s for n, s in calls if n == "conv3d_wgrad"),
+              key=lambda s: (int(np.prod(s[2])) * s[0][-1] * s[1][-1], int(np.prod(s[1][:4]))))
+    a, b, ks, st = _wgrad_case(sig, torch.float32, gen)
+    got = cv.conv3d_wgrad(a, b, ks, st)
+    exact = cv.conv3d_wgrad_plain(a.double(), b.double(), ks, st)
+    twin = cv.conv3d_wgrad_plain(a, b, ks, st)
+    torch.cuda.synchronize()
+    out = {"a": sig[0], "b": sig[1], "kernel": sig[2], "strides": sig[3],
+           "kernel_vs_fp64": _errors(got.double(), exact)[1],
+           "twin_vs_fp64": _errors(twin.double(), exact)[1], "tol": FP32_LIMIT}
+    emit({"phase": "wgrad_fp32_vs_fp64", **out})
+    if not out["kernel_vs_fp64"] <= FP32_LIMIT:
+        raise AssertionError(f"fp32 K6 at its deepest shape: {out['kernel_vs_fp64']} from "
+                             "the fp64 product")
     return out
 
 
@@ -661,7 +853,8 @@ def counters():
 
     return {"conv3d": cv.conv3d, "conv3d_transpose": cv.conv3d_transpose,
             "in_stats": nm.in_stats, "in_apply": nm.in_apply,
-            "gemm_loop": gemm.gemm_loop}
+            "gemm_loop": gemm.gemm_loop, "conv3d_wgrad": cv.conv3d_wgrad,
+            "in_backward": nm.in_backward}
 
 
 def reset_counts():
@@ -676,7 +869,8 @@ def read_counts():
 
 def forwards(n):
     """The launch counts of ``n`` cfg1 forwards."""
-    return {**{k: v * n for k, v in LAUNCHES_PER_FORWARD.items()}, "gemm_loop": 0}
+    return {**{k: v * n for k, v in LAUNCHES_PER_FORWARD.items()}, "gemm_loop": 0,
+            **{k: 0 for k in BACKWARD_KERNELS}}
 
 
 def _serve_requests(session, requests, mc, expect=None):
@@ -1176,6 +1370,279 @@ def phase_serve_cascade(tmp, seed, smi):
     return launches
 
 
+def device_time(prof):
+    """(device busy us: the union of the device's intervals, device us by
+    kernel name, device events) of a torch.profiler run."""
+    import torch
+
+    spans, by_name = [], collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.time_range.elapsed_us() > 0:
+            spans.append((evt.time_range.start, evt.time_range.end))
+            ident = re.search(r"(\w+)[<(]", evt.name)
+            by_name[ident.group(1) if ident else evt.name[:40]] += evt.time_range.elapsed_us()
+    busy, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    return busy, by_name, len(spans)
+
+
+# ----------------------------------------------------------------- train
+class _CaptureOpt:
+    """An optimizer that moves nothing and keeps the step's gradients as its
+    state (the card-vs-CPU gradient check)."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        import torch
+
+        return {k: torch.zeros_like(g) for k, g in grads.items()}, grads
+
+
+def train_batch(seed, batch):
+    """A synthetic labelled batch at the cfg1 window: normal images, a
+    lesion block in every volume and a few scattered lesion voxels."""
+    rng = np.random.default_rng(seed)
+    spatial = CFG1["input_spatial_dims"]
+    x = rng.normal(size=(batch, *spatial, 3)).astype(np.float32)
+    lesion = (rng.random((batch, *spatial)) < 0.01).astype(np.float32)
+    lesion[:, 8:12, 60:100, 70:110] = 1.0
+    return {"image": x, "detection": np.stack([1.0 - lesion, lesion], -1)}
+
+
+def train_draws(cfg, batch, seed):
+    """The keep-masks of one training forward of ``cfg`` at ``batch``, drawn
+    by numpy on the host, under the sites' names (``prng``)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.blocks import ConfigurableDropout
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+
+    model = M1(**cfg, summary=False, init_params=False, device="meta")
+    shapes = {}
+    for mod in model.net.modules():
+        if isinstance(mod, ConfigurableDropout):
+            mod.register_forward_hook(
+                lambda m, i, o: shapes.update({m.site: tuple(o.shape)}))
+    x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]), device="meta")
+    with torch.no_grad():
+        model.net(x, train=True, rng=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(seed)
+    return {k: rng.random(v) < 1.0 - cfg["dropout_rate"] for k, v in sorted(shapes.items())}
+
+
+def _grad_step(ckpt, device, batch, draws, dtype=None):
+    """(loss, {leaf: gradient on the host}) of one train step, fp32 unless
+    ``dtype`` says otherwise (fp64: the CPU's exact evaluation)."""
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
+
+    model, opt = M1.load(ckpt, device=device, dtype=dtype), _CaptureOpt()
+    state, metrics = tt.make_train_step(model, tt.make_loss(), opt)(
+        tt.init_train_state(model, opt), batch, draws)
+    return float(metrics["loss"]), {k: g.float().cpu() for k, g in state.opt_state.items()}
+
+
+def profile_step(step, state, batch, rng, names=TRAIN_PROFILE_NAMES):
+    """One train step under torch.profiler: (state, wall ms, device busy ms,
+    device ms by kernel name); raises unless every kernel of ``names`` ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, rng)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, by_name, _ = device_time(prof)
+    missing = [k for k in names if k not in by_name]
+    if missing:
+        raise AssertionError(f"train: the profile shows no {missing}")
+    return state, wall_us / 1e3, busy / 1e3, by_name
+
+
+def phase_train(tmp, seed, smi):
+    """The CLI's default recipe at cfg1 width (TRAIN_CFG), fp32: one step on
+    the card against the same step on the CPU (batch 1, host-drawn keep-masks
+    replayed on both); TRAIN_STEPS Keras-amsgrad steps at batch 2, each
+    launching what a meta trace of the step counts; one profiled step; one
+    bf16 step."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch import prng
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
+
+    ckpt = os.path.join(tmp, "train.npz")
+    write_cfg1_checkpoint(ckpt, seed, **TRAIN_CFG)
+    one, draws = train_batch(seed + 20, 1), train_draws(TRAIN_CFG, 1, seed + 21)
+    t0 = time.perf_counter()
+    card_loss, card_g = _grad_step(ckpt, "cuda", one, draws)
+    cpu_loss, cpu_g = _grad_step(ckpt, "cpu", one, draws)
+    _, exact_g = _grad_step(ckpt, "cpu", one, draws, torch.float64)
+    parity_s = time.perf_counter() - t0
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+
+    def leaf_err(got, want):
+        return {k: float((got[k] - g).abs().max()) / max(1.0, float(g.abs().max()))
+                for k, g in want.items()}
+
+    grad_err, card_exact, cpu_exact = (leaf_err(card_g, cpu_g), leaf_err(card_g, exact_g),
+                                       leaf_err(cpu_g, exact_g))
+    over = sorted((k for k, e in grad_err.items() if e > 1e-3), key=grad_err.get, reverse=True)
+    worst = over[0] if over else max(grad_err, key=grad_err.get)
+
+    def l2(got, want):  # every leaf together
+        d = sum(float((got[k].double() - want[k].double()).square().sum()) for k in want)
+        return (d / sum(float(want[k].double().square().sum()) for k in want)) ** 0.5
+
+    grad_l2 = {"card_vs_cpu": l2(card_g, cpu_g), "card_vs_fp64": l2(card_g, exact_g),
+               "cpu_vs_fp64": l2(cpu_g, exact_g)}
+
+    expect = launch_counts(trace_model_calls(TRAIN_CFG, 2, torch.float32, head="train"))
+    model = M1.load(ckpt, device="cuda")
+    sched = tt.build_schedule("CALR", 1e-3, TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS,
+                              (2.0, 1.0, 1e-3))
+    opt = tt.make_optimizer("adam", sched)
+    step = tt.make_train_step(model, tt.make_loss("distribution_focal", (1.0, 1.0), 2.0), opt)
+    state, gen = tt.init_train_state(model, opt), prng.generator(seed, "cuda")
+    batches = [train_batch(seed + 30 + i, 2) for i in range(TRAIN_STEPS)]
+    walls, losses, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i, bt in enumerate(batches):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, bt, prng.fold_in(gen, i))
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read_counts().items()})
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state, prof_wall, busy, by_name = profile_step(step, state, batches[0],
+                                                   prng.fold_in(gen, TRAIN_STEPS))
+    top = dict(by_name.most_common(12))
+    top.update({k: by_name[k] for k in TRAIN_PROFILE_NAMES})
+
+    model16 = M1.load(ckpt, device="cuda", dtype=torch.bfloat16)
+    opt16 = tt.make_optimizer("adam", sched)
+    reset_counts()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, m16 = tt.make_train_step(model16, tt.make_loss(), opt16)(
+        tt.init_train_state(model16, opt16), batches[0], prng.fold_in(gen, 99))
+    loss16 = float(m16["loss"])
+    torch.cuda.synchronize()
+    bf16_ms = (time.perf_counter() - t2) * 1e3
+    launches16 = read_counts()
+    steady = sorted(walls[1:])
+    emit({"phase": "train", "card": smi, "dtype": "float32", "batch": 2, "steps": TRAIN_STEPS,
+          "recipe": "monte-carlo 0.5, focal (1, 1) gamma 2, Keras amsgrad 1e-3 CALR, L2 1e-5",
+          "losses": losses, "step_ms": walls, "median_step_ms_after_first":
+          steady[len(steady) // 2], "launches_per_step": per_step[-1], "expected_per_step": expect,
+          "peak_mem_gib": peak, "profiled_step_wall_ms": prof_wall,
+          "profiled_step_device_busy_ms": busy,
+          "device_busy_share": busy / prof_wall if prof_wall else None,
+          "top_ms": {k: v / 1e3 for k, v in sorted(top.items(), key=lambda kv: -kv[1])},
+          "card_vs_cpu": {"batch": 1, "replayed_masks": len(draws), "loss_card": card_loss,
+                          "loss_cpu": cpu_loss, "loss_rel": loss_rel,
+                          "worst_grad_leaf": worst, "worst_grad_err": grad_err[worst],
+                          "grad_l2": grad_l2, "leaves": len(grad_err),
+                          "n_over_1e-3": len(over), "leaves_over_1e-3": [
+                              (k, grad_err[k], card_exact[k], cpu_exact[k]) for k in over[:12]],
+                          "worst_card_vs_fp64": max(card_exact.values()),
+                          "worst_cpu_vs_fp64": max(cpu_exact.values()),
+                          "seconds": parity_s},
+          "bf16_loss": loss16, "bf16_step_ms": bf16_ms, "bf16_launches": launches16})
+    if not loss_rel <= 1e-4:
+        raise AssertionError(f"train: card vs CPU loss differs by {loss_rel} (relative)")
+    # fp32 itself is the limit here: at cfg1 with monte-carlo dropout the CPU's
+    # fp32 step lies up to ~2e-2 (a deep leaf) from its fp64 evaluation, so a
+    # leaf of the card's step is held at GRAD_LEAF_TOL and the gradient as a
+    # whole at GRAD_L2_TOL (relative L2); every number is reported
+    if not grad_err[worst] <= GRAD_LEAF_TOL:
+        raise AssertionError(f"train: card vs CPU gradient {worst} differs by {grad_err[worst]}")
+    if not grad_l2["card_vs_cpu"] <= GRAD_L2_TOL:
+        raise AssertionError(f"train: card vs CPU gradients differ by {grad_l2} (relative L2)")
+    if not all(np.isfinite(v) for v in losses + [loss16]):
+        raise AssertionError(f"train: losses not finite: {losses}, bf16 {loss16}")
+    for got in per_step:
+        if got != expect:
+            raise AssertionError(f"train: launches per step {got}, expected {expect}")
+    if launches16 != expect:
+        raise AssertionError(f"train bf16: launches {launches16}, expected {expect}")
+    return launches, launches16
+
+
+# -------------------------------------------------------------- evaluate
+def phase_evaluate(tmp, seed, smi):
+    """evaluate.run on the card: a cfg1 checkpoint (fp32, lesion task) on
+    EVAL_CASES window-sized labelled cases, two with a lesion; each case's
+    probabilities against the CPU path's; the metrics JSON's keys and
+    ranges."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch import evaluate
+    from prostatemr_3d_cad_cspca_tpu_torch.data.manifest import read_manifest
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.train.validation import _case_probs
+
+    ckpt = os.path.join(tmp, "eval.npz")
+    write_cfg1_checkpoint(ckpt, seed + 40)
+    rng = np.random.default_rng(seed + 41)
+    spatial = CFG1["input_spatial_dims"]
+    lines = ["p-id,image_path,label_path"]
+    for i in range(EVAL_CASES):
+        img, lab = os.path.join(tmp, f"eval{i}_img.npy"), os.path.join(tmp, f"eval{i}_lab.npy")
+        np.save(img, rng.normal(size=(*spatial, 3)).astype(np.float32))
+        label = np.zeros(spatial, np.float32)
+        if i < 2:
+            label[6:14, 50:90, 60:100] = 3.0  # GGG 3: csPCa
+        np.save(lab, label)
+        lines.append(f"eval{i},{img},{lab}")
+    manifest = os.path.join(tmp, "eval.csv")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    out = os.path.join(tmp, "eval_metrics.json")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = evaluate.main(["--MODEL", ckpt, "--MANIFEST", manifest, "--OUTPUT", out,
+                             "--DEVICE", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    samples = evaluate._LazySamples(read_manifest(manifest), "lesion", False)
+    probs = {}
+    for dev in ("cuda", "cpu"):
+        detect = M1.load(ckpt, device=dev).get_detect_model()
+        from prostatemr_3d_cad_cspca_tpu_torch import prng
+
+        probs[dev] = _case_probs(detect, None, samples, prng.generator(0, dev))[0]
+    case_diff = [float(np.abs(a - b).max()) for a, b in zip(probs["cuda"], probs["cpu"])]
+    emit({"phase": "evaluate", "card": smi, "dtype": "float32", "cases": EVAL_CASES,
+          "metrics": metrics, "seconds": seconds, "case_seconds": seconds / EVAL_CASES,
+          "launches": launches, "case_card_vs_cpu_max": case_diff})
+    keys = {"auroc", "froc_pauc", "lesion_ap", "dice", "cases"}  # the JAX package's
+    if set(metrics) != keys or metrics["cases"] != EVAL_CASES:
+        raise AssertionError(f"evaluate: metrics {metrics}")
+    if metrics["auroc"] is None or not all(0.0 <= metrics[k] <= 1.0 for k in keys - {"cases"}):
+        raise AssertionError(f"evaluate: metrics out of range {metrics}")
+    with open(out) as f:
+        if json.load(f) != metrics:
+            raise AssertionError("evaluate: the metrics file differs from the result")
+    if not max(case_diff) <= 1e-3:
+        raise AssertionError(f"evaluate: card vs CPU probabilities differ by {case_diff}")
+    if launches != forwards(EVAL_CASES):
+        raise AssertionError(f"evaluate: launches {launches}, expected {forwards(EVAL_CASES)}")
+    return launches
+
+
 def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
     """One more request of ``path`` (bf16 unless ``dtype`` says otherwise)
     under torch.profiler (outside the counted run): device busy share of
@@ -1197,21 +1664,7 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
         session(volume)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], collections.Counter()
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.time_range.elapsed_us() > 0:
-            spans.append((evt.time_range.start, evt.time_range.end))
-            ident = re.search(r"(\w+)[<(]", evt.name)
-            by_name[ident.group(1) if ident else evt.name[:40]] += \
-                evt.time_range.elapsed_us()
-    busy, end = 0.0, None
-    for s, e in sorted(spans):  # union of device intervals
-        if end is None or s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
+    busy, by_name, events = device_time(prof)
     missing = [k for k in PROFILE_KERNEL_NAMES if k not in by_name]
     if missing:
         raise AssertionError(f"{path}: the profile shows no {missing}")
@@ -1222,7 +1675,7 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
           "volumes": batch * mc_iter, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3,
           "device_busy_share": busy / wall_us if wall_us else None,
-          "device_events": len(spans),
+          "device_events": events,
           "top_ms": {k: v / 1e3 for k, v in sorted(shown.items(), key=lambda kv: -kv[1])}})
 
 
@@ -1281,6 +1734,18 @@ def main(argv=None):
     summary["gemm_loop"], rows["gemm_loop"] = phase_gemm(REPS)
     for name, s in summary.items():
         emit({"kernel": name, "card": smi, **s, "shapes": rows[name]})
+    # the train step's calls (its meta trace): the shapes the forward above
+    # did not time (the data gradients' K1/K2 calls, K6, K7), then the sums
+    train_calls = trace_model_calls(TRAIN_CFG, BATCH, torch.float32, head="train")
+    timed = {(n, r["sig"]) for n, rs in rows.items() if n in TRAIN_KERNELS for r in rs}
+    train_rows = phase_kernels(
+        collections.Counter({k: v for k, v in train_calls.items() if k not in timed}), REPS,
+        per_path={"train": train_calls}, bit_kernels=BACKWARD_KERNELS)
+    train_sum = train_summary(train_calls, {n: rows.get(n, []) + train_rows.get(n, [])
+                                            for n in TRAIN_KERNELS})
+    wgrad64 = phase_wgrad_fp64(train_calls)
+    emit({"phase": "train_kernels", "card": smi, "batch": BATCH, "per_step": train_sum,
+          "new_shapes": {n: rs for n, rs in train_rows.items()}})
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1294,11 +1759,32 @@ def main(argv=None):
         launches["serve_cfg2"] = phase_serve_cfg2(tmp, args.seed, smi)
         launches["serve_prob"] = phase_serve_prob(tmp, args.seed, smi)
         launches["serve_cascade"] = phase_serve_cascade(tmp, args.seed, smi)
+        launches["train"], launches["train_bf16"] = phase_train(tmp, args.seed, smi)
+        launches["evaluate"] = phase_evaluate(tmp, args.seed, smi)
     launches["probe"], probe = phase_probe(smi)
     phase_paths()
 
     kernels = []
     from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
+
+    for name in BACKWARD_KERNELS:  # K6 and K7: over one train step, fp32 and bf16
+        src, replaces, _ = KERNEL_INFO[name]
+        for dn, on, label in (("float32", "train", name), ("bfloat16", "train_bf16",
+                                                             f"{name}.bf16")):
+            n, d = launches[on][name], train_sum[name][dn]
+            kernels.append({"name": label, "dtype": dn, "route": "cuda", "source": src,
+                            "replaces": replaces, "path": on, "launches": n,
+                            "max_abs_err": d["max_abs_err"], "ms": d["kernel_ms"],
+                            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+                            "launches_by_path": {p: c[name] for p, c in launches.items()
+                                                 if c[name]},
+                            **({"also_replaces": ALSO_REPLACES[name]}
+                               if name in ALSO_REPLACES else {}),
+                            "ptxas": ptxas_report(cuda_lib.build_log, {
+                                k: k + MANGLED_TYPE[dn] for k in PTXAS_NAMES[name]})})
+            if n == 0:
+                raise AssertionError(f"{name} never launched on the {on} path")
 
     for name, s in summary.items():
         src, replaces, path = KERNEL_INFO[name]
@@ -1328,7 +1814,9 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "summary": summary, "rows": rows, "fp32_vs_fp64": fp64,
-                       "launches": launches, "probe": probe}, f, indent=1)
+                       "train_summary": train_sum, "train_rows": train_rows,
+                       "wgrad_fp32_vs_fp64": wgrad64, "launches": launches, "probe": probe},
+                      f, indent=1)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -75,6 +75,21 @@
 //  * A grid sized from bytes: about 32 KB in flight an SM where the tensor
 //    is large (the level-0 shapes), and only as many blocks as one pass of
 //    kApplyUnroll vectors a thread needs on the small deep shapes.
+//
+// K7 in_backward: the gradient of K3 + K4 (+ LReLU) with respect to x, in two
+// launches. Replaces the backward of the retired fused_norm.py (git
+// cef1717^, the custom_vjp's _vjp_bwd :181, which XLA ran). With g' the
+// output gradient times the LReLU's slope (recomputed from x and the
+// statistics exactly as K4 computed the pre-activation: no saved output) and
+// xhat = (x - mean) * rstd:
+//  * pass 1 (in_bwd_reduce_kernel, K3's grid, its fold and tickets): per
+//    (batch, channel) fp32 sums of g' and g' * xhat, folded in chunk order;
+//  * pass 2 (in_bwd_apply_kernel, K4's grid): dx = rstd * scale * (g' -
+//    mean(g') - xhat * mean(g' xhat)), rounded once to x's type.
+// The scale and bias gradients are pass 1's sums added over the batch
+// (ops/normalization.py). Bound by bytes: pass 1 reads x and g, pass 2 reads
+// them again and writes dx. 16-byte loads as K3 and K4 where the layout
+// allows (both x and g aligned), else the scalar route.
 
 #include <stdint.h>
 
@@ -193,8 +208,11 @@ __device__ __forceinline__ void fold_sample(const float* pb, float* st, int C, i
           st[C + c] = fmaxf(q[v] * inv_n - mean * mean, 0.f);
         } else if (mode == 1) {
           st[c] = s[v] * inv_n;
-        } else {
+        } else if (mode == 2) {
           st[C + c] = q[v] * inv_n;
+        } else {  // K7's pass 1: the sums themselves
+          st[c] = s[v];
+          st[C + c] = q[v];
         }
       }
     }
@@ -500,7 +518,282 @@ int apply_route(const void* x, const float* stats, const float* scale, const flo
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------- K7
+// Per channel of K7: the forward's statistics and, for the LReLU's slope,
+// K4's own pre-activation coefficients (r = (x - center) * a + c, as K4).
+template <typename T>
+__device__ __forceinline__ void bwd_coef(const float* st, const float* scale, const float* bias,
+                                         int C, int ch, float eps, float& mean, float& rstd,
+                                         float& center, float& a, float& c) {
+  mean = st[ch];
+  rstd = rsqrtf(st[C + ch] + eps);
+  const float av = rstd * scale[ch];
+  if (sizeof(T) == 4) {
+    center = mean;
+    a = av;
+    c = bias[ch];
+  } else {
+    center = 0.f;
+    a = pmr::to_f32<T>(pmr::from_f32<T>(av));
+    c = pmr::to_f32<T>(pmr::from_f32<T>(bias[ch] - mean * av));
+  }
+}
+
+// g' = g, times 0.1 where the forward's pre-activation was negative (lrelu).
+__device__ __forceinline__ float slope_grad(float g, float x, float center, float a, float c,
+                                            int lrelu) {
+  return lrelu && fmaf(x - center, a, c) < 0.f ? 0.1f * g : g;
+}
+
+constexpr int kBwdUnroll = 4;  // vector pairs (x, g) in flight a thread
+
+// Per-lane sums of g' and g' * xhat over vectors v, v + stride, ... below v1.
+template <typename T, int VEC>
+__device__ __forceinline__ void accumulate_bwd(const T* xb, const T* gb, long long v,
+                                               long long v1, long long stride,
+                                               const float (&k)[5][VEC], int lrelu,
+                                               float (&s)[VEC], float (&q)[VEC]) {
+  for (; v < v1; v += kBwdUnroll * stride) {
+    float x[kBwdUnroll][VEC], g[kBwdUnroll][VEC];
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u)
+      if (v + u * stride < v1) {
+        load_vec(xb + (v + u * stride) * VEC, x[u]);
+        load_vec(gb + (v + u * stride) * VEC, g[u]);
+      }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (v + u * stride >= v1) continue;
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) {
+        const float gg = slope_grad(g[u][l], x[u][l], k[2][l], k[3][l], k[4][l], lrelu);
+        s[l] += gg;
+        q[l] = fmaf(gg, (x[u][l] - k[0][l]) * k[1][l], q[l]);
+      }
+    }
+  }
+}
+
+// K7 pass 1, shaped like K3: grid (nchunk, batch); block (chunk, b) sums g'
+// and g' * xhat over rows [chunk * chunk_rows, ...) of sample b into
+// part[b][chunk][0 / 1][c]; the sample's last block folds the chunks in
+// order into sums (B, 2, C). tickets[b] is 0 on entry and on exit.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    in_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         const float* __restrict__ stats, const float* __restrict__ scale,
+                         const float* __restrict__ bias, float* __restrict__ part,
+                         float* __restrict__ sums, unsigned int* __restrict__ tickets,
+                         int spatial, int channels, int groups, long long rows, int chunk_rows,
+                         float eps, int lrelu) {
+  __shared__ float sh_s[kThreads * VEC];
+  __shared__ float sh_q[kThreads * VEC];
+  __shared__ bool is_last;
+  const int chunk = blockIdx.x, b = blockIdx.y, nchunk = gridDim.x;
+  const int tid = threadIdx.x;
+  const int C = channels, G = groups;
+  const T* xb = x + (size_t)b * spatial * C;
+  const T* gb = g + (size_t)b * spatial * C;
+  const float* st = stats + (size_t)b * 2 * C;
+  const long long r0 = (long long)chunk * chunk_rows;
+  const long long r1 = min(rows, r0 + chunk_rows);
+  float* out = part + ((size_t)b * nchunk + chunk) * 2 * C;
+
+  // G <= kThreads: column cg = tid % G, its R threads share the rows, then
+  // the block adds them up in row order (one pass). Wider: thread columns
+  // cg = tid, tid + kThreads, ..., each walking every row in order.
+  const int R = G <= kThreads ? kThreads / G : 1;
+  for (int cg = G <= kThreads ? tid % G : tid; cg < G; cg += G <= kThreads ? G : kThreads) {
+    const int r = G <= kThreads ? tid / G : 0;
+    float k[5][VEC], s[VEC], q[VEC];
+#pragma unroll
+    for (int l = 0; l < VEC; ++l) {
+      bwd_coef<T>(st, scale, bias, C, (cg * VEC + l) % C, eps, k[0][l], k[1][l], k[2][l],
+                  k[3][l], k[4][l]);
+      s[l] = q[l] = 0.f;
+    }
+    if (r < R)
+      accumulate_bwd<T, VEC>(xb, gb, (r0 + r) * G + cg, r1 * G, (long long)R * G, k, lrelu,
+                             s, q);
+    if (G > kThreads) {
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) {
+        out[cg * VEC + l] = s[l];
+        out[C + cg * VEC + l] = q[l];
+      }
+      continue;
+    }
+    if (r < R)
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) {
+        sh_s[tid * VEC + l] = s[l];
+        sh_q[tid * VEC + l] = q[l];
+      }
+    __syncthreads();
+    for (int c = tid; c < C; c += kThreads) {  // rows in order
+      float ts = 0.f, tq = 0.f;
+      for (int row = 0; row < R; ++row) {
+        if (VEC > C) {  // G == 1: lanes c, c + C, ... hold channel c
+          for (int l = c; l < VEC; l += C) {
+            ts += sh_s[row * VEC + l];
+            tq += sh_q[row * VEC + l];
+          }
+        } else {
+          ts += sh_s[(row * G + c / VEC) * VEC + c % VEC];
+          tq += sh_q[(row * G + c / VEC) * VEC + c % VEC];
+        }
+      }
+      out[c] = ts;
+      out[C + c] = tq;
+    }
+    break;  // G <= kThreads: one pass covers every column
+  }
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&tickets[b], 1u) == (unsigned int)nchunk - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float* pb = part + (size_t)b * nchunk * 2 * C;
+  float* sb = sums + (size_t)b * 2 * C;
+  if constexpr (VEC >= 4) {
+    if (C % 4 == 0) {
+      fold_sample<4>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
+    } else {
+      fold_sample<1>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
+    }
+  } else {
+    fold_sample<1>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
+  }
+  if (tid == 0) tickets[b] = 0u;
+}
+
+// K7 pass 2, shaped like K4: grid (blocks a sample, batch); thread i < active
+// of sample b keeps channels ((i % groups) * VEC + l) % C and writes
+// dx = rstd * scale * (g' - sum(g') / n - xhat * sum(g' xhat) / n) for
+// vectors i, i + active, ... of the sample.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                        const float* __restrict__ stats, const float* __restrict__ sums,
+                        const float* __restrict__ scale, const float* __restrict__ bias,
+                        T* __restrict__ dx, int per_batch, int channels, int groups, int active,
+                        float eps, int lrelu) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= active) return;
+  const int b = blockIdx.y, C = channels;
+  const long long nvec = per_batch / VEC, stride = active;
+  const size_t base = (size_t)b * per_batch;
+  const float* st = stats + (size_t)b * 2 * C;
+  const float* sm = sums + (size_t)b * 2 * C;
+  const float inv_n = 1.f / (float)(per_batch / C);
+  const int ch0 = (i % groups) * VEC;
+  float k[5][VEC], kx[VEC], m1[VEC], m2[VEC];
+#pragma unroll
+  for (int l = 0; l < VEC; ++l) {
+    const int ch = (ch0 + l) % C;
+    bwd_coef<T>(st, scale, bias, C, ch, eps, k[0][l], k[1][l], k[2][l], k[3][l], k[4][l]);
+    kx[l] = k[1][l] * scale[ch];
+    m1[l] = sm[ch] * inv_n;
+    m2[l] = sm[C + ch] * inv_n;
+  }
+  for (long long v = i; v < nvec; v += kApplyUnroll * stride) {
+    float xv[kApplyUnroll][VEC], gv[kApplyUnroll][VEC];
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u)
+      if (v + u * stride < nvec) {
+        load_vec(x + base + (v + u * stride) * VEC, xv[u]);
+        load_vec(g + base + (v + u * stride) * VEC, gv[u]);
+      }
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      if (v + u * stride >= nvec) continue;
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) {
+        const float gg = slope_grad(gv[u][l], xv[u][l], k[2][l], k[3][l], k[4][l], lrelu);
+        const float xh = (xv[u][l] - k[0][l]) * k[1][l];
+        gv[u][l] = kx[l] * (gg - m1[l] - xh * m2[l]);
+      }
+      store_vec(dx + base + (v + u * stride) * VEC, gv[u]);
+    }
+  }
+}
+
+template <typename T, int VEC>
+int backward_impl(const void* x, const void* g, const float* stats, const float* scale,
+                  const float* bias, float* part, float* sums, unsigned int* tickets, void* dx,
+                  int batch, int spatial, int channels, float eps, int lrelu, int chunk_rows,
+                  int nchunk, int blocks, int active, cudaStream_t stream) {
+  const int groups = channels % VEC == 0 ? channels / VEC : 1;
+  const long long rows = (long long)spatial * channels / VEC / groups;
+  if (nchunk != (rows + chunk_rows - 1) / chunk_rows || active < groups ||
+      active % groups != 0 || active > blocks * kThreads)
+    return (int)cudaErrorInvalidValue;
+  in_bwd_reduce_kernel<T, VEC><<<dim3(nchunk, batch), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), stats, scale, bias, part, sums,
+      tickets, spatial, channels, groups, rows, chunk_rows, eps, lrelu);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  in_bwd_apply_kernel<T, VEC><<<dim3(blocks, batch), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), stats, sums, scale, bias,
+      static_cast<T*>(dx), spatial * channels, channels, groups, active, eps, lrelu);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int backward_route(const void* x, const void* g, const float* stats, const float* scale,
+                   const float* bias, float* part, float* sums, unsigned int* tickets, void* dx,
+                   int batch, int spatial, int channels, float eps, int lrelu, int vec,
+                   int chunk_rows, int nchunk, int blocks, int active, cudaStream_t stream) {
+  if (vec == VEC) {
+    if (!(channels % VEC == 0 || VEC % channels == 0) ||
+        ((long long)spatial * channels) % VEC != 0 ||
+        (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
+         reinterpret_cast<uintptr_t>(dx)) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    return backward_impl<T, VEC>(x, g, stats, scale, bias, part, sums, tickets, dx, batch,
+                                 spatial, channels, eps, lrelu, chunk_rows, nchunk, blocks,
+                                 active, stream);
+  }
+  if (vec == 1)
+    return backward_impl<T, 1>(x, g, stats, scale, bias, part, sums, tickets, dx, batch,
+                               spatial, channels, eps, lrelu, chunk_rows, nchunk, blocks,
+                               active, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// K7: x, g, dx (B, spatial, C) contiguous; stats (B, 2, C) from K3; scale,
+// bias (C,) fp32; part (B, nchunk, 2, C) fp32 scratch; sums (B, 2, C) fp32
+// output [sum g', sum g' * xhat]; tickets: B zeroed counters (left zeroed).
+// vec, chunk_rows, nchunk from ops/normalization.py in_stats_plan (of x and
+// g together); blocks, active from in_apply_plan. Two launches on `stream`.
+extern "C" int pmr_in_backward(const void* x, const void* g, const void* stats,
+                               const void* scale, const void* bias, void* part, void* sums,
+                               void* tickets, void* dx, int dtype, int batch, int spatial,
+                               int channels, float eps, int lrelu, int vec, int chunk_rows,
+                               int nchunk, int blocks, int active, void* stream) {
+  if (batch < 1 || batch > 65535 || spatial < 1 || channels < 1 || chunk_rows < 1 ||
+      nchunk < 1 || blocks < 1 || tickets == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* st = static_cast<const float*>(stats);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  float* pa = static_cast<float*>(part);
+  float* su = static_cast<float*>(sums);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
+  if (dtype == pmr::kBFloat16)
+    return backward_route<__nv_bfloat16, 8>(x, g, st, sc, bi, pa, su, tk, dx, batch, spatial,
+                                            channels, eps, lrelu, vec, chunk_rows, nchunk,
+                                            blocks, active, s);
+  if (dtype == pmr::kFloat32)
+    return backward_route<float, 4>(x, g, st, sc, bi, pa, su, tk, dx, batch, spatial, channels,
+                                    eps, lrelu, vec, chunk_rows, nchunk, blocks, active, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // x: (B, spatial, C) contiguous; part: (B, nchunk, 2, C) fp32 scratch;
 // stats: (B, 2, C) fp32 output; tickets: B zeroed counters (left zeroed);

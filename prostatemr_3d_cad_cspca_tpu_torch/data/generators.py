@@ -1,12 +1,77 @@
-"""The test-mode image read of the JAX package's
-``data/generators.py::load_sample`` (``:99-124``): what serving needs. Labels,
-contour smoothening and the training generators wait for the data slice."""
+"""One case -> model-ready arrays, copied from the JAX package's
+``data/generators.py`` (host-side numpy; ``load_sample`` :84-144 and the
+contour smoothening :36-81). The training generators (``custom_data_generator``,
+``batch_iterator``) wait for the data slice.
+
+Per-task label handling (reference data_generators.py:43-97):
+
+  * zonal  — split zones into TZ/PZ binaries, Gaussian-blur contour
+             smoothening per axial slice, 3-class one-hot (WG=1-TZ-PZ,TZ,PZ);
+  * lesion — binarize GGG>=2, smoothen, 2-class one-hot;
+  * probabilistic mode — append the (zeroed-at-valid/test) foreground label
+    channels onto the image and yield a zeros 'KL' target.
+"""
 
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+
+try:  # pragma: no cover - env dependent
+    import cv2
+
+    _HAS_CV2 = True
+except Exception:  # pragma: no cover
+    _HAS_CV2 = False
+
+
+def _gaussian_kernel_1d(ksize: int = 7, sigma: float = 0.0) -> np.ndarray:
+    """cv2.getGaussianKernel parity: sigma<=0 => 0.3*((k-1)*0.5-1)+0.8."""
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    xs = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
+    k = np.exp(-(xs**2) / (2.0 * sigma**2))
+    return k / k.sum()
+
+
+def _smooth_numpy(sl: np.ndarray, ksize: int) -> np.ndarray:
+    """Separable Gaussian blur of one uint8 slice, BORDER_REFLECT_101, rounded."""
+    kern = _gaussian_kernel_1d(ksize)
+    pad = len(kern) // 2
+    x = np.pad(sl.astype(np.float64), pad, mode="reflect")
+    x = np.apply_along_axis(lambda m: np.convolve(m, kern, mode="valid"), 0, x)
+    x = np.apply_along_axis(lambda m: np.convolve(m, kern, mode="valid"), 1, x)
+    return np.rint(x)
+
+
+def contour_smoothening(label: np.ndarray, kernel_2d=(7, 7), iterations: int = 1
+                        ) -> np.ndarray:
+    """Per-slice 2D Gaussian blur of a (D,H,W) uint8 mask (reference
+    data_generators.py:92-97). Priority, as in the JAX package: cv2
+    (reference-exact), the native C++ filter (native/edt.cpp, within +/-1
+    gray level of cv2's fixed-point rounding), the separable numpy filter
+    (:func:`_smooth_numpy`). All use BORDER_REFLECT_101."""
+    if not _HAS_CV2:
+        from ..utils.native import contour_smooth as _native_smooth
+
+        out = label.astype(np.uint8)
+        for _ in range(iterations):
+            got = _native_smooth(out, kernel_2d[0])
+            if got is None:
+                break
+            out = got
+        else:
+            return out.astype(label.dtype)
+    label = label.copy()
+    for _ in range(iterations):
+        for k in range(label.shape[0]):
+            sl = label[k].astype(np.uint8)
+            if _HAS_CV2:
+                label[k] = cv2.GaussianBlur(sl, tuple(kernel_2d), cv2.BORDER_DEFAULT)
+            else:
+                label[k] = _smooth_numpy(sl, kernel_2d[0]).astype(label.dtype)
+    return label
 
 
 def load_image(row: Dict[str, str], train_obj: str = "zonal") -> np.ndarray:
@@ -19,3 +84,50 @@ def load_image(row: Dict[str, str], train_obj: str = "zonal") -> np.ndarray:
     else:
         raise ValueError(f"Unknown train_obj {train_obj!r}")
     return image.astype(np.float32)
+
+
+def load_sample(row: Dict[str, str], train_obj: str = "zonal", probabilistic: bool = False,
+                mode: str = "train", with_dist_map: bool = False) -> Dict[str, np.ndarray]:
+    """One case -> model I/O dict (reference data_generators.py:43-88):
+    'image', 'detection' (the smoothed one-hot label), for a probabilistic
+    model the label channels appended to the image (zeros in 'valid' and
+    'test' modes) and a zeros 'KL' target; ``with_dist_map`` adds the signed
+    EDT of the foreground label channels ('dist_map', for the boundary
+    loss)."""
+    image = load_image(row, train_obj)
+    if train_obj == "zonal":
+        if mode != "test":
+            zones = np.load(row["zones_path"]).astype(np.uint8)
+        else:
+            zones = np.zeros_like(image[..., 0], dtype=np.uint8)
+        tz, pz = zones.copy(), zones.copy()
+        tz[zones != 1], pz[zones != 2] = 0, 0
+        tz[zones == 1], pz[zones == 2] = 1, 1
+        tz, pz = contour_smoothening(tz), contour_smoothening(pz)
+        label = np.stack([np.ones_like(zones) - tz - pz, tz, pz], axis=-1)
+    else:
+        if mode != "test":
+            lesions = np.load(row["label_path"])
+        else:
+            lesions = np.zeros_like(image[..., 0])
+        lesions = lesions.copy()
+        lesions[lesions <= 1] = 0
+        lesions[lesions >= 2] = 1  # csPCa: GGG >= 2
+        lesions = contour_smoothening(lesions.astype(np.uint8))
+        label = np.stack([np.ones_like(lesions) - lesions, lesions], axis=-1)
+    label = label.astype(np.float32)
+
+    if mode in ("test", "valid"):
+        postq_lbl = np.zeros_like(label)[:, :, :, 1:]
+    else:
+        postq_lbl = label[:, :, :, 1:]
+    if probabilistic:
+        sample = {"image": np.concatenate([image, postq_lbl], axis=-1),
+                  "detection": label, "KL": np.zeros(label.shape, np.float32)}
+    else:
+        sample = {"image": image, "detection": label}
+    if with_dist_map:
+        from ..ops.edt import signed_distance_map
+
+        sample["dist_map"] = signed_distance_map(label[..., 1:])
+    return sample

@@ -46,6 +46,13 @@ def _latent(level: int, distrib: DiagGaussian, rng) -> torch.Tensor:
         if tuple(z.shape) != tuple(distrib.loc.shape):
             raise ValueError(f"latent {key!r} has shape {tuple(z.shape)}, the "
                              f"distribution {tuple(distrib.loc.shape)}")
+        if torch.is_grad_enabled() and (distrib.loc.requires_grad
+                                        or distrib.scale.requires_grad):
+            # reparameterize around the replayed value: z itself, with the
+            # gradient of loc + scale * eps for the noise eps it implies
+            loc, scale = distrib.loc, distrib.scale
+            eps = (z - loc.detach()) / scale.detach()
+            z = z + (loc - loc.detach()) + (scale - scale.detach()) * eps
         return z
     if not isinstance(rng, torch.Generator):
         raise ValueError("sampling a latent needs rng: a torch.Generator or a "

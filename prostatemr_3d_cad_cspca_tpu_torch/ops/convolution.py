@@ -12,17 +12,23 @@ on an even size the window starts ON the first voxel (pad_lo 0, pad_hi 1),
 while torch's ``padding=1`` starts one voxel before it. Both kernels below get
 their windows from :func:`forward_plan` / :func:`transpose_plan`.
 
-Two kernels live here, each with its plain PyTorch twin and its launch
-counter; both run on the tensor cores (``csrc/conv3d_mma.cu``, whose note
-says how), bf16 directly and fp32 as error-compensated TF32 (3xTF32):
+Three kernels live here, each with its plain PyTorch twin and its launch
+counter; K1 and K2 run on the tensor cores (``csrc/conv3d_mma.cu``, whose
+note says how), bf16 directly and fp32 as error-compensated TF32 (3xTF32):
 
   * K1 :func:`conv3d` — forward conv over a list of up to MAX_PARTS channel
     parts (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
     conv(part_i, W_i)``), with fp32 bias and fp32 accumulation;
-  * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``.
+  * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``;
+  * K6 :func:`conv3d_wgrad` — the weight gradient of both
+    (``csrc/conv3d_wgrad.cu``).
 
-On a CPU (or meta) tensor each wrapper runs its plain twin; on a CUDA tensor
-it launches its kernel or raises.
+K1 and K2 are differentiable where autograd asks for it (a
+``torch.autograd.Function`` each): their data gradients are each other
+(K2 of the output gradient for K1, K1 for K2), their weight gradients K6.
+Without grad (serving, ``torch.no_grad()``) they save nothing and launch
+what the forward alone launches. On a CPU (or meta) tensor each wrapper
+runs its plain twin; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -55,8 +61,8 @@ class ConvConfig:
     always consumes part lists), so they change nothing here. ``act_store``
     rounds the block-boundary activations through a narrow float type, as
     the JAX ``store_act`` does. Initializers are names of INITIALIZERS or
-    callables (see :func:`resolve_initializer`); the L2 coefficients wait
-    for the training slice.
+    callables (see :func:`resolve_initializer`); the L2 coefficients feed
+    :func:`l2_penalty` through the model's config.
     """
 
     kernel_init: Any = "orthogonal"
@@ -335,7 +341,6 @@ def _check_cuda_args(name, parts, kernel, bias, cin_axis):
                              or not bias.is_contiguous() or bias.numel() != cout):
         raise ValueError(f"{name}: bias must be contiguous float32 of {cout} "
                          f"on {x0.device}")
-    cuda_lib.require_no_grad(name, *parts, kernel, bias)
 
 
 def _launch(name, fn, parts, kernel, bias, strides, transposed):
@@ -396,13 +401,80 @@ def conv3d(parts, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
     limits where TF32 alone could not.
     """
     parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
+    strides = tuple(int(s) for s in strides)
+    if _needs_grad(*parts, kernel, bias):
+        return _Conv3dFn.apply(kernel, bias, strides, *parts)
+    return _conv3d_forward(parts, kernel, bias, strides)
+
+
+conv3d.launches = 0
+
+
+def _conv3d_forward(parts, kernel, bias, strides):
     if not cuda_lib.use_kernel("conv3d", parts[0]):
         return conv3d_plain(parts, kernel, bias, strides)
     _check_cuda_args("conv3d", parts, kernel, bias, cin_axis=3)
     return _launch("conv3d", conv3d, parts, kernel, bias, strides, False)
 
 
-conv3d.launches = 0
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _bias_grad(g: torch.Tensor) -> torch.Tensor:
+    # the fp32 bias's gradient: the output gradient summed over all but C,
+    # in fp32 (fp64 for fp64 input)
+    return g.sum(dim=tuple(range(g.dim() - 1)), dtype=_acc(g))
+
+
+def check_dgrad_extents(in_spatial, out_spatial, strides) -> None:
+    """K1's data gradient runs as K2 (the transposed conv) of the output
+    gradient, whose output is ``out * s``: it needs every input extent to be
+    its output extent times the stride."""
+    for n, o, s in zip(in_spatial, out_spatial, strides):
+        if int(n) != int(o) * int(s):
+            raise ValueError(
+                f"conv3d backward: the input extents {tuple(in_spatial)} are not the output "
+                f"extents {tuple(out_spatial)} times the strides {tuple(strides)}; the data "
+                "gradient runs as the transposed conv (K2), whose output is the input "
+                "extent times the stride")
+
+
+class _Conv3dFn(torch.autograd.Function):
+    """K1 with its backward: data gradient by K2 on the output gradient with
+    K1's own DHWIO kernel (read as K2's ``(kd, kh, kw, Cout=I, Cin=O)``: TF's
+    SAME Conv3DTranspose is the input gradient of SAME Conv3D), split into
+    the parts' channel slices; weight gradient by K6 a part; bias gradient
+    by a sum."""
+
+    @staticmethod
+    def forward(ctx, kernel, bias, strides, *parts):
+        ctx.strides = strides
+        ctx.save_for_backward(kernel, *parts)
+        return _conv3d_forward(list(parts), kernel, bias, strides)
+
+    @staticmethod
+    def backward(ctx, gy):
+        kernel, *parts = ctx.saved_tensors
+        gy, st = gy.contiguous(), ctx.strides
+        need = ctx.needs_input_grad
+        dparts = [None] * len(parts)
+        if any(need[3:]):
+            check_dgrad_extents(parts[0].shape[1:4], gy.shape[1:4], st)
+            dx = conv3d_transpose(gy, kernel, None, st)
+            off = 0
+            for i, p in enumerate(parts):
+                ci = int(p.shape[-1])
+                if need[3 + i]:
+                    dparts[i] = dx[..., off:off + ci]
+                off += ci
+        dk = None
+        if need[0]:
+            dws = [conv3d_wgrad(p, gy, kernel.shape[:3], st) for p in parts]
+            dk = dws[0] if len(dws) == 1 else torch.cat(dws, dim=3)
+        db = _bias_grad(gy) if need[1] else None
+        return (dk, db, None, *dparts)
 
 
 # ------------------------------------------------------------------- K2
@@ -438,6 +510,16 @@ def conv3d_transpose(x: torch.Tensor, kernel: torch.Tensor,
     multiplies only the taps that phase reads, never a dilated input's
     zeros.
     """
+    strides = tuple(int(s) for s in strides)
+    if _needs_grad(x, kernel, bias):
+        return _ConvTranspose3dFn.apply(x, kernel, bias, strides)
+    return _conv3d_transpose_forward(x, kernel, bias, strides)
+
+
+conv3d_transpose.launches = 0
+
+
+def _conv3d_transpose_forward(x, kernel, bias, strides):
     if not cuda_lib.use_kernel("conv3d_transpose", x):
         return conv3d_transpose_plain(x, kernel, bias, strides)
     _check_cuda_args("conv3d_transpose", [x], kernel, bias, cin_axis=4)
@@ -449,7 +531,141 @@ def conv3d_transpose(x: torch.Tensor, kernel: torch.Tensor,
     return _launch("conv3d_transpose", conv3d_transpose, [x], kernel, bias, strides, True)
 
 
-conv3d_transpose.launches = 0
+class _ConvTranspose3dFn(torch.autograd.Function):
+    """K2 with its backward: data gradient by K1 with the same strides on the
+    output gradient with K2's kernel (read as K1's DHWIO, I = Cout, O = Cin);
+    weight gradient by K6 with A = the output gradient (fine grid) and B =
+    K2's input (coarse grid), already in K2's layout; bias by a sum."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, strides):
+        ctx.strides = strides
+        ctx.save_for_backward(x, kernel)
+        return _conv3d_transpose_forward(x, kernel, bias, strides)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, kernel = ctx.saved_tensors
+        gy, st = gy.contiguous(), ctx.strides
+        need = ctx.needs_input_grad
+        dx = conv3d([gy], kernel, None, st) if need[0] else None
+        dk = conv3d_wgrad(gy, x, kernel.shape[:3], st) if need[1] else None
+        db = _bias_grad(gy) if need[2] else None
+        return dx, dk, db, None
+
+
+# ------------------------------------------------------------------- K6
+WGRAD_ROWS = 16                 # rows a step of csrc/conv3d_wgrad.cu (kRows)
+WGRAD_TILE_M = {64: 64, 32: 128, 16: 256, 8: 256, 4: 256}  # tile n -> tile m
+WGRAD_TARGET_BLOCKS = 4 * SMS   # about four blocks an SM
+WGRAD_MIN_CHUNK_ROWS = 8 * WGRAD_ROWS
+WGRAD_MAX_CHUNKS = 512
+
+
+def wgrad_plan(m: int, cout: int, rows: int) -> dict:
+    """Tile and K-split of K6 (csrc/conv3d_wgrad.cu) for an ``m`` = taps x
+    CA by ``cout`` gradient over ``rows`` = batch x output voxels.
+
+    The tile n is the least of WGRAD_TILE_M's that holds cout (else 64),
+    with its tile m. The rows are cut into ``chunks`` ranges of
+    ``chunk_rows``: enough blocks in all for WGRAD_TARGET_BLOCKS, no chunk
+    below WGRAD_MIN_CHUNK_ROWS rows, at most WGRAD_MAX_CHUNKS. With more
+    than one chunk the kernel writes ``workspace`` fp32 partials (chunks x m
+    x cout) that a second kernel sums in chunk order.
+    """
+    bn = next((t for t in sorted(WGRAD_TILE_M) if cout <= t), 64)
+    bm = WGRAD_TILE_M[bn]
+    tiles = -(-m // bm) * -(-cout // bn)
+    chunks = max(1, min(-(-WGRAD_TARGET_BLOCKS // tiles), rows // WGRAD_MIN_CHUNK_ROWS,
+                        WGRAD_MAX_CHUNKS))
+    chunk_rows = -(-rows // chunks)
+    chunks = -(-rows // chunk_rows)
+    return dict(bn=bn, bm=bm, tiles=tiles, chunks=chunks, chunk_rows=chunk_rows,
+                blocks=tiles * chunks, workspace=chunks * m * cout if chunks > 1 else 0)
+
+
+def _check_wgrad_args(a, b, kernel_size, strides):
+    if a.dim() != 5 or b.dim() != 5 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"conv3d_wgrad: A and B must be NDHWC of one batch, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    out = tuple(same_pads(int(n), k, s)[0]
+                for n, k, s in zip(a.shape[1:4], kernel_size, strides))
+    if tuple(b.shape[1:4]) != out:
+        raise ValueError(f"conv3d_wgrad: B's grid {tuple(b.shape[1:4])} is not the SAME "
+                         f"output {out} of A's {tuple(a.shape[1:4])}")
+    if math.prod(kernel_size) > MAX_TAPS:
+        raise ValueError(f"conv3d_wgrad: kernel {kernel_size} unsupported")
+
+
+def conv3d_wgrad_plain(a, b, kernel_size, strides=(1, 1, 1)):
+    """Plain twin of K6: per tap, the tap's strided SAME window of A (zero
+    padded) transposed times B, in fp32 (fp64 for fp64 input), rounded once
+    to A's dtype; shape ``(kd, kh, kw, CA, CB)``."""
+    ks, st = tuple(int(k) for k in kernel_size), tuple(strides)
+    _check_wgrad_args(a, b, ks, st)
+    acc = _acc(a)
+    pads = []
+    for axis in (2, 1, 0):  # F.pad lists the last axis first (after C)
+        _, lo, hi = same_pads(int(a.shape[1 + axis]), ks[axis], st[axis])
+        pads += [lo, hi]
+    ap = F.pad(a.to(acc), [0, 0] + pads)
+    bm = b.to(acc).reshape(-1, b.shape[-1])
+    od, oh, ow = b.shape[1:4]
+    taps = []
+    for i in range(ks[0]):
+        for j in range(ks[1]):
+            for k in range(ks[2]):
+                win = ap[:, i:i + (od - 1) * st[0] + 1:st[0], j:j + (oh - 1) * st[1] + 1:st[1],
+                         k:k + (ow - 1) * st[2] + 1:st[2]]
+                taps.append(win.reshape(-1, a.shape[-1]).T @ bm)
+    return torch.stack(taps).reshape(*ks, a.shape[-1], b.shape[-1]).to(a.dtype)
+
+
+def conv3d_wgrad(a: torch.Tensor, b: torch.Tensor, kernel_size,
+                 strides: Sequence[int] = (1, 1, 1)) -> torch.Tensor:
+    """K6: ``dW[kd, kh, kw, ca, cb] = sum_{n, o} A[n, o * s + t - lo, ca] *
+    B[n, o, cb]`` (A zero outside its grid; lo the SAME low pad of A's
+    extents), in A's dtype rounded once from fp32 sums. K1's weight gradient
+    with A = an input part, B = the output gradient; K2's with A = its
+    output gradient and B = its input (the result is K2's layout).
+
+    Replaces the weight half of the backward of ``conv_probe``
+    (``benchmarks/r2_probe_pallas_mxu.py:80``, TPU kernel table row 1; XLA
+    transposed it there). Bound on the H100: bytes at the full-resolution
+    levels, operations at the deep 3x3x3 ones. fp32 FMA tiles over a fixed
+    split of the rows, partials summed in chunk order (csrc/conv3d_wgrad.cu):
+    no atomics, the same bits on every run.
+    """
+    ks, st = tuple(int(k) for k in kernel_size), tuple(int(s) for s in strides)
+    if not cuda_lib.use_kernel("conv3d_wgrad", a):
+        return conv3d_wgrad_plain(a, b, ks, st)
+    _check_wgrad_args(a, b, ks, st)
+    code = cuda_lib.dtype_code(a, "conv3d_wgrad")
+    if b.dtype != a.dtype or b.device != a.device:
+        raise TypeError("conv3d_wgrad: A and B must share one dtype and device")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("conv3d_wgrad: A and B must be contiguous (NDHWC)")
+    if max(a.numel(), b.numel()) >= MAX_INDEX:
+        raise ValueError("conv3d_wgrad: the kernel takes tensors of fewer than 2**31 elements")
+    ca, cb = int(a.shape[-1]), int(b.shape[-1])
+    m, rows = math.prod(ks) * ca, int(b.shape[0]) * math.prod(b.shape[1:4])
+    plan = wgrad_plan(m, cb, rows)
+    out = torch.empty((*ks, ca, cb), dtype=a.dtype, device=a.device)
+    ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=a.device)
+          if plan["chunks"] > 1 else None)
+    lo = [same_pads(int(n), k, s)[1] for n, k, s in zip(a.shape[1:4], ks, st)]
+    geom = np.array([*a.shape[1:4], ca, *b.shape[1:4], cb, *ks, *st, *lo, a.shape[0],
+                     plan["chunks"], plan["bn"], plan["chunk_rows"]], np.int32)
+    lib = cuda_lib.library()
+    conv3d_wgrad.launches += 1
+    rc = lib.pmr_conv3d_wgrad(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              ws.data_ptr() if ws is not None else 0, geom.ctypes.data, code,
+                              cuda_lib.stream_of(a))
+    cuda_lib.check(rc, "conv3d_wgrad")
+    return out
+
+
+conv3d_wgrad.launches = 0
 
 
 # --------------------------------------------------------------- modules
@@ -550,3 +766,25 @@ INITIALIZERS = {
 def resolve_initializer(spec):
     """A name of INITIALIZERS or a callable ``(shape, generator) -> tensor``."""
     return INITIALIZERS[spec] if isinstance(spec, str) else spec
+
+
+# --------------------------------------------------------- regularization
+def l2_penalty(params, kernel_l2: float, bias_l2: float) -> torch.Tensor:
+    """L2 term over named parameters (a module or a ``{name: tensor}``
+    mapping with '.'-joined paths): ``l2 * sum(w ** 2)`` in fp32 for every
+    ``kernel`` and ``bias`` (``tf.keras.regularizers.l2`` on every conv of
+    the reference, networks.py:47-48), except under instance norms
+    (``norm*`` parents, tfa's unregularized scale and bias) and the
+    squeeze-excite convs (``se_*`` parents, built without conv_params,
+    network_blocks.py:45-46), as the JAX ``l2_penalty`` skips them."""
+    items = params.named_parameters() if isinstance(params, nn.Module) else params.items()
+    total = None
+    for name, leaf in items:
+        path = name.split(".")
+        parent = path[-2] if len(path) > 1 else ""
+        if parent.startswith(("norm", "se_")) or path[-1] not in ("kernel", "bias"):
+            continue
+        coef = kernel_l2 if path[-1] == "kernel" else bias_l2
+        term = coef * torch.sum(torch.square(leaf.float()))
+        total = term if total is None else total + term
+    return total if total is not None else torch.zeros(())

@@ -24,7 +24,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("conv3d_mma.cu", "instance_norm.cu", "gemm_loop.cu")
+SOURCES = ("conv3d_mma.cu", "conv3d_wgrad.cu", "instance_norm.cu", "gemm_loop.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -43,6 +43,8 @@ _SIGNATURES = {
     "pmr_in_stats": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "pmr_in_apply": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP],
     "pmr_gemm_loop": [_VP, _VP, _VP, _VP, _VP, _VP],
+    "pmr_conv3d_wgrad": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
+    "pmr_in_backward": [_VP] * 9 + [_I] * 4 + [_F] + [_I] * 6 + [_VP],
 }
 
 
@@ -160,10 +162,9 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
 
 
 def require_no_grad(name: str, *tensors) -> None:
-    """The kernels have no backward yet: refuse to run where autograd would
-    silently drop the graph."""
+    """For a kernel without a backward (K5): refuse to run where autograd
+    would silently drop the graph."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (training slice); "
-            "run under torch.no_grad()")
+            f"{name}: the CUDA kernel has no backward; run under torch.no_grad()")

@@ -9,18 +9,22 @@ Statistics are fp32 whatever the input type. Two formulas, as in JAX:
   * bf16 input: one pass, ``max(E[x^2] - mean^2, 0)`` with fp32 sums, and the
     affine as ``x * a + b`` with ``a``, ``b`` rounded to bf16 first.
 
-Two kernels live here, each with its plain twin, its launch counter and its
-source note in ``csrc/instance_norm.cu``:
+Three kernels live here, each with its plain twin, its launch counter and
+its source note in ``csrc/instance_norm.cu``:
 
   * K3 :func:`in_stats` — (B, 2, C) fp32 mean and variance;
   * K4 :func:`in_apply` — the normalizing affine, LeakyReLU(0.1) fused on
-    request.
+    request;
+  * K7 :func:`in_backward` — the gradient of both (+ LReLU), whose
+    ``torch.autograd.Function`` :func:`instance_norm` uses under autograd.
 
 Cross-shard statistics (``ShardedStats``, ``revacuum``) wait for the
 multi-GPU slice.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -153,7 +157,6 @@ def in_stats(x: torch.Tensor) -> torch.Tensor:
     code = cuda_lib.dtype_code(x, "in_stats")
     if not x.is_contiguous():
         raise ValueError("in_stats: x must be contiguous NDHWC")
-    cuda_lib.require_no_grad("in_stats", x)
     b, c = int(x.shape[0]), int(x.shape[-1])
     spatial = int(x.shape[1] * x.shape[2] * x.shape[3])
     plan = in_stats_plan(b, spatial, c, x.element_size(), x.data_ptr() % 16 == 0)
@@ -173,6 +176,25 @@ in_stats.launches = 0
 
 
 # ------------------------------------------------------------------- K4
+def _pre_activation_sign(x, stats, scale, bias, epsilon):
+    """Where K4's pre-activation is negative (its LReLU's slope 0.1), as K4
+    computes it: fp32 ``fmaf(x - center, a, c)`` with K4's per-dtype
+    coefficients (see :func:`in_apply_plain`). The product and sum are taken
+    in fp64, which gives the fused multiply-add's sign exactly (fp64 for
+    fp64 input)."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    acc = _acc(x)
+    mean = stats[:, 0].reshape(shape).to(acc)
+    a = torch.rsqrt(stats[:, 1].reshape(shape).to(acc) + epsilon) * scale.to(acc)
+    if x.dtype != torch.bfloat16:
+        d, c = x.to(acc) - mean, bias.to(acc)
+    else:
+        d = x.float()
+        c = (bias.float() - mean * a).to(x.dtype)
+        a = a.to(x.dtype)
+    return d.double() * a.double() + c.double() < 0
+
+
 def in_apply_plain(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, lrelu: bool = False,
                    epsilon: float = EPSILON) -> torch.Tensor:
@@ -186,8 +208,8 @@ def in_apply_plain(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
     else:
         b = (bias.float() - mean * a).to(x.dtype).float()
         y = x.float() * a.to(x.dtype).float() + b
-    if lrelu:
-        y = torch.where(y >= 0, y, 0.1 * y)
+    if lrelu:  # the slope where K4's fused multiply-add is negative
+        y = torch.where(_pre_activation_sign(x, stats, scale, bias, epsilon), 0.1 * y, y)
     return y.to(x.dtype)
 
 
@@ -244,7 +266,6 @@ def in_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
     if not x.is_contiguous():
         raise ValueError("in_apply: x must be contiguous NDHWC")
     spatial = int(x.shape[1] * x.shape[2] * x.shape[3])
-    cuda_lib.require_no_grad("in_apply", x, scale, bias)
     y = torch.empty_like(x)
     plan = in_apply_plan(b, spatial, c, x.element_size(),
                          x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
@@ -262,11 +283,111 @@ def in_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
 in_apply.launches = 0
 
 
+# ------------------------------------------------------------------- K7
+def in_backward_plain(x, g, stats, scale, bias, lrelu=False, epsilon=EPSILON):
+    """Plain twin of K7, in fp32 (fp64 for fp64 input): ``(dx, sums)`` with
+    sums (B, 2, C) = [sum g', sum g' * xhat] over the spatial axes and dx =
+    rstd * scale * (g' - sum(g') / n - xhat * sum(g' xhat) / n) rounded
+    once to x's dtype; g' is g times the LReLU's slope (0.1 where K4's
+    pre-activation was negative)."""
+    acc = _acc(x)
+    axes = tuple(range(1, x.dim() - 1))
+    shape = (x.shape[0],) + (1,) * len(axes) + (x.shape[-1],)
+    mean = stats[:, 0].reshape(shape).to(acc)
+    rstd = torch.rsqrt(stats[:, 1].reshape(shape).to(acc) + epsilon)
+    gf = g.to(acc)
+    if lrelu:
+        gf = torch.where(_pre_activation_sign(x, stats, scale, bias, epsilon), 0.1 * gf, gf)
+    xhat = (x.to(acc) - mean) * rstd
+    s1, s2 = gf.sum(dim=axes), (gf * xhat).sum(dim=axes)
+    inv_n = 1.0 / math.prod(x.shape[1:-1])
+    dx = (rstd * scale.to(acc)) * (gf - (s1 * inv_n).reshape(shape)
+                                   - xhat * (s2 * inv_n).reshape(shape))
+    return dx.to(x.dtype), torch.stack([s1, s2], dim=1)
+
+
+def in_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, lrelu: bool = False, epsilon: float = EPSILON):
+    """K7: the gradient of K3 + K4 (+ LReLU) with respect to x for the
+    output gradient ``g``: ``(dx, sums)``, dx in x's dtype and sums (B, 2,
+    C) fp32 = [sum g', sum g' * xhat] per (batch, channel), whose sums over
+    the batch are the bias and scale gradients (see :func:`in_backward_plain`).
+
+    Replaces the backward of the retired ``fused_norm.py`` (git
+    ``cef1717^``, ``_vjp_bwd`` :181, run by XLA; TPU kernel table row 5).
+    Bound on the H100: bytes (x and g read twice, dx written once). Two
+    launches (csrc/instance_norm.cu): a reduce over K3's grid with its
+    fixed-order fold, and an apply over K4's grid, 16-byte loads where x, g
+    and dx allow. The LReLU's slope is recomputed from x and the statistics
+    as K4 computed it; no activation is saved. One count a call.
+    """
+    _check_5d("in_backward", x)
+    if not cuda_lib.use_kernel("in_backward", x):
+        return in_backward_plain(x, g, stats, scale, bias, lrelu, epsilon)
+    code = cuda_lib.dtype_code(x, "in_backward")
+    b, c = int(x.shape[0]), int(x.shape[-1])
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError("in_backward: g must have x's shape, dtype and device")
+    for name, t, shape in (("stats", stats, (b, 2, c)), ("scale", scale, (c,)),
+                           ("bias", bias, (c,))):
+        if (t.dtype != torch.float32 or t.device != x.device
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"in_backward: {name} must be contiguous float32 "
+                             f"{shape} on {x.device}")
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("in_backward: x and g must be contiguous NDHWC")
+    spatial = int(x.shape[1] * x.shape[2] * x.shape[3])
+    dx = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, dx))
+    splan = in_stats_plan(b, spatial, c, x.element_size(), aligned)
+    aplan = in_apply_plan(b, spatial, c, x.element_size(), aligned)
+    part = torch.empty((b, splan["nchunk"], 2, c), dtype=torch.float32, device=x.device)
+    sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    lib = cuda_lib.library()
+    in_backward.launches += 1
+    rc = lib.pmr_in_backward(x.data_ptr(), g.data_ptr(), stats.data_ptr(), scale.data_ptr(),
+                             bias.data_ptr(), part.data_ptr(), sums.data_ptr(),
+                             _tickets(x.device, b).data_ptr(), dx.data_ptr(), code, b, spatial,
+                             c, float(epsilon), int(bool(lrelu)), splan["vec"],
+                             splan["chunk_rows"], splan["nchunk"], aplan["blocks_per_sample"],
+                             aplan["active"], cuda_lib.stream_of(x))
+    cuda_lib.check(rc, "in_backward")
+    return dx, sums
+
+
+in_backward.launches = 0
+
+
+class _InstanceNormFn(torch.autograd.Function):
+    """K3 + K4 (+ LReLU) with K7 as its backward; saves x and the
+    statistics."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, lrelu, epsilon):
+        stats = in_stats(x)
+        ctx.lrelu, ctx.epsilon = lrelu, epsilon
+        ctx.save_for_backward(x, stats, scale, bias)
+        return in_apply(x, stats, scale, bias, lrelu, epsilon)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, stats, scale, bias = ctx.saved_tensors
+        dx, sums = in_backward(x, gy.contiguous(), stats, scale, bias, ctx.lrelu, ctx.epsilon)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, sums[:, 1].sum(0) if need[1] else None,
+                sums[:, 0].sum(0) if need[2] else None, None, None)
+
+
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
                   epsilon: float = EPSILON, lrelu: bool = False) -> torch.Tensor:
     """Functional instance norm over all dims but batch (0) and channel
-    (-1); ``lrelu`` fuses the LeakyReLU(0.1) that follows most norms."""
-    return in_apply(x, in_stats(x), scale.to(_acc(x)), bias.to(_acc(x)), lrelu, epsilon)
+    (-1); ``lrelu`` fuses the LeakyReLU(0.1) that follows most norms.
+    Differentiable where autograd asks for it (K7 is the backward); without
+    grad it saves nothing and launches K3 and K4 alone."""
+    scale, bias = scale.to(_acc(x)), bias.to(_acc(x))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return _InstanceNormFn.apply(x, scale, bias, lrelu, epsilon)
+    return in_apply(x, in_stats(x), scale, bias, lrelu, epsilon)
 
 
 class InstanceNorm(nn.Module):

@@ -1,2 +1,3 @@
-"""Host-side metrics (lesion candidates for serving); training waits for
-the training slice."""
+"""Training and evaluation: metrics, learning-rate schedules, the train step
+(``trainer``) and train-time validation. The fit loop and checkpoints wait
+for the data slice."""

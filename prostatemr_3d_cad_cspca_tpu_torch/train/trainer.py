@@ -1,0 +1,341 @@
+"""The train step, port of the JAX package's ``train/trainer.py`` (all but
+``fit`` and ``resume_training``, which wait for the data slice).
+
+One step is the reference's Keras ``compile``/``fit`` step (train_model.py:
+230-259): the forward in training mode (+ KL), the focal or Dice/boundary
+loss, the L2 terms, the backward through the hand-written kernels (K1/K2
+data gradients, K6 weight gradients, K7 instance-norm gradients; see
+``ops``), and the optimizer. Where the JAX step is one jitted, donated
+program, the port runs eagerly and updates the module's parameters and the
+optimizer state in place.
+
+Optimizers follow optax's two-call shape: ``init(params)`` and
+``update(grads, state, params) -> (updates, state)``, over ``{name:
+tensor}`` mappings keyed by the parameters' '.'-joined paths (the flax
+keypaths). Adam is the Keras-exact amsgrad of the JAX package
+(``scale_by_keras_amsgrad``): ``torch.optim.Adam(amsgrad=True)`` maxes the
+bias-corrected second moment and puts eps elsewhere, which the reference
+does not.
+
+Random bits: ``rng`` is a ``torch.Generator`` on the model's device, an int
+seed, or a mapping of keep-masks and latents (see ``prng``); the multi-step
+programs give step (or microbatch) i ``fold_in(rng, i)``, or take a
+sequence of one ``rng`` a step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import prng
+from ..losses import Focal, SoftDicePlusBoundarySurface
+from ..ops.convolution import l2_penalty
+from .schedules import build_schedule  # noqa: F401  (the JAX trainer's surface)
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module (whose parameters the step updates in place), the
+    optimizer's state and the number of steps taken."""
+
+    module: nn.Module
+    opt_state: Any
+    step: int
+
+    @property
+    def params(self) -> Params:
+        return dict(self.module.named_parameters())
+
+
+def _lr_at(learning_rate, count: int) -> torch.Tensor:
+    # optax.scale_by_learning_rate: a schedule reads the update count
+    lr = learning_rate(count) if callable(learning_rate) else learning_rate
+    return torch.as_tensor(lr, dtype=torch.float32)
+
+
+class KerasAmsgrad:
+    """Adam + amsgrad with tf.keras update semantics (the JAX package's
+    ``keras_amsgrad``; reference train_model.py:120-121 -> keras
+    optimizer_v2/adam.py):
+
+        m = b1 m + (1 - b1) g;   v = b2 v + (1 - b2) g^2;   vhat = max(vhat, v)
+        update = -lr * [sqrt(1 - b2^t) / (1 - b1^t)] * m / (sqrt(vhat) + eps)
+
+    the max taken over the RAW second moment, eps outside the square root
+    and not bias-corrected; in fp32, in the JAX package's order."""
+
+    def __init__(self, learning_rate: Any = 1e-3, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-7):
+        self.learning_rate, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
+
+    def init(self, params: Params) -> Dict[str, Any]:
+        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
+        return dict(count=0, mu=zeros(), nu=zeros(), nu_hat=zeros())
+
+    def update(self, grads: Params, state, params=None):
+        """One update, leaf by leaf as the JAX package's tree_map, run as
+        multi-tensor (``torch._foreach_*``) ops: the same fp32 operations,
+        a dozen launches for all leaves."""
+        del params
+        b1, b2 = self.b1, self.b2
+        keys = list(grads)
+        g = [grads[k] for k in keys]
+        count = state["count"] + 1
+        c = torch.tensor(float(count), dtype=torch.float32)
+        bc = float(torch.sqrt(1.0 - b2 ** c) / (1.0 - b1 ** c))  # an fp32 value
+        lr = float(_lr_at(self.learning_rate, state["count"]))
+        mu = torch._foreach_add(torch._foreach_mul([state["mu"][k] for k in keys], b1),
+                                torch._foreach_mul(g, 1.0 - b1))
+        nu = torch._foreach_add(torch._foreach_mul([state["nu"][k] for k in keys], b2),
+                                torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
+        nu_hat = torch._foreach_maximum([state["nu_hat"][k] for k in keys], nu)
+        upd = torch._foreach_div(torch._foreach_mul(mu, bc),
+                                 torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps))
+        upd = torch._foreach_mul(upd, -lr)
+        return dict(zip(keys, upd)), dict(count=count, mu=dict(zip(keys, mu)),
+                                          nu=dict(zip(keys, nu)),
+                                          nu_hat=dict(zip(keys, nu_hat)))
+
+
+class SGDNesterov:
+    """optax.sgd(momentum=0.9, nesterov=True) (reference train_model.py:121):
+    t = g + 0.9 t;  update = -lr * (g + 0.9 t)."""
+
+    def __init__(self, learning_rate: Any = 1e-3, momentum: float = 0.9):
+        self.learning_rate, self.momentum = learning_rate, momentum
+
+    def init(self, params: Params) -> Dict[str, Any]:
+        return dict(count=0, trace={k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(self, grads: Params, state, params=None):
+        del params
+        lr = _lr_at(self.learning_rate, state["count"])
+        trace, updates = {}, {}
+        for k, g in grads.items():
+            trace[k] = g + self.momentum * state["trace"][k]
+            updates[k] = (g + self.momentum * trace[k]) * (-lr).to(g.device)
+        return updates, dict(count=state["count"] + 1, trace=trace)
+
+
+def module_path(name: str) -> str:
+    """The two-level module path of a parameter (the JAX package's
+    ``path[:2]`` joined by '/')."""
+    return "/".join(name.split(".")[:2])
+
+
+class FreezeFirst:
+    """--FREEZE_LAYERS (reference train_model.py:211-215; the JAX
+    ``optax.multi_transform`` with ``set_to_zero``): the first ``n``
+    two-level module paths, sorted, get zero updates; the inner optimizer
+    sees only the other parameters."""
+
+    def __init__(self, inner, n: int):
+        self.inner, self.n = inner, int(n)
+
+    def frozen(self, params) -> set:
+        modules = sorted({module_path(k) for k in params})
+        return set(modules[:self.n])
+
+    def _train(self, tree, params):
+        frozen = self.frozen(params)
+        return {k: v for k, v in tree.items() if module_path(k) not in frozen}
+
+    def init(self, params: Params):
+        return self.inner.init(self._train(params, params))
+
+    def update(self, grads: Params, state, params: Params):
+        updates, state = self.inner.update(self._train(grads, params), state,
+                                           self._train(params, params))
+        return {k: updates.get(k, torch.zeros_like(g)) for k, g in grads.items()}, state
+
+
+def make_optimizer(name: str = "adam", learning_rate: Any = 1e-3,
+                   freeze_first_n: Optional[int] = None, **kwargs):
+    """The reference's optimizer menu (train_model.py:120-121): Keras-exact
+    Adam + amsgrad (eps 1e-7) or SGD + Nesterov momentum 0.9;
+    ``freeze_first_n`` as :class:`FreezeFirst` (0 and 9999 freeze nothing)."""
+    if name == "adam":
+        kwargs.setdefault("eps", 1e-7)
+        tx = KerasAmsgrad(learning_rate, **kwargs)
+    elif name in ("momentum", "sgd"):
+        tx = SGDNesterov(learning_rate, **kwargs)
+    else:
+        raise ValueError(f"Unknown optimizer {name!r}")
+    if freeze_first_n is not None and freeze_first_n not in (0, 9999):
+        tx = FreezeFirst(tx, freeze_first_n)
+    return tx
+
+
+def make_loss(loss_mode: str = "distribution_focal", focal_alpha=(1.0, 1.0),
+              focal_gamma: float = 2.0, dsc_bd_weights=(0.5, 0.5)) -> Callable:
+    """The reference's loss menu (train_model.py:124-125)."""
+    if loss_mode == "distribution_focal":
+        return Focal(alpha=focal_alpha, gamma=focal_gamma).loss
+    if loss_mode == "region_boundary":
+        return SoftDicePlusBoundarySurface(loss_weights=dsc_bd_weights).loss
+    raise ValueError(f"Unknown loss mode {loss_mode!r}")
+
+
+def _on(x, device):
+    if isinstance(x, (tuple, list)):  # a cascade's (image_1, image_2)
+        return tuple(_on(t, device) for t in x)
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return x.to(device).contiguous()
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_index(v, i) for v in tree)
+    return tree[i]
+
+
+def _step_rngs(rng, k: int, device):
+    """One rng a step: the given sequence, or fold_in(rng, i)."""
+    if isinstance(rng, (list, tuple)):
+        if len(rng) != k:
+            raise ValueError(f"{len(rng)} rngs for {k} steps")
+        return [prng.as_rng(r, device) for r in rng]
+    rng = prng.as_rng(rng, device)
+    if rng is None:
+        return [None] * k
+    return [prng.fold_in(rng, i) for i in range(k)]
+
+
+def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.0,
+                    loss_weights=(1.0,), mesh=None, augment_params=None,
+                    train_obj: str = "lesion", scan_steps: Optional[int] = None,
+                    accum_steps: Optional[int] = None):
+    """The train step of an M1 (single-stage or cascaded), as the JAX
+    package's: ``step(state, batch, rng) -> (state, metrics)``.
+
+    The loss mirrors compile(loss=LOSSES, loss_weights=[1, beta])
+    (train_model.py:126-131, 230-231) plus the L2 terms on every conv
+    (networks.py:47-48): deterministic ``w * seg(y_softmax)``; probabilistic
+    ``+ elbo_beta * prob_kl`` on ``prob_softmax``; cascaded ``w *
+    (seg(detection_1) + seg(detection_2))`` (``+ elbo_beta * (KL_1 + KL_2)``
+    for probabilistic stages). ``batch`` holds 'image' (a pair for a
+    cascade) and 'detection', and may hold 'dist_map' for a loss that takes
+    one; metrics are 0-dim tensors: seg_loss, reg, loss (+ kl).
+
+    ``scan_steps=K``: ``step(state, batches, rng)`` runs K optimizer steps
+    over batches with a leading K axis, metrics stacked (K,). ``accum_steps
+    =K``: K microbatches' gradients summed in order and averaged, one
+    update, metrics averaged. The state is updated in place.
+    """
+    if scan_steps is not None and accum_steps is not None:
+        raise ValueError("scan_steps and accum_steps are mutually exclusive")
+    if mesh is not None:
+        raise NotImplementedError("a sharded train step waits for the multi-GPU slice")
+    if augment_params is not None:
+        raise NotImplementedError("augmentation waits for the data slice")
+    del train_obj  # the augmentation's label handling
+    cfg = model.config
+    probabilistic, cascaded = bool(cfg["probabilistic"]), bool(cfg["cascaded"])
+    k_l2, b_l2 = float(cfg["kernel_regularizer"]), float(cfg["bias_regularizer"])
+    w_seg = float(loss_weights[0]) if loss_weights else 1.0
+    try:
+        takes_dist_map = "dist_map" in inspect.signature(seg_loss).parameters
+    except (TypeError, ValueError):
+        takes_dist_map = False
+    device = model.device
+
+    def loss_fn(module, batch, rng):
+        kw = ({"dist_map": batch["dist_map"]}
+              if "dist_map" in batch and takes_dist_map else {})
+        y = batch["detection"]
+        out = module(batch["image"], train=True, rng=rng)
+        metrics = {}
+        if cascaded:
+            seg = w_seg * (seg_loss(y, out["detection_1"], **kw)
+                           + seg_loss(y, out["detection_2"], **kw))
+            loss = seg
+            if probabilistic:
+                kl = out["KL_1"] + out["KL_2"]
+                loss = loss + elbo_beta * kl
+                metrics["kl"] = kl
+        else:
+            det = out["prob_softmax"] if probabilistic else out["y_softmax"]
+            seg = w_seg * seg_loss(y, det, **kw)
+            loss = seg
+            if probabilistic:
+                loss = loss + elbo_beta * out["prob_kl"]
+                metrics["kl"] = out["prob_kl"]
+        reg = l2_penalty(module, k_l2, b_l2).to(loss.device)
+        loss = loss + reg
+        metrics.update(seg_loss=seg, reg=reg, loss=loss)
+        return loss, metrics
+
+    def grads_of(state, batch, rng):
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        batch = {k: _on(v, device) for k, v in batch.items()}
+        loss, metrics = loss_fn(state.module, batch, prng.as_rng(rng, device))
+        loss.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def apply(state, grads):
+        params = state.params
+        updates, opt_state = optimizer.update(grads, state.opt_state, params)
+        with torch.no_grad():
+            keys = list(updates)
+            torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
+        return TrainState(state.module, opt_state, state.step + 1)
+
+    def train_step(state: TrainState, batch, rng=None):
+        grads, metrics = grads_of(state, batch, rng)
+        return apply(state, grads), metrics
+
+    if accum_steps is not None:
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        k = int(accum_steps)
+
+        def accum_step(state: TrainState, batches, rng=None):
+            gsum, metrics = None, []
+            for i, r in enumerate(_step_rngs(rng, k, device)):
+                grads, m = grads_of(state, _index(batches, i), r)
+                gsum = grads if gsum is None else {n: gsum[n] + g for n, g in grads.items()}
+                metrics.append(m)
+            grads = {n: g / k for n, g in gsum.items()}
+            return apply(state, grads), {n: torch.stack([m[n] for m in metrics]).mean()
+                                         for n in metrics[0]}
+
+        return accum_step
+
+    if scan_steps is not None:
+        if scan_steps < 1:
+            raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
+        k = int(scan_steps)
+
+        def multi_step(state: TrainState, batches, rng=None):
+            metrics = []
+            for i, r in enumerate(_step_rngs(rng, k, device)):
+                state, m = train_step(state, _index(batches, i), r)
+                metrics.append(m)
+            return state, {n: torch.stack([m[n] for m in metrics]) for n in metrics[0]}
+
+        return multi_step
+
+    return train_step
+
+
+def init_train_state(model, optimizer) -> TrainState:
+    """The model's module, the optimizer's initial state and step 0."""
+    return TrainState(module=model.net, opt_state=optimizer.init(
+        dict(model.net.named_parameters())), step=0)

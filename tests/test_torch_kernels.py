@@ -428,3 +428,112 @@ def test_card_gemm_loop_split_is_bit_reproducible(cuda_device):
     second = tgemm.gemm_loop(a, w, 200)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# K6 at the weight-gradient roles of the M1 path: (A's shape, kernel,
+# strides, B's channels); B's grid is A's SAME output. fp32: FMA sums in
+# another order than the twin's matmul; bf16: one rounding of fp32 sums.
+WGRAD_CASES = [((2, 5, 9, 10, 3), (1, 3, 3), (1, 1, 1), 16),
+               ((2, 5, 9, 10, 16), (1, 3, 3), (1, 2, 2), 4),
+               ((2, 6, 8, 10, 12), (3, 3, 3), (2, 2, 2), 70),
+               ((2, 4, 6, 6, 33), (3, 3, 3), (1, 1, 1), 1),
+               ((1, 3, 4, 4, 256), (3, 3, 3), (1, 1, 1), 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ashape,ks,st,cb", WGRAD_CASES)
+def test_card_conv3d_wgrad_matches_plain_and_reruns_bit_equal(cuda_device, ashape, ks, st,
+                                                              cb, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    a = torch.randn(ashape, generator=g, device=cuda_device).to(dtype)
+    out = [tconv.same_pads(n, k, s)[0] for n, k, s in zip(ashape[1:4], ks, st)]
+    b = torch.randn((ashape[0], *out, cb), generator=g, device=cuda_device).to(dtype)
+    n0 = tconv.conv3d_wgrad.launches
+    got = tconv.conv3d_wgrad(a, b, ks, st)
+    again = tconv.conv3d_wgrad(a, b, ks, st)
+    torch.cuda.synchronize()
+    assert tconv.conv3d_wgrad.launches == n0 + 2
+    assert got.dtype == dtype and tuple(got.shape) == (*ks, ashape[-1], cb)
+    ref = tconv.conv3d_wgrad_plain(a, b, ks, st)
+    # an element sums every row's product: its rounding scales with the
+    # output's largest sums, so the error is taken against that
+    err = float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
+    assert err <= CARD_TOL[dtype]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lrelu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 12, 65, 300])
+def test_card_in_backward_matches_plain_and_reruns_bit_equal(cuda_device, c, dtype, lrelu):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn(2, 5, 9, 10, c, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
+    gy = torch.randn(x.shape, generator=g, device=cuda_device).to(dtype)
+    scale = 1 + 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    bias = 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    stats = tnorm.in_stats(x)
+    n0 = tnorm.in_backward.launches
+    dx, sums = tnorm.in_backward(x, gy, stats, scale, bias, lrelu)
+    dx2, sums2 = tnorm.in_backward(x, gy, stats, scale, bias, lrelu)
+    torch.cuda.synchronize()
+    assert tnorm.in_backward.launches == n0 + 2
+    rdx, rsums = tnorm.in_backward_plain(x, gy, stats, scale, bias, lrelu)
+    assert dx.dtype == dtype and _card_err(dx, rdx) <= CARD_TOL[dtype]
+    assert _card_err(sums, rsums) <= 1e-4
+    assert torch.equal(dx, dx2) and torch.equal(sums, sums2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_autograd_through_the_kernels_matches_the_cpu(cuda_device, dtype):
+    """One backward of a tiny M1 on the card (K1/K2 data gradients, K6, K7)
+    against the same module's backward on the CPU's plain twins. Parameters
+    are redrawn (instance-norm biases non-zero), so no SE squeeze sits at
+    an LReLU's kink. The leaves compared are those whose gradient is not 0
+    (|g| >= 1e-2 on the CPU in fp32): the conv biases ahead of an instance
+    norm have an exact gradient of 0 and carry rounding alone (up to 1.5e-3
+    apart in fp32 on an H100, card kernels or card torch ops alike). fp32:
+    each within 1e-3 of its largest |gradient| (or of 1). bf16 rounds every
+    activation, and the CPU's torch ops round elsewhere than the card's, so
+    single leaves of the tiny model move by up to 40 % between two correct
+    bf16 runs: the card's bf16 gradients are held to the card's fp32 ones,
+    all leaves together, at a relative L2 error of 0.2."""
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+
+    kw = dict(filters=(4, 8, 12, 16, 24), se_reduction=(2,) * 5, summary=False,
+              strides=((1, 1, 1), (1, 2, 2), (1, 2, 2), (2, 2, 2), (2, 2, 2)))
+    gen = torch.Generator().manual_seed(5)
+    params = {}
+    for k, v in M1((8, 32, 32), 3, 2, device="cpu", **kw).params.items():
+        if k.endswith("kernel"):
+            fan_in = v[..., 0].numel()
+            params[k] = torch.randn(v.shape, generator=gen) / fan_in ** 0.5
+        elif k.endswith("scale"):
+            params[k] = 1 + 0.3 * torch.randn(v.shape, generator=gen)
+        else:
+            params[k] = 0.3 * torch.randn(v.shape, generator=gen)
+    x = torch.randn(2, 8, 32, 32, 3, generator=torch.Generator().manual_seed(3))
+
+    def grads(device, dt):
+        m = M1((8, 32, 32), 3, 2, device=device, init_params=False, dtype=dt, **kw)
+        m.params = {k: v.to(device) for k, v in params.items()}
+        out = m.net(x.to(device), train=False)["y_softmax"]
+        (out[..., 1].float() ** 2).sum().backward()
+        return {k: p.grad.float().cpu() for k, p in m.net.named_parameters()}
+
+    cpu32 = grads("cpu", torch.float32)
+    keep = [k for k, v in cpu32.items() if v.abs().max() >= 1e-2]
+    if dtype == torch.float32:
+        card = grads(cuda_device, dtype)
+        err = {k: float((card[k] - cpu32[k]).abs().max()) / max(1.0, float(cpu32[k].abs().max()))
+               for k in keep}
+        worst = max(err, key=err.get)
+        assert err[worst] <= 1e-3, (worst, err[worst])
+    else:
+        card16, card32 = grads(cuda_device, dtype), grads(cuda_device, torch.float32)
+        assert all(bool(torch.isfinite(v).all()) for v in card16.values())
+        a = torch.cat([card16[k].reshape(-1) for k in keep])
+        b = torch.cat([card32[k].reshape(-1) for k in keep])
+        assert float((a - b).norm() / b.norm()) <= 0.2

@@ -153,3 +153,89 @@ def assert_tree_close(got, want, atol=ATOL, path="", scaled=False):
             assert err <= atol, (path, err)
         else:
             np.testing.assert_allclose(g, w, atol=atol, err_msg=path)
+
+
+# ----------------------------------------------------------- train steps
+def capture_tx():
+    """An optax transformation that moves nothing and keeps the gradients
+    as its state: JAX's ``make_train_step`` with it returns the step's
+    gradients in ``state.opt_state``."""
+    import optax
+
+    return optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g))
+
+
+class CaptureOpt:
+    """The port's counterpart of :func:`capture_tx`."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        return {k: torch.zeros_like(g) for k, g in grads.items()}, grads
+
+
+def record_train_draws(jmodel, x, key):
+    """The draws of the forward inside JAX's train step for ``key`` (its
+    ``d, l = split(key)`` streams, train=True), as the port's mapping: each
+    dropout site's keep-mask (out != 0 of an eager flax forward; the
+    activations carry no exact zeros) and each sampling ladder pass's
+    latents. Ladder dropout sites (which need the pass) are not handled."""
+    draws = {}
+
+    def interceptor(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        mod = context.module
+        if isinstance(mod, nn.Dropout) and context.method_name == "__call__":
+            path = [p for p in mod.path if p != "core"][:-1]
+            assert not path[-1].startswith("dropp"), "ladder dropout needs its pass"
+            assert not (np.asarray(args[0]) == 0).any(), "an exact zero hides the mask"
+            draws["/".join(path)] = np.asarray(out) != 0
+        elif isinstance(mod, JM1Core) and context.method_name == "ladder":
+            name = _pass_name(mod, kwargs)
+            if name is not None:
+                scope = "/".join((*mod.path[:-1], name))
+                for i, z in enumerate(out["prob_used_latents"]):
+                    if z is not None:
+                        draws[f"{scope}/z_{i}"] = np.array(z, np.float32)
+        return out
+
+    d, l = jax.random.split(key)
+    x = tuple(jnp.asarray(t) for t in x) if isinstance(x, tuple) else jnp.asarray(x)
+    with nn.intercept_methods(interceptor):
+        jmodel.net.apply({"params": jmodel.params}, x, train=True,
+                         rngs={"dropout": d, "latent": l})
+    return draws
+
+
+def jax_step_grads(jmodel, batch, key, loss=None, **kw):
+    """(gradients by port name, metrics) of one step of JAX's
+    ``make_train_step`` on a copy of ``jmodel``'s parameters."""
+    from prostatemr_3d_cad_cspca_tpu.train import trainer as jt
+
+    tx = capture_tx()
+    step = jt.make_train_step(jmodel, loss or jt.make_loss(), tx, **kw)
+    params = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True), jmodel.params)
+    state = jt.TrainState(params, tx.init(params), jnp.zeros((), jnp.int32))
+    state, metrics = step(state, batch, key)
+    grads = from_jax_params(jax.device_get(state.opt_state))
+    return {k: v.numpy() for k, v in grads.items()}, {k: float(v) for k, v in metrics.items()}
+
+
+def port_step_grads(pmodel, batch, draws, loss=None, **kw):
+    """(gradients, metrics) of one step of the port's ``make_train_step``."""
+    from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
+
+    opt = CaptureOpt()
+    step = tt.make_train_step(pmodel, loss or tt.make_loss(), opt, **kw)
+    state, metrics = step(tt.init_train_state(pmodel, opt), batch, draws)
+    return ({k: to_np(v) for k, v in state.opt_state.items()},
+            {k: float(v) for k, v in metrics.items()})
+
+
+def leaf_errors(got, want):
+    """Per leaf: max |got - want| / max(1, max |want|)."""
+    return {k: float(np.abs(np.asarray(got[k], np.float64) - want[k]).max()
+                     / max(1.0, float(np.abs(want[k]).max()))) for k in want}

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Device time of the port's model-path kernels (K1-K4) over one cfg1
-forward, per dtype, on one GPU, and each CUDA kernel's ptxas report.
+"""Device time of the port's model-path kernels over one cfg1 forward (K1-K4)
+or one cfg1 train step (``--step train``: K1-K4, the data gradients' K1/K2
+calls, K6 and K7), per dtype, on one GPU, and each CUDA kernel's ptxas
+report.
 
-    python3 tools/kernel_times.py [--batch 2] [--dtypes float32 bfloat16]
-                                  [--library] [--out FILE]
+    python3 tools/kernel_times.py [--step forward|train] [--batch 2]
+                                  [--dtypes float32 bfloat16] [--library] [--out FILE]
 
-Every distinct kernel call of the cfg1 forward at ``--batch`` is timed as
+Every distinct kernel call of the cfg1 forward (or of the train step of the
+CLI's default recipe, ``chip_smoke.TRAIN_CFG``) at ``--batch`` is timed as
 ``chip_smoke.py`` times it (10 calls captured in one CUDA graph, replayed
-between CUDA events, after warm-up) and weighted by its count in the
-forward; ``--library`` also times the one torch call computing the same
-function (cuDNN fp32 with TF32 off for fp32 K1/K2). Inputs are drawn on the
+between CUDA events, after warm-up) and weighted by its count;
+``--library`` also times the one torch call computing the same function
+(cuDNN: ``F.conv3d``, ``F.conv_transpose3d`` for K2 and the data gradients
+it computes, ``torch.nn.grad.conv3d_weight`` for K6; fp32 with TF32 off).
+Inputs are drawn on the
 card from a fixed seed. Run it from the root of a checkout: it uses that
 checkout's package and ``chip_smoke.py``, and builds that checkout's
 kernels, so ``ptxas`` lists each compiled variant's registers and spills
@@ -30,7 +35,8 @@ import sys
 sys.path.insert(0, os.getcwd())
 
 PTXAS_KERNELS = ("conv3d_mma_kernel", "splitk_reduce_kernel", "in_stats_kernel",
-                 "in_apply_kernel")
+                 "in_apply_kernel", "wgrad_kernel", "wgrad_reduce_kernel",
+                 "in_bwd_reduce_kernel", "in_bwd_apply_kernel")
 
 
 def ptxas_variants(log):
@@ -66,7 +72,14 @@ def _calls(cs, cv, nm, name, sig, dtype, gen):
         x, kernel, bias, st = cs._convt_case(sig, dtype, gen)
         return ((lambda: cv.conv3d_transpose(x, kernel, bias, st)),
                 cs._convt_library(x, kernel, st))
+    if name == "conv3d_wgrad":
+        a, b, ks, st = cs._wgrad_case(sig, dtype, gen)
+        return (lambda: cv.conv3d_wgrad(a, b, ks, st)), cs._wgrad_library(a, b, ks, st)
     x, scale, bias = cs._in_case(sig[0], dtype, gen)
+    if name == "in_backward":
+        gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        stats = nm.in_stats_plain(x)
+        return (lambda: nm.in_backward(x, gy, stats, scale, bias, sig[1])), None
     if name == "in_stats":
         return (lambda: nm.in_stats(x)), (
             lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0))
@@ -76,6 +89,7 @@ def _calls(cs, cv, nm, name, sig, dtype, gen):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--step", choices=["forward", "train"], default="forward")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--reps", type=int, default=10)
@@ -99,12 +113,13 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     cuda_lib.library()
-    out = {"checkout": os.getcwd(), "card": smi, "batch": args.batch,
+    out = {"checkout": os.getcwd(), "card": smi, "step": args.step, "batch": args.batch,
            "ptxas": ptxas_variants(cuda_lib.build_log)}
     gen = torch.Generator(device="cuda").manual_seed(1234)
     for dn in args.dtypes:
         dtype = getattr(torch, dn)
-        calls = cs.trace_path_calls(args.batch, dtype)
+        calls = (cs.trace_model_calls(cs.TRAIN_CFG, args.batch, dtype, head="train")
+                 if args.step == "train" else cs.trace_path_calls(args.batch, dtype))
         per = {}
         for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
             run, lib = _calls(cs, cv, nm, name, sig, dtype, gen)
@@ -121,7 +136,7 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(out, f)
-    print(json.dumps({**{k: out[k] for k in ("checkout", "card", "batch")},
+    print(json.dumps({**{k: out[k] for k in ("checkout", "card", "step", "batch")},
                       **{dn: {name: {k: v for k, v in s.items() if k != "shapes"}
                               for name, s in out[dn].items()} for dn in args.dtypes}}),
           flush=True)
