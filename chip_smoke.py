@@ -100,8 +100,9 @@ The train step's own shapes (its meta trace, batch 2) are checked and timed
 after the kernels phase, in both dtypes: the data gradients' K1/K2 calls
 (K2 of the output gradient with K1's kernel; K1 for K2), K6 (and cuDNN's
 conv3d_weight beside it) and K7, with K6 and K7 rerun for the same bits and
-fp32 K6 at its deepest shape against the fp64 product; a train_kernels
-line sums each kernel over one step.
+fp32 K6 at its deepest shape against the fp64 product; a wgrad_shapes line
+gives K6's time beside cuDNN's and the bound at each of its 40 shapes, in
+both dtypes; a train_kernels line sums each kernel over one step.
 
 The kernels phase (2) also checks and times every K1-K4 shape of the three
 model paths above (their detect heads, and the full forwards of cfg2 and of
@@ -182,7 +183,7 @@ PTXAS_NAMES = {  # kernel: the CUDA kernels it launches
     "conv3d": MMA_KERNEL_NAMES, "conv3d_transpose": MMA_KERNEL_NAMES,
     "in_stats": ("in_stats_kernel",), "in_apply": ("in_apply_kernel",),
     "gemm_loop": ("gemm_loop_kernel", "gemm_splitk_reduce_kernel"),
-    "conv3d_wgrad": ("wgrad_kernel", "wgrad_reduce_kernel"),
+    "conv3d_wgrad": ("wgrad_mma_kernel", "wgrad_reduce_kernel"),
     "in_backward": ("in_bwd_reduce_kernel", "in_bwd_apply_kernel")}
 BACKWARD_KERNELS = ("conv3d_wgrad", "in_backward")
 TRAIN_KERNELS = (*LAUNCHES_PER_FORWARD, *BACKWARD_KERNELS)
@@ -517,7 +518,7 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
     """Each call's kernel against its plain twin in each of ``dtypes``
     (default fp32 and bf16); with ``timed``, each dtype's times beside the
     bound, and in each dtype one K1/K2 split-K shape, K3's largest shape,
-    one K6 shape with split rows and K7's largest shape run twice on the
+    every K6 shape and K7's largest shape run twice on the
     same inputs (the same bits); each of ``bit_kernels`` present must have
     had one. ``per_path`` ({path: calls}) adds each row's calls per
     forward of each path."""
@@ -642,11 +643,13 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                     x.data_ptr() % 16 == 0)["blocks"]
             elif name == "in_backward":
                 twice = sig == largest_bwd
-            elif name == "conv3d_wgrad":
+            elif name == "conv3d_wgrad":  # every shape rerun for the same bits
                 plan = cv.wgrad_plan(int(np.prod(ks)) * a.shape[-1], b.shape[-1],
-                                     int(np.prod(b.shape[:4])))
+                                     int(np.prod(b.shape[:4])), dtype)
                 row[f"chunks_{dn}"], row[f"blocks_{dn}"] = plan["chunks"], plan["blocks"]
-                twice = plan["chunks"] > 1 and (name, dn) not in bit_checked
+                row[f"tile_{dn}"] = [plan["bm"], plan["bn"]]
+                row[f"routes_{dn}"] = list(cv.wgrad_routes(a, b))
+                twice = True
             else:
                 row[f"splits_{dn}"] = _splits(name, sig, dtype)
                 twice = row[f"splits_{dn}"] > 1 and (name, dn) not in bit_checked
@@ -731,6 +734,19 @@ def train_summary(calls, rows, dtypes=DTYPE_NAMES):
             d["bound_by"] = "bytes" if d.pop("bytes_bound_ms") >= d["bound_ms"] / 2 \
                 else "operations"
     return out
+
+
+def wgrad_shape_table(calls, rows):
+    """K6's train-step shapes, heaviest first: A, B, kernel, strides, calls a
+    step, and per dtype the tile, device ms, cuDNN ms and bound ms."""
+    out = []
+    for r in rows:
+        n = calls[("conv3d_wgrad", r["sig"])]
+        out.append({"a": r["sig"][0], "b": r["sig"][1], "kernel": r["sig"][2],
+                    "strides": r["sig"][3], "calls": n,
+                    **{f"{k}_{dn}": r[f"{k}_{dn}"] for dn in DTYPE_NAMES
+                       for k in ("tile", "ms", "library_ms", "bound_ms")}})
+    return sorted(out, key=lambda r: -r["calls"] * r["ms_float32"])
 
 
 def phase_wgrad_fp64(calls):
@@ -1744,6 +1760,8 @@ def main(argv=None):
     train_sum = train_summary(train_calls, {n: rows.get(n, []) + train_rows.get(n, [])
                                             for n in TRAIN_KERNELS})
     wgrad64 = phase_wgrad_fp64(train_calls)
+    emit({"phase": "wgrad_shapes", "card": smi, "batch": BATCH,
+          "rows": wgrad_shape_table(train_calls, train_rows["conv3d_wgrad"])})
     emit({"phase": "train_kernels", "card": smi, "batch": BATCH, "per_step": train_sum,
           "new_shapes": {n: rs for n, rs in train_rows.items()}})
 

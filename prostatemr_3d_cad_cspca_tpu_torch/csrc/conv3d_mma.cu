@@ -160,17 +160,6 @@ __device__ __forceinline__ void store_pair(float* dst, float v0, float v1) {
   *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
 }
 
-// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi), each rounded
-// as cvt.rna.tf32.f32 rounds a finite value (half a TF32 step added to the
-// magnitude, the low 13 bits dropped), in integer ops: cvt.rna adds an
-// infinity/NaN test and a select to each value. hi's low bits are cleared
-// here, since x - hi must be exact; lo's are left to the tensor core, which
-// reads only the top 19 bits of a TF32 operand.
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  hi = (x + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) + 0x1000u;
-}
-
 // Warp tile WM x WN = (kBM / WARPS_M) x (BN / (8 / WARPS_M)): MT x NT mma tiles.
 template <typename T, int BN, int WARPS_M, bool kNK>
 __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
@@ -454,12 +443,12 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) split_tf32(bfr[j][h], bhi[j][h], blo[j][h]);
+        for (int h = 0; h < 2; ++h) pmr::split_tf32(bfr[j][h], bhi[j][h], blo[j][h]);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         uint32_t ahi[4], alo[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(af[i][e], ahi[e], alo[e]);
+        for (int e = 0; e < 4; ++e) pmr::split_tf32(af[i][e], ahi[e], alo[e]);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           pmr::mma_tf32(chain[i][j], alo, bhi[j][0], bhi[j][1]);

@@ -1,6 +1,7 @@
 // Tensor-core building blocks in inline PTX for the conv kernels
-// (conv3d_mma.cu): 16-byte cp.async with zero-fill, ldmatrix (plain and
-// transposed), mma.sync m16n8k16 bf16 -> fp32 and m16n8k8 tf32 -> fp32;
+// (conv3d_mma.cu, conv3d_wgrad.cu): 4- to 16-byte cp.async with zero-fill,
+// ldmatrix (plain and transposed), mma.sync m16n8k16 bf16 -> fp32 and
+// m16n8k8 tf32 -> fp32, and the split of an fp32 value into two TF32 halves;
 // smem_addr also serves tma.cuh and wgmma.cuh.
 #pragma once
 
@@ -26,6 +27,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async16_l1(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes));
+}
+
+// An async copy of kBytes (4, 8 or 16) through L1 (.ca: .cg takes 16 bytes
+// only); src_bytes 0 zero-fills the destination.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_l1(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(kBytes), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -83,6 +92,17 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi), each rounded
+// as cvt.rna.tf32.f32 rounds a finite value (half a TF32 step added to the
+// magnitude, the low 13 bits dropped), in integer ops: cvt.rna adds an
+// infinity/NaN test and a select to each value. hi's low bits are cleared
+// here, since x - hi must be exact; lo's are left to the tensor core, which
+// reads only the top 19 bits of a TF32 operand.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) + 0x1000u;
 }
 
 }  // namespace pmr

@@ -13,19 +13,21 @@ while torch's ``padding=1`` starts one voxel before it. Both kernels below get
 their windows from :func:`forward_plan` / :func:`transpose_plan`.
 
 Three kernels live here, each with its plain PyTorch twin and its launch
-counter; K1 and K2 run on the tensor cores (``csrc/conv3d_mma.cu``, whose
-note says how), bf16 directly and fp32 as error-compensated TF32 (3xTF32):
+counter, all on the tensor cores (the sources' notes say how), bf16
+directly and fp32 as error-compensated TF32 (3xTF32):
 
   * K1 :func:`conv3d` — forward conv over a list of up to MAX_PARTS channel
     parts (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
     conv(part_i, W_i)``), with fp32 bias and fp32 accumulation;
-  * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``;
+  * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``
+    (K1 and K2: ``csrc/conv3d_mma.cu``);
   * K6 :func:`conv3d_wgrad` — the weight gradient of both
     (``csrc/conv3d_wgrad.cu``).
 
 K1 and K2 are differentiable where autograd asks for it (a
 ``torch.autograd.Function`` each): their data gradients are each other
-(K2 of the output gradient for K1, K1 for K2), their weight gradients K6.
+(K2 of the output gradient for K1, cropped where an input extent is not
+the output extent times the stride; K1 for K2), their weight gradients K6.
 Without grad (serving, ``torch.no_grad()``) they save nothing and launch
 what the forward alone launches. On a CPU (or meta) tensor each wrapper
 runs its plain twin; on a CUDA tensor it launches its kernel or raises.
@@ -428,25 +430,32 @@ def _bias_grad(g: torch.Tensor) -> torch.Tensor:
     return g.sum(dim=tuple(range(g.dim() - 1)), dtype=_acc(g))
 
 
-def check_dgrad_extents(in_spatial, out_spatial, strides) -> None:
-    """K1's data gradient runs as K2 (the transposed conv) of the output
-    gradient, whose output is ``out * s``: it needs every input extent to be
-    its output extent times the stride."""
-    for n, o, s in zip(in_spatial, out_spatial, strides):
-        if int(n) != int(o) * int(s):
-            raise ValueError(
-                f"conv3d backward: the input extents {tuple(in_spatial)} are not the output "
-                f"extents {tuple(out_spatial)} times the strides {tuple(strides)}; the data "
-                "gradient runs as the transposed conv (K2), whose output is the input "
-                "extent times the stride")
+def dgrad_crop(in_spatial, out_spatial, kernel_size, strides):
+    """Where K1's input gradient sits in K2's output. K2 of the output
+    gradient (extents o) gives the input gradient of a SAME conv over
+    extents o * s, whose low pads are lo' = same_pads(o * s, k, s); the
+    input's own extent n (o = ceil(n / s), so n <= o * s) has low pads lo >=
+    lo', and its gradient is K2's output on [lo - lo', lo - lo' + n) of each
+    axis (the same sums: o * s + t - lo = i there). Returns the three slices,
+    or None where n = o * s on every axis (the whole output)."""
+    crop = []
+    for n, o, k, s in zip(in_spatial, out_spatial, kernel_size, strides):
+        n, o, k, s = int(n), int(o), int(k), int(s)
+        start = same_pads(n, k, s)[1] - same_pads(o * s, k, s)[1]
+        crop.append(slice(start, start + n))
+    if all(c.start == 0 and c.stop == int(o) * int(s)
+           for c, o, s in zip(crop, out_spatial, strides)):
+        return None
+    return tuple(crop)
 
 
 class _Conv3dFn(torch.autograd.Function):
     """K1 with its backward: data gradient by K2 on the output gradient with
     K1's own DHWIO kernel (read as K2's ``(kd, kh, kw, Cout=I, Cin=O)``: TF's
-    SAME Conv3DTranspose is the input gradient of SAME Conv3D), split into
-    the parts' channel slices; weight gradient by K6 a part; bias gradient
-    by a sum."""
+    SAME Conv3DTranspose is the input gradient of SAME Conv3D), cropped to
+    the input's extents where they are not the output's times the stride
+    (:func:`dgrad_crop`) and split into the parts' channel slices; weight
+    gradient by K6 a part; bias gradient by a sum."""
 
     @staticmethod
     def forward(ctx, kernel, bias, strides, *parts):
@@ -461,8 +470,10 @@ class _Conv3dFn(torch.autograd.Function):
         need = ctx.needs_input_grad
         dparts = [None] * len(parts)
         if any(need[3:]):
-            check_dgrad_extents(parts[0].shape[1:4], gy.shape[1:4], st)
             dx = conv3d_transpose(gy, kernel, None, st)
+            crop = dgrad_crop(parts[0].shape[1:4], gy.shape[1:4], kernel.shape[:3], st)
+            if crop is not None:  # a view, as the parts' channel slices are
+                dx = dx[(slice(None), *crop)]
             off = 0
             for i, p in enumerate(parts):
                 ci = int(p.shape[-1])
@@ -555,33 +566,86 @@ class _ConvTranspose3dFn(torch.autograd.Function):
 
 
 # ------------------------------------------------------------------- K6
-WGRAD_ROWS = 16                 # rows a step of csrc/conv3d_wgrad.cu (kRows)
-WGRAD_TILE_M = {64: 64, 32: 128, 16: 256, 8: 256, 4: 256}  # tile n -> tile m
-WGRAD_TARGET_BLOCKS = 4 * SMS   # about four blocks an SM
-WGRAD_MIN_CHUNK_ROWS = 8 * WGRAD_ROWS
-WGRAD_MAX_CHUNKS = 512
+# The tile family of csrc/conv3d_wgrad.cu, per dtype: (MT, NT, WM, WN, WK,
+# KSTEPS) of each wgrad_mma_kernel instance, a tile of BM = 16 MT WM by
+# BN = 8 NT WN outputs, WM x WN x WK warps (WK split each stage's rows) and
+# KSTEPS mma steps a warp a stage (launch_bm_bn dispatches on (BM, BN)).
+WGRAD_VARIANTS = {
+    torch.bfloat16: ((1, 1, 1, 1, 4, 2), (1, 2, 1, 1, 4, 2), (3, 1, 1, 1, 4, 2),
+                     (3, 2, 1, 1, 4, 2), (3, 1, 3, 1, 2, 2), (3, 2, 3, 1, 2, 2),
+                     (2, 4, 2, 1, 2, 2), (2, 4, 4, 2, 1, 4), (2, 8, 4, 2, 1, 4)),
+    torch.float32: ((1, 1, 1, 1, 4, 2), (1, 2, 1, 1, 4, 2), (3, 1, 1, 1, 4, 2),
+                    (3, 2, 1, 1, 4, 2), (3, 1, 3, 1, 2, 2), (3, 2, 3, 1, 2, 2),
+                    (2, 4, 2, 1, 2, 2), (2, 4, 4, 2, 1, 4)),
+}
+WGRAD_KS = {torch.bfloat16: 16, torch.float32: 8}  # rows of one mma step (k16, k8)
+WGRAD_CHAIN_STEPS = 16    # fp32: k8 steps of a warp's tensor-core chain (kChainSteps)
+WGRAD_MIN_STAGES = 4      # a chunk of rows holds at least this many stages
+WGRAD_MAX_CHUNKS = 1024
+WGRAD_REDUCE_GROUPS = 8   # wgrad_reduce_kernel's chunk groups (kReduceGroups)
+WGRAD_LOAD_COST = 24      # a gathered element's cost in products, for the tile choice
 
 
-def wgrad_plan(m: int, cout: int, rows: int) -> dict:
-    """Tile and K-split of K6 (csrc/conv3d_wgrad.cu) for an ``m`` = taps x
-    CA by ``cout`` gradient over ``rows`` = batch x output voxels.
+def wgrad_tile(variant, dtype: torch.dtype) -> dict:
+    """The shape of one K6 tile variant: BM, BN, warps, the rows a stage
+    (``stage_rows`` = WK x KSTEPS x the mma step's rows) and the blocks its
+    launch bounds keep resident on one SM (csrc/conv3d_wgrad.cu
+    resident_blocks)."""
+    mt, nt, wm, wn, wk, ksteps = variant
+    warps = wm * wn * wk
+    return dict(variant=tuple(variant), bm=16 * mt * wm, bn=8 * nt * wn, warps=warps,
+                wk=wk, ksteps=ksteps, stage_rows=wk * ksteps * WGRAD_KS[dtype],
+                resident=2 if warps >= 6 or mt * nt > 8 else 4)
 
-    The tile n is the least of WGRAD_TILE_M's that holds cout (else 64),
-    with its tile m. The rows are cut into ``chunks`` ranges of
-    ``chunk_rows``: enough blocks in all for WGRAD_TARGET_BLOCKS, no chunk
-    below WGRAD_MIN_CHUNK_ROWS rows, at most WGRAD_MAX_CHUNKS. With more
-    than one chunk the kernel writes ``workspace`` fp32 partials (chunks x m
-    x cout) that a second kernel sums in chunk order.
+
+def wgrad_plan(m: int, cout: int, rows: int, dtype: torch.dtype = torch.float32) -> dict:
+    """Tile and row split of K6 (csrc/conv3d_wgrad.cu) in ``dtype`` for an
+    ``m`` = taps x CA by ``cout`` gradient over ``rows`` = batch x output
+    voxels.
+
+    The tile is the variant of WGRAD_VARIANTS[dtype] of the least cost
+    ``padded * (1 + WGRAD_LOAD_COST * (1 / bm + 1 / bn))``: ``padded`` is the
+    outputs its tiles cover (the products), and each row loads ``bm + bn``
+    elements a tile, ``padded * (1 / bm + 1 / bn)`` in all, each costing
+    about WGRAD_LOAD_COST products (ties: the larger tile). Output tiles
+    alone give ``tiles`` blocks; the rows are cut into ``chunks`` ranges of
+    ``chunk_rows`` (a multiple of the stage's rows) so that the blocks fill
+    one wave (SMS x the variant's resident blocks), no chunk below
+    WGRAD_MIN_STAGES stages, at most WGRAD_MAX_CHUNKS. With more than one
+    chunk the kernel writes ``workspace`` fp32 partials (chunks x m x cout)
+    that a second kernel sums in a fixed order.
     """
-    bn = next((t for t in sorted(WGRAD_TILE_M) if cout <= t), 64)
-    bm = WGRAD_TILE_M[bn]
-    tiles = -(-m // bm) * -(-cout // bn)
-    chunks = max(1, min(-(-WGRAD_TARGET_BLOCKS // tiles), rows // WGRAD_MIN_CHUNK_ROWS,
+    def padded(t):
+        return -(-m // t["bm"]) * t["bm"] * -(-cout // t["bn"]) * t["bn"]
+
+    def cost(t):
+        return padded(t) * (1 + WGRAD_LOAD_COST * (1 / t["bm"] + 1 / t["bn"]))
+
+    tile = min((wgrad_tile(v, dtype) for v in WGRAD_VARIANTS[dtype]),
+               key=lambda t: (cost(t), -t["bm"] * t["bn"]))
+    stage = tile["stage_rows"]
+    tiles = -(-m // tile["bm"]) * -(-cout // tile["bn"])
+    target = SMS * tile["resident"]
+    chunks = max(1, min(-(-target // tiles), rows // (WGRAD_MIN_STAGES * stage),
                         WGRAD_MAX_CHUNKS))
-    chunk_rows = -(-rows // chunks)
+    per_chunk = -(-rows // chunks)
+    chunk_rows = -(-per_chunk // stage) * stage  # whole stages
     chunks = -(-rows // chunk_rows)
-    return dict(bn=bn, bm=bm, tiles=tiles, chunks=chunks, chunk_rows=chunk_rows,
+    return dict(tile, tiles=tiles, chunks=chunks, chunk_rows=chunk_rows,
                 blocks=tiles * chunks, workspace=chunks * m * cout if chunks > 1 else 0)
+
+
+def wgrad_routes(a: torch.Tensor, b: torch.Tensor):
+    """How K6 loads A and B: the width in bytes of its cp.async copies, 16, 8
+    or 4 (the widest that divides the tensor's channel row and its base
+    address, so a copy holds whole channels of one voxel), or 0, the scalar
+    route (element by element through registers: bf16 with an odd channel
+    count or a base off the 4-byte grid)."""
+    def route(t):
+        row = int(t.shape[-1]) * t.element_size()
+        return next((w for w in (16, 8, 4) if row % w == 0 and t.data_ptr() % w == 0), 0)
+
+    return route(a), route(b)
 
 
 def _check_wgrad_args(a, b, kernel_size, strides):
@@ -621,6 +685,27 @@ def conv3d_wgrad_plain(a, b, kernel_size, strides=(1, 1, 1)):
     return torch.stack(taps).reshape(*ks, a.shape[-1], b.shape[-1]).to(a.dtype)
 
 
+def wgrad_args(a, b, kernel_size, strides):
+    """Everything one K6 launch takes: the output, the workspace (None with
+    one chunk), the plan (by A's dtype) and the geometry array the C entry
+    reads: A's D, H, W, C; B's D, H, W, C; kernel d, h, w; strides; SAME low
+    pads; batch; chunks; BM; BN; chunk rows; A's and B's copy widths
+    (:func:`wgrad_routes`). Device-agnostic, so the CPU tests replay the
+    very schedule the card runs."""
+    ks, st = tuple(int(k) for k in kernel_size), tuple(int(s) for s in strides)
+    ca, cb = int(a.shape[-1]), int(b.shape[-1])
+    plan = wgrad_plan(math.prod(ks) * ca, cb, int(b.shape[0]) * math.prod(b.shape[1:4]),
+                      a.dtype)
+    out = torch.empty((*ks, ca, cb), dtype=a.dtype, device=a.device)
+    ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=a.device)
+          if plan["chunks"] > 1 else None)
+    lo = [same_pads(int(n), k, s)[1] for n, k, s in zip(a.shape[1:4], ks, st)]
+    geom = np.array([*a.shape[1:4], ca, *b.shape[1:4], cb, *ks, *st, *lo, a.shape[0],
+                     plan["chunks"], plan["bm"], plan["bn"], plan["chunk_rows"],
+                     *wgrad_routes(a, b)], np.int32)
+    return out, ws, plan, geom
+
+
 def conv3d_wgrad(a: torch.Tensor, b: torch.Tensor, kernel_size,
                  strides: Sequence[int] = (1, 1, 1)) -> torch.Tensor:
     """K6: ``dW[kd, kh, kw, ca, cb] = sum_{n, o} A[n, o * s + t - lo, ca] *
@@ -631,10 +716,13 @@ def conv3d_wgrad(a: torch.Tensor, b: torch.Tensor, kernel_size,
 
     Replaces the weight half of the backward of ``conv_probe``
     (``benchmarks/r2_probe_pallas_mxu.py:80``, TPU kernel table row 1; XLA
-    transposed it there). Bound on the H100: bytes at the full-resolution
-    levels, operations at the deep 3x3x3 ones. fp32 FMA tiles over a fixed
-    split of the rows, partials summed in chunk order (csrc/conv3d_wgrad.cu):
-    no atomics, the same bits on every run.
+    transposed it there). Bound on the H100: bytes in bf16 and at fp32's
+    full-resolution levels, operations at fp32's deep 3x3x3 ones. An
+    implicit GEMM on the tensor cores (csrc/conv3d_wgrad.cu): tiles that fit
+    M = taps x CA and N = CB, A gathered by cp.async into a shared ring,
+    bf16 by mma.sync m16n8k16 and fp32 as 3xTF32 with its chains promoted;
+    a fixed split of the rows whose partials a second kernel sums in a fixed
+    order: no atomics, the same bits on every run.
     """
     ks, st = tuple(int(k) for k in kernel_size), tuple(int(s) for s in strides)
     if not cuda_lib.use_kernel("conv3d_wgrad", a):
@@ -647,15 +735,7 @@ def conv3d_wgrad(a: torch.Tensor, b: torch.Tensor, kernel_size,
         raise ValueError("conv3d_wgrad: A and B must be contiguous (NDHWC)")
     if max(a.numel(), b.numel()) >= MAX_INDEX:
         raise ValueError("conv3d_wgrad: the kernel takes tensors of fewer than 2**31 elements")
-    ca, cb = int(a.shape[-1]), int(b.shape[-1])
-    m, rows = math.prod(ks) * ca, int(b.shape[0]) * math.prod(b.shape[1:4])
-    plan = wgrad_plan(m, cb, rows)
-    out = torch.empty((*ks, ca, cb), dtype=a.dtype, device=a.device)
-    ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=a.device)
-          if plan["chunks"] > 1 else None)
-    lo = [same_pads(int(n), k, s)[1] for n, k, s in zip(a.shape[1:4], ks, st)]
-    geom = np.array([*a.shape[1:4], ca, *b.shape[1:4], cb, *ks, *st, *lo, a.shape[0],
-                     plan["chunks"], plan["bn"], plan["chunk_rows"]], np.int32)
+    out, ws, _, geom = wgrad_args(a, b, ks, st)
     lib = cuda_lib.library()
     conv3d_wgrad.launches += 1
     rc = lib.pmr_conv3d_wgrad(a.data_ptr(), b.data_ptr(), out.data_ptr(),

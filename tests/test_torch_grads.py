@@ -7,8 +7,10 @@ the JAX package's ops:
     gradient of SAME Conv3D), weight gradients by K6's twin;
   * IN + LReLU (K3 + K4 forward, K7 backward) with the fp32 (two-pass) and
     the bf16 (one-pass) statistics;
-  * the data-gradient identity itself, and its refusal of an input extent
-    that is not its output extent times the stride.
+  * the data-gradient identity itself, and the data gradient at input
+    extents that are not the output extents times the stride (K2's output
+    cropped, ``dgrad_crop``) against ``jax.grad`` of the JAX package's
+    ``conv3d`` / ``conv3d_parts``.
 
 Tolerances: fp32, atol 2e-5 of gradients of O(1) (the repo's oracle
 tolerance), relative where they grow with the summed extent; autograd of
@@ -25,6 +27,7 @@ import pytest
 import torch
 from flax import linen as nn
 
+from prostatemr_3d_cad_cspca_tpu.ops import convolution as jconv
 from prostatemr_3d_cad_cspca_tpu.ops.normalization import instance_norm as jinstance_norm
 from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
 from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
@@ -194,7 +197,7 @@ def test_data_gradients_are_each_others_kernels(ks, st, sp):
     y = cv.conv3d_plain([x], k, None, st)
     g = torch.from_numpy(_rand(rng, *y.shape, dtype=np.float64))
     (want,) = torch.autograd.grad(y, [x], g)
-    cv.check_dgrad_extents(x.shape[1:4], y.shape[1:4], st)
+    assert cv.dgrad_crop(x.shape[1:4], y.shape[1:4], ks, st) is None  # K2's whole output
     np.testing.assert_allclose(cv.conv3d_transpose(g, k, None, st).numpy(), want.numpy(),
                                atol=1e-12)
     z = torch.from_numpy(_rand(rng, 2, *y.shape[1:4], 4, dtype=np.float64)).requires_grad_()
@@ -204,17 +207,52 @@ def test_data_gradients_are_each_others_kernels(ks, st, sp):
     np.testing.assert_allclose(cv.conv3d([gt], k, None, st).numpy(), want_t.numpy(), atol=1e-12)
 
 
-def test_data_gradient_refuses_an_extent_that_is_not_output_times_stride():
-    x = torch.randn(1, 5, 9, 10, 3, requires_grad=True)  # 9 and 5 do not divide by 2
-    k = torch.randn(1, 3, 3, 3, 4)
-    y = cv.conv3d([x], k, None, (1, 2, 2))
-    assert tuple(y.shape) == (1, 5, 5, 5, 4)
-    with pytest.raises(ValueError, match="not the output extents .* times the strides"):
-        y.sum().backward()
-    # the weight gradient alone does not need the identity
-    k = k.requires_grad_()
-    (gk,) = torch.autograd.grad(cv.conv3d([x.detach()], k, None, (1, 2, 2)).sum(), [k])
-    assert tuple(gk.shape) == tuple(k.shape)
+@pytest.mark.parametrize("ks,st,sp,widths", [((1, 3, 3), (1, 2, 2), (5, 9, 10), (3,)),
+                                             ((3, 3, 3), (2, 2, 2), (5, 5, 11), (3,)),
+                                             ((3, 3, 3), (2, 2, 2), (5, 9, 10), (2, 3)),
+                                             ((2, 2, 2), (2, 2, 2), (3, 5, 7), (3,)),
+                                             ((1, 1, 1), (1, 2, 2), (4, 7, 9), (3,))])
+def test_data_gradient_at_extents_that_are_not_output_times_stride(ks, st, sp, widths):
+    """K1's input gradient where an input extent n is not its output extent
+    o times the stride: K2 of the output gradient (extent o * s) cropped to
+    [lo - lo', lo - lo' + n) per axis. Held to torch autograd of the fp64
+    twin at 1e-10, and to jax.grad of the JAX package's conv3d (one part)
+    or conv3d_parts (a part list) at the fp32 oracle tolerance."""
+    rng = np.random.default_rng(6)
+    cout = 4
+    parts = [_rand(rng, 2, *sp, c) for c in widths]
+    kernel = _rand(rng, *ks, sum(widths), cout, scale=0.3)
+    bias = _rand(rng, cout)
+    out_sp = tuple(-(-n // s) for n, s in zip(sp, st))
+    assert any(n != o * s for n, o, s in zip(sp, out_sp, st))
+    crop = cv.dgrad_crop(sp, out_sp, ks, st)
+    assert crop is not None and all(c.stop - c.start == n for c, n in zip(crop, sp))
+    g = _rand(rng, 2, *out_sp, cout)
+
+    def port(k, b, *ps):
+        return cv.conv3d(list(ps), k, b, st)
+
+    y, got = _port_grads(port, [kernel, bias, *parts], g)
+    assert tuple(y.shape) == (2, *out_sp, cout)
+    _, exact = _port_grads(port, [a.astype(np.float64) for a in (kernel, bias, *parts)],
+                           g.astype(np.float64))
+    _, ref = _port_grads(lambda k, b, *ps: cv.conv3d_plain(list(ps), k, b, st),
+                         [a.astype(np.float64) for a in (kernel, bias, *parts)],
+                         g.astype(np.float64))
+    for e, r in zip(exact, ref):
+        np.testing.assert_allclose(e.numpy(), r.numpy(), atol=1e-10)
+    mod = (jconv.conv3d(jconv.ConvConfig(), cout, ks, st) if len(widths) == 1
+           else jconv.conv3d_parts(jconv.ConvConfig(), cout, ks, st))
+
+    def loss(k, b, *ps):
+        x = ps[0] if len(ps) == 1 else list(ps)
+        return jnp.sum(mod.apply({"params": {"kernel": k, "bias": b}}, x) * jnp.asarray(g))
+
+    want = jax.grad(loss, argnums=tuple(range(2 + len(parts))))(
+        *(jnp.asarray(a) for a in (kernel, bias, *parts)))
+    for name, a, w in zip(("kernel", "bias", "part0", "part1"), got, want):
+        scale = max(1.0, float(np.abs(np.asarray(w)).max()))
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL * scale, err_msg=name)
 
 
 @pytest.mark.parametrize("ashape,ks,st,cb", [((2, 4, 8, 8, 3), (1, 3, 3), (1, 2, 2), 5),
@@ -238,13 +276,20 @@ def test_wgrad_twin_is_the_weight_gradient_and_its_plan_covers_the_rows(ashape, 
         cv.conv3d_wgrad(a, g[:, :1], ks, st)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,cout,rows,want", [
-    (144, 4, 1_024_000, (4, 256, 512)),      # level 0, batch 2: a BM-256 tile, 512 chunks
-    (3456, 256, 1000, (64, 64, 3)),          # the deepest K2: 216 tiles, 3 chunks
-    (27, 16, 1_024_000, (16, 256, 512))])
-def test_wgrad_plan_at_cfg1_shapes(m, cout, rows, want):
-    plan = cv.wgrad_plan(m, cout, rows)
-    assert (plan["bn"], plan["bm"], plan["chunks"]) == want
+    # level 0, batch 2: all nine taps of 16 channels in one tile of 3 x 2
+    # warps, 1024000 rows in 263 chunks of 3904 (a wave of 2 blocks an SM)
+    (144, 4, 1_024_000, {torch.bfloat16: (8, 144, 263), torch.float32: (8, 144, 263)}),
+    (144, 16, 1_024_000, {torch.bfloat16: (16, 144, 263), torch.float32: (16, 144, 263)}),
+    # the deepest K2: 3456 x 256 over 1000 rows, 3 chunks
+    (3456, 256, 1000, {torch.bfloat16: (128, 128, 3), torch.float32: (64, 128, 3)}),
+    # the stem (3 channels): two 16 x 16 tiles
+    (27, 16, 1_024_000, {torch.bfloat16: (16, 16, 259), torch.float32: (16, 16, 263)}),
+    (1728, 64, 64_000, {torch.bfloat16: (64, 128, 19), torch.float32: (64, 128, 19)})])
+def test_wgrad_plan_at_cfg1_shapes(m, cout, rows, want, dtype):
+    plan = cv.wgrad_plan(m, cout, rows, dtype)
+    assert (plan["bn"], plan["bm"], plan["chunks"]) == want[dtype]
 
 
 def test_no_grad_takes_the_forward_alone():

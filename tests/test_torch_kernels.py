@@ -431,13 +431,44 @@ def test_card_gemm_loop_split_is_bit_reproducible(cuda_device):
 
 
 # K6 at the weight-gradient roles of the M1 path: (A's shape, kernel,
-# strides, B's channels); B's grid is A's SAME output. fp32: FMA sums in
-# another order than the twin's matmul; bf16: one rounding of fp32 sums.
+# strides, B's channels); B's grid is A's SAME output. K1's role: A an input
+# part, B the output gradient; K2's: A the fine grid's gradient, B the coarse
+# input (the (1,2,2) and (2,2,2) cases). The cases reach every tile of the
+# family in each dtype (ops/convolution.py WGRAD_VARIANTS): 16x16 (the
+# stem's CA 3; CA 16), 144x8 (CB 4 and 8; CA 4), 128x128 in bf16 / 128x64
+# (N 70 and 256), 48x8 (CA 33, CB 1), 144x16 over 36 / 72 chunks, 16x8
+# (CB 2), 64x32, 48x16 (CA 40), 128x64 over 7 / 13 chunks; and every copy
+# width (wgrad_routes): bf16 element-wise (CA 3 and 33, CB 1), 4 bytes (CB
+# 2, 70), 8 bytes (CA 12, CA and CB 4), 16; fp32 4 (CA 3, 33), 8 (CB 2,
+# 70), 16. fp32: 3xTF32 sums in another order than the twin's matmul; bf16:
+# one rounding of fp32 sums.
 WGRAD_CASES = [((2, 5, 9, 10, 3), (1, 3, 3), (1, 1, 1), 16),
                ((2, 5, 9, 10, 16), (1, 3, 3), (1, 2, 2), 4),
+               ((2, 5, 9, 10, 16), (1, 3, 3), (1, 2, 2), 8),
                ((2, 6, 8, 10, 12), (3, 3, 3), (2, 2, 2), 70),
                ((2, 4, 6, 6, 33), (3, 3, 3), (1, 1, 1), 1),
-               ((1, 3, 4, 4, 256), (3, 3, 3), (1, 1, 1), 256)]
+               ((1, 3, 4, 4, 256), (3, 3, 3), (1, 1, 1), 256),
+               ((2, 8, 24, 24, 16), (1, 3, 3), (1, 1, 1), 16),
+               ((2, 8, 24, 24, 16), (1, 1, 1), (1, 1, 1), 16),
+               ((2, 8, 24, 24, 16), (1, 1, 1), (1, 1, 1), 2),
+               ((2, 4, 6, 6, 4), (3, 3, 3), (1, 1, 1), 4),
+               ((2, 6, 12, 12, 32), (1, 3, 3), (1, 1, 1), 32),
+               ((2, 5, 9, 10, 40), (1, 1, 1), (1, 1, 1), 16),
+               ((2, 10, 20, 20, 32), (3, 3, 3), (1, 2, 2), 64)]
+
+
+def _wgrad_operands(device, ashape, ks, st, cb, dtype, seed=1):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(ashape, generator=g, device=device).to(dtype)
+    out = [tconv.same_pads(n, k, s)[0] for n, k, s in zip(ashape[1:4], ks, st)]
+    b = torch.randn((ashape[0], *out, cb), generator=g, device=device).to(dtype)
+    return a, b
+
+
+def _wgrad_err(got, ref):
+    # an element sums every row's product: its rounding scales with the
+    # output's largest sums, so the error is taken against that
+    return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
 
 
 @pytest.mark.cuda
@@ -445,10 +476,7 @@ WGRAD_CASES = [((2, 5, 9, 10, 3), (1, 3, 3), (1, 1, 1), 16),
 @pytest.mark.parametrize("ashape,ks,st,cb", WGRAD_CASES)
 def test_card_conv3d_wgrad_matches_plain_and_reruns_bit_equal(cuda_device, ashape, ks, st,
                                                               cb, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    a = torch.randn(ashape, generator=g, device=cuda_device).to(dtype)
-    out = [tconv.same_pads(n, k, s)[0] for n, k, s in zip(ashape[1:4], ks, st)]
-    b = torch.randn((ashape[0], *out, cb), generator=g, device=cuda_device).to(dtype)
+    a, b = _wgrad_operands(cuda_device, ashape, ks, st, cb, dtype)
     n0 = tconv.conv3d_wgrad.launches
     got = tconv.conv3d_wgrad(a, b, ks, st)
     again = tconv.conv3d_wgrad(a, b, ks, st)
@@ -456,11 +484,75 @@ def test_card_conv3d_wgrad_matches_plain_and_reruns_bit_equal(cuda_device, ashap
     assert tconv.conv3d_wgrad.launches == n0 + 2
     assert got.dtype == dtype and tuple(got.shape) == (*ks, ashape[-1], cb)
     ref = tconv.conv3d_wgrad_plain(a, b, ks, st)
-    # an element sums every row's product: its rounding scales with the
-    # output's largest sums, so the error is taken against that
-    err = float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
-    assert err <= CARD_TOL[dtype]
+    assert _wgrad_err(got, ref) <= CARD_TOL[dtype]
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_conv3d_wgrad_misaligned_base_takes_a_narrower_route(cuda_device, dtype):
+    """A and B that start off the 16-byte grid (contiguous views one element
+    into their storage) take narrower copies: element by element in bf16, 4
+    bytes in fp32."""
+    a0, b0 = _wgrad_operands(cuda_device, (2, 5, 9, 10, 16), (1, 3, 3), (1, 2, 2), 16, dtype)
+    a = torch.empty(a0.numel() + 1, dtype=dtype, device=cuda_device)[1:].view(a0.shape)
+    b = torch.empty(b0.numel() + 1, dtype=dtype, device=cuda_device)[1:].view(b0.shape)
+    a.copy_(a0)
+    b.copy_(b0)
+    narrow = 0 if dtype == torch.bfloat16 else 4
+    assert tconv.wgrad_routes(a, b) == (narrow, narrow)
+    assert tconv.wgrad_routes(a0, b0) == (16, 16)
+    got = tconv.conv3d_wgrad(a, b, (1, 3, 3), (1, 2, 2))
+    vec = tconv.conv3d_wgrad(a0, b0, (1, 3, 3), (1, 2, 2))
+    torch.cuda.synchronize()
+    ref = tconv.conv3d_wgrad_plain(a0, b0, (1, 3, 3), (1, 2, 2))
+    assert _wgrad_err(got, ref) <= CARD_TOL[dtype] and _wgrad_err(vec, ref) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_conv3d_wgrad_level0_against_fp64(cuda_device, dtype):
+    """The cfg1 stem block's (1,3,3) gradient at level 0 (2 x 20 x 160 x 160
+    x 16, 1,024,000 rows over 263 bf16 / 176 fp32 chunks) against the fp64
+    product of the same operands: fp32 within 1e-5 of the output's largest
+    |value| (3xTF32's products are 2^-22 relative, its chains promoted, and
+    the sums of ~5k rows a chunk reduced in order: ~1e-7 expected), bf16
+    within its one rounding (2^-8 of it)."""
+    a, b = _wgrad_operands(cuda_device, (2, 20, 160, 160, 16), (1, 3, 3), (1, 1, 1), 16,
+                           dtype, seed=3)
+    got = tconv.conv3d_wgrad(a, b, (1, 3, 3))
+    exact = tconv.conv3d_wgrad_plain(a.double(), b.double(), (1, 3, 3))
+    torch.cuda.synchronize()
+    err = float((got.double() - exact).abs().max()) / float(exact.abs().max())
+    assert err <= {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ks,st,sp", [((1, 3, 3), (1, 2, 2), (5, 9, 10)),
+                                      ((3, 3, 3), (2, 2, 2), (5, 5, 11))])
+def test_card_data_gradient_at_extents_that_are_not_output_times_stride(cuda_device, ks, st,
+                                                                        sp, dtype):
+    """K1's input gradient where n != o * s, on the card: K2 to extent o * s,
+    cropped (ops/convolution.py dgrad_crop); against torch autograd of the
+    plain twin on the CPU in fp64 (on the dtype's values), |diff| / max(1,
+    |ref|) at the card tolerance."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, *sp, 5, generator=g).to(dtype).float()
+    k = (torch.randn(*ks, 5, 6, generator=g) / (5 * math.prod(ks)) ** 0.5).to(dtype).float()
+    out = tuple(-(-n // s) for n, s in zip(sp, st))
+    gy = torch.randn(2, *out, 6, generator=g).to(dtype).float()
+    x64 = x.double().requires_grad_()
+    (want,) = torch.autograd.grad(tconv.conv3d_plain([x64], k.double(), None, st), [x64],
+                                  gy.double())
+    xc = x.to(cuda_device, dtype).requires_grad_()
+    n_k2 = tconv.conv3d_transpose.launches
+    y = tconv.conv3d([xc], k.to(cuda_device, dtype), None, st)
+    (got,) = torch.autograd.grad(y, [xc], gy.to(cuda_device, dtype))
+    torch.cuda.synchronize()
+    assert tconv.conv3d_transpose.launches == n_k2 + 1
+    assert tuple(got.shape) == tuple(x.shape) and got.dtype == dtype
+    assert _card_err(got.cpu(), want) <= CARD_TOL[dtype]
 
 
 @pytest.mark.cuda

@@ -35,7 +35,7 @@ import sys
 sys.path.insert(0, os.getcwd())
 
 PTXAS_KERNELS = ("conv3d_mma_kernel", "splitk_reduce_kernel", "in_stats_kernel",
-                 "in_apply_kernel", "wgrad_kernel", "wgrad_reduce_kernel",
+                 "in_apply_kernel", "wgrad_mma_kernel", "wgrad_reduce_kernel",
                  "in_bwd_reduce_kernel", "in_bwd_apply_kernel")
 
 
