@@ -11,7 +11,8 @@ Phases (each raises on failure, so the script exits non-zero and prints no
 "ok" line):
 
   1. build     nvidia-smi name and power limit; TF32 off for fp32 references;
-               nvcc builds csrc/*.cu for sm_90a.
+               nvcc builds csrc/*.cu for sm_90a; ptxas must give K7's CUDA
+               kernels at most 64 registers and no spill.
   2. kernels   K1 conv3d, K2 conv3d_transpose, K3 in_stats, K4 in_apply at
                every distinct shape the cfg1 forward gives them at the serving
                batch, in bf16 and fp32 (K1/K2: the mma.sync tensor-core
@@ -186,6 +187,7 @@ PTXAS_NAMES = {  # kernel: the CUDA kernels it launches
     "conv3d_wgrad": ("wgrad_mma_kernel", "wgrad_reduce_kernel"),
     "in_backward": ("in_bwd_reduce_kernel", "in_bwd_apply_kernel")}
 BACKWARD_KERNELS = ("conv3d_wgrad", "in_backward")
+K7_MAX_REGISTERS = 64  # K7's CUDA kernels, no spill (phase_build)
 TRAIN_KERNELS = (*LAUNCHES_PER_FORWARD, *BACKWARD_KERNELS)
 # the template argument's start in a mangled name, by element type
 MANGLED_TYPE = {"bfloat16": "I13__nv_bfloat16", "float32": "If"}
@@ -238,11 +240,25 @@ def phase_build():
     t0 = time.perf_counter()
     path = cuda_lib.build()
     cuda_lib.library()
+    ptxas = ptxas_report(cuda_lib.build_log, BUILT_KERNEL_NAMES)
     emit({"phase": "build", "library": os.path.basename(path),
           "seconds": round(time.perf_counter() - t0, 3),
-          "nvcc_seconds": cuda_lib.build_seconds,
-          "ptxas": ptxas_report(cuda_lib.build_log, BUILT_KERNEL_NAMES)})
+          "nvcc_seconds": cuda_lib.build_seconds, "ptxas": ptxas})
+    check_k7_ptxas(ptxas)
     return smi
+
+
+def check_k7_ptxas(ptxas):
+    """K7's CUDA kernels, each dtype's vector and scalar variants: at most
+    K7_MAX_REGISTERS registers (four 256-thread blocks an SM) and no spill."""
+    for k in PTXAS_NAMES["in_backward"]:
+        for dn in DTYPE_NAMES:
+            r = (ptxas or {}).get(f"{k}[{dn}]")
+            if r is None or r["variants"] != 2:
+                raise AssertionError(f"ptxas reported no 2 variants of {k}[{dn}]: {r}")
+            if r["registers"][1] > K7_MAX_REGISTERS or r["spill_bytes"]:
+                raise AssertionError(f"{k}[{dn}]: {r['registers'][1]} registers (at most "
+                                     f"{K7_MAX_REGISTERS}), {r['spill_bytes']} spill bytes")
 
 
 # ------------------------------------------------- path shapes (meta trace)
@@ -518,7 +534,7 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
     """Each call's kernel against its plain twin in each of ``dtypes``
     (default fp32 and bf16); with ``timed``, each dtype's times beside the
     bound, and in each dtype one K1/K2 split-K shape, K3's largest shape,
-    every K6 shape and K7's largest shape run twice on the
+    every K6 shape and every K7 shape run twice on the
     same inputs (the same bits); each of ``bit_kernels`` present must have
     had one. ``per_path`` ({path: calls}) adds each row's calls per
     forward of each path."""
@@ -533,8 +549,6 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
     bit_checked = set()  # (kernel, dtype): a K1/K2 split-K shape; K3's largest
     largest_in = max((s for n, s in calls if n == "in_stats"), key=lambda s: int(np.prod(s[0])),
                      default=None)
-    largest_bwd = max((s for n, s in calls if n == "in_backward"),
-                      key=lambda s: int(np.prod(s[0])), default=None)
     for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
         row = {"count": count, "sig": sig}
         if per_path:
@@ -641,8 +655,8 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                 row[f"blocks_{dn}"] = nm.in_apply_plan(
                     x.shape[0], int(np.prod(x.shape[1:4])), x.shape[-1], x.element_size(),
                     x.data_ptr() % 16 == 0)["blocks"]
-            elif name == "in_backward":
-                twice = sig == largest_bwd
+            elif name == "in_backward":  # every shape rerun for the same bits
+                twice = True
             elif name == "conv3d_wgrad":  # every shape rerun for the same bits
                 plan = cv.wgrad_plan(int(np.prod(ks)) * a.shape[-1], b.shape[-1],
                                      int(np.prod(b.shape[:4])), dtype)

@@ -82,14 +82,47 @@
 // output gradient times the LReLU's slope (recomputed from x and the
 // statistics exactly as K4 computed the pre-activation: no saved output) and
 // xhat = (x - mean) * rstd:
-//  * pass 1 (in_bwd_reduce_kernel, K3's grid, its fold and tickets): per
-//    (batch, channel) fp32 sums of g' and g' * xhat, folded in chunk order;
-//  * pass 2 (in_bwd_apply_kernel, K4's grid): dx = rstd * scale * (g' -
-//    mean(g') - xhat * mean(g' xhat)), rounded once to x's type.
+//  * pass 1 (in_bwd_reduce_kernel): per (batch, channel) fp32 sums of g' and
+//    g' * xhat, each chunk's partials taken in a fixed order (K3's shuffles
+//    and rows) and folded in chunk order by the sample's last block (K3's
+//    tickets and fold);
+//  * pass 2 (in_bwd_apply_kernel): dx = rstd * scale * (g' - mean(g') -
+//    xhat * mean(g' xhat)), rounded once to x's type.
 // The scale and bias gradients are pass 1's sums added over the batch
-// (ops/normalization.py). Bound by bytes: pass 1 reads x and g, pass 2 reads
-// them again and writes dx. 16-byte loads as K3 and K4 where the layout
-// allows (both x and g aligned), else the scalar route.
+// (ops/normalization.py). Bound by bytes: dx needs each (b, c)'s sums, so x
+// and g are read twice (where they exceed the 50 MB L2, from HBM the second
+// time too) and dx written once.
+// K7's design (ops/normalization.py in_backward_plan computes its grid):
+//  * Registers: at most 64 a thread (launch bounds of four 256-thread blocks
+//    an SM, 32 warps), no spill: a 16-byte stream needs many loads in flight
+//    on each SM, and per-lane coefficients with x and g widened to fp32 took
+//    146-158 registers, one block an SM. The coefficients live in a
+//    per-block shared table built once from stats, scale, bias
+//    (and pass 1's sums): three floats a channel for pass 1 (mean, and K4's
+//    a, c for the slope test), six for pass 2 (also kx, p, q of dx =
+//    fma(kx, g', fma(p, x - mean, q))). A thread reads its float4 of them a
+//    row step at a time (volatile shared loads, so the compiler cannot hoist
+//    VEC x 6 of them into registers) and applies them to both of its
+//    vectors in flight; x and g stay packed as loaded (a bf16 lane is widened
+//    where it is used); sum g' * (x - mean) is scaled by rstd once per chunk.
+//    The (x - mean) term serves xhat and, in fp32, K4's slope test.
+//  * One grid for both passes, (nchunk, batch): about one wave at four
+//    blocks an SM, each chunk at least 4 KB and a sample's partials at most
+//    16K floats. Threads of a row step: column group cg = tid % G (G = C /
+//    VEC vectors a row, 1 where C divides VEC) and row r = tid / G, so a
+//    thread keeps its channels and a warp reads consecutive vectors.
+//  * Pass 2 re-reads from L2: block (chunk, b) of pass 2 owns the rows of
+//    pass 1's chunk and walks them from the last row down, so the rows pass
+//    1 read last, still in L2 where x + g exceeds it, are read first; its
+//    loads and its dx stores are marked evict-first (ld/st .cs), since K7
+//    touches neither again.
+//  * 16-byte loads as K3 and K4 where the layout allows (x, g and dx
+//    aligned, C a multiple of VEC or dividing it), else the scalar route
+//    (VEC = 1, G = C) through the same code; C at most kBwdMaxChannels.
+//  * Measured slower on an H100 and not kept: pass 1's loads through a
+//    cp.async ring in shared memory (more bytes in flight, no registers),
+//    pass 1's chunk heads loaded evict-first, and each thread's first loads
+//    issued before the block builds its table (PERF.md, section 6).
 
 #include <stdint.h>
 
@@ -519,120 +552,291 @@ int apply_route(const void* x, const float* stats, const float* scale, const flo
 }
 
 // ---------------------------------------------------------------- K7
-// Per channel of K7: the forward's statistics and, for the LReLU's slope,
-// K4's own pre-activation coefficients (r = (x - center) * a + c, as K4).
-template <typename T>
-__device__ __forceinline__ void bwd_coef(const float* st, const float* scale, const float* bias,
-                                         int C, int ch, float eps, float& mean, float& rstd,
-                                         float& center, float& a, float& c) {
-  mean = st[ch];
-  rstd = rsqrtf(st[C + ch] + eps);
-  const float av = rstd * scale[ch];
-  if (sizeof(T) == 4) {
-    center = mean;
-    a = av;
-    c = bias[ch];
+constexpr int kBwdMinBlocks = 4;        // blocks an SM: 256 threads at <= 64 registers
+constexpr int kBwdUnroll = 2;           // vector pairs (x, g) in flight a thread
+constexpr int kBwdMaxChannels = 2048;   // widest coefficient table (pass 2: 6 x 8 KB)
+constexpr int kBwdReduceCoefs = 3;      // pass 1's table: mean, a, c
+constexpr int kBwdApplyCoefs = 6;       // pass 2's: mean, a, c, kx, p, q
+
+// A vector of VEC elements as loaded, unconverted: 16 bytes as four words,
+// or one element's bits.
+template <typename T, int VEC>
+struct Raw {
+  uint32_t w[VEC * sizeof(T) >= 4 ? VEC * sizeof(T) / 4 : 1];
+};
+
+// kLast: the last read of these bytes (pass 2), marked evict-first in L2.
+template <bool kLast, typename T, int VEC>
+__device__ __forceinline__ void load_raw(const T* p, Raw<T, VEC>& r) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    uint4 u;
+    if constexpr (kLast) u = __ldcs(q); else u = __ldg(q);
+    r.w[0] = u.x;
+    r.w[1] = u.y;
+    r.w[2] = u.z;
+    r.w[3] = u.w;
+  } else if constexpr (sizeof(T) == 4) {
+    const unsigned int* q = reinterpret_cast<const unsigned int*>(p);
+    if constexpr (kLast) r.w[0] = __ldcs(q); else r.w[0] = __ldg(q);
   } else {
-    center = 0.f;
-    a = pmr::to_f32<T>(pmr::from_f32<T>(av));
-    c = pmr::to_f32<T>(pmr::from_f32<T>(bias[ch] - mean * av));
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    if constexpr (kLast) r.w[0] = __ldcs(q); else r.w[0] = __ldg(q);
   }
 }
 
-// g' = g, times 0.1 where the forward's pre-activation was negative (lrelu).
-__device__ __forceinline__ float slope_grad(float g, float x, float center, float a, float c,
-                                            int lrelu) {
-  return lrelu && fmaf(x - center, a, c) < 0.f ? 0.1f * g : g;
+// Lane l of a raw vector in fp32 (exact: bf16 bits are the top half of the
+// fp32's). l is a constant after unrolling, so the word is a register.
+template <typename T, int VEC>
+__device__ __forceinline__ float lane(const Raw<T, VEC>& r, int l) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(r.w[l]);
+  } else if constexpr (VEC == 1) {
+    return __uint_as_float(r.w[0] << 16);
+  } else {
+    return __uint_as_float(l % 2 ? r.w[l / 2] & 0xffff0000u : r.w[l / 2] << 16);
+  }
 }
 
-constexpr int kBwdUnroll = 4;  // vector pairs (x, g) in flight a thread
+// Lanes h * L .. h * L + L - 1 of r set to o, rounded once to T.
+template <typename T, int VEC, int L>
+__device__ __forceinline__ void put_lanes(Raw<T, VEC>& r, int h, const float (&o)[L]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < L; ++i) r.w[h * L + i] = __float_as_uint(o[i]);
+  } else if constexpr (VEC == 1) {
+    r.w[0] = __bfloat16_as_ushort(__float2bfloat16(o[0]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < L; i += 2) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(o[i], o[i + 1]);
+      r.w[(h * L + i) / 2] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+  }
+}
 
-// Per-lane sums of g' and g' * xhat over vectors v, v + stride, ... below v1.
+// Streaming store: dx is not read again by K7.
 template <typename T, int VEC>
-__device__ __forceinline__ void accumulate_bwd(const T* xb, const T* gb, long long v,
-                                               long long v1, long long stride,
-                                               const float (&k)[5][VEC], int lrelu,
-                                               float (&s)[VEC], float (&q)[VEC]) {
+__device__ __forceinline__ void store_raw(T* p, const Raw<T, VEC>& r) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]));
+  } else if constexpr (sizeof(T) == 4) {
+    __stcs(reinterpret_cast<unsigned int*>(p), r.w[0]);
+  } else {
+    __stcs(reinterpret_cast<unsigned short*>(p), static_cast<unsigned short>(r.w[0]));
+  }
+}
+
+// Coefficients from the block's shared table, L floats at p. Volatile so
+// that they are read where they are used, a row step at a time: hoisted out
+// of the loop they would be VEC x 6 live registers.
+__device__ __forceinline__ void lds(const float* p, float (&v)[4]) {
+  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void lds(const float* p, float (&v)[1]) {
+  asm volatile("ld.volatile.shared.f32 %0, [%1];\n"
+               : "=f"(v[0])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// Lanes a table load covers: a float4 of a 16-byte vector, or the one.
+template <int VEC>
+constexpr int kTabLanes = VEC >= 4 ? 4 : 1;
+
+// The block's table: ncoef rows of nt = G * VEC floats; lane l of column
+// group cg (channel (cg * VEC + l) % C) at ((l / L) * G + cg) * L + l % L,
+// so that a quarter-warp's float4 reads of consecutive groups are
+// consecutive 16 bytes. Per channel, from the forward's statistics: mean
+// and K4's pre-activation coefficients a, c (fp32: r = fmaf(x - mean, a,
+// c), c = bias; bf16: r = fmaf(x, a', c') with a', c' rounded to bf16, as
+// K4); with sums (pass 2) also dx = fmaf(kx, g', fmaf(p, x - mean, q)),
+// kx = rstd * scale, p = -kx * rstd * sum(g' xhat) / n, q = -kx * sum(g') / n.
+template <typename T, int VEC>
+__device__ __forceinline__ void bwd_table(float* tab, int nt, int G, int C, const float* st,
+                                          const float* sm, const float* scale,
+                                          const float* bias, float eps, float inv_n) {
+  constexpr int L = kTabLanes<VEC>;
+  for (int j = threadIdx.x; j < nt; j += kThreads) {
+    const int cg = j / VEC, l = j % VEC, ch = j % C;
+    const int at = ((l / L) * G + cg) * L + l % L;
+    const float mean = st[ch], rstd = rsqrtf(st[C + ch] + eps), av = rstd * scale[ch];
+    tab[at] = mean;
+    if (sizeof(T) == 4) {
+      tab[nt + at] = av;
+      tab[2 * nt + at] = bias[ch];
+    } else {
+      tab[nt + at] = pmr::to_f32<T>(pmr::from_f32<T>(av));
+      tab[2 * nt + at] = pmr::to_f32<T>(pmr::from_f32<T>(bias[ch] - mean * av));
+    }
+    if (sm != nullptr) {
+      const float kx = rstd * scale[ch];
+      tab[3 * nt + at] = kx;
+      tab[4 * nt + at] = -kx * rstd * (sm[C + ch] * inv_n);
+      tab[5 * nt + at] = -kx * (sm[ch] * inv_n);
+    }
+  }
+}
+
+// g' = g, times 0.1 where K4's pre-activation was negative (lrelu): fp32
+// fmaf(x - mean, a, c), bf16 fmaf(x, a', c'), as K4 computes it.
+template <typename T>
+__device__ __forceinline__ float slope_grad(float g, float x, float d, float a, float c,
+                                            int lrelu) {
+  const float r = sizeof(T) == 4 ? fmaf(d, a, c) : fmaf(x, a, c);
+  return lrelu && r < 0.f ? 0.1f * g : g;
+}
+
+// Pass 1's stream: per-lane sums of g' and g' * (x - mean) over vectors v,
+// v + stride, ... below v1 (of VEC elements from xb, gb), column group cg.
+template <typename T, int VEC>
+__device__ __forceinline__ void bwd_accumulate(const T* xb, const T* gb, const float* tab,
+                                               int nt, int G, int cg, int v, int v1, int stride,
+                                               int lrelu, float (&s)[VEC], float (&q)[VEC]) {
+  constexpr int L = kTabLanes<VEC>;
   for (; v < v1; v += kBwdUnroll * stride) {
-    float x[kBwdUnroll][VEC], g[kBwdUnroll][VEC];
+    Raw<T, VEC> xr[kBwdUnroll], gr[kBwdUnroll];
 #pragma unroll
     for (int u = 0; u < kBwdUnroll; ++u)
       if (v + u * stride < v1) {
-        load_vec(xb + (v + u * stride) * VEC, x[u]);
-        load_vec(gb + (v + u * stride) * VEC, g[u]);
+        load_raw<false>(xb + (size_t)(v + u * stride) * VEC, xr[u]);
+        load_raw<false>(gb + (size_t)(v + u * stride) * VEC, gr[u]);
       }
 #pragma unroll
-    for (int u = 0; u < kBwdUnroll; ++u) {
-      if (v + u * stride >= v1) continue;
+    for (int h = 0; h < VEC / L; ++h) {
+      const float* t = tab + (h * G + cg) * L;
+      float mean[L], a[L], c[L];
+      lds(t, mean);
+      lds(t + nt, a);
+      lds(t + 2 * nt, c);
 #pragma unroll
-      for (int l = 0; l < VEC; ++l) {
-        const float gg = slope_grad(g[u][l], x[u][l], k[2][l], k[3][l], k[4][l], lrelu);
-        s[l] += gg;
-        q[l] = fmaf(gg, (x[u][l] - k[0][l]) * k[1][l], q[l]);
+      for (int u = 0; u < kBwdUnroll; ++u) {
+        if (v + u * stride >= v1) continue;
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          const int l = h * L + i;
+          const float xv = lane(xr[u], l), d = xv - mean[i];
+          const float gg = slope_grad<T>(lane(gr[u], l), xv, d, a[i], c[i], lrelu);
+          s[l] += gg;
+          q[l] = fmaf(gg, d, q[l]);
+        }
       }
     }
   }
 }
 
-// K7 pass 1, shaped like K3: grid (nchunk, batch); block (chunk, b) sums g'
-// and g' * xhat over rows [chunk * chunk_rows, ...) of sample b into
-// part[b][chunk][0 / 1][c]; the sample's last block folds the chunks in
-// order into sums (B, 2, C). tickets[b] is 0 on entry and on exit.
+// Pass 2's stream, backwards: dx for vectors v, v - stride, ... down to v0.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void bwd_apply(const T* xb, const T* gb, T* dxb, const float* tab,
+                                          int nt, int G, int cg, int v, int v0, int stride,
+                                          int lrelu) {
+  constexpr int L = kTabLanes<VEC>;
+  for (; v >= v0; v -= kBwdUnroll * stride) {
+    Raw<T, VEC> xr[kBwdUnroll], gr[kBwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u)
+      if (v - u * stride >= v0) {
+        load_raw<true>(xb + (size_t)(v - u * stride) * VEC, xr[u]);
+        load_raw<true>(gb + (size_t)(v - u * stride) * VEC, gr[u]);
+      }
+#pragma unroll
+    for (int h = 0; h < VEC / L; ++h) {
+      const float* t = tab + (h * G + cg) * L;
+      float mean[L], a[L], c[L], kx[L], p[L], q[L];
+      lds(t, mean);
+      lds(t + nt, a);
+      lds(t + 2 * nt, c);
+      lds(t + 3 * nt, kx);
+      lds(t + 4 * nt, p);
+      lds(t + 5 * nt, q);
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u) {
+        if (v - u * stride < v0) continue;
+        float o[L];
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          const int l = h * L + i;
+          const float xv = lane(xr[u], l), d = xv - mean[i];
+          const float gg = slope_grad<T>(lane(gr[u], l), xv, d, a[i], c[i], lrelu);
+          o[i] = fmaf(kx[i], gg, fmaf(p[i], d, q[i]));
+        }
+        put_lanes(gr[u], h, o);  // g's lanes h * L.. are spent: dx takes them
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u)
+      if (v - u * stride >= v0) store_raw(dxb + (size_t)(v - u * stride) * VEC, gr[u]);
+  }
+}
+
+// K7 pass 1: grid (nchunk, batch); block (chunk, b) sums g' and g' * xhat
+// over rows [chunk * chunk_rows, ...) of sample b, ascending, into
+// part[b][chunk][0 / 1][c]; the sample's last block folds the chunks in
+// order into sums (B, 2, C). tickets[b] is 0 on entry and on exit. Dynamic
+// shared memory: the table, kBwdReduceCoefs x G x VEC floats.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
     in_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
                          const float* __restrict__ stats, const float* __restrict__ scale,
                          const float* __restrict__ bias, float* __restrict__ part,
                          float* __restrict__ sums, unsigned int* __restrict__ tickets,
-                         int spatial, int channels, int groups, long long rows, int chunk_rows,
+                         int spatial, int channels, int groups, int rows, int chunk_rows,
                          float eps, int lrelu) {
+  extern __shared__ __align__(16) float tab[];
   __shared__ float sh_s[kThreads * VEC];
   __shared__ float sh_q[kThreads * VEC];
   __shared__ bool is_last;
   const int chunk = blockIdx.x, b = blockIdx.y, nchunk = gridDim.x;
-  const int tid = threadIdx.x;
-  const int C = channels, G = groups;
+  const int tid = threadIdx.x, lane_id = tid % 32, warp = tid / 32;
+  const int C = channels, G = groups, nt = G * VEC;
   const T* xb = x + (size_t)b * spatial * C;
   const T* gb = g + (size_t)b * spatial * C;
   const float* st = stats + (size_t)b * 2 * C;
-  const long long r0 = (long long)chunk * chunk_rows;
-  const long long r1 = min(rows, r0 + chunk_rows);
+  const int r0 = chunk * chunk_rows;
+  const int r1 = (int)min((long long)rows, (long long)r0 + chunk_rows);
   float* out = part + ((size_t)b * nchunk + chunk) * 2 * C;
+  bwd_table<T, VEC>(tab, nt, G, C, st, nullptr, scale, bias, eps, 0.f);
+  __syncthreads();
 
-  // G <= kThreads: column cg = tid % G, its R threads share the rows, then
-  // the block adds them up in row order (one pass). Wider: thread columns
-  // cg = tid, tid + kThreads, ..., each walking every row in order.
-  const int R = G <= kThreads ? kThreads / G : 1;
-  for (int cg = G <= kThreads ? tid % G : tid; cg < G; cg += G <= kThreads ? G : kThreads) {
-    const int r = G <= kThreads ? tid / G : 0;
-    float k[5][VEC], s[VEC], q[VEC];
+  if (G <= kThreads) {  // column cg = tid % G; its R threads share the rows
+    const int R = kThreads / G, cg = tid % G, r = tid / G;
+    float s[VEC], q[VEC];
 #pragma unroll
-    for (int l = 0; l < VEC; ++l) {
-      bwd_coef<T>(st, scale, bias, C, (cg * VEC + l) % C, eps, k[0][l], k[1][l], k[2][l],
-                  k[3][l], k[4][l]);
-      s[l] = q[l] = 0.f;
-    }
+    for (int l = 0; l < VEC; ++l) s[l] = q[l] = 0.f;
     if (r < R)
-      accumulate_bwd<T, VEC>(xb, gb, (r0 + r) * G + cg, r1 * G, (long long)R * G, k, lrelu,
+      bwd_accumulate<T, VEC>(xb, gb, tab, nt, G, cg, (r0 + r) * G + cg, r1 * G, R * G, lrelu,
                              s, q);
-    if (G > kThreads) {
+    int nrows = R;  // rows of partial sums in shared memory, each G x VEC
+    if (G < 32 && 32 % G == 0) {  // a warp's rows of one column group
 #pragma unroll
-      for (int l = 0; l < VEC; ++l) {
-        out[cg * VEC + l] = s[l];
-        out[C + cg * VEC + l] = q[l];
+      for (int off = 16; off >= 1; off >>= 1) {
+        if (off < G) break;
+#pragma unroll
+        for (int l = 0; l < VEC; ++l) {
+          s[l] += __shfl_xor_sync(0xffffffffu, s[l], off);
+          q[l] += __shfl_xor_sync(0xffffffffu, q[l], off);
+        }
       }
-      continue;
-    }
-    if (r < R)
+      if (lane_id < G)
+#pragma unroll
+        for (int l = 0; l < VEC; ++l) {
+          sh_s[(warp * G + lane_id) * VEC + l] = s[l];
+          sh_q[(warp * G + lane_id) * VEC + l] = q[l];
+        }
+      nrows = kThreads / 32;
+    } else if (r < R) {
 #pragma unroll
       for (int l = 0; l < VEC; ++l) {
         sh_s[tid * VEC + l] = s[l];
         sh_q[tid * VEC + l] = q[l];
       }
+    }
     __syncthreads();
     for (int c = tid; c < C; c += kThreads) {  // rows in order
       float ts = 0.f, tq = 0.f;
-      for (int row = 0; row < R; ++row) {
+      for (int row = 0; row < nrows; ++row) {
         if (VEC > C) {  // G == 1: lanes c, c + C, ... hold channel c
           for (int l = c; l < VEC; l += C) {
             ts += sh_s[row * VEC + l];
@@ -644,9 +848,21 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       out[c] = ts;
-      out[C + c] = tq;
+      out[C + c] = tq * rsqrtf(st[C + c] + eps);  // sum g' (x - mean) * rstd
     }
-    break;  // G <= kThreads: one pass covers every column
+  } else {  // wider than a block: each thread walks every row of its groups
+    for (int cg = tid; cg < G; cg += kThreads) {
+      float s[VEC], q[VEC];
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) s[l] = q[l] = 0.f;
+      bwd_accumulate<T, VEC>(xb, gb, tab, nt, G, cg, r0 * G + cg, r1 * G, G, lrelu, s, q);
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) {
+        const int c = cg * VEC + l;
+        out[c] = s[l];
+        out[C + c] = q[l] * rsqrtf(st[C + c] + eps);
+      }
+    }
   }
 
   __threadfence();
@@ -669,54 +885,35 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) tickets[b] = 0u;
 }
 
-// K7 pass 2, shaped like K4: grid (blocks a sample, batch); thread i < active
-// of sample b keeps channels ((i % groups) * VEC + l) % C and writes
-// dx = rstd * scale * (g' - sum(g') / n - xhat * sum(g' xhat) / n) for
-// vectors i, i + active, ... of the sample.
+// K7 pass 2: pass 1's grid; block (chunk, b) writes dx over the rows of
+// pass 1's chunk, descending from its last row: the rows pass 1 read last,
+// still in L2, are read first. Dynamic shared memory: the table,
+// kBwdApplyCoefs x G x VEC floats.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
     in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
                         const float* __restrict__ stats, const float* __restrict__ sums,
                         const float* __restrict__ scale, const float* __restrict__ bias,
-                        T* __restrict__ dx, int per_batch, int channels, int groups, int active,
-                        float eps, int lrelu) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= active) return;
-  const int b = blockIdx.y, C = channels;
-  const long long nvec = per_batch / VEC, stride = active;
-  const size_t base = (size_t)b * per_batch;
-  const float* st = stats + (size_t)b * 2 * C;
-  const float* sm = sums + (size_t)b * 2 * C;
-  const float inv_n = 1.f / (float)(per_batch / C);
-  const int ch0 = (i % groups) * VEC;
-  float k[5][VEC], kx[VEC], m1[VEC], m2[VEC];
-#pragma unroll
-  for (int l = 0; l < VEC; ++l) {
-    const int ch = (ch0 + l) % C;
-    bwd_coef<T>(st, scale, bias, C, ch, eps, k[0][l], k[1][l], k[2][l], k[3][l], k[4][l]);
-    kx[l] = k[1][l] * scale[ch];
-    m1[l] = sm[ch] * inv_n;
-    m2[l] = sm[C + ch] * inv_n;
-  }
-  for (long long v = i; v < nvec; v += kApplyUnroll * stride) {
-    float xv[kApplyUnroll][VEC], gv[kApplyUnroll][VEC];
-#pragma unroll
-    for (int u = 0; u < kApplyUnroll; ++u)
-      if (v + u * stride < nvec) {
-        load_vec(x + base + (v + u * stride) * VEC, xv[u]);
-        load_vec(g + base + (v + u * stride) * VEC, gv[u]);
-      }
-#pragma unroll
-    for (int u = 0; u < kApplyUnroll; ++u) {
-      if (v + u * stride >= nvec) continue;
-#pragma unroll
-      for (int l = 0; l < VEC; ++l) {
-        const float gg = slope_grad(gv[u][l], xv[u][l], k[2][l], k[3][l], k[4][l], lrelu);
-        const float xh = (xv[u][l] - k[0][l]) * k[1][l];
-        gv[u][l] = kx[l] * (gg - m1[l] - xh * m2[l]);
-      }
-      store_vec(dx + base + (v + u * stride) * VEC, gv[u]);
-    }
+                        T* __restrict__ dx, int spatial, int channels, int groups, int rows,
+                        int chunk_rows, float eps, int lrelu) {
+  extern __shared__ __align__(16) float tab[];
+  const int chunk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int C = channels, G = groups, nt = G * VEC;
+  const size_t base = (size_t)b * spatial * C;
+  const int r0 = chunk * chunk_rows;
+  const int r1 = (int)min((long long)rows, (long long)r0 + chunk_rows);
+  bwd_table<T, VEC>(tab, nt, G, C, stats + (size_t)b * 2 * C, sums + (size_t)b * 2 * C, scale,
+                    bias, eps, 1.f / (float)spatial);
+  __syncthreads();
+  if (G <= kThreads) {  // row step j: rows [r1 - (j + 1) R, r1 - j R), thread r its r-th
+    const int R = kThreads / G, cg = tid % G, r = tid / G;
+    if (r < R)
+      bwd_apply<T, VEC>(x + base, g + base, dx + base, tab, nt, G, cg, (r1 - R + r) * G + cg,
+                        r0 * G, R * G, lrelu);
+  } else {
+    for (int cg = tid; cg < G; cg += kThreads)
+      bwd_apply<T, VEC>(x + base, g + base, dx + base, tab, nt, G, cg, (r1 - 1) * G + cg,
+                        r0 * G, G, lrelu);
   }
 }
 
@@ -724,20 +921,20 @@ template <typename T, int VEC>
 int backward_impl(const void* x, const void* g, const float* stats, const float* scale,
                   const float* bias, float* part, float* sums, unsigned int* tickets, void* dx,
                   int batch, int spatial, int channels, float eps, int lrelu, int chunk_rows,
-                  int nchunk, int blocks, int active, cudaStream_t stream) {
+                  int nchunk, cudaStream_t stream) {
   const int groups = channels % VEC == 0 ? channels / VEC : 1;
-  const long long rows = (long long)spatial * channels / VEC / groups;
-  if (nchunk != (rows + chunk_rows - 1) / chunk_rows || active < groups ||
-      active % groups != 0 || active > blocks * kThreads)
-    return (int)cudaErrorInvalidValue;
-  in_bwd_reduce_kernel<T, VEC><<<dim3(nchunk, batch), kThreads, 0, stream>>>(
+  const int rows = (int)((long long)spatial * channels / VEC / groups);
+  if (nchunk != ((long long)rows + chunk_rows - 1) / chunk_rows) return (int)cudaErrorInvalidValue;
+  const size_t table = (size_t)groups * VEC * sizeof(float);
+  const dim3 grid(nchunk, batch);
+  in_bwd_reduce_kernel<T, VEC><<<grid, kThreads, kBwdReduceCoefs * table, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), stats, scale, bias, part, sums,
       tickets, spatial, channels, groups, rows, chunk_rows, eps, lrelu);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  in_bwd_apply_kernel<T, VEC><<<dim3(blocks, batch), kThreads, 0, stream>>>(
+  in_bwd_apply_kernel<T, VEC><<<grid, kThreads, kBwdApplyCoefs * table, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), stats, sums, scale, bias,
-      static_cast<T*>(dx), spatial * channels, channels, groups, active, eps, lrelu);
+      static_cast<T*>(dx), spatial, channels, groups, rows, chunk_rows, eps, lrelu);
   return (int)cudaGetLastError();
 }
 
@@ -745,7 +942,7 @@ template <typename T, int VEC>
 int backward_route(const void* x, const void* g, const float* stats, const float* scale,
                    const float* bias, float* part, float* sums, unsigned int* tickets, void* dx,
                    int batch, int spatial, int channels, float eps, int lrelu, int vec,
-                   int chunk_rows, int nchunk, int blocks, int active, cudaStream_t stream) {
+                   int chunk_rows, int nchunk, cudaStream_t stream) {
   if (vec == VEC) {
     if (!(channels % VEC == 0 || VEC % channels == 0) ||
         ((long long)spatial * channels) % VEC != 0 ||
@@ -753,13 +950,11 @@ int backward_route(const void* x, const void* g, const float* stats, const float
          reinterpret_cast<uintptr_t>(dx)) % 16 != 0)
       return (int)cudaErrorInvalidValue;
     return backward_impl<T, VEC>(x, g, stats, scale, bias, part, sums, tickets, dx, batch,
-                                 spatial, channels, eps, lrelu, chunk_rows, nchunk, blocks,
-                                 active, stream);
+                                 spatial, channels, eps, lrelu, chunk_rows, nchunk, stream);
   }
   if (vec == 1)
     return backward_impl<T, 1>(x, g, stats, scale, bias, part, sums, tickets, dx, batch,
-                               spatial, channels, eps, lrelu, chunk_rows, nchunk, blocks,
-                               active, stream);
+                               spatial, channels, eps, lrelu, chunk_rows, nchunk, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -768,15 +963,16 @@ int backward_route(const void* x, const void* g, const float* stats, const float
 // K7: x, g, dx (B, spatial, C) contiguous; stats (B, 2, C) from K3; scale,
 // bias (C,) fp32; part (B, nchunk, 2, C) fp32 scratch; sums (B, 2, C) fp32
 // output [sum g', sum g' * xhat]; tickets: B zeroed counters (left zeroed).
-// vec, chunk_rows, nchunk from ops/normalization.py in_stats_plan (of x and
-// g together); blocks, active from in_apply_plan. Two launches on `stream`.
+// vec, chunk_rows, nchunk from ops/normalization.py in_backward_plan; C at
+// most kBwdMaxChannels. Two launches on `stream`, one grid (nchunk, B).
 extern "C" int pmr_in_backward(const void* x, const void* g, const void* stats,
                                const void* scale, const void* bias, void* part, void* sums,
                                void* tickets, void* dx, int dtype, int batch, int spatial,
                                int channels, float eps, int lrelu, int vec, int chunk_rows,
-                               int nchunk, int blocks, int active, void* stream) {
-  if (batch < 1 || batch > 65535 || spatial < 1 || channels < 1 || chunk_rows < 1 ||
-      nchunk < 1 || blocks < 1 || tickets == nullptr)
+                               int nchunk, void* stream) {
+  if (batch < 1 || batch > 65535 || spatial < 1 || channels < 1 ||
+      channels > kBwdMaxChannels || (long long)spatial * channels >= (1LL << 31) ||
+      chunk_rows < 1 || nchunk < 1 || tickets == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* st = static_cast<const float*>(stats);
@@ -787,11 +983,10 @@ extern "C" int pmr_in_backward(const void* x, const void* g, const void* stats,
   unsigned int* tk = static_cast<unsigned int*>(tickets);
   if (dtype == pmr::kBFloat16)
     return backward_route<__nv_bfloat16, 8>(x, g, st, sc, bi, pa, su, tk, dx, batch, spatial,
-                                            channels, eps, lrelu, vec, chunk_rows, nchunk,
-                                            blocks, active, s);
+                                            channels, eps, lrelu, vec, chunk_rows, nchunk, s);
   if (dtype == pmr::kFloat32)
     return backward_route<float, 4>(x, g, st, sc, bi, pa, su, tk, dx, batch, spatial, channels,
-                                    eps, lrelu, vec, chunk_rows, nchunk, blocks, active, s);
+                                    eps, lrelu, vec, chunk_rows, nchunk, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,7 +34,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib = None
-build_log = ""  # nvcc's stderr of the last build (ptxas register/spill report)
+build_log = ""  # nvcc's stderr of the library's build (ptxas register/spill report)
 build_seconds = {}  # each source's compile and the link, in the last build
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -44,7 +44,7 @@ _SIGNATURES = {
     "pmr_in_apply": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP],
     "pmr_gemm_loop": [_VP, _VP, _VP, _VP, _VP, _VP],
     "pmr_conv3d_wgrad": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
-    "pmr_in_backward": [_VP] * 9 + [_I] * 4 + [_F] + [_I] * 6 + [_VP],
+    "pmr_in_backward": [_VP] * 9 + [_I] * 4 + [_F] + [_I] * 4 + [_VP],
 }
 
 
@@ -76,6 +76,9 @@ def build() -> str:
     global build_log, build_seconds
     out = os.path.join(BUILD_DIR, f"libpmr_kernels_{_digest()}.so")
     if os.path.exists(out):
+        if os.path.exists(out + ".log"):  # the ptxas report of the build that made it
+            with open(out + ".log") as f:
+                build_log = f.read()
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
@@ -109,6 +112,9 @@ def build() -> str:
                                f"{link.stderr[-6000:]}")
         seconds["link"] = round(time.perf_counter() - t0, 3)
         build_seconds = seconds
+        with open(f"{out}.log.{tag}", "w") as f:
+            f.write(build_log)
+        os.replace(f"{out}.log.{tag}", out + ".log")
         os.replace(tmp, out)
     finally:
         for log in logs:

@@ -15,8 +15,9 @@ its source note in ``csrc/instance_norm.cu``:
   * K3 :func:`in_stats` — (B, 2, C) fp32 mean and variance;
   * K4 :func:`in_apply` — the normalizing affine, LeakyReLU(0.1) fused on
     request;
-  * K7 :func:`in_backward` — the gradient of both (+ LReLU), whose
-    ``torch.autograd.Function`` :func:`instance_norm` uses under autograd.
+  * K7 :func:`in_backward` — the gradient of both (+ LReLU) over the grid
+    of :func:`in_backward_plan`, whose ``torch.autograd.Function``
+    :func:`instance_norm` uses under autograd.
 
 Cross-shard statistics (``ShardedStats``, ``revacuum``) wait for the
 multi-GPU slice.
@@ -306,6 +307,44 @@ def in_backward_plain(x, g, stats, scale, bias, lrelu=False, epsilon=EPSILON):
     return dx.to(x.dtype), torch.stack([s1, s2], dim=1)
 
 
+BWD_BLOCKS_PER_SM = 4         # K7's blocks an SM at <= 64 registers (kBwdMinBlocks)
+BWD_TARGET_BLOCKS = BWD_BLOCKS_PER_SM * SMS  # one wave of K7's grid where the tensor allows
+BWD_MAX_CHANNELS = 2048       # K7's widest coefficient table (kBwdMaxChannels)
+
+
+def in_backward_plan(batch: int, spatial: int, channels: int, itemsize: int,
+                     aligned: bool = True) -> dict:
+    """The grid of K7 (csrc/instance_norm.cu in_bwd_reduce_kernel and
+    in_bwd_apply_kernel, one grid for both) for x and g of (batch, spatial,
+    channels) ``itemsize``-byte elements; ``aligned``: x, g and dx all
+    16-byte aligned.
+
+    Routes, ``vec`` and ``groups`` as :func:`in_stats_plan`'s. Each
+    sample's ``rows`` (``groups`` vectors each) are cut into ``nchunk``
+    chunks of ``chunk_rows``: as many as give BWD_TARGET_BLOCKS blocks in
+    all (one wave at BWD_BLOCKS_PER_SM blocks an SM), no more than leave a
+    chunk STAT_MIN_CHUNK_BYTES of x, and no more than STAT_FOLD_FLOATS
+    partials to fold a sample. Block (chunk, b) takes the same rows in both
+    passes, THREADS // groups at a time (one where a row is wider than the
+    block): pass 1 ascending from the chunk's first row, pass 2 descending
+    from its last, so pass 2 starts on what pass 1 read last. Refuses C
+    above BWD_MAX_CHANNELS (the kernels' coefficient tables).
+    """
+    _check_plan_args("in_backward", batch, spatial, channels, itemsize)
+    if channels > BWD_MAX_CHANNELS:
+        raise ValueError(f"in_backward: takes at most {BWD_MAX_CHANNELS} channels, "
+                         f"got {channels}")
+    route, vec, groups = _vector_route(spatial, channels, itemsize, aligned)
+    rows = spatial * channels // (vec * groups)
+    per_sample = min(-(-BWD_TARGET_BLOCKS // batch),
+                     max(1, rows * groups * vec * itemsize // STAT_MIN_CHUNK_BYTES),
+                     max(1, STAT_FOLD_FLOATS // (2 * channels)))
+    chunk_rows = -(-rows // per_sample)
+    nchunk = -(-rows // chunk_rows)
+    return dict(route=route, vec=vec, groups=groups, rows=rows, chunk_rows=chunk_rows,
+                nchunk=nchunk, blocks=batch * nchunk)
+
+
 def in_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor, lrelu: bool = False, epsilon: float = EPSILON):
     """K7: the gradient of K3 + K4 (+ LReLU) with respect to x for the
@@ -316,10 +355,11 @@ def in_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale: to
     Replaces the backward of the retired ``fused_norm.py`` (git
     ``cef1717^``, ``_vjp_bwd`` :181, run by XLA; TPU kernel table row 5).
     Bound on the H100: bytes (x and g read twice, dx written once). Two
-    launches (csrc/instance_norm.cu): a reduce over K3's grid with its
-    fixed-order fold, and an apply over K4's grid, 16-byte loads where x, g
-    and dx allow. The LReLU's slope is recomputed from x and the statistics
-    as K4 computed it; no activation is saved. One count a call.
+    launches (csrc/instance_norm.cu) over the grid of
+    :func:`in_backward_plan`: a reduce with a fixed-order fold, and an apply
+    that walks each chunk backwards; 16-byte loads where x, g and dx allow.
+    The LReLU's slope is recomputed from x and the statistics as K4
+    computed it; no activation is saved. One count a call.
     """
     _check_5d("in_backward", x)
     if not cuda_lib.use_kernel("in_backward", x):
@@ -338,19 +378,17 @@ def in_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, scale: to
         raise ValueError("in_backward: x and g must be contiguous NDHWC")
     spatial = int(x.shape[1] * x.shape[2] * x.shape[3])
     dx = torch.empty_like(x)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, dx))
-    splan = in_stats_plan(b, spatial, c, x.element_size(), aligned)
-    aplan = in_apply_plan(b, spatial, c, x.element_size(), aligned)
-    part = torch.empty((b, splan["nchunk"], 2, c), dtype=torch.float32, device=x.device)
+    plan = in_backward_plan(b, spatial, c, x.element_size(),
+                            all(t.data_ptr() % 16 == 0 for t in (x, g, dx)))
+    part = torch.empty((b, plan["nchunk"], 2, c), dtype=torch.float32, device=x.device)
     sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
     lib = cuda_lib.library()
     in_backward.launches += 1
     rc = lib.pmr_in_backward(x.data_ptr(), g.data_ptr(), stats.data_ptr(), scale.data_ptr(),
                              bias.data_ptr(), part.data_ptr(), sums.data_ptr(),
                              _tickets(x.device, b).data_ptr(), dx.data_ptr(), code, b, spatial,
-                             c, float(epsilon), int(bool(lrelu)), splan["vec"],
-                             splan["chunk_rows"], splan["nchunk"], aplan["blocks_per_sample"],
-                             aplan["active"], cuda_lib.stream_of(x))
+                             c, float(epsilon), int(bool(lrelu)), plan["vec"],
+                             plan["chunk_rows"], plan["nchunk"], cuda_lib.stream_of(x))
     cuda_lib.check(rc, "in_backward")
     return dx, sums
 

@@ -558,7 +558,7 @@ def test_card_data_gradient_at_extents_that_are_not_output_times_stride(cuda_dev
 @pytest.mark.cuda
 @pytest.mark.parametrize("lrelu", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [1, 12, 65, 300])
+@pytest.mark.parametrize("c", [1, 4, 8, 12, 16, 65, 300])
 def test_card_in_backward_matches_plain_and_reruns_bit_equal(cuda_device, c, dtype, lrelu):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     x = (torch.randn(2, 5, 9, 10, c, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)

@@ -5,7 +5,8 @@ calls, K6 and K7), per dtype, on one GPU, and each CUDA kernel's ptxas
 report.
 
     python3 tools/kernel_times.py [--step forward|train] [--batch 2]
-                                  [--dtypes float32 bfloat16] [--library] [--out FILE]
+                                  [--dtypes float32 bfloat16] [--kernels NAME ...]
+                                  [--library] [--split] [--out FILE]
 
 Every distinct kernel call of the cfg1 forward (or of the train step of the
 CLI's default recipe, ``chip_smoke.TRAIN_CFG``) at ``--batch`` is timed as
@@ -14,13 +15,17 @@ between CUDA events, after warm-up) and weighted by its count;
 ``--library`` also times the one torch call computing the same function
 (cuDNN: ``F.conv3d``, ``F.conv_transpose3d`` for K2 and the data gradients
 it computes, ``torch.nn.grad.conv3d_weight`` for K6; fp32 with TF32 off).
+``--kernels`` times only the kernels named (wrapper names, e.g.
+``in_backward``); ``--split`` adds each shape's device time by CUDA kernel
+(``kernels_us``, a call's share of ``--reps`` calls under torch.profiler,
+outside the graph), e.g. K7's two passes.
 Inputs are drawn on the
 card from a fixed seed. Run it from the root of a checkout: it uses that
 checkout's package and ``chip_smoke.py``, and builds that checkout's
 kernels, so ``ptxas`` lists each compiled variant's registers and spills
-(empty where the library was already built). To compare two versions,
-unpack one into a directory of the other and run the script from each root
-in turns, on one card: A, B, B, A. Prints one JSON line: the card, then
+(from the log kept beside the library where it was already built). To
+compare two versions, unpack one into a directory of the other and run the
+script from each root in turns, on one card: A, B, B, A. Prints one JSON line: the card, then
 per dtype and kernel the sum over the forward (ms); ``--out`` gets the same
 with each shape's time and the ptxas report.
 """
@@ -61,6 +66,21 @@ def ptxas_variants(log):
     return out
 
 
+def kernel_split(cs, run, reps):
+    """{CUDA kernel name: device us a call} over ``reps`` calls of ``run``
+    under torch.profiler, after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    return {k: v / reps for k, v in cs.device_time(prof)[1].items()}
+
+
 def _calls(cs, cv, nm, name, sig, dtype, gen):
     """(the kernel call, its library call or None) at one path signature."""
     import torch
@@ -93,7 +113,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--kernels", nargs="+", default=None)
     ap.add_argument("--library", action="store_true")
+    ap.add_argument("--split", action="store_true")
     ap.add_argument("--out", type=str, default=None)
     args = ap.parse_args(argv)
 
@@ -122,10 +144,14 @@ def main(argv=None):
                  if args.step == "train" else cs.trace_path_calls(args.batch, dtype))
         per = {}
         for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
+            if args.kernels and name not in args.kernels:
+                continue
             run, lib = _calls(cs, cv, nm, name, sig, dtype, gen)
             row = {"sig": sig, "count": count, "ms": cs.time_ms(run, args.reps)}
             if args.library and lib is not None:
                 row["library_ms"] = cs.time_ms(lib, args.reps)
+            if args.split:
+                row["kernels_us"] = kernel_split(cs, run, args.reps)
             per.setdefault(name, []).append(row)
         out[dn] = {}
         for name, rows in per.items():
