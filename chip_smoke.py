@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU (deterministic,
 Monte-Carlo and sliding-window M1 serving, cfg2, the probabilistic and the
-cascaded M1, the GEMM-rate probe, a train step of the CLI's default recipe
-and evaluate.run) and hold every hand-written kernel against its
+cascaded M1, the GEMM-rate probe, the augmentation and train steps of the
+CLI's default recipe fed by the data layer, and evaluate.run) and hold every hand-written kernel against its
 plain twin.
 
     python3 chip_smoke.py [--seed 0] [--out FILE]
@@ -76,22 +76,40 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                requests of 2 two-exam volumes; serve.run on one 24x256x256
                two-exam case (an image_path_2 manifest, fp32); fp32 card vs
                CPU <= 1e-3 of one window; one request profiled.
- 12. train     the CLI's default recipe at cfg1 width (monte-carlo dropout
+ 12. augment   the CLI's default --AUGM_PARAMS on a cfg1-window batch of 2
+               (20x160x160x3 image, 2-channel label, its dist_map): card
+               against CPU on the same host-drawn replayed draws, every gate
+               forced on and every gate off, |diff| <= 1e-4 max(1, |ref|);
+               a generator run twice, under torch.cuda.set_sync_debug_mode
+               ("error"): the same bits, each voxel's label channels summing
+               to 1 within 1e-5; device ms by CUDA events (generator runs)
+               and replayed from a CUDA graph (draws on the card), and the
+               device kernels of one pass from the profiler.
+ 13. train     the CLI's default recipe at cfg1 width (monte-carlo dropout
                0.5, focal (1, 1) gamma 2, Keras amsgrad 1e-3 on CALR, L2
-               1e-5), fp32: one step on the card against the same step on
-               the CPU (batch 1, host-drawn keep-masks replayed on both)
+               1e-5, augmentation AugmentParams.from_list of the default
+               --AUGM_PARAMS), fp32: one step on the card against the same
+               step on the CPU (batch 1, host-drawn keep-masks and
+               augmentation draws replayed on both)
                and the CPU's fp64 evaluation: loss <= 1e-4 relative;
                every gradient leaf max|diff| / max(1, max|ref|) <= 5e-2
                and all leaves together <= 1e-3 (relative L2), each leaf's
                distance to fp64 and the leaves over 1e-3 reported (the
                CPU's own fp32 step lies up to ~2e-2 from fp64 on deep
-               leaves); then 8 steps at batch 2, each
-               launching exactly what a meta trace of the step counts
-               (K1-K4, K6 conv3d_wgrad, K7 in_backward), every loss finite;
-               median step wall (steps 2-8), peak memory, one step profiled
-               (busy share; K6's and K7's CUDA kernels must show); one bf16
-               step with a finite loss and the same launches.
- 13. evaluate  evaluate.run (fp32, lesion task) on a cfg1 checkpoint and 4
+               leaves); then 8 augmented steps at batch 2 fed by
+               data.custom_data_generator -> batch_iterator(prefetch=2)
+               over synthetic labelled .npy cases and their manifest, then
+               8 pairs of steps in turns with augmentation off and on
+               (off, on, on, off, ...), each step launching exactly what a
+               meta trace of the step counts (K1-K4, K6 conv3d_wgrad, K7
+               in_backward; augmentation launches none of them), every loss
+               finite; the median step wall (steps 2-8) and the medians of
+               the pairs' walls on and off, peak memory, one augmented step
+               profiled (busy
+               share; K6's and K7's CUDA kernels must show; the device ms
+               of the kernels under the "augment" range and their share);
+               one bf16 step with a finite loss and the same launches.
+ 14. evaluate  evaluate.run (fp32, lesion task) on a cfg1 checkpoint and 4
                labelled window-sized cases, two with a lesion: the JAX
                package's metric keys, values in [0, 1], AUROC defined; each
                case's probabilities within 1e-3 of the CPU path's; one
@@ -204,6 +222,10 @@ TRAIN_PROFILE_NAMES = PROFILE_KERNEL_NAMES + PTXAS_NAMES["conv3d_wgrad"] + \
 TRAIN_CFG = dict(CFG1, dropout_mode="monte-carlo", dropout_rate=0.5,
                  kernel_regularizer=1e-5, bias_regularizer=1e-5)
 TRAIN_STEPS = 8
+TRAIN_CASES = 6  # synthetic labelled cases behind the train phase's data layer
+# the CLI's default --AUGM_PARAMS (prostatemr_3d_cad_cspca_tpu/cli.py:90-91)
+AUGM_PARAMS = "1.00,0.25,0.15,10.0,1,1.20,0.10,0.025,1,0.50,1.50"
+AUGMENT_TOL = 1e-4  # augmentation, card vs CPU: |diff| / max(1, |ref|)
 GRAD_LEAF_TOL, GRAD_L2_TOL = 5e-2, 1e-3  # card vs CPU train-step gradients (phase_train)
 TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = TRAIN_STEPS, 250
 EVAL_CASES = 4
@@ -1400,6 +1422,12 @@ def phase_serve_cascade(tmp, seed, smi):
     return launches
 
 
+def _is_range(evt):
+    """A ``record_function`` range shown on the device's timeline (it spans
+    its kernels and the gaps between them), not a kernel."""
+    return bool(getattr(evt, "is_user_annotation", False)) or evt.name == "augment"
+
+
 def device_time(prof):
     """(device busy us: the union of the device's intervals, device us by
     kernel name, device events) of a torch.profiler run."""
@@ -1407,7 +1435,8 @@ def device_time(prof):
 
     spans, by_name = [], collections.Counter()
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.time_range.elapsed_us() > 0:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.time_range.elapsed_us() > 0 \
+                and not _is_range(evt):
             spans.append((evt.time_range.start, evt.time_range.end))
             ident = re.search(r"(\w+)[<(]", evt.name)
             by_name[ident.group(1) if ident else evt.name[:40]] += evt.time_range.elapsed_us()
@@ -1465,21 +1494,177 @@ def train_draws(cfg, batch, seed):
     return {k: rng.random(v) < 1.0 - cfg["dropout_rate"] for k, v in sorted(shapes.items())}
 
 
-def _grad_step(ckpt, device, batch, draws, dtype=None):
+def _grad_step(ckpt, device, batch, draws, dtype=None, augment=None):
     """(loss, {leaf: gradient on the host}) of one train step, fp32 unless
     ``dtype`` says otherwise (fp64: the CPU's exact evaluation)."""
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
     from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
 
     model, opt = M1.load(ckpt, device=device, dtype=dtype), _CaptureOpt()
-    state, metrics = tt.make_train_step(model, tt.make_loss(), opt)(
+    state, metrics = tt.make_train_step(model, tt.make_loss(), opt, augment_params=augment)(
         tt.init_train_state(model, opt), batch, draws)
     return float(metrics["loss"]), {k: g.float().cpu() for k, g in state.opt_state.items()}
 
 
+def cli_augment_params():
+    """``AugmentParams.from_list`` of the CLI's default --AUGM_PARAMS, parsed
+    as the CLI parses it (cli.py:104-107)."""
+    from prostatemr_3d_cad_cspca_tpu_torch.augment import AugmentParams
+
+    v = [float(x) for x in AUGM_PARAMS.split(",")]
+    return AugmentParams.from_list([v[0], v[1], v[2], v[3], bool(v[4]), v[5], v[6], v[7],
+                                    bool(v[8]), (v[9], v[10])])
+
+
+def augment_draws(params, shape, seed, force=None):
+    """One augmentation pass's draws for a batch of ``shape`` (B, D, H, W, C),
+    made by numpy on the host under the replay names of ``augment``: the
+    gates' and coins' uniforms drawn, or all ``force`` (1.0: every gate on;
+    0.0: every gate off), the values drawn in their ranges."""
+    import math
+
+    from prostatemr_3d_cad_cspca_tpu_torch.augment import DRAW_NAMES
+
+    p, (B, D, H, W, _), n = params, shape, 3
+    rng = np.random.default_rng(seed)
+
+    def uniforms(*dims):
+        u = rng.random((B, *dims)).astype(np.float32)
+        return u if force is None else np.full_like(u, force)
+
+    d = {k: uniforms() for k in DRAW_NAMES if k == "master" or k.endswith("_on")}
+    mh, mw = math.ceil(H * p.translate_factor), math.ceil(W * p.translate_factor)
+    ch, cw = math.ceil(H * p.chan_shift_factor), math.ceil(W * p.chan_shift_factor)
+    d.update(zoom_scale=rng.integers(H, math.ceil(H * p.zoom_factor), B),
+             rot_angle=rng.uniform(-p.rotation_degree, p.rotation_degree, B).astype(np.float32),
+             trans_pads=np.stack([rng.integers(0, m, B) for m in (mh, mh, mw, mw)], 1),
+             cs_pads=np.stack([rng.integers(0, m, B) for m in (ch, ch, cw, cw)], 1),
+             cs_channel=rng.integers(0, 3, B),
+             gamma=rng.uniform(*p.gamma_correct, B).astype(np.float32),
+             gamma_channel=uniforms(n), poor_channel=uniforms(n),
+             noise_std=rng.uniform(0, p.gauss_noise_stddev, B).astype(np.float32),
+             noise=rng.standard_normal((B, D, H, W, n), dtype=np.float32))
+    return d
+
+
+def range_device_ms(prof, name):
+    """(device ms, kernels) launched inside the ``record_function`` range
+    ``name`` of a torch.profiler run, summed over its occurrences."""
+    import torch
+
+    def kernels(evt):
+        return len(evt.kernels) + sum(kernels(c) for c in evt.cpu_children)
+
+    found = [e for e in prof.events()
+             if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+    return (sum(e.device_time_total for e in found) / 1e3,
+            sum(kernels(e) for e in found))
+
+
+def phase_augment(seed, smi):
+    """The CLI's default augmentation at the cfg1 window, batch 2, fp32:
+    card vs CPU on replayed draws (every gate on, every gate off); a
+    generator run twice under the sync debug mode "error"; its times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from prostatemr_3d_cad_cspca_tpu_torch import augment as ta
+    from prostatemr_3d_cad_cspca_tpu_torch import prng
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.edt import signed_distance_map
+
+    p = cli_augment_params()
+    host = train_batch(seed + 40, 2)
+    host["dist_map"] = signed_distance_map(host["detection"][..., 1:])
+    cpu = {k: torch.from_numpy(v) for k, v in host.items()}
+    card = {k: v.cuda() for k, v in cpu.items()}
+    shape = host["image"].shape
+    errors = {}
+    for label, force in (("gates_on", 1.0), ("gates_off", 0.0)):
+        draws = augment_draws(p, shape, seed + 41, force)
+        got = ta.augment_batch({k: torch.as_tensor(v).cuda() for k, v in draws.items()},
+                               card, p)
+        ref = ta.augment_batch({k: torch.as_tensor(v) for k, v in draws.items()}, cpu, p)
+        errors[label] = {k: _errors(got[k].cpu(), ref[k])[1] for k in host}
+        if force == 0.0 and not all(torch.equal(ref[k], cpu[k]) for k in host):
+            raise AssertionError("augment: every gate off changed the batch")
+        if force == 1.0 and torch.equal(ref["image"], cpu["image"]):
+            raise AssertionError("augment: every gate on left the image as it was")
+    worst = max(e for errs in errors.values() for e in errs.values())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside the pass raises
+    try:
+        a = ta.augment_batch(prng.generator(seed, "cuda"), card, p)
+        b = ta.augment_batch(prng.generator(seed, "cuda"), card, p)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same_bits = all(torch.equal(a[k], b[k]) for k in host)
+    label_sum_err = float((a["detection"].sum(-1) - 1.0).abs().max())
+    on_card = {k: torch.as_tensor(v, device="cuda")
+               for k, v in augment_draws(p, shape, seed + 42, 1.0).items()}
+    graph_ms = time_ms(lambda: ta.augment_batch(on_card, card, p), REPS)
+    gens = [prng.generator(seed + 100 + i, "cuda") for i in range(REPS + 1)]
+    ta.augment_batch(gens[-1], card, p)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for g in gens[:REPS]:
+        ta.augment_batch(g, card, p)
+    stop.record()
+    torch.cuda.synchronize()
+    events_ms = start.elapsed_time(stop) / REPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ta.augment_batch(prng.generator(seed + 1, "cuda"), card, p)
+        torch.cuda.synchronize()
+    range_ms, range_kernels = range_device_ms(prof, "augment")
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not _is_range(e) and e.time_range.elapsed_us() > 0]
+    nbytes = sum(v.nbytes for v in host.values()) * 2  # read once, written once
+    emit({"phase": "augment", "card": smi, "batch": shape[0], "shape": list(shape[1:]),
+          "params": AUGM_PARAMS, "card_vs_cpu": errors, "card_vs_cpu_worst": worst,
+          "tol": AUGMENT_TOL, "generator_same_bits": same_bits,
+          "label_sum_err": label_sum_err, "sync_debug": "error",
+          "events_ms": events_ms, "graph_ms": graph_ms,
+          "profiled_device_ms": sum(e.time_range.elapsed_us() for e in device) / 1e3,
+          "profiled_kernels": len(device), "range_device_ms": range_ms,
+          "range_kernels": range_kernels, "batch_bytes_in_out": nbytes,
+          "bound_ms": bound_ms(nbytes, 0)[0]})
+    if not worst <= AUGMENT_TOL:
+        raise AssertionError(f"augment: card vs CPU differs by {errors}")
+    if not same_bits:
+        raise AssertionError("augment: the same generator seed gave other bits")
+    if not label_sum_err <= 1e-5:
+        raise AssertionError(f"augment: label channels sum to 1 +- {label_sum_err}")
+
+
+def write_train_cases(tmp, seed, n):
+    """``n`` synthetic labelled cases at the cfg1 window (an .npy image, an
+    .npy of lesion grades: a block of grade 2 or 3 and scattered grade-3
+    voxels) and their manifest; returns the manifest's path."""
+    import csv
+
+    rng = np.random.default_rng(seed)
+    spatial = CFG1["input_spatial_dims"]
+    rows = []
+    for i in range(n):
+        img_path = os.path.join(tmp, f"train{i}_image.npy")
+        lab_path = os.path.join(tmp, f"train{i}_label.npy")
+        np.save(img_path, rng.normal(size=(*spatial, 3)).astype(np.float32))
+        grades = np.where(rng.random(spatial) < 0.01, 3.0, 0.0).astype(np.float32)
+        grades[8:12, 50 + 5 * i:90 + 5 * i, 70:110] = 2.0 + i % 2
+        np.save(lab_path, grades)
+        rows.append({"p-id": f"train{i}", "image_path": img_path, "label_path": lab_path})
+    path = os.path.join(tmp, "train-fold-0.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return path
+
+
 def profile_step(step, state, batch, rng, names=TRAIN_PROFILE_NAMES):
     """One train step under torch.profiler: (state, wall ms, device busy ms,
-    device ms by kernel name); raises unless every kernel of ``names`` ran."""
+    device ms by kernel name, (device ms, kernels) under the "augment"
+    range); raises unless every kernel of ``names`` ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1493,27 +1678,54 @@ def profile_step(step, state, batch, rng, names=TRAIN_PROFILE_NAMES):
     missing = [k for k in names if k not in by_name]
     if missing:
         raise AssertionError(f"train: the profile shows no {missing}")
-    return state, wall_us / 1e3, busy / 1e3, by_name
+    return state, wall_us / 1e3, busy / 1e3, by_name, range_device_ms(prof, "augment")
+
+
+def _timed_steps(steps, state, batches, gen, first):
+    """One step of each of ``steps`` in turn on the next batches of
+    ``batches``, step i with ``fold_in(gen, first + i)``: (state, losses,
+    walls ms, launches a step)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch import prng
+
+    walls, losses, per_step = [], [], []
+    for i, step in enumerate(steps):
+        bt = next(batches)
+        before = read_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, bt, prng.fold_in(gen, first + i))
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read_counts().items()})
+    return state, losses, walls, per_step
 
 
 def phase_train(tmp, seed, smi):
-    """The CLI's default recipe at cfg1 width (TRAIN_CFG), fp32: one step on
-    the card against the same step on the CPU (batch 1, host-drawn keep-masks
-    replayed on both); TRAIN_STEPS Keras-amsgrad steps at batch 2, each
-    launching what a meta trace of the step counts; one profiled step; one
-    bf16 step."""
+    """The CLI's default recipe at cfg1 width (TRAIN_CFG, the default
+    augmentation), fp32: one step on the card against the same step on the
+    CPU (batch 1, host-drawn keep-masks and augmentation draws replayed on
+    both); TRAIN_STEPS augmented Keras-amsgrad steps at batch 2 fed by the
+    data layer, then TRAIN_STEPS pairs with augmentation off and on in
+    turns, each step launching what a meta trace of the step counts; one
+    profiled step; one bf16 step."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch import prng
+    from prostatemr_3d_cad_cspca_tpu_torch.data import batch_iterator, custom_data_generator
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
     from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
 
+    augment = cli_augment_params()
     ckpt = os.path.join(tmp, "train.npz")
     write_cfg1_checkpoint(ckpt, seed, **TRAIN_CFG)
     one, draws = train_batch(seed + 20, 1), train_draws(TRAIN_CFG, 1, seed + 21)
+    draws.update({f"augment/{k}": v for k, v in
+                  augment_draws(augment, one["image"].shape, seed + 22).items()})
     t0 = time.perf_counter()
-    card_loss, card_g = _grad_step(ckpt, "cuda", one, draws)
-    cpu_loss, cpu_g = _grad_step(ckpt, "cpu", one, draws)
-    _, exact_g = _grad_step(ckpt, "cpu", one, draws, torch.float64)
+    card_loss, card_g = _grad_step(ckpt, "cuda", one, draws, augment=augment)
+    cpu_loss, cpu_g = _grad_step(ckpt, "cpu", one, draws, augment=augment)
+    _, exact_g = _grad_step(ckpt, "cpu", one, draws, torch.float64, augment=augment)
     parity_s = time.perf_counter() - t0
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
 
@@ -1538,25 +1750,34 @@ def phase_train(tmp, seed, smi):
     sched = tt.build_schedule("CALR", 1e-3, TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS,
                               (2.0, 1.0, 1e-3))
     opt = tt.make_optimizer("adam", sched)
-    step = tt.make_train_step(model, tt.make_loss("distribution_focal", (1.0, 1.0), 2.0), opt)
+    loss = tt.make_loss("distribution_focal", (1.0, 1.0), 2.0)
+    step = tt.make_train_step(model, loss, opt, augment_params=augment, train_obj="lesion")
+    plain_step = tt.make_train_step(model, loss, opt)
     state, gen = tt.init_train_state(model, opt), prng.generator(seed, "cuda")
-    batches = [train_batch(seed + 30 + i, 2) for i in range(TRAIN_STEPS)]
-    walls, losses, per_step = [], [], []
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    for i, bt in enumerate(batches):
-        before = read_counts()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, metrics = step(state, bt, prng.fold_in(gen, i))
-        losses.append(float(metrics["loss"]))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t1) * 1e3)
-        per_step.append({k: v - before[k] for k, v in read_counts().items()})
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    state, prof_wall, busy, by_name = profile_step(step, state, batches[0],
-                                                   prng.fold_in(gen, TRAIN_STEPS))
+    manifest = write_train_cases(tmp, seed + 30, TRAIN_CASES)
+    batches = batch_iterator(custom_data_generator(manifest, train_obj="lesion",
+                                                   shuffle_seed=seed), 2, prefetch=2)
+    try:
+        first = next(batches)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, losses, walls, per_step = _timed_steps([step] * TRAIN_STEPS, state, batches,
+                                                      gen, 0)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # then TRAIN_STEPS pairs in turns (off, on, on, off, ...): the walls
+        # with augmentation off and on, compared within one run
+        order = [(plain_step, step) if i % 2 == 0 else (step, plain_step)
+                 for i in range(TRAIN_STEPS)]
+        order = [fn for pair in order for fn in pair]
+        state, pair_losses, pair_walls, pair_per_step = _timed_steps(
+            order, state, batches, gen, TRAIN_STEPS)
+    finally:
+        batches.close()
+    on_walls = [w for fn, w in zip(order, pair_walls) if fn is step]
+    off_walls = [w for fn, w in zip(order, pair_walls) if fn is plain_step]
+    state, prof_wall, busy, by_name, (aug_ms, aug_kernels) = profile_step(
+        step, state, first, prng.fold_in(gen, 2 * TRAIN_STEPS))
     top = dict(by_name.most_common(12))
     top.update({k: by_name[k] for k in TRAIN_PROFILE_NAMES})
 
@@ -1566,21 +1787,37 @@ def phase_train(tmp, seed, smi):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     _, m16 = tt.make_train_step(model16, tt.make_loss(), opt16)(
-        tt.init_train_state(model16, opt16), batches[0], prng.fold_in(gen, 99))
+        tt.init_train_state(model16, opt16), first, prng.fold_in(gen, 99))
     loss16 = float(m16["loss"])
     torch.cuda.synchronize()
     bf16_ms = (time.perf_counter() - t2) * 1e3
     launches16 = read_counts()
     steady = sorted(walls[1:])
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
     emit({"phase": "train", "card": smi, "dtype": "float32", "batch": 2, "steps": TRAIN_STEPS,
-          "recipe": "monte-carlo 0.5, focal (1, 1) gamma 2, Keras amsgrad 1e-3 CALR, L2 1e-5",
+          "recipe": "monte-carlo 0.5, focal (1, 1) gamma 2, Keras amsgrad 1e-3 CALR, L2 1e-5, "
+                    f"augmentation {AUGM_PARAMS}", "data": "custom_data_generator -> "
+          f"batch_iterator(prefetch=2), {TRAIN_CASES} synthetic cases",
           "losses": losses, "step_ms": walls, "median_step_ms_after_first":
-          steady[len(steady) // 2], "launches_per_step": per_step[-1], "expected_per_step": expect,
+          steady[len(steady) // 2], "in_turns": {
+              "order": ["on" if fn is step else "off" for fn in order],
+              "losses": pair_losses, "on_step_ms": on_walls, "off_step_ms": off_walls,
+              "median_on_ms": median(on_walls), "median_off_ms": median(off_walls)},
+          "launches_per_step": per_step[-1], "expected_per_step": expect,
           "peak_mem_gib": peak, "profiled_step_wall_ms": prof_wall,
           "profiled_step_device_busy_ms": busy,
           "device_busy_share": busy / prof_wall if prof_wall else None,
+          "augment_device_ms": aug_ms, "augment_kernels": aug_kernels,
+          "augment_share_of_busy": aug_ms / busy if busy else None,
           "top_ms": {k: v / 1e3 for k, v in sorted(top.items(), key=lambda kv: -kv[1])},
-          "card_vs_cpu": {"batch": 1, "replayed_masks": len(draws), "loss_card": card_loss,
+          "card_vs_cpu": {"batch": 1, "replayed_masks": len([k for k in draws
+                                                              if "augment/" not in k]),
+                          "replayed_augment_draws": len([k for k in draws if "augment/" in k]),
+                          "loss_card": card_loss,
                           "loss_cpu": cpu_loss, "loss_rel": loss_rel,
                           "worst_grad_leaf": worst, "worst_grad_err": grad_err[worst],
                           "grad_l2": grad_l2, "leaves": len(grad_err),
@@ -1600,13 +1837,15 @@ def phase_train(tmp, seed, smi):
         raise AssertionError(f"train: card vs CPU gradient {worst} differs by {grad_err[worst]}")
     if not grad_l2["card_vs_cpu"] <= GRAD_L2_TOL:
         raise AssertionError(f"train: card vs CPU gradients differ by {grad_l2} (relative L2)")
-    if not all(np.isfinite(v) for v in losses + [loss16]):
-        raise AssertionError(f"train: losses not finite: {losses}, bf16 {loss16}")
-    for got in per_step:
+    if not all(np.isfinite(v) for v in losses + pair_losses + [loss16]):
+        raise AssertionError(f"train: losses not finite: {losses}, {pair_losses}, bf16 {loss16}")
+    for got in per_step + pair_per_step:
         if got != expect:
             raise AssertionError(f"train: launches per step {got}, expected {expect}")
     if launches16 != expect:
         raise AssertionError(f"train bf16: launches {launches16}, expected {expect}")
+    if not aug_kernels:
+        raise AssertionError("train: the profile shows no kernel under the augment range")
     return launches, launches16
 
 
@@ -1791,6 +2030,7 @@ def main(argv=None):
         launches["serve_cfg2"] = phase_serve_cfg2(tmp, args.seed, smi)
         launches["serve_prob"] = phase_serve_prob(tmp, args.seed, smi)
         launches["serve_cascade"] = phase_serve_cascade(tmp, args.seed, smi)
+        phase_augment(args.seed, smi)
         launches["train"], launches["train_bf16"] = phase_train(tmp, args.seed, smi)
         launches["evaluate"] = phase_evaluate(tmp, args.seed, smi)
     launches["probe"], probe = phase_probe(smi)

@@ -1,6 +1,18 @@
-"""Host-side data helpers the serving path needs: manifests, the test-mode
-image read, whitening."""
+"""Data pipeline: manifests, generators, host and device preprocessing."""
 
-from .generators import load_image  # noqa: F401
+from .generators import (  # noqa: F401
+    batch_iterator,
+    contour_smoothening,
+    custom_data_generator,
+    load_image,
+    load_sample,
+)
 from .manifest import read_manifest, read_xlsx  # noqa: F401
-from .preprocess import whitening  # noqa: F401
+from .preprocess import (  # noqa: F401
+    center_crop,
+    resample_img,
+    resample_volume,
+    resize_image_with_crop_or_pad,
+    whitening,
+    whitening_device,
+)

@@ -1,7 +1,8 @@
-"""One case -> model-ready arrays, copied from the JAX package's
-``data/generators.py`` (host-side numpy; ``load_sample`` :84-144 and the
-contour smoothening :36-81). The training generators (``custom_data_generator``,
-``batch_iterator``) wait for the data slice.
+"""Data generators: manifest -> preprocessed .npy -> model-ready samples and
+batches, port of the JAX package's ``data/generators.py`` (host-side numpy,
+copied: ``load_sample`` :84-144 and the contour smoothening :36-81; the
+training generators ``custom_data_generator`` :147-193 and
+``batch_iterator`` :196-270, whose per-batch keys are ``prng`` generators).
 
 Per-task label handling (reference data_generators.py:43-97):
 
@@ -14,9 +15,16 @@ Per-task label handling (reference data_generators.py:43-97):
 
 from __future__ import annotations
 
-from typing import Dict
+import itertools
+import os
+import queue
+import threading
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from .. import prng
+from .manifest import read_manifest
 
 try:  # pragma: no cover - env dependent
     import cv2
@@ -131,3 +139,111 @@ def load_sample(row: Dict[str, str], train_obj: str = "zonal", probabilistic: bo
 
         sample["dist_map"] = signed_distance_map(label[..., 1:])
     return sample
+
+
+def custom_data_generator(data_manifest: str, train_obj: str = "zonal",
+                          probabilistic: bool = False, mode: str = "train",
+                          shuffle_seed: Optional[int] = None, with_dist_map: bool = False,
+                          cache_dir: Optional[str] = None) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite per-sample generator (reference data_generators.py:30-88)
+    over the manifest's rows, each epoch in an order shuffled by one
+    ``np.random.default_rng(shuffle_seed)`` (None: manifest order).
+
+    ``cache_dir`` is the reference's --CACHE_TDS_PATH (train_model.py:
+    177-181): the first pass writes each prepared sample as
+    ``<p-id>.<task>-<p|d>-<mode>[-edt].npz`` (atomically, by ``os.replace``
+    of a temporary file, so concurrent fold workers may share it); later
+    passes read it instead of preparing the case again.
+    """
+    rows = read_manifest(data_manifest)
+    rng = np.random.default_rng(shuffle_seed) if shuffle_seed is not None else None
+    if cache_dir:
+        os.makedirs(cache_dir, exist_ok=True)
+
+    def prepare(row) -> Dict[str, np.ndarray]:
+        if not cache_dir:
+            return load_sample(row, train_obj, probabilistic, mode, with_dist_map)
+        pid = str(row.get("p-id", "")) or os.path.basename(row["image_path"])
+        recipe = f"{train_obj}-{'p' if probabilistic else 'd'}-{mode}" \
+                 f"{'-edt' if with_dist_map else ''}"
+        path = os.path.join(cache_dir, f"{pid}.{recipe}.npz")
+        if os.path.isfile(path):
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+        sample = load_sample(row, train_obj, probabilistic, mode, with_dist_map)
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, **sample)
+        os.replace(tmp, path)
+        return sample
+
+    for _ in itertools.count():
+        order = np.arange(len(rows))
+        if rng is not None:
+            rng.shuffle(order)
+        for i in order:
+            yield prepare(rows[i])
+
+
+def batch_iterator(sample_iter: Iterator[Dict[str, np.ndarray]], batch_size: int,
+                   augment_fn=None, rng_seed: int = 0,
+                   prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
+    """Stack per-sample dicts into batches; ``augment_fn(rng, batch)`` (e.g.
+    ``augment.make_augment_fn``), if given, augments batch i with one key a
+    batch: the seed of ``prng.fold_in(prng.generator(rng_seed, "cpu"), i)``,
+    which ``augment_fn`` turns into a generator on its own device.
+
+    ``prefetch`` batches are assembled ahead on a background thread
+    (tf.data's prefetch, train_model.py:183); an error raised while loading
+    is raised to the consumer, and the thread stops when the returned
+    generator is closed or collected.
+    """
+    def make_batch():
+        samples = [next(sample_iter) for _ in range(batch_size)]
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+    if prefetch and prefetch > 0:
+        q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        stop = threading.Event()
+
+        def producer():
+            while not stop.is_set():
+                try:
+                    item = make_batch()
+                except Exception as e:  # noqa: BLE001  (raised to the consumer)
+                    item = e
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.25)
+                        break
+                    except queue.Full:
+                        continue
+                if isinstance(item, Exception):
+                    return
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+
+        def batches():
+            try:
+                while True:
+                    item = q.get()
+                    if isinstance(item, Exception):
+                        raise item
+                    yield item
+            finally:
+                stop.set()
+                thread.join(timeout=5.0)
+    else:
+        def batches():
+            while True:
+                yield make_batch()
+
+    source = batches()
+    base = prng.generator(rng_seed, "cpu")
+    try:
+        for i, batch in enumerate(source):
+            if augment_fn is not None:
+                batch = augment_fn(prng.fold_in(base, i).initial_seed(), batch)
+            yield batch
+    finally:
+        source.close()

@@ -37,6 +37,24 @@ scopes are ``stage1``/``stage2`` in a cascade, then in a probabilistic net
 ...) for a ladder and an unfused trunk; the leaf is the site (``drope1``,
 ``dropp_2``) or ``z_<level>`` for the latent a sampling level draws. A
 single-stage deterministic net's sites sit at the root (``drope1``).
+
+Augmentation (``augment``). ``augment_batch`` draws every value from its
+generator in one fixed order, for the whole batch at once: one uniform
+block of shape (B, 22 + 2 n_img_ch) whose columns are
+``augment.UNIFORM_COLUMNS`` and then ``gamma_channel`` and
+``poor_channel``, then (when noise is on) the standard normal ``noise`` of
+shape (B, D, H, W, n_img_ch). An augmented train step augments with
+:func:`augment_rng` of its ``rng``: ``fold_in(rng, AUGMENT_FOLD)``; the
+forward keeps drawing from ``rng`` itself, so a step without
+``augment_params`` draws the same bits as before augmentation existed. A
+mapping replays the augmentation under ``augment/``, each entry with a
+leading batch axis: the uniforms of the gates ``master``, ``zoom_on``,
+``flip_on``, ``rot_on``, ``trans_on``, ``cs_on``, ``gamma_on``,
+``poor_on``, ``noise_on`` (a gate applies at ``> 1 - prob``, ``> tx_prob``
+or, for the flip, ``> 0.5``), then ``zoom_scale`` (int), ``rot_angle``,
+``trans_pads`` (top, bottom, right, left), ``cs_pads``, ``cs_channel``,
+``gamma``, ``gamma_channel`` and ``poor_channel`` (B x n_img_ch uniforms,
+a channel's coin applies at ``> 0.5``), ``noise_std`` and ``noise``.
 """
 
 from __future__ import annotations
@@ -102,6 +120,20 @@ def as_rng(rng: Any, device):
         return rng
     raise TypeError(f"rng must be None, an int, a torch.Generator or a mapping "
                     f"of keep-masks and latents, got {type(rng).__name__}")
+
+
+AUGMENT_FOLD = 1 << 20  # the augmentation's child of a train step's rng
+
+
+def augment_rng(rng):
+    """What an augmented train step augments with: a mapping's entries under
+    ``augment/``, or ``fold_in(rng, AUGMENT_FOLD)`` of a generator."""
+    if is_mask_map(rng):
+        return Scoped(rng, "augment")
+    if rng is None:
+        raise ValueError("an augmented train step needs rng: a torch.Generator, an int "
+                         "seed or a mapping of replayed draws")
+    return fold_in(rng, AUGMENT_FOLD)
 
 
 def fold_in(rng: torch.Generator, data: int) -> torch.Generator:

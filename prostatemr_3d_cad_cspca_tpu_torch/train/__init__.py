@@ -1,3 +1,4 @@
 """Training and evaluation: metrics, learning-rate schedules, the train step
-(``trainer``) and train-time validation. The fit loop and checkpoints wait
-for the data slice."""
+(``trainer``, with the on-device augmentation of ``augment``) and
+train-time validation. The fit loop and checkpoints wait for the checkpoint
+slice."""

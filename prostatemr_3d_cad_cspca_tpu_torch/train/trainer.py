@@ -1,5 +1,5 @@
 """The train step, port of the JAX package's ``train/trainer.py`` (all but
-``fit`` and ``resume_training``, which wait for the data slice).
+``fit`` and ``resume_training``, which wait for the checkpoint slice).
 
 One step is the reference's Keras ``compile``/``fit`` step (train_model.py:
 230-259): the forward in training mode (+ KL), the focal or Dice/boundary
@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from .. import prng
+from ..augment import as_params, augment_batch
 from ..losses import Focal, SoftDicePlusBoundarySurface
 from ..ops.convolution import l2_penalty
 from .schedules import build_schedule  # noqa: F401  (the JAX trainer's surface)
@@ -228,6 +229,14 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
     cascade) and 'detection', and may hold 'dist_map' for a loss that takes
     one; metrics are 0-dim tensors: seg_loss, reg, loss (+ kl).
 
+    ``augment_params`` (an ``AugmentParams`` or the CLI's list): the batch
+    is augmented on the device after it is moved there and before the
+    forward (``augment.augment_batch`` for the task ``train_obj``), a
+    'dist_map' warped with its label; the draws come from
+    ``prng.augment_rng(rng)``, so the forward draws what a step without
+    augmentation draws. A cascade with ``augment_params`` raises
+    ``ValueError``.
+
     ``scan_steps=K``: ``step(state, batches, rng)`` runs K optimizer steps
     over batches with a leading K axis, metrics stacked (K,). ``accum_steps
     =K``: K microbatches' gradients summed in order and averaged, one
@@ -237,11 +246,13 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
         raise ValueError("scan_steps and accum_steps are mutually exclusive")
     if mesh is not None:
         raise NotImplementedError("a sharded train step waits for the multi-GPU slice")
-    if augment_params is not None:
-        raise NotImplementedError("augmentation waits for the data slice")
-    del train_obj  # the augmentation's label handling
     cfg = model.config
     probabilistic, cascaded = bool(cfg["probabilistic"]), bool(cfg["cascaded"])
+    augment = None if augment_params is None else as_params(augment_params)
+    if augment is not None and cascaded:
+        # the JAX step fails here too: it reads batch["image"].shape[0] of a pair
+        raise ValueError("augment_params: a cascade's image is a pair of exams, which "
+                         "the augmentation does not take")
     k_l2, b_l2 = float(cfg["kernel_regularizer"]), float(cfg["bias_regularizer"])
     w_seg = float(loss_weights[0]) if loss_weights else 1.0
     try:
@@ -281,7 +292,10 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
         for p in params.values():
             p.grad = None
         batch = {k: _on(v, device) for k, v in batch.items()}
-        loss, metrics = loss_fn(state.module, batch, prng.as_rng(rng, device))
+        rng = prng.as_rng(rng, device)
+        if augment is not None:
+            batch = augment_batch(prng.augment_rng(rng), batch, augment, train_obj)
+        loss, metrics = loss_fn(state.module, batch, rng)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}

@@ -28,7 +28,7 @@ from prostatemr_3d_cad_cspca_tpu_torch.bridge import from_jax_params
 from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import l2_penalty as tl2
 from prostatemr_3d_cad_cspca_tpu_torch.train import schedules as ts
 from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
-from test_torch_train import KW, labelled_batch
+from test_torch_train import CLI_AUGMENT, KW, labelled_batch
 from test_torch_util import (CaptureOpt, jax_model, leaf_errors, port_model, port_step_grads,
                              to_np)
 from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
@@ -266,10 +266,46 @@ def test_scan_steps_equals_sequential_steps():
         assert torch.equal(p, q)
 
 
+def test_multi_step_programs_augment_each_batch():
+    """With ``augment_params`` the scan and accumulation programs augment
+    each step's batch as the single step does (``fold_in`` of the step's
+    rng): the same metrics, bit for bit, and not those of a step without
+    augmentation."""
+    jm = jax_model(3, **KW, dropout_rate=0.0)
+    batches = [labelled_batch(7), labelled_batch(8)]
+    aug = dict(augment_params=CLI_AUGMENT, train_obj="lesion")
+
+    def rngs():
+        return [torch.Generator().manual_seed(s) for s in (11, 12)]
+
+    single = tt.make_train_step(port_model(jm), tt.make_loss(), CaptureOpt(), **aug)
+    seq = [single(tt.init_train_state(port_model(jm), CaptureOpt()), bt, r)[1]
+           for bt, r in zip(batches, rngs())]
+    for kw in (dict(scan_steps=2), dict(accum_steps=2)):
+        pm = port_model(jm)
+        multi = tt.make_train_step(pm, tt.make_loss(), CaptureOpt(), **kw, **aug)
+        _, got = multi(tt.init_train_state(pm, CaptureOpt()), _stack(batches), rngs())
+        for k in got:
+            want = torch.stack([m[k] for m in seq])
+            assert torch.equal(got[k], want if "scan_steps" in kw else want.mean()), (kw, k)
+    plain = tt.make_train_step(port_model(jm), tt.make_loss(), CaptureOpt())
+    _, m = plain(tt.init_train_state(port_model(jm), CaptureOpt()), batches[0], rngs()[0])
+    assert not torch.equal(m["loss"], seq[0]["loss"])
+
+
 def test_augmentation_and_a_mesh_are_refused():
+    """Augmenting a cascade's pair of exams raises (JAX's step fails there
+    too); a single-stage model takes augmentation; a mesh waits for the
+    multi-GPU slice."""
+    from prostatemr_3d_cad_cspca_tpu_torch.models import M1 as TM1
+
+    cascade = TM1(**{**KW, "input_spatial_dims": (4, 16, 16)}, num_classes=2,
+                  cascaded="noisy-or", summary=False, device="cpu")
+    with pytest.raises(ValueError, match="cascade"):
+        tt.make_train_step(cascade, tt.make_loss(), CaptureOpt(),
+                           augment_params=[0.5] * 9 + [(0.5, 1.5)])
     pm = port_model(jax_model(0, **KW, dropout_rate=0.0))
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        tt.make_train_step(pm, tt.make_loss(), CaptureOpt(), augment_params=[0.5] * 10)
+    tt.make_train_step(pm, tt.make_loss(), CaptureOpt(), augment_params=[0.5] * 10)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tt.make_train_step(pm, tt.make_loss(), CaptureOpt(), mesh=object())
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import prostatemr_3d_cad_cspca_tpu_torch as port
+from prostatemr_3d_cad_cspca_tpu_torch.augment import AugmentParams, make_augment_fn
 from prostatemr_3d_cad_cspca_tpu_torch.ensemble import M1Ensemble
 from prostatemr_3d_cad_cspca_tpu_torch.load import load_model_spec
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1
@@ -67,7 +68,8 @@ def test_importing_the_port_loads_no_jax():
     loaded = __import__("json").loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert bad == []
-    for mod in ("serve", "infer", "ensemble", "prng", "ops.gemm", "probes.gemm_rate"):
+    for mod in ("serve", "infer", "ensemble", "prng", "ops.gemm", "probes.gemm_rate",
+                "augment", "data.generators", "data.preprocess"):
         assert f"prostatemr_3d_cad_cspca_tpu_torch.{mod}" in loaded
 
 
@@ -98,6 +100,8 @@ def test_entry_points_default_to_the_card(tmp_path):
         port.serve.main(["--MODEL", "x.npz", "--MANIFEST", "m.csv",
                          "--OUTPUT_DIR", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_augment_fn(AugmentParams())
 
 
 def test_mc_dropout_at_rate_zero_is_deterministic():

@@ -29,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 
+from prostatemr_3d_cad_cspca_tpu.augment import AugmentParams as JAugmentParams
 from test_torch_util import (jax_model, jax_step_grads, leaf_errors, port_model,
                              port_step_grads, record_train_draws)
 from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
@@ -39,6 +40,8 @@ KW = dict(input_spatial_dims=SPATIAL8, input_channels=3,
 KINDS = {"deterministic": dict(dropout_rate=0.0),
          "mc": dict(dropout_mode="monte-carlo", dropout_rate=0.5)}
 PORT_TOL, JAX_TOL, METRIC_RTOL = 1e-4, 5e-3, 1e-5
+# the CLI's --AUGM_PARAMS default as its parser gives it (JAX cli.py:90-91, :104-107)
+CLI_AUGMENT = [1.0, 0.25, 0.15, 10.0, True, 1.2, 0.1, 0.025, True, (0.5, 1.5)]
 ZERO_GRAD = 1e-3  # below: a gradient that is 0 but for the fp32 loss's rounding
 
 
@@ -51,8 +54,13 @@ def labelled_batch(seed, channels=3, batch=2, spatial=SPATIAL8):
 
 def check_step(jm, batch, key, **kw):
     """One step in JAX, in the port (fp32) and in the port at fp64 on the
-    same parameters, batch and draws; returns the three results."""
-    draws = record_train_draws(jm, batch["image"], key)
+    same parameters, batch and draws (with ``augment_params``, the
+    augmentation's too); returns the three results."""
+    augment = None
+    if kw.get("augment_params") is not None:
+        augment = (JAugmentParams.from_list(kw["augment_params"]),
+                   kw.get("train_obj", "lesion"), batch)
+    draws = record_train_draws(jm, batch["image"], key, augment)
     jg, jmet = jax_step_grads(jm, batch, key, **kw)
     pg, pmet = port_step_grads(port_model(jm), batch, draws, **kw)
     eg, _ = port_step_grads(port_model(jm, dtype="float64"), batch, draws, **kw)
@@ -80,6 +88,44 @@ def test_train_step_matches_jax(kind):
         assert all(0.3 < m.mean() < 0.9 for m in draws.values())
     else:
         assert draws == {}
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_augmented_train_step_matches_jax(kind):
+    """The step of test_train_step_matches_jax (the same model, batch and
+    key) with the CLI's default augmentation: JAX's draws (its
+    ``split(rng)`` then a key a sample) replayed into the port's step
+    beside the forward's keep-masks, held as the unaugmented step is."""
+    jm = jax_model(0, **KW, **KINDS[kind])
+    draws, _, _ = check_step(jm, labelled_batch(1), jax.random.PRNGKey(1),
+                             augment_params=CLI_AUGMENT, train_obj="lesion")
+    assert draws["augment/noise"].shape == (2, *SPATIAL8, 3)
+    assert (draws["augment/master"] > 0).all()  # prob 1: every sample augmented
+    assert any((draws[f"augment/{g}_on"] > 0.25).any() for g in ("zoom", "rot", "trans"))
+    assert len([k for k in draws if not k.startswith("augment/")]) == (8 if kind == "mc" else 0)
+
+
+def test_augmented_boundary_loss_step_warps_the_dist_map_with_its_label():
+    """The region/boundary loss with the batch's dist_map: the step warps
+    the map with the label, as JAX's does."""
+    from prostatemr_3d_cad_cspca_tpu.ops.edt import signed_distance_map
+    from prostatemr_3d_cad_cspca_tpu.train import trainer as jt
+    from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
+
+    jm = jax_model(6, **KW, **KINDS["deterministic"])
+    batch = labelled_batch(10)
+    batch["dist_map"] = signed_distance_map(batch["detection"][..., 1:])
+    key, aug = jax.random.PRNGKey(7), dict(augment_params=CLI_AUGMENT, train_obj="lesion")
+    draws = record_train_draws(jm, batch["image"], key,
+                               (JAugmentParams.from_list(CLI_AUGMENT), "lesion", batch))
+    jg, jmet = jax_step_grads(jm, batch, key, loss=jt.make_loss("region_boundary"), **aug)
+    pg, pmet = port_step_grads(port_model(jm), batch, draws,
+                               loss=tt.make_loss("region_boundary"), **aug)
+    for k in jmet:
+        np.testing.assert_allclose(pmet[k], jmet[k], rtol=METRIC_RTOL, err_msg=k)
+    err = leaf_errors(pg, jg)
+    worst = max(err, key=err.get)
+    assert err[worst] <= JAX_TOL, (worst, err[worst])
 
 
 def test_boundary_loss_step_matches_jax_with_and_without_dist_map():

@@ -177,13 +177,31 @@ class CaptureOpt:
         return {k: torch.zeros_like(g) for k, g in grads.items()}, grads
 
 
-def record_train_draws(jmodel, x, key):
+def record_train_draws(jmodel, x, key, augment=None):
     """The draws of the forward inside JAX's train step for ``key`` (its
     ``d, l = split(key)`` streams, train=True), as the port's mapping: each
     dropout site's keep-mask (out != 0 of an eager flax forward; the
     activations carry no exact zeros) and each sampling ladder pass's
-    latents. Ladder dropout sites (which need the pass) are not handled."""
+    latents. Ladder dropout sites (which need the pass) are not handled.
+
+    ``augment`` = (JAX ``AugmentParams``, train_obj, batch): the step
+    augments first, with ``rng, a_rng = split(key)`` (JAX train/trainer.py:
+    230) and a key a sample from ``split(a_rng, B)``; the forward's draws
+    then come from ``rng`` on the augmented image, and the augmentation's
+    (``jax_batch_draws`` of ``a_rng``) join the mapping under
+    ``augment/``."""
     draws = {}
+    if augment is not None:
+        from prostatemr_3d_cad_cspca_tpu.augment import augment_sample
+
+        params, train_obj, batch = augment
+        key, a_key = jax.random.split(key)
+        shape = np.shape(batch["image"])
+        draws = {f"augment/{k}": v for k, v in
+                 jax_batch_draws(a_key, params, shape, train_obj).items()}
+        x = jax.vmap(lambda k, im, lb: augment_sample(k, im, lb, params, train_obj)[0])(
+            jax.random.split(a_key, shape[0]), jnp.asarray(batch["image"]),
+            jnp.asarray(batch["detection"]))
 
     def interceptor(next_fun, args, kwargs, context):
         out = next_fun(*args, **kwargs)
@@ -239,3 +257,55 @@ def leaf_errors(got, want):
     """Per leaf: max |got - want| / max(1, max |want|)."""
     return {k: float(np.abs(np.asarray(got[k], np.float64) - want[k]).max()
                      / max(1.0, float(np.abs(want[k]).max()))) for k in want}
+
+
+# ----------------------------------------------------------- augmentation
+def jax_augment_draws(key, params, shape, train_obj="lesion"):
+    """One sample's draws as the JAX package's ``augment_sample`` makes them
+    for ``key`` (its ``split(key, 20)``, ``fold_in(key, 101)`` and
+    ``fold_in(key, 202)`` streams, augment.py:185, :264, :276), under the
+    port's replay names (``augment.DRAW_NAMES``): the gates as their
+    uniforms, the rest as values. A draw of a disabled transform is made
+    all the same (JAX skips it; the port's replay ignores it)."""
+    import math
+
+    p, (D, H, W, _) = params, shape
+    n = 3 if train_obj == "lesion" else 1
+    k = jax.random.split(key, 20)
+    uni = lambda kk, lo=0.0, hi=1.0: np.float32(jax.random.uniform(kk, (), minval=lo, maxval=hi))  # noqa: E731
+    rint = lambda kk, lo, hi: int(jax.random.randint(kk, (), lo, hi))  # noqa: E731
+    mh, mw = math.ceil(H * p.translate_factor), math.ceil(W * p.translate_factor)
+    ch, cw = math.ceil(H * p.chan_shift_factor), math.ceil(W * p.chan_shift_factor)
+    gamma = tuple(p.gamma_correct) or (0.0, 0.0)
+    ps, nz = jax.random.fold_in(key, 101), jax.random.fold_in(key, 202)
+    return {
+        "master": uni(k[0]), "zoom_on": uni(k[1]),
+        "zoom_scale": np.int64(rint(k[2], H, int(math.ceil(H * p.zoom_factor)))),
+        "flip_on": uni(k[3]), "rot_on": uni(k[4]),
+        "rot_angle": uni(k[5], -p.rotation_degree, p.rotation_degree),
+        "trans_on": uni(k[6]),
+        "trans_pads": np.array([rint(k[7], 0, mh), rint(k[8], 0, mh), rint(k[9], 0, mw),
+                                rint(k[10], 0, mw)], np.int64),
+        "cs_on": uni(k[11]),
+        "cs_pads": np.array([rint(k[12], 0, ch), rint(k[13], 0, ch), rint(k[14], 0, cw),
+                             rint(k[15], 0, cw)], np.int64),
+        "cs_channel": np.int64(rint(k[16], 0, 3)),
+        "gamma_on": uni(k[17]), "gamma": uni(k[18], gamma[0], gamma[1]),
+        "gamma_channel": np.array([uni(g) for g in jax.random.split(k[19], n)], np.float32),
+        "poor_on": uni(jax.random.fold_in(ps, 0)),
+        "poor_channel": np.array([uni(g) for g in jax.random.split(jax.random.fold_in(ps, 1), n)],
+                                 np.float32),
+        "noise_on": uni(jax.random.fold_in(nz, 0)),
+        "noise_std": uni(jax.random.fold_in(nz, 1), 0.0, p.gauss_noise_stddev),
+        "noise": np.array(jax.random.normal(jax.random.fold_in(nz, 2), (D, H, W, n)),
+                          np.float32),
+    }
+
+
+def jax_batch_draws(key, params, shape, train_obj="lesion"):
+    """The draws of ``augment_batch`` (and of the train step's augmentation
+    key) for a batch of ``shape`` (B, D, H, W, C): each sample's under
+    ``split(key, B)``, stacked on a leading batch axis."""
+    per = [jax_augment_draws(k, params, shape[1:], train_obj)
+           for k in jax.random.split(key, shape[0])]
+    return {name: np.stack([d[name] for d in per]) for name in per[0]}
