@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU (deterministic,
 Monte-Carlo and sliding-window M1 serving, cfg2, the probabilistic and the
 cascaded M1, the GEMM-rate probe, the augmentation and train steps of the
-CLI's default recipe fed by the data layer, and evaluate.run) and hold every hand-written kernel against its
-plain twin.
+CLI's default recipe fed by the data layer, evaluate.run, and a fold
+trained through the training CLI) and hold every hand-written kernel
+against its plain twin.
 
     python3 chip_smoke.py [--seed 0] [--out FILE]
 
@@ -96,7 +97,12 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                and all leaves together <= 1e-3 (relative L2), each leaf's
                distance to fp64 and the leaves over 1e-3 reported (the
                CPU's own fp32 step lies up to ~2e-2 from fp64 on deep
-               leaves); then 8 augmented steps at batch 2 fed by
+               leaves); against an fp64 step that replays the card's
+               branch decisions at every kink (BranchReplay), each leaf
+               whose fp64 gradient reaches 1e-3 within 1e-3 and all leaves
+               within 1e-4 (relative L2), the rest reported (conv biases
+               ahead of an instance norm: exact gradient 0, fp32 noise);
+               then 8 augmented steps at batch 2 fed by
                data.custom_data_generator -> batch_iterator(prefetch=2)
                over synthetic labelled .npy cases and their manifest, then
                8 pairs of steps in turns with augmentation off and on
@@ -114,6 +120,21 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                package's metric keys, values in [0, 1], AUROC defined; each
                case's probabilities within 1e-3 of the CPU path's; one
                detect forward a case.
+ 15. fit       the training CLI (cli.main) at its own defaults (cfg1 width,
+               the train phase's recipe, batch 2, fp32) on the fold
+               manifests data.ingest writes from 8 raw 24x176x176 cases (2
+               folds): 2 epochs of fold 1 (2 steps each) with validation on
+               4 cases, npz weights and full-state checkpoints every epoch;
+               --RESUME_TRAIN 1 to 3 epochs (the restored state equals the
+               saved one bit for bit, one epoch trained, latest step 3);
+               the same command again (the completed-fold skip: no
+               launch); model_weights_003.npz served through
+               InferenceSession (finite, softmax sums to 1 within 1e-4);
+               one bf16 epoch (finite losses). Each epoch launches its
+               steps times the train step's meta-trace counts plus its
+               validation cases times the detect head's; epoch walls, step
+               walls inside fit, validation seconds, the checkpoint's MiB,
+               blocking, write and restore ms.
 
 The train step's own shapes (its meta trace, batch 2) are checked and timed
 after the kernels phase, in both dtypes: the data gradients' K1/K2 calls
@@ -223,10 +244,16 @@ TRAIN_CFG = dict(CFG1, dropout_mode="monte-carlo", dropout_rate=0.5,
                  kernel_regularizer=1e-5, bias_regularizer=1e-5)
 TRAIN_STEPS = 8
 TRAIN_CASES = 6  # synthetic labelled cases behind the train phase's data layer
+FIT_CASES, FIT_RAW = 8, (24, 176, 176)  # raw cases the fit phase ingests to the window
 # the CLI's default --AUGM_PARAMS (prostatemr_3d_cad_cspca_tpu/cli.py:90-91)
 AUGM_PARAMS = "1.00,0.25,0.15,10.0,1,1.20,0.10,0.025,1,0.50,1.50"
 AUGMENT_TOL = 1e-4  # augmentation, card vs CPU: |diff| / max(1, |ref|)
 GRAD_LEAF_TOL, GRAD_L2_TOL = 5e-2, 1e-3  # card vs CPU train-step gradients (phase_train)
+# card vs the fp64 step that replays the card's branch decisions (phase_train): each
+# leaf whose fp64 gradient reaches ZERO_GRAD within GRAD_REPLAY_TOL, all leaves
+# together within GRAD_REPLAY_L2_TOL (relative L2); leaves below ZERO_GRAD (conv
+# biases ahead of an instance norm, exact gradient 0) are reported
+GRAD_REPLAY_TOL, GRAD_REPLAY_L2_TOL, ZERO_GRAD = 1e-3, 1e-4, 1e-3
 TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = TRAIN_STEPS, 250
 EVAL_CASES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -1463,6 +1490,118 @@ class _CaptureOpt:
         return {k: torch.zeros_like(g) for k, g in grads.items()}, grads
 
 
+class BranchReplay:
+    """The branch decisions of one fp32 step, replayed in its fp64
+    evaluation (tests/test_torch_util.py holds the same helper). Where a
+    value lies within rounding of a kink, the fp32 step and an fp64
+    evaluation that decides for itself can take different sides (an LReLU
+    input near 0: slope 1 in one, 0.1 in the other). ``record()`` notes,
+    in call order, the side every element took at each kink of the
+    forward: the LReLU sites (``models.blocks.leaky_relu01``), the instance
+    norm's fused LReLU (``ops.normalization._pre_activation_sign`` of the
+    input and statistics the norm saves: on the card, the sign K4 and K7
+    compute from the same tensors) and the focal loss's clip (``losses._clip``);
+    ``replay()`` makes the next step take those sides in the same order, a
+    norm's backward finding its forward's side by its saved input."""
+
+    def __init__(self):
+        self.sides = {"lrelu": [], "in_sign": [], "clip": []}
+
+    @staticmethod
+    def _sites():
+        from prostatemr_3d_cad_cspca_tpu_torch import losses
+        from prostatemr_3d_cad_cspca_tpu_torch.models import blocks
+        from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization
+
+        return {"lrelu": (blocks, "leaky_relu01"),
+                "in_forward": (normalization._InstanceNormFn, "forward"),
+                "in_sign": (normalization, "_pre_activation_sign"), "clip": (losses, "_clip")}
+
+    def _patched(self, fns):
+        import contextlib
+
+        @contextlib.contextmanager
+        def patched():
+            sites = self._sites()
+            raw = {k: vars(sites[k][0])[sites[k][1]] for k in fns}
+            for k, fn in fns.items():
+                new = fn(getattr(*sites[k]))
+                setattr(*sites[k], staticmethod(new) if isinstance(raw[k], staticmethod) else new)
+            try:
+                yield self
+            finally:
+                for k, orig in raw.items():
+                    setattr(*sites[k], orig)
+        return patched()
+
+    def record(self):
+        sides, sign = self.sides, self._sites()["in_sign"]
+
+        def lrelu(orig):
+            def fn(x):
+                sides["lrelu"].append(~(x > 0).detach().cpu())
+                return orig(x)
+            return fn
+
+        def in_forward(orig):
+            def fn(ctx, x, scale, bias, lrelu, epsilon):
+                y = orig(ctx, x, scale, bias, lrelu, epsilon)
+                if lrelu:  # the sign K4 took, from the tensors the norm saved
+                    sides["in_sign"].append(getattr(*sign)(*ctx.to_save, epsilon).cpu())
+                return y
+            return fn
+
+        def clip(orig):
+            def fn(x, lo, hi):
+                x_ = x.detach().cpu()
+                sides["clip"].append((x_ < lo, x_ > hi, x_ == lo, x_ == hi))
+                return orig(x, lo, hi)
+            return fn
+
+        return self._patched({"lrelu": lrelu, "in_forward": in_forward, "clip": clip})
+
+    def replay(self):
+        import torch
+
+        cursor = {k: iter(v) for k, v in self.sides.items()}
+        by_input = {}
+
+        def take(name, like):
+            got = next(cursor[name])
+            got = tuple(t.to(like.device) for t in got) if isinstance(got, tuple) \
+                else got.to(like.device)
+            shape = (got[0] if isinstance(got, tuple) else got).shape
+            if tuple(shape) != tuple(like.shape):
+                raise AssertionError(f"replay {name}: recorded {tuple(shape)}, "
+                                     f"got {tuple(like.shape)}")
+            return got
+
+        def lrelu(orig):
+            return lambda x: torch.where(take("lrelu", x), 0.1 * x, x)
+
+        def in_forward(orig):
+            def fn(ctx, x, scale, bias, lrelu, epsilon):
+                if lrelu:
+                    by_input[x.data_ptr()] = take("in_sign", x)
+                return orig(ctx, x, scale, bias, lrelu, epsilon)
+            return fn
+
+        def in_sign(orig):
+            return lambda x, *args: by_input[x.data_ptr()]
+
+        def clip(orig):
+            def fn(x, lo, hi):  # jnp.clip's gradients: 0 outside, 1/2 on a tie
+                below, above, tie_lo, tie_hi = take("clip", x)
+                lo_t, hi_t = (torch.full_like(x, v) for v in (lo, hi))
+                out = torch.where(tie_lo, 0.5 * (x + lo_t), x)
+                out = torch.where(tie_hi, 0.5 * (x + hi_t), out)
+                return torch.where(below, lo_t, torch.where(above, hi_t, out))
+            return fn
+
+        return self._patched({"lrelu": lrelu, "in_forward": in_forward, "in_sign": in_sign,
+                              "clip": clip})
+
+
 def train_batch(seed, batch):
     """A synthetic labelled batch at the cfg1 window: normal images, a
     lesion block in every volume and a few scattered lesion voxels."""
@@ -1723,9 +1862,13 @@ def phase_train(tmp, seed, smi):
     draws.update({f"augment/{k}": v for k, v in
                   augment_draws(augment, one["image"].shape, seed + 22).items()})
     t0 = time.perf_counter()
-    card_loss, card_g = _grad_step(ckpt, "cuda", one, draws, augment=augment)
+    branches = BranchReplay()
+    with branches.record():  # the card's branch decisions
+        card_loss, card_g = _grad_step(ckpt, "cuda", one, draws, augment=augment)
     cpu_loss, cpu_g = _grad_step(ckpt, "cpu", one, draws, augment=augment)
     _, exact_g = _grad_step(ckpt, "cpu", one, draws, torch.float64, augment=augment)
+    with branches.replay():  # fp64 on the card's sides of every kink
+        _, replay_g = _grad_step(ckpt, "cpu", one, draws, torch.float64, augment=augment)
     parity_s = time.perf_counter() - t0
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
 
@@ -1743,7 +1886,14 @@ def phase_train(tmp, seed, smi):
         return (d / sum(float(want[k].double().square().sum()) for k in want)) ** 0.5
 
     grad_l2 = {"card_vs_cpu": l2(card_g, cpu_g), "card_vs_fp64": l2(card_g, exact_g),
-               "cpu_vs_fp64": l2(cpu_g, exact_g)}
+               "cpu_vs_fp64": l2(cpu_g, exact_g),
+               "card_vs_replayed_fp64": l2(card_g, replay_g)}
+    card_replayed = leaf_err(card_g, replay_g)
+    over_replayed = sorted((k for k, e in card_replayed.items() if e > GRAD_REPLAY_TOL),
+                           key=card_replayed.get, reverse=True)
+    nonzero = {k: e for k, e in card_replayed.items()
+               if float(replay_g[k].abs().max()) >= ZERO_GRAD}
+    worst_nonzero = max(nonzero, key=nonzero.get)
 
     expect = launch_counts(trace_model_calls(TRAIN_CFG, 2, torch.float32, head="train"))
     model = M1.load(ckpt, device="cuda")
@@ -1825,6 +1975,17 @@ def phase_train(tmp, seed, smi):
                               (k, grad_err[k], card_exact[k], cpu_exact[k]) for k in over[:12]],
                           "worst_card_vs_fp64": max(card_exact.values()),
                           "worst_cpu_vs_fp64": max(cpu_exact.values()),
+                          "replayed_sides": {k: len(v) for k, v in branches.sides.items()},
+                          "worst_card_vs_replayed_fp64": max(card_replayed.values()),
+                          "worst_card_vs_replayed_fp64_leaf": max(card_replayed,
+                                                                  key=card_replayed.get),
+                          "n_over_1e-3_replayed": len(over_replayed),
+                          "worst_nonzero_card_vs_replayed_fp64": (worst_nonzero,
+                                                                  nonzero[worst_nonzero]),
+                          "nonzero_leaves": len(nonzero),
+                          "leaves_over_1e-3_replayed": [
+                              (k, card_replayed[k], float(replay_g[k].abs().max()))
+                              for k in over_replayed[:12]],
                           "seconds": parity_s},
           "bf16_loss": loss16, "bf16_step_ms": bf16_ms, "bf16_launches": launches16})
     if not loss_rel <= 1e-4:
@@ -1837,6 +1998,10 @@ def phase_train(tmp, seed, smi):
         raise AssertionError(f"train: card vs CPU gradient {worst} differs by {grad_err[worst]}")
     if not grad_l2["card_vs_cpu"] <= GRAD_L2_TOL:
         raise AssertionError(f"train: card vs CPU gradients differ by {grad_l2} (relative L2)")
+    if not (nonzero[worst_nonzero] <= GRAD_REPLAY_TOL
+            and grad_l2["card_vs_replayed_fp64"] <= GRAD_REPLAY_L2_TOL):
+        raise AssertionError(f"train: card vs branch-replayed fp64: {worst_nonzero} "
+                             f"{nonzero[worst_nonzero]}, relative L2 {grad_l2}")
     if not all(np.isfinite(v) for v in losses + pair_losses + [loss16]):
         raise AssertionError(f"train: losses not finite: {losses}, {pair_losses}, bf16 {loss16}")
     for got in per_step + pair_per_step:
@@ -1910,6 +2075,316 @@ def phase_evaluate(tmp, seed, smi):
     if launches != forwards(EVAL_CASES):
         raise AssertionError(f"evaluate: launches {launches}, expected {forwards(EVAL_CASES)}")
     return launches
+
+
+# ------------------------------------------------------------------- fit
+def write_raw_cases(tmp, seed, n, shape=FIT_RAW):
+    """``n`` raw labelled cases larger than the window (an .npy image of
+    scanner-like intensities, lesion grades with a GGG-2/3 block, zones) and
+    their manifest; returns the manifest's path."""
+    import csv
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        paths = [os.path.join(tmp, f"raw{i}_{k}.npy") for k in ("image", "label", "zones")]
+        image = (rng.normal(size=(*shape, 3)) * 60.0 + 300.0).astype(np.float32)
+        grades = np.zeros(shape, np.uint8)
+        if i % 2 == 0:  # every other case without a lesion
+            grades[9:14, 50 + 6 * i:95 + 6 * i, 70:115] = 2 + i // 2 % 2
+        zones = np.zeros(shape, np.uint8)
+        zones[6:18, 40:140, 40:140] = 1
+        zones[6:18, 60:120, 60:120] = 2
+        for path, arr in zip(paths, (image, grades, zones)):
+            np.save(path, arr)
+        rows.append({"p-id": f"raw{i}", "image_path": paths[0], "label_path": paths[1],
+                     "zones_path": paths[2]})
+    path = os.path.join(tmp, "raw.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return path
+
+
+class _FitProbe:
+    """Instruments the CLI's run from outside: the step walls (a StepTimer
+    round each step fit takes, host clock, no synchronize), the launch
+    counts and the time at each metrics event, the checkpoint's save
+    (wall on the calling thread) and restore (device synchronized; the
+    restored state copied to the host), and each fit's model and history."""
+
+    def __init__(self):
+        self.events, self.step_walls, self.saves, self.restores, self.fits = [], [], [], [], []
+        self.snapshots = []  # ms of the host snapshot inside each save
+
+    def __enter__(self):
+        from prostatemr_3d_cad_cspca_tpu_torch.train import checkpoint, trainer
+        from prostatemr_3d_cad_cspca_tpu_torch.utils import profiling
+
+        import torch
+
+        probe = self
+        self._saved = [(trainer, "make_train_step", trainer.make_train_step),
+                       (trainer, "fit", trainer.fit),
+                       (profiling.MetricsLogger, "log", profiling.MetricsLogger.log),
+                       (checkpoint.CheckpointManager, "save", checkpoint.CheckpointManager.save),
+                       (checkpoint.CheckpointManager, "restore",
+                        checkpoint.CheckpointManager.restore),
+                       (checkpoint, "_snapshot", checkpoint._snapshot)]
+        make_step, fit, log, save, restore, snapshot = (f for _, _, f in self._saved)
+
+        def make_train_step(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def timed(*sa, **skw):
+                timer = profiling.StepTimer(skip_first=0)
+                with timer:
+                    out = step(*sa, **skw)
+                probe.step_walls.append(timer.stats()["max_s"] * 1e3)
+                return out
+            return timed
+
+        def fit_(model, *a, **kw):
+            history = fit(model, *a, **kw)
+            probe.fits.append((model, history))
+            return history
+
+        def log_(self_, event, **fields):
+            probe.events.append((event, fields.get("epoch"), read_counts(), time.perf_counter()))
+            return log(self_, event, **fields)
+
+        def save_(self_, step, state, config=None):
+            t0 = time.perf_counter()
+            saved = save(self_, step, state, config)
+            probe.saves.append({"step": step, "saved": saved,
+                                "block_ms": (time.perf_counter() - t0) * 1e3, "manager": self_})
+            return saved
+
+        def restore_(self_, state_like=None, device="cuda"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, step = restore(self_, state_like, device)
+            torch.cuda.synchronize()
+            probe.restores.append({"step": step, "ms": (time.perf_counter() - t0) * 1e3,
+                                   "state": host_state(state.params, state.opt_state,
+                                                       state.step)})
+            return state, step
+
+        def snapshot_(tree):
+            t0 = time.perf_counter()
+            out = snapshot(tree)
+            probe.snapshots.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        for (owner, name, _), fn in zip(self._saved, (make_train_step, fit_, log_, save_,
+                                                      restore_, snapshot_)):
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def host_state(params, opt_state, step):
+    """(params, optimizer state, step) of a train state, copied to the host."""
+    import torch
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.detach().cpu().clone() if torch.is_tensor(tree) else tree
+
+    return host(dict(params)), host(opt_state), int(step)
+
+
+def states_equal(a, b):
+    """Bit-equal (params, optimizer state, step) triples from host_state."""
+    import torch
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return set(x) == set(y) and all(same(x[k], y[k]) for k in x)
+        if torch.is_tensor(x):
+            return torch.is_tensor(y) and x.dtype == y.dtype and torch.equal(x, y)
+        return x == y
+
+    return all(same(x, y) for x, y in zip(a, b))
+
+
+def _epoch_launches(events, start):
+    """Per epoch: (epoch, train launches, validation launches) from the
+    metrics events' counts; ``start`` the counts before the run."""
+    out, before = [], start
+    for i, (event, epoch, counts, _) in enumerate(events):
+        if event != "epoch":
+            continue
+        train = {k: v - before[k] for k, v in counts.items()}
+        val = None
+        if i + 1 < len(events) and events[i + 1][0] == "validation":
+            before = events[i + 1][2]
+            val = {k: v - counts[k] for k, v in before.items()}
+        else:
+            before = counts
+        out.append((epoch, train, val))
+    return out
+
+
+def _val_seconds(events):
+    return [b[3] - a[3] for a, b in zip(events, events[1:])
+            if a[0] == "epoch" and b[0] == "validation"]
+
+
+def phase_fit(tmp, seed, smi):
+    """The port's CLI at its own default architecture (cfg1, monte-carlo 0.5,
+    focal, Keras amsgrad on CALR, L2 1e-5, the default --AUGM_PARAMS), batch
+    2, fp32: raw cases through data.ingest (2 folds), 2 epochs of fold 1
+    with validation, npz weights and full-state checkpoints each epoch; a
+    resume to 3 epochs from the checkpoint (bit-equal restore, one epoch);
+    the completed-fold skip (no launch); the last npz served on the card;
+    one bf16 epoch. Each epoch launches what the meta traces count."""
+    import contextlib
+    import io
+
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch import cli
+    from prostatemr_3d_cad_cspca_tpu_torch.data import ingest
+    from prostatemr_3d_cad_cspca_tpu_torch.data.manifest import read_manifest
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+    from prostatemr_3d_cad_cspca_tpu_torch.train.checkpoint import CheckpointManager
+
+    os.makedirs(os.path.join(tmp, "raw"))
+    raw = write_raw_cases(os.path.join(tmp, "raw"), seed + 50, FIT_CASES)
+    feed = os.path.join(tmp, "feed")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        written = ingest.main(["--MANIFEST", raw, "--OUTPUT_DIR", feed, "--SIZE",
+                               *map(str, CFG1["input_spatial_dims"]), "--FOLDS", "2"])
+    ingest_s = time.perf_counter() - t0
+    train_rows = read_manifest(os.path.join(feed, "train-fold-1.csv"))
+    valid_rows = read_manifest(os.path.join(feed, "valid-fold-1.csv"))
+    shapes = {tuple(np.load(r["image_path"]).shape) for r in train_rows + valid_rows}
+    if len(written) != 4 or shapes != {(*CFG1["input_spatial_dims"], 3)}:
+        raise AssertionError(f"fit: ingest wrote {written}, image shapes {shapes}")
+
+    def args(name, epochs, *extra):
+        return ["--TRAIN_OBJ", "lesion", "--NUM_EPOCHS", str(epochs), "--FOLDS", "0",
+                "--TRAIN_XLSX_PREFIX", os.path.join(feed, "train-fold-"),
+                "--VALID_XLSX_PREFIX", os.path.join(feed, "valid-fold-"),
+                "--WEIGHTS_DIR", os.path.join(tmp, "weights") + "/", "--NAME", name,
+                "--METRICS_DIR", os.path.join(tmp, "metrics"), "--BATCH_SIZE", "2",
+                "--WEIGHTS_MIN_EPOCH", "1", "--STORE_WEIGHTS_PER_N_EPOCHS", "1",
+                "--VALIDATE_MIN_EPOCH", "1", "--VALIDATE_PER_N_EPOCHS", "1",
+                "--DEVICE", "cuda", *extra]
+
+    def run(argv):
+        """cli.main under the probe: (probe, seconds, launches, stdout lines)."""
+        out = io.StringIO()
+        reset_counts()
+        start = read_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with _FitProbe() as probe, contextlib.redirect_stdout(out):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        lines = [x for x in out.getvalue().splitlines()
+                 if x.startswith(("epoch ", "validation", "Model Weights", "Restored",
+                                  "Resume", "Begin"))]
+        return probe, seconds, start, read_counts(), lines
+
+    steps = -(-len(train_rows) // 2)
+    train_per_step = launch_counts(trace_model_calls(TRAIN_CFG, 2, torch.float32, head="train"))
+    detect_per_case = launch_counts(trace_model_calls(TRAIN_CFG, 1, torch.float32))
+    expect_epoch = {k: steps * train_per_step[k] for k in train_per_step}
+    expect_val = {k: len(valid_rows) * detect_per_case[k] for k in detect_per_case}
+    fold = os.path.join(tmp, "weights", "fit", "F1")
+    ckpt_dir = os.path.join(fold, "checkpoints")
+
+    first, first_s, start, after_first, log1 = run(args("fit", 2))
+    (model1, hist1), = first.fits
+    # what fit ended with, which epoch 2's checkpoint saved
+    saved_state = host_state(dict(model1.net.named_parameters()), model1.opt_state,
+                             model1.opt_state["count"])
+    write_ms = first.saves[-1]["manager"].write_seconds * 1e3  # the last save's write
+    alone_ms = []  # the same snapshot outside the loop: no prefetch thread beside it
+    from prostatemr_3d_cad_cspca_tpu_torch.train import checkpoint as ckpt_mod
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_mod._snapshot({"params": dict(model1.net.named_parameters()),
+                            "opt_state": model1.opt_state})
+        alone_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    ckpt_mib = os.path.getsize(os.path.join(ckpt_dir, "2.pt")) / 2 ** 20
+    resumed, resumed_s, _, after_resume, log2 = run(args("fit", 3, "--RESUME_TRAIN", "1"))
+    (_, hist2), = resumed.fits
+    launches = {k: after_first[k] + after_resume[k] for k in after_first}
+    skipped, skip_s, _, after_skip, _ = run(args("fit", 3, "--RESUME_TRAIN", "1"))
+
+    npz = os.path.join(fold, "model_weights_003.npz")
+    served = M1.load(npz, device="cuda")
+    volumes = np.stack([np.load(r["image_path"]) for r in valid_rows[:BATCH]])
+    probs, _ = InferenceSession(served)(volumes)
+    sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
+
+    bf16, bf16_s, _, launches16, log3 = run(args("fit_bf16", 1, "--PRECISION", "bf16"))
+    (_, hist3), = bf16.fits
+
+    per_epoch = {"fit": _epoch_launches(first.events, start)
+                 + _epoch_launches(resumed.events, start),
+                 "fit_bf16": _epoch_launches(bf16.events, start)}
+    restore = resumed.restores[0] if resumed.restores else None
+    walls = sorted(first.step_walls[1:])
+    emit({"phase": "fit", "card": smi, "dtype": "float32", "batch": 2,
+          "recipe": "the CLI's defaults (cfg1 16-256, monte-carlo 0.5, focal (1, 1) gamma 2, "
+                    "Keras amsgrad 1e-3 CALR, L2 1e-5, augmentation " + AUGM_PARAMS + ")",
+          "ingest": {"raw_cases": FIT_CASES, "raw_shape": list(FIT_RAW), "folds": 2,
+                     "seconds": ingest_s, "train_cases": len(train_rows),
+                     "valid_cases": len(valid_rows)},
+          "steps_per_epoch": steps, "epoch_s": hist1["epoch_time"],
+          "losses": hist1["loss"], "lr": hist1["lr"], "val": hist1.get("val"),
+          "step_wall_ms": first.step_walls,
+          "median_step_wall_ms_after_first": walls[len(walls) // 2] if walls else None,
+          "validation_s": _val_seconds(first.events), "run_s": first_s,
+          "checkpoint": {"mib": ckpt_mib, "block_ms": [s["block_ms"] for s in first.saves],
+                         "snapshot_ms": first.snapshots, "snapshot_alone_ms": alone_ms,
+                         "last_write_ms": write_ms, "restore_ms": restore and restore["ms"],
+                         "steps_kept": CheckpointManager(ckpt_dir).all_steps()},
+          "resumed": {"epoch_s": hist2["epoch_time"], "losses": hist2["loss"],
+                      "validation_s": _val_seconds(resumed.events), "run_s": resumed_s,
+                      "restored_step": restore and restore["step"],
+                      "step_wall_ms": resumed.step_walls},
+          "skip": {"run_s": skip_s, "launches": after_skip, "fits": len(skipped.fits)},
+          "serve": {"npz": os.path.basename(npz), "shape": list(probs.shape),
+                    "softmax_sum_err": sum_err},
+          "bf16": {"epoch_s": hist3["epoch_time"], "losses": hist3["loss"],
+                   "validation_s": _val_seconds(bf16.events), "run_s": bf16_s},
+          "launches": launches, "launches_bf16": launches16,
+          "expected_epoch": expect_epoch, "expected_validation": expect_val,
+          "log": log1 + log2 + log3})
+    for path, epochs in per_epoch.items():
+        for epoch, train, val in epochs:
+            if train != expect_epoch or val != expect_val:
+                raise AssertionError(f"{path} epoch {epoch}: launches {train} + validation "
+                                     f"{val}, expected {expect_epoch} + {expect_val}")
+    if [e for e, _, _ in per_epoch["fit"]] != [1, 2, 3] or len(per_epoch["fit_bf16"]) != 1:
+        raise AssertionError(f"fit: epochs {per_epoch}")
+    if restore is None or restore["step"] != 2 or not states_equal(restore["state"], saved_state):
+        raise AssertionError("fit: the resume did not restore epoch 2's saved state bit for bit")
+    if len(hist2["loss"]) != 1 or CheckpointManager(ckpt_dir).latest_step() != 3:
+        raise AssertionError(f"fit: the resume trained {hist2['loss']}")
+    if any(after_skip.values()) or skipped.fits:
+        raise AssertionError(f"fit: the completed fold was not skipped: {after_skip}")
+    if not (np.isfinite(probs).all() and sum_err <= 1e-4):
+        raise AssertionError(f"fit: served probabilities sum to 1 +- {sum_err}")
+    losses = hist1["loss"] + hist2["loss"] + hist3["loss"]
+    if not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"fit: losses not finite: {losses}")
+    return launches, launches16
 
 
 def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
@@ -2033,6 +2508,7 @@ def main(argv=None):
         phase_augment(args.seed, smi)
         launches["train"], launches["train_bf16"] = phase_train(tmp, args.seed, smi)
         launches["evaluate"] = phase_evaluate(tmp, args.seed, smi)
+        launches["fit"], launches["fit_bf16"] = phase_fit(tmp, args.seed, smi)
     launches["probe"], probe = phase_probe(smi)
     phase_paths()
 

@@ -1,4 +1,5 @@
-"""Data pipeline: manifests, generators, host and device preprocessing."""
+"""Data pipeline: manifests, generators, host and device preprocessing, and
+the offline ingest (``ingest``: raw cases -> feed + fold manifests)."""
 
 from .generators import (  # noqa: F401
     batch_iterator,
@@ -7,6 +8,7 @@ from .generators import (  # noqa: F401
     load_image,
     load_sample,
 )
+from .ingest import ingest_case  # noqa: F401
 from .manifest import read_manifest, read_xlsx  # noqa: F401
 from .preprocess import (  # noqa: F401
     center_crop,

@@ -200,6 +200,8 @@ class M1:
         self.input_channels = input_channels
         self.device = dev
         self.dtype = _torch_dtype(dtype)
+        self.opt_state = None   # set by fit
+        self._compiled = None   # the recipe compile() records
         self._net_kwargs = dict(
             input_channels=input_channels, num_classes=num_classes,
             dropout_mode=dropout_mode, dropout_rate=dropout_rate,
@@ -331,6 +333,20 @@ class M1:
         if rng is None and (self.probabilistic or self.stochastic):  # as ``__call__``
             rng = prng.fresh(self.device)
         return self.get_detect_model()(None, inputs, rng=rng)
+
+    # ----------------------------------------------------- train surface
+    def compile(self, optimizer=None, loss=None, loss_weights=None, **kwargs):
+        """Record the training recipe (Keras-compile parity, train_model.py:231)."""
+        self._compiled = dict(optimizer=optimizer, loss=loss,
+                              loss_weights=loss_weights, **kwargs)
+        return self
+
+    def fit(self, *args, **kwargs):
+        """``train.trainer.fit`` of this model with the compiled recipe."""
+        from ..train.trainer import fit as _fit
+
+        assert self._compiled is not None, "compile() the model before fit()"
+        return _fit(self, *args, **kwargs, **self._compiled)
 
     # -------------------------------------------------------------- io
     def save(self, path: str) -> None:

@@ -1,5 +1,5 @@
-"""The train step, port of the JAX package's ``train/trainer.py`` (all but
-``fit`` and ``resume_training``, which wait for the checkpoint slice).
+"""The train step and the fit loop, port of the JAX package's
+``train/trainer.py``.
 
 One step is the reference's Keras ``compile``/``fit`` step (train_model.py:
 230-259): the forward in training mode (+ KL), the focal or Dice/boundary
@@ -21,13 +21,20 @@ Random bits: ``rng`` is a ``torch.Generator`` on the model's device, an int
 seed, or a mapping of keep-masks and latents (see ``prng``); the multi-step
 programs give step (or microbatch) i ``fold_in(rng, i)``, or take a
 sequence of one ``rng`` a step.
+
+``fit`` is the epoch loop around the step (WeightsSaver npz files,
+train-time validation, full-state checkpoints from ``train.checkpoint``,
+a metrics stream), and ``resume_training`` reloads the latest npz of a
+fold; see ``fit`` for where it differs from the JAX loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable, Dict, Optional, Sequence
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ from torch import nn
 
 from .. import prng
 from ..augment import as_params, augment_batch
+from ..device import resolve_device
 from ..losses import Focal, SoftDicePlusBoundarySurface
 from ..ops.convolution import l2_penalty
 from .schedules import build_schedule  # noqa: F401  (the JAX trainer's surface)
@@ -353,3 +361,208 @@ def init_train_state(model, optimizer) -> TrainState:
     """The model's module, the optimizer's initial state and step 0."""
     return TrainState(module=model.net, opt_state=optimizer.init(
         dict(model.net.named_parameters())), step=0)
+
+
+def _stack(chunk):
+    """Batches -> one batch with a leading axis (a multi-step program's)."""
+    first = chunk[0]
+    if isinstance(first, dict):
+        return {k: _stack([c[k] for c in chunk]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return tuple(_stack(list(parts)) for parts in zip(*chunk))
+    if torch.is_tensor(first):
+        return torch.stack(chunk)
+    return np.stack(chunk)
+
+
+def _epoch_means(epoch_metrics: Dict[str, list]) -> Dict[str, float]:
+    """Each metric's mean over the epoch's steps, read to the host in one
+    transfer; the mean is numpy's over fp32 values, as JAX's ``np.mean``."""
+    names = list(epoch_metrics)
+    rows = torch.stack([torch.cat([v.detach().float().reshape(-1) for v in epoch_metrics[k]])
+                        for k in names]).cpu().numpy()
+    return {k: float(np.mean(rows[i])) for i, k in enumerate(names)}
+
+
+def fit(
+    model,
+    x: Iterable,
+    epochs: int = 1,
+    steps_per_epoch: int = 1,
+    initial_epoch: int = 0,
+    optimizer: Any = None,
+    loss: Any = None,
+    loss_weights=None,
+    elbo_beta: float = 10.0,
+    mesh=None,
+    weights_dir: Optional[str] = None,
+    weights_min_epoch: int = 5,
+    store_weights_per_n_epochs: int = 5,
+    weights_overwrite: bool = False,
+    validate_fn: Optional[Callable] = None,
+    validate_per_n_epochs: int = 5,
+    validate_min_epoch: int = 5,
+    augment_params=None,
+    train_obj: str = "lesion",
+    seed: int = 0,
+    log_fn: Callable[[str], None] = print,
+    verbose: int = 2,
+    schedule: Optional[Callable] = None,
+    metrics_logger=None,
+    checkpoint_manager=None,
+    scan_steps: Optional[int] = None,
+) -> Dict[str, list]:
+    """Epoch/step fit loop with WeightsSaver + metrics history (JAX
+    ``train/trainer.py:394-535``), on the model's device.
+
+    ``x`` yields batches: dicts with 'image' (B,D,H,W,C) and 'detection'
+    (B,D,H,W,nc) (+ 'dist_map' for a loss that takes one).
+
+    * ``metrics_logger`` (``utils.profiling.MetricsLogger``): one JSONL
+      record per epoch and per validation pass;
+    * ``checkpoint_manager`` (``train.checkpoint.CheckpointManager``): a
+      full-state checkpoint offered once per epoch (the manager's
+      ``save_interval_steps`` governs cadence), restored from the latest
+      step at entry (overriding ``initial_epoch``);
+    * WeightsSaver: ``model_weights_{epoch:03d}.npz`` (``M1.save``, the JAX
+      package's format) when ``(epoch + 1) % store_weights_per_n_epochs ==
+      0``, ``epoch != 0`` and ``epoch + 1 >= weights_min_epoch``; with
+      ``weights_overwrite`` the previous such file is removed;
+    * ``validate_fn(params)`` every ``validate_per_n_epochs`` from
+      ``validate_min_epoch`` on.
+
+    Where the port differs from the JAX loop:
+
+    * draws: program n since this entry (a step, or ``scan_steps`` steps)
+      takes ``prng.fold_in(prng.generator(seed, device), n)`` where JAX
+      splits ``PRNGKey(seed)`` once a program; both restart at every entry,
+      as the batches do (``iter(x)``), so a resumed run follows JAX's rule,
+      not an uninterrupted run's draws;
+    * host reads: the steps' metrics stay device tensors and are read to the
+      host once an epoch, so the loop adds no host read to a step;
+    * ``validate_fn`` gets the live parameters by name (the module's own
+      tensors, updated in place by the step) where JAX gets a host copy;
+    * the model's module is the one the step trains, so ``model.params`` is
+      current throughout; ``model.opt_state`` is set at the end;
+    * ``mesh`` raises ``NotImplementedError`` until the multi-GPU slice.
+    """
+    resolve_device(model.device)
+    if mesh is not None:
+        raise NotImplementedError("a sharded fit waits for the multi-GPU slice")
+    if optimizer is None:
+        optimizer = make_optimizer("adam", 1e-3)
+    seg_loss = loss if callable(loss) else make_loss(loss or "distribution_focal")
+    lw = loss_weights or (1.0, elbo_beta)
+    if len(lw) > 1:
+        elbo_beta = float(lw[1])
+
+    if scan_steps is not None and scan_steps > 1 \
+            and steps_per_epoch % scan_steps != 0:
+        raise ValueError(
+            f"scan_steps={scan_steps} must divide steps_per_epoch="
+            f"{steps_per_epoch} (each epoch runs steps_per_epoch/scan_steps "
+            "multi-step programs; pick a divisor)")
+    use_scan = scan_steps is not None and scan_steps > 1
+    step_fn = make_train_step(model, seg_loss, optimizer,
+                              elbo_beta=elbo_beta, loss_weights=lw,
+                              augment_params=augment_params, train_obj=train_obj,
+                              scan_steps=scan_steps if use_scan else None)
+    state = init_train_state(model, optimizer)
+    base = prng.generator(seed, model.device)
+
+    if checkpoint_manager is not None and checkpoint_manager.latest_step() is not None:
+        state, resumed_epoch = checkpoint_manager.restore(state)
+        initial_epoch = max(initial_epoch, int(resumed_epoch))
+        if verbose:
+            log_fn(f"Restored checkpoint @ epoch {resumed_epoch} "
+                   f"({checkpoint_manager.directory})")
+
+    history: Dict[str, list] = {"loss": [], "seg_loss": [], "epoch_time": []}
+    it = iter(x)
+    program = 0
+    for epoch in range(initial_epoch, epochs):
+        t0 = time.perf_counter()
+        epoch_metrics: Dict[str, list] = {}
+        for _ in range(steps_per_epoch // scan_steps if use_scan else steps_per_epoch):
+            batch = _stack([next(it) for _ in range(scan_steps)]) if use_scan else next(it)
+            state, metrics = step_fn(state, batch, prng.fold_in(base, program))
+            program += 1
+            for k, v in metrics.items():
+                epoch_metrics.setdefault(k, []).append(v)
+        epoch_metrics = _epoch_means(epoch_metrics)  # the epoch's one host read
+        dt = time.perf_counter() - t0
+        if schedule is not None:  # LR observability (Keras history parity)
+            epoch_metrics["lr"] = float(schedule(int(state.step)))
+            history.setdefault("lr", []).append(epoch_metrics["lr"])
+        history["loss"].append(epoch_metrics.get("loss"))
+        history["seg_loss"].append(epoch_metrics.get("seg_loss"))
+        history["epoch_time"].append(dt)
+        if verbose:
+            log_fn(f"epoch {epoch + 1}/{epochs} - "
+                   + " ".join(f"{k}: {v:.5f}" for k, v in epoch_metrics.items())
+                   + f" - {dt:.2f}s")
+        if metrics_logger is not None:
+            metrics_logger.log("epoch", epoch=epoch + 1,
+                               epoch_time_s=round(dt, 3), **epoch_metrics)
+
+        # Train-time validation (reference 'TBA' callbacks, train_model.py:240-245).
+        if validate_fn is not None and ((epoch + 1) % validate_per_n_epochs == 0) \
+                and (epoch + 1) >= validate_min_epoch:
+            val = validate_fn(state.params)
+            history.setdefault("val", []).append({"epoch": epoch + 1, **val})
+            if verbose:
+                log_fn("validation @ epoch %d - %s" % (
+                    epoch + 1, " ".join(f"{k}: {v:.4f}" for k, v in val.items())))
+            if metrics_logger is not None:
+                metrics_logger.log("validation", epoch=epoch + 1, **val)
+
+        if checkpoint_manager is not None:
+            checkpoint_manager.save(epoch + 1, state, config=model.config)
+
+        # WeightsSaver semantics (callbacks.py:44-75).
+        if weights_dir and ((epoch + 1) % store_weights_per_n_epochs == 0) \
+                and epoch != 0 and (epoch + 1) >= weights_min_epoch:
+            path = os.path.join(weights_dir, f"model_weights_{epoch + 1:03d}.npz")
+            model.save(path)
+            if verbose:
+                log_fn(f"Model Weights Saved: {path}")
+            if weights_overwrite:
+                prev = os.path.join(
+                    weights_dir,
+                    f"model_weights_{epoch + 1 - store_weights_per_n_epochs:03d}.npz")
+                if os.path.exists(prev):
+                    os.remove(prev)
+
+    model.opt_state = state.opt_state
+    if checkpoint_manager is not None:
+        checkpoint_manager.wait()  # async saves durable before returning
+    return history
+
+
+def resume_training(model, weights_dir: str, prefix: str = "model_weights"):
+    """Scan ``weights_dir`` for the latest epoch's npz (the port's or the
+    JAX package's) and reload it with ``M1.load`` on the model's device and
+    in its compute dtype (reference callbacks.py:195-215). Returns (model,
+    init_epoch)."""
+    init_epoch = 0
+    latest = None
+    if os.path.isdir(weights_dir):
+        for f in os.listdir(weights_dir):
+            if f.startswith(prefix) and f.endswith(".npz"):
+                try:
+                    ep = int(f[len(prefix) + 1:].split(".npz")[0])
+                except ValueError:
+                    continue
+                if ep > init_epoch:
+                    init_epoch, latest = ep, f
+    if latest is not None:
+        from ..models.m1 import M1
+
+        print("Loading Model Weights...")
+        model = M1.load(os.path.join(weights_dir, latest), device=model.device,
+                        dtype=model.dtype)
+        print("Complete: ", os.path.join(weights_dir, latest))
+        print(f"Resume Training @ Epoch {init_epoch}")
+    else:
+        print("Begin Training @ Epoch 0")
+    return model, init_epoch

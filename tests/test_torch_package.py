@@ -16,11 +16,14 @@ import pytest
 import torch
 
 import prostatemr_3d_cad_cspca_tpu_torch as port
+import prostatemr_3d_cad_cspca_tpu_torch.cli  # noqa: F401  (port.cli)
 from prostatemr_3d_cad_cspca_tpu_torch.augment import AugmentParams, make_augment_fn
 from prostatemr_3d_cad_cspca_tpu_torch.ensemble import M1Ensemble
 from prostatemr_3d_cad_cspca_tpu_torch.load import load_model_spec
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1
 from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+from prostatemr_3d_cad_cspca_tpu_torch.train import (CheckpointManager, fit, init_train_state,
+                                                     make_optimizer)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(port.__file__)
@@ -69,7 +72,8 @@ def test_importing_the_port_loads_no_jax():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert bad == []
     for mod in ("serve", "infer", "ensemble", "prng", "ops.gemm", "probes.gemm_rate",
-                "augment", "data.generators", "data.preprocess"):
+                "augment", "data.generators", "data.preprocess", "cli", "train.checkpoint",
+                "utils.profiling", "utils.overview", "data.ingest"):
         assert f"prostatemr_3d_cad_cspca_tpu_torch.{mod}" in loaded
 
 
@@ -102,6 +106,21 @@ def test_entry_points_default_to_the_card(tmp_path):
     assert not (tmp_path / "out").exists()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_augment_fn(AugmentParams())
+    # training: the CLI without --DEVICE cpu, fit of a model that says it is
+    # on the card, a checkpoint restored without a model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.cli.main(["--WEIGHTS_DIR", str(tmp_path / "w"), "--NUM_EPOCHS", "1"])
+    assert not (tmp_path / "w").exists()
+    on_card = M1(**TINY, device="cpu")
+    on_card.device = torch.device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit(on_card, iter([]))
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(1, init_train_state(model, make_optimizer()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mgr.restore()
+    payload, step = mgr.restore(device="cpu")
+    assert step == 1 and payload["step"] == 0 and set(payload["params"]) == set(model.params)
 
 
 def test_mc_dropout_at_rate_zero_is_deterministic():

@@ -9,6 +9,11 @@ strides) at 8x32x32x3, batch 2, focal loss (alpha 1, 1; gamma 2), L2 1e-4.
 JAX's step runs jitted with an optax transformation that keeps the
 gradients as its state, so the gradients are those of JAX's own step.
 
+The fp64 evaluation replays the fp32 step's branch decisions at every kink
+(LReLU, the instance norm's fused LReLU, the focal clip;
+tests/test_torch_util.py ``BranchReplay``): where an input lies within
+rounding of a kink the two would otherwise take different slopes.
+
 Tolerances. The focal loss sums 16,384 voxels to about 2.9e3, so its fp32
 value moves by ~1e-6 relative with the summation order alone: metrics are
 held at rtol 1e-5. Gradients are held to the port's own step evaluated in
@@ -30,8 +35,8 @@ import numpy as np
 import pytest
 
 from prostatemr_3d_cad_cspca_tpu.augment import AugmentParams as JAugmentParams
-from test_torch_util import (jax_model, jax_step_grads, leaf_errors, port_model,
-                             port_step_grads, record_train_draws)
+from test_torch_util import (BranchReplay, jax_model, jax_step_grads, leaf_errors,
+                             port_model, port_step_grads, record_train_draws)
 from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
 
 SPATIAL8 = (8, 32, 32)
@@ -55,15 +60,19 @@ def labelled_batch(seed, channels=3, batch=2, spatial=SPATIAL8):
 def check_step(jm, batch, key, **kw):
     """One step in JAX, in the port (fp32) and in the port at fp64 on the
     same parameters, batch and draws (with ``augment_params``, the
-    augmentation's too); returns the three results."""
+    augmentation's too), the fp64 step taking the port's fp32 branch
+    decisions (``BranchReplay``); returns the three results."""
     augment = None
     if kw.get("augment_params") is not None:
         augment = (JAugmentParams.from_list(kw["augment_params"]),
                    kw.get("train_obj", "lesion"), batch)
     draws = record_train_draws(jm, batch["image"], key, augment)
     jg, jmet = jax_step_grads(jm, batch, key, **kw)
-    pg, pmet = port_step_grads(port_model(jm), batch, draws, **kw)
-    eg, _ = port_step_grads(port_model(jm, dtype="float64"), batch, draws, **kw)
+    branches = BranchReplay()
+    with branches.record():
+        pg, pmet = port_step_grads(port_model(jm), batch, draws, **kw)
+    with branches.replay():
+        eg, _ = port_step_grads(port_model(jm, dtype="float64"), batch, draws, **kw)
     assert set(pg) == set(jg) == set(eg)
     assert set(pmet) == set(jmet)
     for k in jmet:
