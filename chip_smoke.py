@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU (deterministic,
-Monte-Carlo and sliding-window M1 serving, cfg2, the probabilistic and the
-cascaded M1, the GEMM-rate probe, the augmentation and train steps of the
-CLI's default recipe fed by the data layer, evaluate.run, and a fold
-trained through the training CLI) and hold every hand-written kernel
-against its plain twin.
+Monte-Carlo and sliding-window M1 serving, an exported artifact served,
+cfg2, the probabilistic and the cascaded M1, the GEMM-rate probe, the
+augmentation and train steps of the CLI's default recipe fed by the data
+layer, evaluate.run, and a fold trained through the training CLI) and hold
+every hand-written kernel against its plain twin.
 
     python3 chip_smoke.py [--seed 0] [--out FILE]
 
@@ -100,8 +100,11 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                leaves); against an fp64 step that replays the card's
                branch decisions at every kink (BranchReplay), each leaf
                whose fp64 gradient reaches 1e-3 within 1e-3 and all leaves
-               within 1e-4 (relative L2), the rest reported (conv biases
-               ahead of an instance norm: exact gradient 0, fp32 noise);
+               within 1e-4 (relative L2); the conv biases ahead of an
+               instance norm (exact data gradient 0: the fp32 rounding of
+               a sum of N = batch x voxels terms of the norm's input
+               gradient dx) each channel within 4 * 2**-24 * sqrt(N) *
+               ||dx||_2 of the fp64 dx; the rest reported;
                then 8 augmented steps at batch 2 fed by
                data.custom_data_generator -> batch_iterator(prefetch=2)
                over synthetic labelled .npy cases and their manifest, then
@@ -136,6 +139,25 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                walls inside fit, validation seconds, the checkpoint's MiB,
                blocking, write and restore ms.
 
+ 16. export    (after serve_mc) export.main freezes serve_mc's checkpoint
+               (monte-carlo 0.5) at --MC_ITER 4 --DTYPE bfloat16 into one
+               artifact and validates it (<= 1e-4 from the live model on
+               the same draws); serve.run --MODEL on the artifact (two
+               window cases) and 3 requests of 2 volumes through
+               serve.ExportedSession, each launching exactly one cfg1
+               forward's 50/4/37/37 (K1-K4 as the registered pmr::
+               operators) and giving the live session's bits for the same
+               seed; request latency in turns (artifact, live, live,
+               artifact), the live session on the operator route in turns
+               with the direct call, and the host us per call of K3 and K1
+               by each route; one artifact request profiled
+               (conv3d_mma_kernel, in_stats_kernel and in_apply_kernel must
+               show); a deterministic fp32 artifact with a 24x256x256
+               sliding-window program against the live session's
+               predict_cases (<= 1e-4, 5 forwards for 2 cases); a tiny
+               artifact traced on the CPU and run on the card (K1-K4
+               launched, <= 1e-3 from the card's live model).
+
 The train step's own shapes (its meta trace, batch 2) are checked and timed
 after the kernels phase, in both dtypes: the data gradients' K1/K2 calls
 (K2 of the output gradient with K1's kernel; K1 for K2), K6 (and cuDNN's
@@ -163,6 +185,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import re
@@ -254,6 +277,9 @@ GRAD_LEAF_TOL, GRAD_L2_TOL = 5e-2, 1e-3  # card vs CPU train-step gradients (pha
 # together within GRAD_REPLAY_L2_TOL (relative L2); leaves below ZERO_GRAD (conv
 # biases ahead of an instance norm, exact gradient 0) are reported
 GRAD_REPLAY_TOL, GRAD_REPLAY_L2_TOL, ZERO_GRAD = 1e-3, 1e-4, 1e-3
+# those conv biases, each channel against its fp32 rounding bound ZERO_BIAS_C *
+# 2**-24 * sqrt(N) * ||dx||_2 (zero_grad_bias_ratios)
+ZERO_BIAS_C = 4
 TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = TRAIN_STEPS, 250
 EVAL_CASES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -268,6 +294,10 @@ MC_ITER = 4                # posterior samples per served MC request
 GEMM_CHECK_ITERS = 3       # K5 iterations for the check against its twin
 SW_CASE, SW_DET_CASE = (24, 256, 256), (20, 192, 192)
 SW_FORWARDS = 5 * 2 * 2 + 1  # 5 chunks x 2 views x 2 members, + 1 chunk
+EXPORT_TURN_REQUESTS = 10  # requests a turn of the export phase's latency comparisons
+# the export phase's CPU-traced artifact: the tests' tiny M1 (cfg1's strides)
+EXPORT_TINY = dict(CFG1, input_spatial_dims=(4, 16, 16), filters=(4, 8, 12, 16, 24),
+                   se_reduction=(2, 2, 2, 2, 2), summary=False)
 
 
 def emit(obj):
@@ -1476,6 +1506,209 @@ def device_time(prof):
     return busy, by_name, len(spans)
 
 
+# ---------------------------------------------------------------- export
+def _timed_requests(session, requests):
+    """Host ms of each request through ``session`` (ending in a synchronize)."""
+    import torch
+
+    out = []
+    for req in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session(req)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+@contextlib.contextmanager
+def operator_route():
+    """K1-K4's wrappers call their registered ``pmr::`` operators, as they do
+    while ``torch.export`` traces, in place of the direct call."""
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
+
+    direct = cuda_lib.exporting
+    cuda_lib.exporting = lambda: True
+    try:
+        yield
+    finally:
+        cuda_lib.exporting = direct
+
+
+def host_us_per_call(n=2000):
+    """Host us per call of K3 and K1 through the direct call and through the
+    operator, at a shape whose kernel is shorter than its dispatch (16x16x16
+    voxels, 16 channels, bf16): wall time of n calls over n, in turns
+    (direct, operator, operator, direct)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 16, 16, 16, 16), generator=gen, device="cuda").bfloat16()
+    k = (0.1 * torch.randn((1, 3, 3, 16, 16), generator=gen, device="cuda")).bfloat16()
+    b = torch.zeros(16, device="cuda")
+    fns = {"in_stats": lambda: nm.in_stats(x), "conv3d": lambda: cv.conv3d([x], k, b)}
+    out = {}
+    for name, fn in fns.items():
+        times = {"direct": [], "operator": []}
+        for route in ("direct", "operator", "operator", "direct"):
+            with (operator_route() if route == "operator" else contextlib.nullcontext()):
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                times[route].append((time.perf_counter() - t0) / n * 1e6)
+        out[name] = times
+    return out
+
+
+def phase_export(tmp, seed, smi, det_ckpt):
+    """The export slice on the card: the CLI's MC checkpoint (serve_mc's,
+    monte-carlo 0.5) frozen by export.main at MC 4 in bf16 and validated;
+    serve.run from the artifact on two window cases; 3 requests of 2
+    volumes through ExportedSession (one cfg1 forward each, the live
+    session's bits for the same seed), in turns with the live session; one
+    artifact request profiled; a sliding-window artifact against the live
+    session; a CPU-traced artifact on the card; the operator route's host
+    cost per call and per request."""
+    import io
+
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch import export, serve
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from torch.profiler import ProfilerActivity, profile
+
+    ckpt = os.path.join(tmp, "cfg1_mc.npz")  # phase_serve_mc's checkpoint
+    art = os.path.join(tmp, "cfg1_mc.zip")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        export.main(["--MODEL", ckpt, "--OUT", art, "--MC_ITER", str(MC_ITER),
+                     "--DTYPE", "bfloat16", "--DEVICE", "cuda"])
+    main_s = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
+    export_s = float(re.search(r"MB in ([\d.]+) s", log.getvalue()).group(1))
+    validated = float(re.search(r"max \|diff\| ([-+.\de]+)", log.getvalue()).group(1))
+    if not validated <= 1e-4:
+        raise AssertionError(f"export: validated at {validated}")
+
+    # the main path: serve.run from the artifact, then ExportedSession requests
+    manifest = _write_cases(tmp, "export_win", [CFG1["input_spatial_dims"]] * 2, seed + 60)
+    requests = _requests(seed)
+    reset_counts()
+    results = serve.main(["--MODEL", art, "--MANIFEST", manifest, "--OUTPUT_DIR",
+                          os.path.join(tmp, "export_out"), "--SEED", str(seed),
+                          "--DEVICE", "cuda"])
+    run_launches = read_counts()
+    if run_launches != forwards(1):
+        raise AssertionError(f"serve.run from the artifact launched {run_launches}")
+    for r in results:
+        det, unc = np.load(r["detection_path"]), np.load(r["uncertainty_path"])
+        if not (det.shape == unc.shape == (*CFG1["input_spatial_dims"], 2)
+                and np.isfinite(det).all() and float(unc.min()) >= 0.0):
+            raise AssertionError(f"serve.run from the artifact: {r}")
+    session = serve.ExportedSession(export.ExportedModel.load(art, seed=seed, device="cuda"))
+    art_ms, outputs, launches = _serve_requests(session, requests, mc=True)
+    launches = {k: v + run_launches[k] for k, v in launches.items()}
+
+    def live_session():
+        return serve.InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
+                                      mc_iter=MC_ITER, seed=seed, device="cuda")
+
+    live = live_session()
+    for (gm, gs), req in zip(outputs, requests):
+        lm, ls = live(req)
+        if not (np.array_equal(gm, lm) and np.array_equal(gs, ls)):
+            raise AssertionError("the artifact and the live session gave other bits "
+                                 "for the same seed")
+    # request latency in turns (artifact, live, live, artifact), and the live
+    # session on the operator route in turns with the direct call: each turn
+    # EXPORT_TURN_REQUESTS requests cycling over the three
+    turn = [requests[i % len(requests)] for i in range(EXPORT_TURN_REQUESTS)]
+    again = serve.ExportedSession(export.ExportedModel.load(art, seed=seed, device="cuda"))
+    turns = {"artifact": [], "live": []}
+    for kind in ("artifact", "live", "live", "artifact"):
+        turns[kind].append(_timed_requests(again if kind == "artifact" else live, turn))
+    route_ms = {"direct": [], "operator": []}
+    for route in ("direct", "operator", "operator", "direct"):
+        with (operator_route() if route == "operator" else contextlib.nullcontext()):
+            route_ms[route].append(_timed_requests(live, turn))
+    per_call = host_us_per_call()
+
+    again(requests[0])  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        again(requests[0])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    busy, by_name, events = device_time(prof)
+    missing = [k for k in ("conv3d_mma_kernel", "in_stats_kernel", "in_apply_kernel")
+               if k not in by_name]
+    if missing:
+        raise AssertionError(f"export: the artifact's profile shows no {missing}")
+
+    # a deterministic fp32 artifact with a whole-gland sliding-window program
+    sw_art = os.path.join(tmp, "cfg1_sw.zip")
+    det = M1.load(det_ckpt, device="cuda")
+    t2 = time.perf_counter()
+    export.export_model(det, sw_art, sw_shapes=[SW_CASE])
+    sw_export_s = time.perf_counter() - t2
+    vols = [np.random.default_rng(seed + 61 + i).normal(size=(*SW_CASE, 3)).astype(np.float32)
+            for i in range(2)]
+    sw_model = export.ExportedModel.load(sw_art, device="cuda")
+    reset_counts()
+    got = sw_model.predict_cases(vols)
+    sw_launches = read_counts()
+    want = serve.InferenceSession(det, device="cuda").predict_cases(vols, group_size=2)
+    sw_diff = max(float(np.abs(g[0] - w[0]).max()) for g, w in zip(got, want))
+    if sw_launches != forwards(5) or not sw_diff <= 1e-4:
+        raise AssertionError(f"export: sliding window {sw_diff} from the live session, "
+                             f"launches {sw_launches}")
+
+    # a tiny artifact traced on the CPU, run on the card
+    tiny = M1(**EXPORT_TINY, device="cpu", seed=seed)
+    tiny_art = os.path.join(tmp, "tiny_cpu.zip")
+    export.export_model(tiny, tiny_art)
+    moved = export.ExportedModel.load(tiny_art, device="cuda")
+    x = np.random.default_rng(seed + 62).normal(
+        size=(2, *EXPORT_TINY["input_spatial_dims"], 3)).astype(np.float32)
+    reset_counts()
+    moved_out = moved.predict(x)
+    moved_launches = read_counts()
+    card_out = tiny.to("cuda").predict(x).float().cpu().numpy()
+    moved_diff = float(np.abs(moved_out - card_out).max())
+    if moved_launches != forwards(1) or not moved_diff <= 1e-3:
+        raise AssertionError(f"export: a CPU-traced artifact on the card: {moved_diff} from "
+                             f"the card's live model, launches {moved_launches}")
+
+    med = _median_after_first
+    emit({"phase": "export", "card": smi, "dtype": "bfloat16", "mc_iter": MC_ITER,
+          "batch": BATCH, "export_s": export_s, "export_main_s": main_s,
+          "artifact_mb": os.path.getsize(art) / 1e6, "validated_max_abs": validated,
+          "draws": len(session.model.meta["draws"]), "launches": launches,
+          "request_latency_ms": art_ms,
+          "artifact_latency_ms": turns["artifact"], "live_latency_ms": turns["live"],
+          "median_artifact_ms": [med(t) for t in turns["artifact"]],
+          "median_live_ms": [med(t) for t in turns["live"]],
+          "live_route_latency_ms": route_ms,
+          "median_route_ms": {k: [med(t) for t in v] for k, v in route_ms.items()},
+          "host_us_per_call": per_call,
+          "profile": {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                      "device_events": events,
+                      "top_ms": {k: v / 1e3 for k, v in by_name.most_common(8)}},
+          "sw": {"case": list(SW_CASE), "export_s": sw_export_s,
+                 "artifact_mb": os.path.getsize(sw_art) / 1e6, "vs_live_max": sw_diff,
+                 "launches": sw_launches},
+          "cpu_traced": {"config": "filters 4-24, 4x16x16", "vs_card_live_max": moved_diff,
+                         "launches": moved_launches}})
+    return launches
+
+
 # ----------------------------------------------------------------- train
 class _CaptureOpt:
     """An optimizer that moves nothing and keeps the step's gradients as its
@@ -1633,16 +1866,59 @@ def train_draws(cfg, batch, seed):
     return {k: rng.random(v) < 1.0 - cfg["dropout_rate"] for k, v in sorted(shapes.items())}
 
 
-def _grad_step(ckpt, device, batch, draws, dtype=None, augment=None):
+def _grad_step(ckpt, device, batch, draws, dtype=None, augment=None, out_grads=None):
     """(loss, {leaf: gradient on the host}) of one train step, fp32 unless
-    ``dtype`` says otherwise (fp64: the CPU's exact evaluation)."""
+    ``dtype`` says otherwise (fp64: the CPU's exact evaluation). With
+    ``out_grads`` (a dict), each biased conv's output gradient is noted
+    there by module name: its per-channel fp64 L2 norms and sums over the
+    batch and voxels, and the number N of terms a channel sums."""
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import Conv3d
     from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
 
     model, opt = M1.load(ckpt, device=device, dtype=dtype), _CaptureOpt()
+    if out_grads is not None:
+        def note(name):
+            def keep(g):
+                flat = g.double().reshape(-1, g.shape[-1])
+                out_grads[name] = (flat.norm(dim=0).cpu(), flat.sum(0).cpu(), flat.shape[0])
+
+            def hook(_mod, _inp, out):  # returns None: the output stays as it is
+                out.register_hook(keep)
+            return hook
+
+        for name, mod in model.net.named_modules():
+            if isinstance(mod, Conv3d) and mod.bias is not None:
+                mod.register_forward_hook(note(name))
     state, metrics = tt.make_train_step(model, tt.make_loss(), opt, augment_params=augment)(
         tt.init_train_state(model, opt), batch, draws)
     return float(metrics["loss"]), {k: g.float().cpu() for k, g in state.opt_state.items()}
+
+
+def zero_grad_bias_ratios(card_g, replay_g, out_grads):
+    """Per conv bias whose output feeds an instance norm: the worst channel's
+    |card - fp64| over the bound ZERO_BIAS_C * 2**-24 * sqrt(N) * ||dx||_2.
+
+    Such a bias's data gradient is sum_i dx_i over the N = batch x voxels
+    terms of the norm's input gradient dx, zero in exact arithmetic (the
+    norm's backward removes each channel's mean; the leaf's fp64 value is
+    its L2 term, 2 * l2 * bias). The card's fp32 value is the rounding of
+    that sum: each term carries the roundings of K7's dx (its fp32
+    coefficients and two fused multiply-adds) and its share of the fp32
+    reduction, at most ZERO_BIAS_C units of 2**-24 of a term's size, so
+    |error| <= ZERO_BIAS_C * u * sum_i |dx_i| <= ZERO_BIAS_C * u * sqrt(N) *
+    ||dx||_2 (Cauchy-Schwarz), with dx the fp64 step's. The leaves are found
+    by that identity: each channel of the fp64 output gradient sums to 0
+    within fp64 rounding."""
+    out = {}
+    for name, (norm, total, n) in out_grads.items():
+        key = f"{name}.bias"
+        if not bool((total.abs() <= 1e-10 * n ** 0.5 * norm).all()):
+            continue  # not ahead of an instance norm
+        bound = ZERO_BIAS_C * 2.0 ** -24 * n ** 0.5 * norm
+        err = (card_g[key].double() - replay_g[key].double()).abs()
+        out[key] = float((err / bound).max())
+    return out
 
 
 def cli_augment_params():
@@ -1867,8 +2143,10 @@ def phase_train(tmp, seed, smi):
         card_loss, card_g = _grad_step(ckpt, "cuda", one, draws, augment=augment)
     cpu_loss, cpu_g = _grad_step(ckpt, "cpu", one, draws, augment=augment)
     _, exact_g = _grad_step(ckpt, "cpu", one, draws, torch.float64, augment=augment)
+    out_grads = {}
     with branches.replay():  # fp64 on the card's sides of every kink
-        _, replay_g = _grad_step(ckpt, "cpu", one, draws, torch.float64, augment=augment)
+        _, replay_g = _grad_step(ckpt, "cpu", one, draws, torch.float64, augment=augment,
+                                 out_grads=out_grads)
     parity_s = time.perf_counter() - t0
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
 
@@ -1894,6 +2172,8 @@ def phase_train(tmp, seed, smi):
     nonzero = {k: e for k, e in card_replayed.items()
                if float(replay_g[k].abs().max()) >= ZERO_GRAD}
     worst_nonzero = max(nonzero, key=nonzero.get)
+    zero_bias = zero_grad_bias_ratios(card_g, replay_g, out_grads)
+    worst_zero = max(zero_bias, key=zero_bias.get)
 
     expect = launch_counts(trace_model_calls(TRAIN_CFG, 2, torch.float32, head="train"))
     model = M1.load(ckpt, device="cuda")
@@ -1983,6 +2263,10 @@ def phase_train(tmp, seed, smi):
                           "worst_nonzero_card_vs_replayed_fp64": (worst_nonzero,
                                                                   nonzero[worst_nonzero]),
                           "nonzero_leaves": len(nonzero),
+                          "zero_grad_biases": len(zero_bias),
+                          "worst_zero_grad_bias_over_bound": (worst_zero, zero_bias[worst_zero]),
+                          "zero_grad_bias_over_bound": dict(sorted(
+                              zero_bias.items(), key=lambda kv: -kv[1])[:8]),
                           "leaves_over_1e-3_replayed": [
                               (k, card_replayed[k], float(replay_g[k].abs().max()))
                               for k in over_replayed[:12]],
@@ -2002,6 +2286,9 @@ def phase_train(tmp, seed, smi):
             and grad_l2["card_vs_replayed_fp64"] <= GRAD_REPLAY_L2_TOL):
         raise AssertionError(f"train: card vs branch-replayed fp64: {worst_nonzero} "
                              f"{nonzero[worst_nonzero]}, relative L2 {grad_l2}")
+    if not zero_bias[worst_zero] <= 1.0:
+        raise AssertionError(f"train: the conv bias {worst_zero} ahead of an instance norm "
+                             f"is {zero_bias[worst_zero]}x its rounding bound from fp64")
     if not all(np.isfinite(v) for v in losses + pair_losses + [loss16]):
         raise AssertionError(f"train: losses not finite: {losses}, {pair_losses}, bf16 {loss16}")
     for got in per_step + pair_per_step:
@@ -2501,6 +2788,7 @@ def main(argv=None):
         phase_profile(ckpt, volume)
         phase_parity(ckpt, volume)
         launches["serve_mc"] = phase_serve_mc(tmp, args.seed, smi, ckpt)
+        launches["export"] = phase_export(tmp, args.seed, smi, ckpt)
         launches["serve_sw"] = phase_serve_sw(tmp, args.seed, smi, ckpt)
         launches["serve_cfg2"] = phase_serve_cfg2(tmp, args.seed, smi)
         launches["serve_prob"] = phase_serve_prob(tmp, args.seed, smi)

@@ -8,9 +8,9 @@ one forward, which also gives the deep levels' kernels more blocks. The
 sliding window is a loop over tile chunks that blends each chunk's outputs
 into fp32 accumulators on the device, in the JAX package's tile order.
 
-Every ``rng`` here is a ``torch.Generator`` (or a mapping of keep-masks for
-one forward; see ``prng``). Standard deviations are the population's
-(``correction=0``), as ``jnp.std``.
+Every ``rng`` here is a ``torch.Generator`` (or ``prng.Draws``, or a
+mapping of keep-masks for one forward; see ``prng``). Standard deviations
+are the population's (``correction=0``), as ``jnp.std``.
 """
 
 from __future__ import annotations
@@ -57,10 +57,11 @@ def mc_predict(detect_fn: Callable, params, inputs, rng, num_samples: int = 1,
     if reduce not in ("mean", "mean_std", None):
         raise ValueError(f"reduce must be 'mean', 'mean_std' or None, got {reduce!r}")
     x = tree_map(_as_tensor, inputs)
-    n, b = int(num_samples), _leading(x)
+    n = int(num_samples)
     out = detect_fn(params, tree_map(lambda t: t.repeat(n, *([1] * (t.dim() - 1))), x),
                     rng=rng)
-    samples = tree_map(lambda t: t.reshape(n, b, *t.shape[1:]), out)
+    # -1, not the batch as an int: a traced batch axis stays symbolic
+    samples = tree_map(lambda t: t.reshape(n, -1, *t.shape[1:]), out)
     if reduce == "mean":
         return tree_map(lambda s: s.mean(0), samples)
     if reduce == "mean_std":
@@ -145,9 +146,10 @@ def make_sliding_window_fn(
     ``run(volume)``: (*full_spatial, C_in) -> (*full_spatial, out_channels)
     fp32 (or ``out_dtype``), equal to :func:`sliding_window_predict`.
 
-    cases > 1: ``run`` maps (K, *full_spatial, C_in) -> (K, ..., out_channels),
-    and each chunk's tiles of all K cases go through one forward of
-    K * batch_size volumes.
+    cases > 1: ``run`` maps (K, *full_spatial, C_in) -> (K, ..., out_channels)
+    for any K (JAX's plain-vmap variant; ``cases`` is the K it is built
+    for, and a traced case axis stays symbolic), and each chunk's tiles of
+    all K cases go through one forward of K * batch_size volumes.
 
     rng_per_chunk: ``run(volume, rng)``, and chunk i calls
     ``predict_fn(tiles, fold_in(rng, i))``: fresh dropout masks per chunk.
@@ -169,22 +171,23 @@ def make_sliding_window_fn(
         vols = _as_tensor(volume)
         if cases == 1:
             vols = vols[None]
-        if tuple(vols.shape) != (cases, *full_spatial, in_channels):
-            raise ValueError(f"volume {tuple(vols.shape)} is not {cases} case(s) of "
-                             f"{(*full_spatial, in_channels)}")
+        if vols.dim() != ndim + 2 or tuple(vols.shape[1:]) != (*full_spatial, in_channels):
+            raise ValueError(f"volume {tuple(vols.shape)} is not {'' if cases == 1 else 'K '}"
+                             f"case(s) of {(*full_spatial, in_channels)}")
+        k = vols.shape[0]
         weight = _weight(window, gaussian_weights, vols.device)
-        acc = torch.zeros((cases, *full_spatial, out_channels), dtype=torch.float32,
+        acc = torch.zeros((k, *full_spatial, out_channels), dtype=torch.float32,
                           device=vols.device)
-        norm = torch.zeros((cases, *full_spatial, 1), dtype=torch.float32,
+        norm = torch.zeros((k, *full_spatial, 1), dtype=torch.float32,
                            device=vols.device)
         for cid in range(n_pad // batch_size):
             cs = coords_p[cid * batch_size:(cid + 1) * batch_size]
             tiles = torch.stack([vols[(slice(None), *_tile_slices(c, window))]
                                  for c in cs], dim=1)
-            tiles = tiles.reshape(cases * batch_size, *window, in_channels)
+            tiles = tiles.reshape(-1, *window, in_channels)
             outs = (predict_fn(tiles, prng.fold_in(rng, cid)) if rng_per_chunk
                     else predict_fn(tiles))
-            outs = outs.float().reshape(cases, batch_size, *window, out_channels)
+            outs = outs.float().reshape(-1, batch_size, *window, out_channels)
             for i, c in enumerate(cs):
                 if cid * batch_size + i >= n:  # zero-weight padding tile
                     continue

@@ -18,7 +18,7 @@ from torch import nn
 from ..ops.convolution import Conv3d, ConvConfig, store_act
 from ..ops.normalization import InstanceNorm, global_spatial_mean
 from ..ops.resample import upsample_nearest
-from ..prng import is_mask_map
+from ..prng import Draws, is_mask_map, uniform
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
@@ -33,10 +33,10 @@ def dropout(x: torch.Tensor, rate: float, rng, site: Optional[str] = None
     rounded to that dtype first, as a weakly typed JAX scalar is); rate 0 is
     the identity and rate 1 gives zeros.
 
-    ``rng`` is a ``torch.Generator`` on x's device, whose uniform draws
-    below ``keep`` are the mask, or a mapping from dropout ``site`` to a
-    keep-mask of x's shape, which is replayed and draws nothing (see
-    ``prng`` for the sites' paths)."""
+    ``rng`` is a ``torch.Generator`` on x's device or ``prng.Draws``,
+    whose uniform draws below ``keep`` are the mask, or a mapping from
+    dropout ``site`` to a keep-mask of x's shape, which is replayed and
+    draws nothing (see ``prng`` for the sites' paths)."""
     if rate == 0.0:
         return x
     if rate == 1.0:
@@ -49,8 +49,8 @@ def dropout(x: torch.Tensor, rate: float, rng, site: Optional[str] = None
         if tuple(mask.shape) != tuple(x.shape):
             raise ValueError(f"keep-mask of {site!r} has shape {tuple(mask.shape)}, "
                              f"the activation {tuple(x.shape)}")
-    elif isinstance(rng, torch.Generator):
-        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    elif isinstance(rng, (torch.Generator, Draws)):
+        mask = uniform(rng, x.shape, x.device, site) < keep
     else:
         raise ValueError(f"dropout at rate {rate} needs rng: a torch.Generator on "
                          f"{x.device} or a mapping of keep-masks")

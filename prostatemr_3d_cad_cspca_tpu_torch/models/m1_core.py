@@ -31,13 +31,13 @@ from ..ops.convolution import Conv3d, ConvConfig, ConvTranspose3d, store_act
 from ..ops.distributions import DiagGaussian
 from ..ops.normalization import InstanceNorm
 from ..ops.resample import upsample_nearest
-from ..prng import is_mask_map
+from ..prng import Draws, is_mask_map
 from .blocks import ConfigurableDropout, GridAttentionBlock3D, SEResNetBottleNeck
 
 
 def _latent(level: int, distrib: DiagGaussian, rng) -> torch.Tensor:
     """A sampled latent: the mapping's ``z_<level>``, or a reparameterized
-    draw from the generator."""
+    draw from the generator (or ``prng.Draws``)."""
     if is_mask_map(rng):
         key = f"z_{level}"
         if key not in rng:
@@ -54,10 +54,10 @@ def _latent(level: int, distrib: DiagGaussian, rng) -> torch.Tensor:
             eps = (z - loc.detach()) / scale.detach()
             z = z + (loc - loc.detach()) + (scale - scale.detach()) * eps
         return z
-    if not isinstance(rng, torch.Generator):
-        raise ValueError("sampling a latent needs rng: a torch.Generator or a "
-                         "mapping of latents")
-    return distrib.sample(rng)
+    if not isinstance(rng, (torch.Generator, Draws)):
+        raise ValueError("sampling a latent needs rng: a torch.Generator, prng.Draws "
+                         "or a mapping of latents")
+    return distrib.sample(rng, site=f"z_{level}")
 
 
 class M1Core(nn.Module):

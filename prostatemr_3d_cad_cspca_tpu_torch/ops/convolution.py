@@ -31,6 +31,10 @@ the output extent times the stride; K1 for K2), their weight gradients K6.
 Without grad (serving, ``torch.no_grad()``) they save nothing and launch
 what the forward alone launches. On a CPU (or meta) tensor each wrapper
 runs its plain twin; on a CUDA tensor it launches its kernel or raises.
+While ``torch.export`` traces (``cuda_lib.exporting``), K1's and K2's
+wrappers call the registered operators ``pmr::conv3d`` and
+``pmr::conv3d_transpose`` instead: one node each in the exported program,
+dispatched by device where it runs (``export.py``).
 """
 
 from __future__ import annotations
@@ -406,6 +410,8 @@ def conv3d(parts, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
     strides = tuple(int(s) for s in strides)
     if _needs_grad(*parts, kernel, bias):
         return _Conv3dFn.apply(kernel, bias, strides, *parts)
+    if cuda_lib.exporting():
+        return torch.ops.pmr.conv3d(parts, kernel, bias, list(strides))
     return _conv3d_forward(parts, kernel, bias, strides)
 
 
@@ -415,8 +421,25 @@ conv3d.launches = 0
 def _conv3d_forward(parts, kernel, bias, strides):
     if not cuda_lib.use_kernel("conv3d", parts[0]):
         return conv3d_plain(parts, kernel, bias, strides)
+    return _conv3d_cuda(parts, kernel, bias, strides)
+
+
+def _conv3d_cuda(parts, kernel, bias, strides):
     _check_cuda_args("conv3d", parts, kernel, bias, cin_axis=3)
-    return _launch("conv3d", conv3d, parts, kernel, bias, strides, False)
+    return _launch("conv3d", conv3d, list(parts), kernel, bias, tuple(strides), False)
+
+
+def _conv3d_fake(parts, kernel, bias, strides):
+    x0 = parts[0]
+    out = [same_pads(int(n), int(k), int(s))[0]
+           for n, k, s in zip(x0.shape[1:4], kernel.shape[:3], strides)]
+    return x0.new_empty((x0.shape[0], *out, kernel.shape[4]))
+
+
+cuda_lib.register_op(
+    "conv3d", "(Tensor[] parts, Tensor kernel, Tensor? bias, int[] strides) -> Tensor",
+    cpu=lambda parts, kernel, bias, strides: conv3d_plain(parts, kernel, bias, strides),
+    cuda=_conv3d_cuda, fake=_conv3d_fake)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -524,6 +547,8 @@ def conv3d_transpose(x: torch.Tensor, kernel: torch.Tensor,
     strides = tuple(int(s) for s in strides)
     if _needs_grad(x, kernel, bias):
         return _ConvTranspose3dFn.apply(x, kernel, bias, strides)
+    if cuda_lib.exporting():
+        return torch.ops.pmr.conv3d_transpose(x, kernel, bias, list(strides))
     return _conv3d_transpose_forward(x, kernel, bias, strides)
 
 
@@ -533,13 +558,28 @@ conv3d_transpose.launches = 0
 def _conv3d_transpose_forward(x, kernel, bias, strides):
     if not cuda_lib.use_kernel("conv3d_transpose", x):
         return conv3d_transpose_plain(x, kernel, bias, strides)
+    return _conv3d_transpose_cuda(x, kernel, bias, strides)
+
+
+def _conv3d_transpose_cuda(x, kernel, bias, strides):
+    strides = tuple(strides)
     _check_cuda_args("conv3d_transpose", [x], kernel, bias, cin_axis=4)
-    plan = transpose_plan(tuple(kernel.shape[:3]), tuple(strides),
-                          tuple(x.shape[1:4]))
+    plan = transpose_plan(tuple(kernel.shape[:3]), strides, tuple(x.shape[1:4]))
     if len(plan["phases"]) > MAX_PHASES:
-        raise ValueError(f"conv3d_transpose: strides {tuple(strides)} give more "
+        raise ValueError(f"conv3d_transpose: strides {strides} give more "
                          f"than {MAX_PHASES} phases")
     return _launch("conv3d_transpose", conv3d_transpose, [x], kernel, bias, strides, True)
+
+
+def _conv3d_transpose_fake(x, kernel, bias, strides):
+    out = [int(n) * int(s) for n, s in zip(x.shape[1:4], strides)]
+    return x.new_empty((x.shape[0], *out, kernel.shape[3]))
+
+
+cuda_lib.register_op(
+    "conv3d_transpose", "(Tensor x, Tensor kernel, Tensor? bias, int[] strides) -> Tensor",
+    cpu=lambda x, kernel, bias, strides: conv3d_transpose_plain(x, kernel, bias, strides),
+    cuda=_conv3d_transpose_cuda, fake=_conv3d_transpose_fake)
 
 
 class _ConvTranspose3dFn(torch.autograd.Function):

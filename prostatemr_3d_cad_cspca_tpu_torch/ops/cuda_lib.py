@@ -140,6 +140,17 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def register_op(name: str, schema: str, cpu, cuda, fake):
+    """``pmr::<name>`` as a ``torch.library`` operator: ``cpu`` (the plain
+    twin) and ``cuda`` (the kernel's launch) by the device of its tensors,
+    ``fake`` for fake and meta tensors (the output's shape, batch axis kept
+    symbolic). No other device has an implementation."""
+    op = torch.library.custom_op(f"pmr::{name}", cpu, mutates_args=(), device_types="cpu",
+                                 schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+
+
 def use_kernel(name: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU or meta
     tensor (run the plain twin); any other device raises."""
@@ -148,6 +159,15 @@ def use_kernel(name: str, t: torch.Tensor) -> bool:
     if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def exporting() -> bool:
+    """True while ``torch.export`` traces. The wrappers of K1-K4 then call
+    their registered ``pmr::`` operator, one opaque node of the exported
+    graph that dispatches by device where the program runs (the CUDA
+    implementation launches the kernel, the CPU one runs the twin, the fake
+    one gives the output's shape); the live path keeps the direct call."""
+    return torch.compiler.is_exporting()
 
 
 def check(rc: int, name: str) -> None:

@@ -5,8 +5,8 @@ ladder). The event axis is the trailing (latent) one; the batch shape is
 
 log-sigma is clipped to [-0.1, 0.1] before it is exponentiated (the
 reference's guard against KL blow-up). Sampling is reparameterized with an
-explicit ``torch.Generator``: ``loc + scale * eps`` with ``eps`` drawn in
-fp32 and cast to the location's dtype.
+explicit ``torch.Generator`` (or given draws, ``prng.Draws``): ``loc +
+scale * eps`` with ``eps`` drawn in fp32 and cast to the location's dtype.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..prng import normal
 
 LOGSIG_CLIP = 0.1
 
@@ -28,9 +30,10 @@ class DiagGaussian(NamedTuple):
     def from_mu_logsigma(cls, mu: torch.Tensor, logsigma: torch.Tensor) -> "DiagGaussian":
         return cls(loc=mu, scale=torch.exp(torch.clamp(logsigma, -LOGSIG_CLIP, LOGSIG_CLIP)))
 
-    def sample(self, generator: torch.Generator) -> torch.Tensor:
-        eps = torch.randn(self.loc.shape, generator=generator, dtype=torch.float32,
-                          device=self.loc.device)
+    def sample(self, generator, site: str = "z") -> torch.Tensor:
+        """A reparameterized draw; ``generator`` is a ``torch.Generator`` or
+        ``prng.Draws`` (which names the draw ``site``)."""
+        eps = normal(generator, self.loc.shape, self.loc.device, site)
         return self.loc + self.scale * eps.to(self.loc.dtype)
 
     @property

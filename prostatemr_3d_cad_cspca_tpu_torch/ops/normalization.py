@@ -19,8 +19,10 @@ its source note in ``csrc/instance_norm.cu``:
     of :func:`in_backward_plan`, whose ``torch.autograd.Function``
     :func:`instance_norm` uses under autograd.
 
-Cross-shard statistics (``ShardedStats``, ``revacuum``) wait for the
-multi-GPU slice.
+While ``torch.export`` traces, K3's and K4's wrappers call the registered
+operators ``pmr::in_stats`` and ``pmr::in_apply`` (``cuda_lib.register_op``,
+``export.py``). Cross-shard statistics (``ShardedStats``, ``revacuum``)
+wait for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -153,8 +155,14 @@ def in_stats(x: torch.Tensor) -> torch.Tensor:
     on the sums, one launch a pass.
     """
     _check_5d("in_stats", x)
+    if cuda_lib.exporting():
+        return torch.ops.pmr.in_stats(x)
     if not cuda_lib.use_kernel("in_stats", x):
         return in_stats_plain(x)
+    return _in_stats_cuda(x)
+
+
+def _in_stats_cuda(x: torch.Tensor) -> torch.Tensor:
     code = cuda_lib.dtype_code(x, "in_stats")
     if not x.is_contiguous():
         raise ValueError("in_stats: x must be contiguous NDHWC")
@@ -174,6 +182,9 @@ def in_stats(x: torch.Tensor) -> torch.Tensor:
 
 
 in_stats.launches = 0
+cuda_lib.register_op(
+    "in_stats", "(Tensor x) -> Tensor", cpu=in_stats_plain, cuda=_in_stats_cuda,
+    fake=lambda x: x.new_empty((x.shape[0], 2, x.shape[-1]), dtype=torch.float32))
 
 
 # ------------------------------------------------------------------- K4
@@ -254,8 +265,14 @@ def in_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
     the coefficients of its fixed channels in registers.
     """
     _check_5d("in_apply", x)
+    if cuda_lib.exporting():
+        return torch.ops.pmr.in_apply(x, stats, scale, bias, bool(lrelu), float(epsilon))
     if not cuda_lib.use_kernel("in_apply", x):
         return in_apply_plain(x, stats, scale, bias, lrelu, epsilon)
+    return _in_apply_cuda(x, stats, scale, bias, lrelu, epsilon)
+
+
+def _in_apply_cuda(x, stats, scale, bias, lrelu, epsilon):
     code = cuda_lib.dtype_code(x, "in_apply")
     b, c = int(x.shape[0]), int(x.shape[-1])
     for name, t, shape in (("stats", stats, (b, 2, c)), ("scale", scale, (c,)),
@@ -282,6 +299,11 @@ def in_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
 
 
 in_apply.launches = 0
+cuda_lib.register_op(
+    "in_apply",
+    "(Tensor x, Tensor stats, Tensor scale, Tensor bias, bool lrelu, float epsilon) -> Tensor",
+    cpu=in_apply_plain, cuda=_in_apply_cuda,
+    fake=lambda x, stats, scale, bias, lrelu, epsilon: torch.empty_like(x))
 
 
 # ------------------------------------------------------------------- K7

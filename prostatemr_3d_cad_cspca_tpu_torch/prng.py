@@ -30,7 +30,20 @@ each draw:
   * a cascade: stage 1's forward, then stage 2's.
 
 Sites that are inactive (rate 0, or 'standard' dropout at inference) draw
-nothing. A mapping replays a forward: it maps a site path to its keep-mask
+nothing. Each draw is fp32: a uniform in [0, 1) of the activation's shape
+(the keep-mask is ``u < 1 - rate``), or a standard normal ``eps`` of the
+latent's (the latent is ``loc + scale * eps`` in the location's dtype).
+
+:class:`Draws` hands a forward those draws as given tensors in place of a
+generator's (an exported program takes them as inputs, ``export.py``):
+each call takes the next draw, and ``fold_in(draws, i)`` descends into the
+child's own draws, so one forward of a TTA view, an ensemble member or a
+sliding-window chunk takes what ``fold_in(rng, i)`` would have drawn.
+:class:`DrawRecorder` draws from a generator as the live forward does and
+notes each draw's fold path, site, kind, shape and dtype: the draw plan
+that :func:`plan_draws` redraws from a generator bit for bit.
+
+A mapping replays a forward: it maps a site path to its keep-mask
 and a latent path to its latent. Paths join scope names with '/': the
 scopes are ``stage1``/``stage2`` in a cascade, then in a probabilistic net
 ``prior``/``posterior`` for a fused trunk and the pass name (``q_sample``
@@ -101,15 +114,19 @@ class Scoped(Mapping):
 
 def scope(rng: Any, name: str):
     """``rng`` for the part of a forward named ``name``: a mapping's entries
-    under ``name/``; a generator or None as it is (the draws' order keeps
-    the parts apart)."""
-    return Scoped(rng, name) if is_mask_map(rng) else rng
+    under ``name/``; :class:`Draws` naming its sites under ``name/``; a
+    generator or None as it is (the draws' order keeps the parts apart)."""
+    if is_mask_map(rng):
+        return Scoped(rng, name)
+    if isinstance(rng, Draws):
+        return Draws(rng.source, rng.path, rng.prefix + name + "/")
+    return rng
 
 
 def as_rng(rng: Any, device):
     """Normalize an ``rng`` argument: None and mappings pass through, an int
     becomes a generator on ``device``, a generator must live there."""
-    if rng is None or is_mask_map(rng):
+    if rng is None or is_mask_map(rng) or isinstance(rng, Draws):
         return rng
     if isinstance(rng, (int, np.integer)):
         return generator(int(rng), device)
@@ -136,13 +153,111 @@ def augment_rng(rng):
     return fold_in(rng, AUGMENT_FOLD)
 
 
-def fold_in(rng: torch.Generator, data: int) -> torch.Generator:
+def fold_in(rng, data: int):
     """A child generator (JAX's ``fold_in``): its seed is a fixed function of
-    ``rng``'s seed and ``data``."""
+    ``rng``'s seed and ``data``. Of :class:`Draws`, the child's own draws."""
     if is_mask_map(rng):
         raise TypeError("a mapping of keep-masks replays one forward; it cannot "
                         "be folded into per-view, per-member or per-chunk streams")
+    if isinstance(rng, Draws):
+        return Draws(rng.source, rng.path + (int(data),), rng.prefix)
     state = np.random.SeedSequence([int(rng.initial_seed()), int(data)]
                                    ).generate_state(2, np.uint32)
     seed = (int(state[0]) << 31) ^ int(state[1])
     return torch.Generator(device=rng.device).manual_seed(seed)
+
+
+# ------------------------------------------------------- draws as tensors
+class Draws:
+    """An ``rng`` whose draws are given tensors: ``source.take(path, kind,
+    site, shape, device)`` returns each in the forward's order. ``path`` is
+    the fold path (the ``fold_in`` data from the root, e.g. view, member),
+    ``prefix`` the scope of the sites (``stage1/p_sample/``)."""
+
+    def __init__(self, source, path=(), prefix: str = ""):
+        self.source, self.path, self.prefix = source, tuple(path), prefix
+
+    def take(self, kind: str, shape, device, site: str) -> torch.Tensor:
+        return self.source.take(self.path, kind, self.prefix + site, tuple(shape), device)
+
+
+def _draw(gen: torch.Generator, kind: str, shape, device) -> torch.Tensor:
+    fn = torch.rand if kind == "uniform" else torch.randn
+    return fn(tuple(shape), generator=gen, dtype=torch.float32, device=device)
+
+
+def uniform(rng, shape, device, site: str) -> torch.Tensor:
+    """fp32 uniforms in [0, 1) of ``shape`` from a generator or :class:`Draws`."""
+    if isinstance(rng, Draws):
+        return rng.take("uniform", shape, device, site)
+    return _draw(rng, "uniform", shape, device)
+
+
+def normal(rng, shape, device, site: str) -> torch.Tensor:
+    """fp32 standard normals of ``shape`` from a generator or :class:`Draws`."""
+    if isinstance(rng, Draws):
+        return rng.take("normal", shape, device, site)
+    return _draw(rng, "normal", shape, device)
+
+
+class _Streams:
+    """One generator a fold path, made from ``rng`` by ``fold_in`` down the
+    path at its first draw and drawn from in turn after it."""
+
+    def __init__(self, rng: torch.Generator):
+        self.rng, self.gens = rng, {}
+
+    def __call__(self, path) -> torch.Generator:
+        if path not in self.gens:
+            gen = self.rng
+            for data in path:
+                gen = fold_in(gen, data)
+            self.gens[path] = gen
+        return self.gens[path]
+
+
+class DrawRecorder:
+    """A draw source that draws from ``rng`` what a live forward would (the
+    same generators in the same order) and records the ``plan`` (per draw
+    its ``path``, ``site``, ``kind``, ``shape`` and ``dtype``) and the
+    ``draws``."""
+
+    def __init__(self, rng: torch.Generator):
+        self.streams, self.plan, self.draws = _Streams(rng), [], []
+
+    def take(self, path, kind, site, shape, device):
+        self.plan.append(dict(path=list(path), site=site, kind=kind,
+                              shape=[int(d) for d in shape], dtype="float32"))
+        self.draws.append(_draw(self.streams(tuple(path)), kind, shape, device))
+        return self.draws[-1]
+
+
+class DrawReplay:
+    """A draw source that returns ``draws`` in the order of ``plan`` and
+    raises where the forward asks for another draw than the plan's."""
+
+    def __init__(self, plan, draws):
+        if len(plan) != len(draws):
+            raise ValueError(f"{len(draws)} draws for a plan of {len(plan)}")
+        self.plan, self.draws, self.next = plan, list(draws), 0
+
+    def take(self, path, kind, site, shape, device):
+        i = self.next
+        if i >= len(self.plan):
+            raise ValueError(f"the forward draws more than the plan's {len(self.plan)}")
+        entry = self.plan[i]
+        if (tuple(entry["path"]), entry["kind"], entry["site"]) != (tuple(path), kind, site):
+            raise ValueError(f"draw {i} is {entry['kind']} {entry['site']} at "
+                             f"{entry['path']}, the forward asks {kind} {site} at {list(path)}")
+        self.next += 1
+        return self.draws[i]
+
+
+def plan_draws(plan, rng: torch.Generator, shapes) -> list:
+    """The draws of ``plan`` from ``rng`` (a generator on their device),
+    bit for bit what the live forward draws from it: each path's generator
+    is ``fold_in`` of ``rng`` down the path, drawn from in the plan's order.
+    ``shapes[i]`` is draw i's shape at this call's batch."""
+    streams = _Streams(rng)
+    return [_draw(streams(tuple(e["path"])), e["kind"], shape, rng.device)
+            for e, shape in zip(plan, shapes)]

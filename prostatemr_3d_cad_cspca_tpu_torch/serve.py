@@ -14,12 +14,15 @@
     supplies the second (its absence feeds the one exam to both stages; a
     single-stage model ignores the column), and the served detection is
     stage 2's;
+  * an exported artifact (``--MODEL m1.zip``, ``export.py``) serves through
+    ``ExportedSession``: the program as it was frozen (MC, TTA, ensemble
+    and transfer type baked in), whole-gland cases through its
+    sliding-window programs;
   * outputs: ``<p-id>_detection.npy`` (+ ``_uncertainty.npy``) and
     ``predictions.json`` with ranked lesion candidates
     (train.metrics.extract_lesion_candidates), in manifest order.
 
-Exported ``.zip`` artifacts and ``--DATA_PARALLEL`` raise and name the slice
-they wait for.
+``--DATA_PARALLEL`` raises and names the slice it waits for.
 
 CLI:
   python -m prostatemr_3d_cad_cspca_tpu_torch.serve \\
@@ -47,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="M1 batch inference")
     p.add_argument("--MODEL", type=str, required=True,
                    help="checkpoint path (M1.save output, from either package); "
-                        "comma-separate K fold checkpoints to serve their ensemble")
+                        "comma-separate K fold checkpoints to serve their ensemble; "
+                        "or an exported artifact (.zip)")
     p.add_argument("--MANIFEST", type=str, required=True,
                    help="csv/tsv/xlsx manifest with p-id,image_path columns")
     p.add_argument("--OUTPUT_DIR", type=str, required=True)
@@ -297,6 +301,68 @@ class InferenceSession:
         return out
 
 
+class ExportedSession:
+    """Serve from an artifact (``export.ExportedModel``): the inference
+    program (MC sampling, TTA, ensemble, cascade, transfer type) was frozen
+    at export, so this session only batches. ``__call__`` pads a short batch
+    up to a fixed-batch artifact's size and strips the padding."""
+
+    def __init__(self, model):
+        self.model = model  # an export.ExportedModel, seeded at load
+        self._fixed_batch = model.meta.get("batch")
+        self._mean_std = model.meta["output"] == "mean_std"
+
+    def __call__(self, batch):
+        if isinstance(batch, tuple):  # a cascade: its exams stacked on channels
+            batch = np.concatenate(batch, axis=-1)
+        b = batch.shape[0]
+        fixed = self._fixed_batch
+        if fixed is not None:
+            if b > fixed:
+                raise ValueError(f"artifact has fixed batch {fixed}; got {b} (serve with "
+                                 "--BATCH_SIZE <= that, or export with batch=None)")
+            if b < fixed:
+                batch = np.concatenate([batch, np.repeat(batch[-1:], fixed - b, axis=0)], 0)
+        out = self.model.predict(batch)
+        if self._mean_std:
+            mean, std = out
+            return mean[:b], std[:b]
+        return out[:b], None
+
+    def predict_cases(self, vols, sw_overlap: float = 0.5, group_size: int = 8):
+        """Whole cases through the artifact's sliding-window programs
+        (``export_model(sw_shapes=...)``). The overlap was frozen at export;
+        another ``sw_overlap`` is noted as inert. Cases are grouped by
+        geometry, and a group's last chunk is padded with a duplicate to the
+        group's size. Results align with ``vols``."""
+        stacked = [np.concatenate(v, axis=-1) if isinstance(v, tuple) else np.asarray(v)
+                   for v in vols]  # a cascade's two exams
+        baked = self.model.sw_entries
+        if not baked:
+            shapes = sorted({tuple(v.shape) for v in stacked})
+            raise ValueError(
+                "this artifact has no sliding-window programs (exported without "
+                f"sw_shapes): case shapes {shapes} vs window "
+                f"{tuple(self.model.input_spatial_dims)} need a re-export with "
+                "sw_shapes=... or a live checkpoint")
+        overlaps = {shape: entry["overlap"] for shape, entry in baked.items()}
+        if any(abs(ov - float(sw_overlap)) > 1e-9 for ov in overlaps.values()):
+            print(f"# note: SW_OVERLAP={sw_overlap} ignored: overlaps {overlaps} were "
+                  "frozen into the artifact at export", flush=True)
+        by_shape: Dict[tuple, List[int]] = {}
+        for idx, v in enumerate(stacked):
+            by_shape.setdefault(tuple(v.shape), []).append(idx)
+        results: List[Optional[tuple]] = [None] * len(stacked)
+        for idxs in by_shape.values():
+            k = min(max(1, int(group_size)), len(idxs))
+            for i in range(0, len(idxs), k):
+                chunk = idxs[i:i + k]
+                block = [stacked[j] for j in chunk] + [stacked[chunk[-1]]] * (k - len(chunk))
+                for j, r in zip(chunk, self.model.predict_cases(block)):
+                    results[j] = r
+        return results
+
+
 def _load_one(row: Dict[str, str], train_obj: str, channels: int,
               whiten: bool) -> np.ndarray:
     """One exam's first ``channels`` channels, as the JAX package reads it
@@ -339,14 +405,24 @@ def run(args) -> List[Dict]:
         raise NotImplementedError(
             "--DATA_PARALLEL waits for the multi-GPU slice")
     os.makedirs(args.OUTPUT_DIR, exist_ok=True)
-    model = load_model_spec(args.MODEL, seed=args.SEED, device=device)
-    tdt = getattr(args, "TRANSFER_DTYPE", "float32")
-    session = InferenceSession(
-        model, mc_iter=args.MC_ITER, seed=args.SEED,
-        transfer_dtype=None if tdt == "float32" else tdt,
-        tta=bool(getattr(args, "TTA", 0)),
-        transfer_channels=getattr(args, "TRANSFER_CHANNELS", "all"),
-        scan_chunk=int(getattr(args, "SCAN_CHUNK", 0)) or None, device=device)
+    model = load_model_spec(args.MODEL, seed=args.SEED, allow_artifact=True, device=device)
+    if hasattr(model, "sw_entries"):  # an artifact (export.ExportedModel)
+        # MC, TTA, the ensemble and transfer slimming were frozen at export
+        inert = [f for f, dv in (("MC_ITER", 1), ("TTA", 0), ("TRANSFER_DTYPE", "float32"),
+                                 ("TRANSFER_CHANNELS", "all"), ("SCAN_CHUNK", 0))
+                 if getattr(args, f, dv) != dv]
+        if inert:
+            print(f"# note: {', '.join(inert)} ignored: frozen into the artifact at "
+                  "export", flush=True)
+        session = ExportedSession(model)
+    else:
+        tdt = getattr(args, "TRANSFER_DTYPE", "float32")
+        session = InferenceSession(
+            model, mc_iter=args.MC_ITER, seed=args.SEED,
+            transfer_dtype=None if tdt == "float32" else tdt,
+            tta=bool(getattr(args, "TTA", 0)),
+            transfer_channels=getattr(args, "TRANSFER_CHANNELS", "all"),
+            scan_chunk=int(getattr(args, "SCAN_CHUNK", 0)) or None, device=device)
     window = tuple(model.input_spatial_dims)
     rows = read_manifest(args.MANIFEST)
 

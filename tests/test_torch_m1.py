@@ -187,8 +187,9 @@ def test_serve_run_matches_jax(jax_model, tmp_path):
 
 def test_serve_refuses_what_waits_for_later_slices(jax_model, tmp_path):
     """Sliding windows, --MC_ITER, --TTA, --SCAN_CHUNK and fold ensembles
-    serve now (a second exam too: tests/test_torch_cascade.py);
-    --DATA_PARALLEL and .zip artifacts still raise and name their slice."""
+    serve now (a second exam too: tests/test_torch_cascade.py), and so do
+    .zip artifacts (tests/test_torch_export_serve.py; a missing one is not
+    found); --DATA_PARALLEL still raises and names its slice."""
     ckpt = str(tmp_path / "model.npz")
     jax_model.save(ckpt)
     rng = np.random.default_rng(3)
@@ -205,10 +206,10 @@ def test_serve_refuses_what_waits_for_later_slices(jax_model, tmp_path):
                   ["--MODEL", f"{ckpt},{ckpt}"]):
         out = tserve.main(base + ["--MANIFEST", small] + extra)
         assert [r["p-id"] for r in out] == ["case0", "case1", "case2"]
-    for extra, slice_name in ((["--MANIFEST", small, "--DATA_PARALLEL", "2"], "multi-GPU"),
-                              (["--MANIFEST", small, "--MODEL", "artifact.zip"], "export")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tserve.main(base + extra)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tserve.main(base + ["--MANIFEST", small, "--DATA_PARALLEL", "2"])
+    with pytest.raises(FileNotFoundError, match="artifact.zip"):
+        tserve.main(base + ["--MANIFEST", small, "--MODEL", str(tmp_path / "artifact.zip")])
 
 
 def test_jax_mc_dropout_checkpoint_loads_with_every_leaf_matched(tmp_path):

@@ -17,6 +17,7 @@ import torch
 
 import prostatemr_3d_cad_cspca_tpu_torch as port
 import prostatemr_3d_cad_cspca_tpu_torch.cli  # noqa: F401  (port.cli)
+import prostatemr_3d_cad_cspca_tpu_torch.export  # noqa: F401  (port.export)
 from prostatemr_3d_cad_cspca_tpu_torch.augment import AugmentParams, make_augment_fn
 from prostatemr_3d_cad_cspca_tpu_torch.ensemble import M1Ensemble
 from prostatemr_3d_cad_cspca_tpu_torch.load import load_model_spec
@@ -73,7 +74,8 @@ def test_importing_the_port_loads_no_jax():
     assert bad == []
     for mod in ("serve", "infer", "ensemble", "prng", "ops.gemm", "probes.gemm_rate",
                 "augment", "data.generators", "data.preprocess", "cli", "train.checkpoint",
-                "utils.profiling", "utils.overview", "data.ingest"):
+                "utils.profiling", "utils.overview", "data.ingest", "export", "utils.flops",
+                "utils.tf_import"):
         assert f"prostatemr_3d_cad_cspca_tpu_torch.{mod}" in loaded
 
 
@@ -121,6 +123,13 @@ def test_entry_points_default_to_the_card(tmp_path):
         mgr.restore()
     payload, step = mgr.restore(device="cpu")
     assert step == 1 and payload["step"] == 0 and set(payload["params"]) == set(model.params)
+    # export: the CLI without --DEVICE cpu, and loading an artifact
+    model.save(str(tmp_path / "m.npz"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.export.main(["--MODEL", str(tmp_path / "m.npz"), "--OUT", str(tmp_path / "a.zip")])
+    assert not (tmp_path / "a.zip").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.export.ExportedModel.load(str(tmp_path / "a.zip"))
 
 
 def test_mc_dropout_at_rate_zero_is_deterministic():
@@ -131,16 +140,17 @@ def test_mc_dropout_at_rate_zero_is_deterministic():
 
 @pytest.mark.parametrize("spec", ["a.npz,b.npz", "artifact.zip"])
 def test_load_spec_refuses_ensembles_and_artifacts(spec, tmp_path, monkeypatch):
-    """Fold ensembles load now (``M1Ensemble``); exported artifacts, alone
-    or inside an ensemble spec, still raise."""
+    """Fold ensembles load (``M1Ensemble``); an exported artifact loads only
+    where the caller serves from one (``allow_artifact=True``, JAX's rule),
+    and never inside an ensemble spec."""
     monkeypatch.chdir(tmp_path)
     model = M1(**TINY, device="cpu")
     for name in ("a.npz", "b.npz"):
         model.save(name)
     if spec.endswith(".zip"):
-        for bad in (spec, f"a.npz,{spec}"):
-            with pytest.raises(NotImplementedError, match="export slice"):
-                load_model_spec(bad, device="cpu")
+        for bad, allow in ((spec, False), (f"a.npz,{spec}", False), (f"a.npz,{spec}", True)):
+            with pytest.raises(ValueError, match="live checkpoint"):
+                load_model_spec(bad, allow_artifact=allow, device="cpu")
         return
     ens = load_model_spec(spec, device="cpu")
     assert isinstance(ens, M1Ensemble) and ens.num_members == 2
