@@ -3,8 +3,9 @@
 Monte-Carlo and sliding-window M1 serving, an exported artifact served,
 cfg2, the probabilistic and the cascaded M1, the GEMM-rate probe, the
 augmentation and train steps of the CLI's default recipe fed by the data
-layer, evaluate.run, and a fold trained through the training CLI) and hold
-every hand-written kernel against its plain twin.
+layer, evaluate.run, a fold trained through the training CLI, and the
+multi-GPU layer on meshes of the one card) and hold every hand-written
+kernel against its plain twin.
 
     python3 chip_smoke.py [--seed 0] [--out FILE]
 
@@ -157,6 +158,44 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                predict_cases (<= 1e-4, 5 forwards for 2 cases); a tiny
                artifact traced on the CPU and run on the card (K1-K4
                launched, <= 1e-3 from the card's live model).
+
+ 17. parallel  (after fit) multi-GPU on the one card. Data-parallel serving:
+               InferenceSession over a one-process mesh of data 2 whose
+               devices are cuda:0 twice, 3 bf16 requests of 4 volumes
+               (exactly 2 forwards a request: 100/8/74/74): the bits of the
+               one-device session on each replica's rows, mean |diff| <=
+               1e-2 from it on all 4 (K1's and K3's plans follow the batch);
+               fp32 and MC 4 fp32 (the same seed's draws) <= 1e-5 from the
+               one-device session; MC 4 bf16 its own bits for the same
+               seed, another seed's apart; request ms beside the
+               one-device session's. The CLI's default recipe at batch 2
+               (fp32) through make_train_step(mesh=) over an NCCL group of
+               one rank: parameters bit-equal to the step without a mesh;
+               one step profiled (nccl:all_reduce, K6's and K7's CUDA
+               kernels); the all-reduce ms of the 4.39 M-parameter
+               gradient. Two gloo ranks, spawned, both computing on cuda:0:
+               the DP step (the recipe with SGD) at a global batch of 2,
+               each rank replaying the one-process step's branch decisions
+               on its rows (BranchReplay; K4 and K7 without their fused
+               LReLU, the recorded slope between them), against the
+               one-process step (loss <= 1e-5 relative, parameters <= 1e-4
+               relative L2); beside it the DP step that decides its kinks
+               itself, the elements whose sides differ and the same step
+               with Adam (reported); gloo's all-reduce ms;
+               spatial_infer_m1 on a 24x256x256x3 volume in slabs of 128
+               along H (halo 96) against the unsharded forward (<= 1e-4,
+               argmax agreement >= 0.9999), s a case, and the device ms of
+               the sharded norms' core copies; make_spatial_train_step on
+               20x160x160 (slab 80, halo 96: the exchange spans two slabs)
+               against the unsharded loss (<= 1e-5 relative).
+ 18. parallel_kernels  K1-K4, K6 and K7 against their twins at every
+               (shape, dtype) that phase 17's runs gave them, recorded on
+               the card: the slabs and the cores K3 takes, the spatial
+               step, the DP step at a rank's batch of 1, the batch-4 and
+               MC-stacked sessions, the unsharded whole-gland forward; one
+               split-K K1/K2 shape, K3's largest and every K6 and K7 shape
+               rerun for the same bits; the K1/K2 and K3 calls whose plan
+               differs between a batch of 4 and of 2.
 
 The train step's own shapes (its meta trace, batch 2) are checked and timed
 after the kernels phase, in both dtypes: the data gradients' K1/K2 calls
@@ -341,28 +380,40 @@ def check_k7_ptxas(ptxas):
 
 
 # ------------------------------------------------- path shapes (meta trace)
-def trace_model_calls(cfg, batch, dtype=None, head="detect"):
-    """Every kernel call of one forward of the model ``cfg`` at ``batch`` in
-    ``dtype`` (default bf16) through ``head`` ("detect": what serving runs,
-    "forward", or "train": the train step's forward in training mode, the
-    focal loss + L2 and the backward), found by running it on the meta
-    device with recording wrappers (a CPU generator draws the meta tensors
-    of dropout and latents)."""
-    import torch
-    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+@contextlib.contextmanager
+def recording(calls):
+    """Append (kernel, shape signature, dtype name) to ``calls`` for every
+    call of a kernel wrapper (K1-K4, K6, K7) while the context is open,
+    device-agnostic: on the meta device it traces a path, on the card it
+    records the shapes that path really gave its kernels."""
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution, normalization
 
-    calls = []
     originals = {}
 
-    def record(mod, name, sig):
-        orig = getattr(mod, name)
-        originals[(mod, name)] = orig
+    class Recorder:
+        """The wrapper in the module's place; its launch count is the
+        wrapped function's, which the kernel's launch raises."""
 
-        def wrapper(*a, **kw):
-            calls.append((name, sig(*a, **kw)))
-            return orig(*a, **kw)
-        setattr(mod, name, wrapper)
+        def __init__(self, name, orig, sig):
+            self.name, self.orig, self.sig = name, orig, sig
+
+        @property
+        def launches(self):
+            return self.orig.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.orig.launches = n
+
+        def __call__(self, *a, **kw):
+            first = (a or tuple(kw.values()))[0]
+            first = first[0] if isinstance(first, (list, tuple)) else first
+            calls.append((self.name, self.sig(*a, **kw), _dn(first.dtype)))
+            return self.orig(*a, **kw)
+
+    def record(mod, name, sig):
+        originals[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, Recorder(name, originals[(mod, name)], sig))
 
     record(convolution, "conv3d", lambda parts, kernel, bias=None,
            strides=(1, 1, 1): (tuple(tuple(p.shape) for p in parts),
@@ -377,6 +428,24 @@ def trace_model_calls(cfg, batch, dtype=None, head="detect"):
     record(normalization, "in_backward", lambda x, g, stats, scale, bias, lrelu=False,
            epsilon=1e-3: (tuple(x.shape), bool(lrelu)))
     try:
+        yield calls
+    finally:
+        for (mod, name), orig in originals.items():
+            setattr(mod, name, orig)
+
+
+def trace_model_calls(cfg, batch, dtype=None, head="detect"):
+    """Every kernel call of one forward of the model ``cfg`` at ``batch`` in
+    ``dtype`` (default bf16) through ``head`` ("detect": what serving runs,
+    "forward", or "train": the train step's forward in training mode, the
+    focal loss + L2 and the backward), found by running it on the meta
+    device with recording wrappers (a CPU generator draws the meta tensors
+    of dropout and latents)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+
+    calls = []
+    with recording(calls):
         model = M1(**cfg, summary=False, init_params=False, device="meta",
                    dtype=dtype or torch.bfloat16)
         x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]),
@@ -393,10 +462,7 @@ def trace_model_calls(cfg, batch, dtype=None, head="detect"):
             kw = {"train": False} if head == "forward" else {}
             with torch.no_grad():
                 getattr(model.net, head)((x, x) if cfg.get("cascaded") else x, rng=gen, **kw)
-    finally:
-        for (mod, name), orig in originals.items():
-            setattr(mod, name, orig)
-    return collections.Counter(calls)
+    return collections.Counter((name, sig) for name, sig, _ in calls)
 
 
 def trace_path_calls(batch, dtype=None):
@@ -609,20 +675,21 @@ def _dn(dtype):
 
 
 def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
-                  bit_kernels=CONV_KERNELS + ("in_stats",)):
+                  bit_kernels=CONV_KERNELS + ("in_stats",), rerun=None):
     """Each call's kernel against its plain twin in each of ``dtypes``
     (default fp32 and bf16); with ``timed``, each dtype's times beside the
-    bound, and in each dtype one K1/K2 split-K shape, K3's largest shape,
-    every K6 shape and every K7 shape run twice on the
-    same inputs (the same bits); each of ``bit_kernels`` present must have
-    had one. ``per_path`` ({path: calls}) adds each row's calls per
-    forward of each path."""
+    bound; with ``rerun`` (default: ``timed``), in each dtype one K1/K2
+    split-K shape, K3's largest shape, every K6 shape and every K7 shape
+    run twice on the same inputs (the same bits), and each of
+    ``bit_kernels`` present must have had one. ``per_path`` ({path:
+    calls}) adds each row's calls per forward of each path."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     dtypes = dtypes or (torch.float32, torch.bfloat16)
+    rerun = timed if rerun is None else rerun
     tol = {torch.float32: FP32_LIMIT, torch.bfloat16: 2 * BF16_ULP}
     rows = collections.defaultdict(list)
     bit_checked = set()  # (kernel, dtype): a K1/K2 split-K shape; K3's largest
@@ -697,6 +764,10 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                 if not (np.isfinite(sums_err) and sums_err <= 1e-4):
                     raise AssertionError(f"{name} {dn} {sig}: sums error {sums_err} > 1e-4")
                 row[f"sums_rel_err_{dn}"] = sums_err
+                if dtype == torch.float32 and not sig[1]:  # K7's sums against fp64
+                    exact = nm.in_backward_plain(*(t.double() for t in (x, gy, stats, scale,
+                                                                        bias)))[1]
+                    row["sums_rel_err_vs_fp64"] = _errors(got[1], exact)[1]
                 first_sums, got, ref = got[1], got[0], ref[0]
             abs_err, rel_err = _errors(got, ref)
             if name == "conv3d_wgrad":
@@ -712,18 +783,19 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
             row[f"max_abs_err_{dn}"] = abs_err
             row[f"max_rel_err_{dn}"] = rel_err
             row[f"tol_{dn}"] = limit
-            if not timed:
+            if not (timed or rerun):
                 continue
-            # K1/K2 on the tensor cores at their type's rate (fp32: three
-            # TF32 products each); K3/K4 compute in fp32 on the CUDA cores
-            rate = {"conv3d": None, "conv3d_transpose": None,
-                    "conv3d_wgrad": None}.get(name, FP32_FLOP_PER_S)
-            if rate is None:
-                rate = TF32_FLOP_PER_S / 3 if dtype == torch.float32 else BF16_FLOP_PER_S
-            row[f"ms_{dn}"] = time_ms(run, reps)
-            row[f"plain_ms_{dn}"] = time_ms(plain, reps)
-            row[f"library_ms_{dn}"] = time_ms(lib, reps) if lib is not None else None
-            row[f"bound_ms_{dn}"], row[f"bound_by_{dn}"] = bound_ms(nbytes, flops, rate)
+            if timed:
+                # K1/K2 on the tensor cores at their type's rate (fp32: three
+                # TF32 products each); K3/K4 compute in fp32 on the CUDA cores
+                rate = {"conv3d": None, "conv3d_transpose": None,
+                        "conv3d_wgrad": None}.get(name, FP32_FLOP_PER_S)
+                if rate is None:
+                    rate = TF32_FLOP_PER_S / 3 if dtype == torch.float32 else BF16_FLOP_PER_S
+                row[f"ms_{dn}"] = time_ms(run, reps)
+                row[f"plain_ms_{dn}"] = time_ms(plain, reps)
+                row[f"library_ms_{dn}"] = time_ms(lib, reps) if lib is not None else None
+                row[f"bound_ms_{dn}"], row[f"bound_by_{dn}"] = bound_ms(nbytes, flops, rate)
             twice = False
             if name == "in_stats":
                 row[f"blocks_{dn}"] = nm.in_stats_plan(
@@ -758,7 +830,7 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                 bit_checked.add((name, dn))
         rows[name].append(row)
     want = {(n, _dn(d)) for n in bit_kernels if n in rows for d in dtypes}
-    if timed and want - bit_checked:
+    if rerun and want - bit_checked:
         raise AssertionError(f"no shape checked for determinism: {want - bit_checked}")
     return rows
 
@@ -1748,6 +1820,7 @@ class BranchReplay:
 
         return {"lrelu": (blocks, "leaky_relu01"),
                 "in_forward": (normalization._InstanceNormFn, "forward"),
+                "in_backward": (normalization._InstanceNormFn, "backward"),
                 "in_sign": (normalization, "_pre_activation_sign"), "clip": (losses, "_clip")}
 
     def _patched(self, fns):
@@ -1833,6 +1906,68 @@ class BranchReplay:
 
         return self._patched({"lrelu": lrelu, "in_forward": in_forward, "in_sign": in_sign,
                               "clip": clip})
+
+    def replay_rows(self, rows, flips):
+        """The recorded sides, cut to the batch rows ``rows``, taken by a
+        step on any device (a data-parallel rank's share of the recorded
+        step). The card's K4 and K7 decide a fused LReLU's side themselves,
+        so each norm with one runs K4 and K7 without it and the recorded
+        slope between them (forward: on K4's output; backward: on the
+        gradient K7 takes). ``flips`` (a Counter) gets, per kind of kink,
+        the elements whose own side differs from the recorded one."""
+        import torch
+
+        cursor = {k: iter(v) for k, v in self.sides.items()}
+        sign = self._sites()["in_sign"]
+
+        def take(name, like):
+            got = next(cursor[name])
+            got = tuple(t[rows].to(like.device) for t in got) if isinstance(got, tuple) \
+                else got[rows].to(like.device)
+            shape = (got[0] if isinstance(got, tuple) else got).shape
+            if tuple(shape) != tuple(like.shape):
+                raise AssertionError(f"replay {name}: recorded {tuple(shape)}, "
+                                     f"got {tuple(like.shape)}")
+            return got
+
+        def lrelu(orig):
+            def fn(x):
+                side = take("lrelu", x)
+                flips["lrelu"] += int((side != ~(x > 0)).sum())
+                return torch.where(side, 0.1 * x, x)
+            return fn
+
+        def in_forward(orig):
+            def fn(ctx, x, scale, bias, lrelu, epsilon):
+                ctx.side = None
+                if not lrelu:
+                    return orig(ctx, x, scale, bias, lrelu, epsilon)
+                y = orig(ctx, x, scale, bias, False, epsilon)
+                ctx.side = take("in_sign", x)
+                own = getattr(*sign)(x, ctx.to_save[1], scale, bias, epsilon)
+                flips["in_sign"] += int((ctx.side != own).sum())
+                return torch.where(ctx.side, 0.1 * y, y)
+            return fn
+
+        def in_backward(orig):
+            def fn(ctx, gy):
+                if ctx.side is not None:
+                    gy = torch.where(ctx.side, 0.1 * gy, gy)
+                return orig(ctx, gy)
+            return fn
+
+        def clip(orig):
+            def fn(x, lo, hi):  # the recorded sides of the clip, ties as jnp.clip's
+                below, above, tie_lo, tie_hi = take("clip", x)
+                flips["clip"] += int(((x < lo) != below).sum() + ((x > hi) != above).sum())
+                lo_t, hi_t = (torch.full_like(x, v) for v in (lo, hi))
+                out = torch.where(tie_lo, 0.5 * (x + lo_t), x)
+                out = torch.where(tie_hi, 0.5 * (x + hi_t), out)
+                return torch.where(below, lo_t, torch.where(above, hi_t, out))
+            return fn
+
+        return self._patched({"lrelu": lrelu, "in_forward": in_forward,
+                              "in_backward": in_backward, "clip": clip})
 
 
 def train_batch(seed, batch):
@@ -2674,6 +2809,478 @@ def phase_fit(tmp, seed, smi):
     return launches, launches16
 
 
+# ------------------------------------------------------------- parallel
+PAR_BATCH = 4                      # volumes a data-parallel request
+PAR_SLABS = 2                      # ranks of the spatial meshes
+PAR_SW_CASE = (24, 256, 256)       # the sharded forward's whole-gland volume (slab 128)
+PAR_STEP_CASE = (20, 160, 160)     # the spatial train step's volume (slab 80 < halo 96)
+PAR_FP32_TOL = 1e-5                # DP vs one-device session, fp32, max |diff|
+BF16_MEAN_LIMIT = 1e-2             # the bf16 path's network-level limit, mean |diff|
+PAR_SPATIAL_TOL, PAR_AGREE = 1e-4, 0.9999  # sharded vs unsharded softmax; argmax agreement
+PAR_LOSS_RTOL = 1e-5               # gloo DP step vs one-process step, loss
+PAR_PARAMS_L2 = 1e-4               # ... updated parameters (relative L2), kinks replayed
+PAR_TIMEOUT_S = 600                # the two gloo ranks, joined
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _params(model):
+    return {k: v.detach().clone() for k, v in model.net.named_parameters()}
+
+
+def _norm(tree):
+    return sum(float(v.double().square().sum()) for v in tree.values()) ** 0.5
+
+
+def _rel_l2(got, want):
+    return _norm({k: got[k] - want[k] for k in want}) / _norm(want)
+
+
+def _scaled_err(got, ref):
+    return float((np.abs(got - ref) / np.maximum(1.0, np.abs(ref))).max())
+
+
+def _dp_serving(ckpt, mc_ckpt, seed, calls):
+    """InferenceSession over a one-process mesh of data 2 on cuda:0 twice,
+    against the one-device session. Deterministic bf16 (3 requests of 4):
+    bit-equal to the one-device session run on each replica's rows (the
+    same forwards), and within the bf16 path's limit of the one-device
+    session over all 4 (K1's split-K and K3's plans follow the batch, so
+    their bf16 rounding does too). fp32 and MC 4 fp32 (the same seed's
+    draws) within PAR_FP32_TOL of the one-device session; MC 4 bf16 its
+    own bits again for the same seed, another seed's output apart. The
+    untimed forwards' kernel calls go to ``calls`` (``recording``)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.parallel.mesh import make_mesh
+    from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
+
+    mesh = make_mesh(n_data=2, devices=["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(seed + 60)
+    requests = [rng.normal(size=(PAR_BATCH, *CFG1["input_spatial_dims"], 3)).astype(np.float32)
+                for _ in range(REQUESTS)]
+    bf16 = M1.load(ckpt, dtype=torch.bfloat16, device="cuda")
+    one = InferenceSession(bf16, device="cuda")
+    dp = InferenceSession(bf16, mesh=mesh, device="cuda")
+    one_ms, one_out, _ = _serve_requests(one, requests, mc=False, expect=forwards(1))
+    dp_ms, dp_out, launches = _serve_requests(dp, requests, mc=False, expect=forwards(2))
+    half = PAR_BATCH // 2
+    with recording(calls):
+        one(requests[0])
+        dp(requests[0])
+        shards_equal = all(np.array_equal(d[0], np.concatenate([one(r[:half])[0],
+                                                                one(r[half:])[0]]))
+                           for d, r in zip(dp_out, requests))
+        fp32 = M1.load(ckpt, device="cuda")
+        f_one, _ = InferenceSession(fp32, device="cuda")(requests[0])
+        f_dp, _ = InferenceSession(fp32, mesh=mesh, device="cuda")(requests[0])
+        mc32 = M1.load(mc_ckpt, device="cuda")
+        m_one = InferenceSession(mc32, mc_iter=MC_ITER, seed=seed, device="cuda")(requests[0])
+        m_dp = InferenceSession(mc32, mc_iter=MC_ITER, seed=seed, mesh=mesh,
+                                device="cuda")(requests[0])
+        mc = M1.load(mc_ckpt, dtype=torch.bfloat16, device="cuda")
+        outs = [InferenceSession(mc, mc_iter=MC_ITER, seed=s_, mesh=mesh,
+                                 device="cuda")(requests[0]) for s_ in (seed, seed, seed + 1)]
+        b_one = InferenceSession(mc, mc_iter=MC_ITER, seed=seed, device="cuda")(requests[0])
+    bf16_diff = [np.abs(d[0] - o[0]) for d, o in zip(dp_out, one_out)]
+    out = {"bf16_equals_one_device_on_each_shard": bool(shards_equal),
+           "bf16_vs_one_device_mean_abs": float(np.mean([d.mean() for d in bf16_diff])),
+           "bf16_vs_one_device_max_scaled": max(_scaled_err(d[0], o[0])
+                                                for d, o in zip(dp_out, one_out)),
+           "fp32_max_abs_err": float(np.abs(f_dp - f_one).max()),
+           "mc_fp32_max_abs_err": max(float(np.abs(m_dp[i] - m_one[i]).max()) for i in (0, 1)),
+           "mc_bf16_vs_one_device_mean_abs": float(np.abs(outs[0][0] - b_one[0]).mean()),
+           "mc_bf16_vs_one_device_max_scaled": _scaled_err(outs[0][0], b_one[0]),
+           "mc_same_seed_same_bits": bool(all(np.array_equal(a, b)
+                                              for a, b in zip(outs[0], outs[1]))),
+           "mc_other_seed_max_diff": float(np.abs(outs[2][0] - outs[0][0]).max()),
+           "request_ms": dp_ms, "one_device_request_ms": one_ms,
+           "median_request_ms": _median_after_first(dp_ms),
+           "median_one_device_request_ms": _median_after_first(one_ms)}
+    if (not shards_equal or out["bf16_vs_one_device_mean_abs"] > BF16_MEAN_LIMIT
+            or out["fp32_max_abs_err"] > PAR_FP32_TOL
+            or out["mc_fp32_max_abs_err"] > PAR_FP32_TOL
+            or out["mc_bf16_vs_one_device_mean_abs"] > BF16_MEAN_LIMIT):
+        raise AssertionError(f"parallel: DP serving differs from one device: {out}")
+    if not out["mc_same_seed_same_bits"] or out["mc_other_seed_max_diff"] <= 1e-3:
+        raise AssertionError(f"parallel: DP MC draws do not follow the seed: {out}")
+    return out, launches
+
+
+def _train_parts(ckpt, optimizer="adam"):
+    """The CLI's default recipe (TRAIN_CFG, its augmentation, Keras amsgrad
+    on CALR, focal (1, 1) gamma 2) on a fresh load of ``ckpt``; or with
+    ``optimizer="momentum"``, SGD + Nesterov on the same schedule."""
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
+
+    model = M1.load(ckpt, device="cuda")
+    sched = tt.build_schedule("CALR", 1e-3, TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS,
+                              (2.0, 1.0, 1e-3))
+    return model, tt.make_optimizer(optimizer, sched), tt.make_loss(
+        "distribution_focal", (1.0, 1.0), 2.0)
+
+
+def _dp_step(ckpt, seed, batch, mesh, optimizer="adam"):
+    """One augmented train step of the recipe: (parameters, loss, launches)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch import prng
+    from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
+
+    model, opt, loss = _train_parts(ckpt, optimizer)
+    step = tt.make_train_step(model, loss, opt, mesh=mesh, augment_params=cli_augment_params(),
+                              train_obj="lesion")
+    reset_counts()
+    _, met = step(tt.init_train_state(model, opt), batch, prng.generator(seed + 41, "cuda"))
+    torch.cuda.synchronize()
+    return _params(model), float(met["loss"]), read_counts()
+
+
+def _allreduce_ms(group, numel, reps=10):
+    """Device ms of one all-reduce of ``numel`` fp32 on the card: CUDA events
+    around ``reps`` calls, after a warm-up, each call synchronized."""
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.ones(numel, device="cuda")
+    dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        dist.all_reduce(buf, group=group)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append((start.elapsed_time(stop), (time.perf_counter() - t0) * 1e3))
+    dev = sorted(t[0] for t in times)[reps // 2]
+    host = sorted(t[1] for t in times)[reps // 2]
+    return dev, host
+
+
+def _nccl_world1(train_ckpt, seed, calls):
+    """One DP train step over an NCCL group of one rank against the step
+    without a mesh: bit-equal parameters; the mesh step profiled (the NCCL
+    all-reduce, K6 and K7); the all-reduce ms of the gradient's size. The
+    mesh step's kernel calls go to ``calls``."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from prostatemr_3d_cad_cspca_tpu_torch import prng
+    from prostatemr_3d_cad_cspca_tpu_torch.parallel.mesh import make_mesh
+    from prostatemr_3d_cad_cspca_tpu_torch.train import trainer as tt
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(n_data=1, devices=["cuda:0"])
+        batch = train_batch(seed + 40, 2)
+        plain_p, plain_loss, _ = _dp_step(train_ckpt, seed, batch, None)
+        with recording(calls):
+            mesh_p, mesh_loss, launches = _dp_step(train_ckpt, seed, batch, mesh)
+        unequal = [k for k in plain_p if not torch.equal(plain_p[k], mesh_p[k])]
+        if unequal or plain_loss != mesh_loss:
+            raise AssertionError(f"parallel: the NCCL world-1 step differs from the plain "
+                                 f"step: loss {mesh_loss} vs {plain_loss}, leaves {unequal[:5]}")
+        model, opt, loss = _train_parts(train_ckpt)
+        step = tt.make_train_step(model, loss, opt, mesh=mesh,
+                                  augment_params=cli_augment_params(), train_obj="lesion")
+        state = tt.init_train_state(model, opt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, batch, prng.generator(seed + 42, "cuda"))
+            torch.cuda.synchronize()
+        _, by_name, _ = device_time(prof)
+        cpu_ops = {e.name for e in prof.events()}
+        nccl_ops = sorted(n for n in cpu_ops if "nccl" in n.lower() and "all_reduce" in n)
+        nccl_kernels = {k: v / 1e3 for k, v in by_name.items() if "nccl" in k.lower()}
+        missing = [k for k in PTXAS_NAMES["conv3d_wgrad"] + PTXAS_NAMES["in_backward"]
+                   if k not in by_name]
+        if missing or not nccl_ops:
+            raise AssertionError(f"parallel: the NCCL step's profile shows no {missing} "
+                                 f"(NCCL ops {nccl_ops})")
+        n_params = sum(p.numel() for p in model.net.parameters())
+        dev_ms, host_ms = _allreduce_ms(mesh.group, n_params)
+        return {"bit_equal": True, "loss": mesh_loss, "n_params": n_params,
+                "grad_mbytes": n_params * 4 / 1e6, "nccl_ops": nccl_ops,
+                "nccl_kernel_ms": nccl_kernels,
+                "k6_k7_ms": {k: by_name[k] / 1e3 for k in PTXAS_NAMES["conv3d_wgrad"]
+                             + PTXAS_NAMES["in_backward"]},
+                "allreduce_device_ms": dev_ms, "allreduce_host_ms": host_ms}, launches
+    finally:
+        dist.destroy_process_group()
+
+
+def _core_copy_ms(shapes):
+    """Device ms of the contiguous copies of the cores that the sharded
+    forward's K3 takes: each (x shape, dtype, narrow) recorded copied from a
+    fresh tensor of its shape, 10 copies a shape between CUDA events."""
+    import torch
+
+    total = 0.0
+    for shape, dtype, (dim, start, length) in shapes:
+        x = torch.randn(shape, device="cuda").to(dtype)
+        total += time_ms(lambda: x.narrow(dim, start, length).contiguous(), REPS,
+                         capture=False)
+    return total
+
+
+def _gloo_rank(rank, port, train_ckpt, det_ckpt, seed, out_dir):
+    """One of two gloo ranks that both compute on cuda:0: the DP step at a
+    global batch of 2, the gloo all-reduce's ms, spatial_infer_m1 over a
+    whole-gland volume in slabs of 128 and a spatial train step whose halo
+    spans two slabs; every kernel call of those runs recorded
+    (``recording``). Each rank runs the one-process step too, its branch
+    decisions recorded (BranchReplay), and the DP step twice: deciding its
+    kinks itself, and replaying the one-process step's sides on its rows.
+    Rank 0 also runs the one-process references. The DP step is the
+    recipe's with SGD in place of Adam: Adam moves each element by about
+    lr whatever its gradient, so the conv biases ahead of an instance norm
+    (gradient 0 but for rounding) step by lr with the sign of their
+    rounding, which two summation orders do not share."""
+    import torch
+    import torch.distributed as dist
+    from prostatemr_3d_cad_cspca_tpu_torch.losses import Focal
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+    from prostatemr_3d_cad_cspca_tpu_torch.parallel.halo import (
+        _halo_geometry, make_spatial_train_step, spatial_infer_m1)
+    from prostatemr_3d_cad_cspca_tpu_torch.parallel.mesh import data_rows, make_mesh
+    from prostatemr_3d_cad_cspca_tpu_torch.train.trainer import SGDNesterov
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    res, launches, calls = {}, collections.Counter(), []
+    try:
+        dp_mesh = make_mesh(n_data=2, devices=["cuda:0"] * 2)
+        batch = train_batch(seed + 50, 2)
+        branches, flips = BranchReplay(), collections.Counter()
+        with branches.record():
+            ref_p, ref_loss, _ = _dp_step(train_ckpt, seed, batch, None, "momentum")
+        with recording(calls):
+            own_p, own_loss, n = _dp_step(train_ckpt, seed, batch, dp_mesh, "momentum")
+        launches.update(n)
+        with branches.replay_rows(data_rows(dp_mesh, 2), flips):
+            params, loss, _ = _dp_step(train_ckpt, seed, batch, dp_mesh, "momentum")
+        adam_p, _, _ = _dp_step(train_ckpt, seed, batch, dp_mesh, "adam")
+        res["dp"] = {"loss": loss, "own_sides_loss": own_loss, "flips": dict(flips),
+                     "replayed_sites": {k: len(v) for k, v in branches.sides.items()}}
+        del branches
+        if rank == 0:
+            start = _params(M1.load(train_ckpt, device="cuda"))
+            ref_adam, _, _ = _dp_step(train_ckpt, seed, batch, None, "adam")
+            step = {k: ref_p[k] - start[k] for k in start}
+            res["dp"].update(one_process_loss=ref_loss,
+                             loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+                             params_rel_l2=_rel_l2(params, ref_p),
+                             update_rel_l2=_rel_l2({k: params[k] - start[k] for k in start},
+                                                   step),
+                             own_sides_loss_rel=abs(own_loss - ref_loss) / abs(ref_loss),
+                             own_sides_params_rel_l2=_rel_l2(own_p, ref_p),
+                             update_over_params=_norm(step) / _norm(ref_p),
+                             adam_params_rel_l2=_rel_l2(adam_p, ref_adam))
+        n_params = sum(v.numel() for v in params.values())
+        res["allreduce_device_ms"], res["allreduce_host_ms"] = _allreduce_ms(
+            dp_mesh.group, n_params)
+
+        sp_mesh = make_mesh(n_data=1, n_spatial=PAR_SLABS, devices=["cuda:0"] * 2)
+        det = M1.load(det_ckpt, device="cuda")
+        vol = np.random.default_rng(seed + 70).normal(
+            size=(1, *PAR_SW_CASE, 3)).astype(np.float32)
+        halo, slab = _halo_geometry(det, PAR_SLABS, PAR_SW_CASE[1], 2, None)
+        shapes, orig = [], nm._sharded_instance_norm
+
+        def note_core(x, scale, bias, epsilon, lrelu, sharded):
+            h = nm._local_halo(x, sharded)
+            shapes.append((tuple(x.shape), x.dtype,
+                           (sharded.spatial_axis, h, x.shape[sharded.spatial_axis] - 2 * h)))
+            return orig(x, scale, bias, epsilon, lrelu, sharded)
+
+        nm._sharded_instance_norm = note_core
+        try:  # warm-up; notes the cores and records the kernel calls
+            with recording(calls):
+                spatial_infer_m1(det, None, vol, sp_mesh)
+        finally:
+            nm._sharded_instance_norm = orig
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = spatial_infer_m1(det, None, vol, sp_mesh)
+        torch.cuda.synchronize()
+        res["spatial"] = {"s_per_case": time.perf_counter() - t0, "halo": halo, "slab": slab,
+                          "core_copies": len(shapes), "core_copy_ms": _core_copy_ms(shapes)}
+        launches.update(read_counts())
+        if rank == 0:
+            with torch.no_grad(), recording(calls):
+                ref = det.net(torch.as_tensor(vol, device="cuda"))["y_softmax"]
+            res["spatial"].update(
+                max_abs_err=float((got - ref).abs().max()),
+                argmax_agree=float((got.argmax(-1) == ref.argmax(-1)).float().mean()),
+                finite=bool(torch.isfinite(got).all()))
+
+        img = np.random.default_rng(seed + 80).normal(size=(1, *PAR_STEP_CASE, 3)).astype(
+            np.float32)
+        lesion = np.zeros((1, *PAR_STEP_CASE), np.float32)
+        lesion[:, 8:12, 60:100, 70:110] = 1.0
+        lab = np.stack([1.0 - lesion, lesion], -1)
+        focal, tx = Focal((1.0, 1.0), 2.0), SGDNesterov(1e-5, momentum=0.0)
+        step = make_spatial_train_step(det, focal, tx, sp_mesh)
+        p = {k: v.detach() for k, v in det.net.named_parameters()}
+        reset_counts()
+        with recording(calls):
+            _, _, sloss = step(p, tx.init(p), img, lab)
+        launches.update(read_counts())
+        res["spatial_step"] = {"loss": float(sloss), "halo": _halo_geometry(
+            det, PAR_SLABS, PAR_STEP_CASE[1], 2, None)[0], "slab": PAR_STEP_CASE[1] // PAR_SLABS}
+        if rank == 0:
+            with torch.no_grad():
+                y = det.net(torch.as_tensor(img, device="cuda"), train=True)["y_softmax"]
+                ref_loss = float(torch.mean(focal.per_sample_sums(
+                    torch.as_tensor(lab, device="cuda"), y)))
+            res["spatial_step"].update(unsharded_loss=ref_loss,
+                                       loss_rel=abs(float(sloss) - ref_loss) / abs(ref_loss))
+        res["launches"] = dict(launches)
+        res["calls"] = collections.Counter(calls)
+        torch.save(res, os.path.join(out_dir, f"{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_world(train_ckpt, det_ckpt, seed, out_dir):
+    """The two gloo ranks as spawned processes, joined within PAR_TIMEOUT_S
+    (killed and failed beyond it); returns their results."""
+    import multiprocessing as mp
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, port, train_ckpt, det_ckpt, seed,
+                                                   out_dir)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"parallel: the gloo ranks failed (exit codes "
+                             f"{[p.exitcode for p in procs]}, {len(alive)} killed)")
+    return [torch.load(os.path.join(out_dir, f"{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def phase_parallel(tmp, seed, smi, det_ckpt):
+    """Data-parallel serving on a one-process mesh of data 2 (cuda:0 twice);
+    the DP train step through an NCCL group of one rank, bit-equal to the
+    plain step; two gloo ranks both on cuda:0: the DP step at a global
+    batch of 2, halo-sharded whole-gland inference and a multi-hop spatial
+    train step. Returns the launches of the counted runs and the kernel
+    calls that the runs recorded (``recording``)."""
+    train_ckpt = os.path.join(tmp, "parallel_train.npz")
+    mc_ckpt = os.path.join(tmp, "parallel_mc.npz")
+    write_cfg1_checkpoint(train_ckpt, seed, **TRAIN_CFG)
+    write_cfg1_checkpoint(mc_ckpt, seed, dropout_mode="monte-carlo", dropout_rate=0.5)
+    t0 = time.perf_counter()
+    calls = []
+    serving, launches = _dp_serving(det_ckpt, mc_ckpt, seed, calls)
+    launches = collections.Counter(launches)
+    nccl, n = _nccl_world1(train_ckpt, seed, calls)
+    launches.update(n)
+    out_dir = os.path.join(tmp, "parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    ranks = _gloo_world(train_ckpt, det_ckpt, seed, out_dir)
+    calls = collections.Counter(calls)
+    for r in ranks:
+        launches.update(r["launches"])
+        calls.update(r["calls"])
+    dp, spatial, sstep = ranks[0]["dp"], ranks[0]["spatial"], ranks[0]["spatial_step"]
+    emit({"phase": "parallel", "card": smi, "seconds": time.perf_counter() - t0,
+          "serving": serving, "nccl_world1": nccl, "gloo_dp_step": dp,
+          "gloo_allreduce_device_ms": [r["allreduce_device_ms"] for r in ranks],
+          "gloo_allreduce_host_ms": [r["allreduce_host_ms"] for r in ranks],
+          "spatial_infer": {**spatial, "s_per_case_ranks": [r["spatial"]["s_per_case"]
+                                                            for r in ranks]},
+          "spatial_step": {**sstep, "rank_losses": [r["spatial_step"]["loss"]
+                                                    for r in ranks]},
+          "launches": dict(launches)})
+    if dp["loss_rel"] > PAR_LOSS_RTOL or dp["params_rel_l2"] > PAR_PARAMS_L2:
+        raise AssertionError(f"parallel: the gloo DP step differs from one process: {dp}")
+    if not spatial["finite"] or spatial["max_abs_err"] > PAR_SPATIAL_TOL \
+            or spatial["argmax_agree"] < PAR_AGREE:
+        raise AssertionError(f"parallel: the sharded forward differs: {spatial}")
+    if sstep["loss_rel"] > PAR_LOSS_RTOL or sstep["halo"] <= sstep["slab"]:
+        raise AssertionError(f"parallel: the spatial step: {sstep}")
+    if len({r["spatial_step"]["loss"] for r in ranks}) != 1:
+        raise AssertionError("parallel: the ranks' spatial step losses differ")
+    return dict(launches), calls
+
+
+def phase_parallel_kernels(calls, smi):
+    """K1-K4, K6 and K7 against their twins at every distinct (shape,
+    dtype) that the parallel phase's runs gave them (``calls``: recorded
+    on the card): the sharded forward's slabs and the cores K3 takes, the
+    spatial step, the DP step at a rank's batch of 1, the batch-4 and
+    MC-stacked sessions and the unsharded whole-gland forward; one split-K
+    K1/K2 shape, K3's largest and every K6 and K7 shape rerun for the same
+    bits. Also the K1/K2 calls of the batch-4 one-device forward whose
+    split-K count differs from the same layer's at a replica's batch of 2,
+    and the K3 calls whose blocks a volume differ (the plans follow the
+    batch)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+
+    t0 = time.perf_counter()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = _dn(dtype)
+        these = collections.Counter({(n, s): c for (n, s, d), c in calls.items() if d == dn})
+        if not these:
+            continue
+        rows = phase_kernels(these, 0, dtypes=(dtype,), timed=False, rerun=True,
+                             bit_kernels=())
+        out[dn] = {k: {"shapes": len(v),
+                       "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v),
+                       "max_abs_err": max(r[f"max_abs_err_{dn}"] for r in v),
+                       "bit_equal_reruns": sum(bool(r.get(f"bit_equal_{dn}")) for r in v),
+                       **({"max_sums_rel_err": max(r[f"sums_rel_err_{dn}"] for r in v),
+                           "max_sums_rel_err_vs_fp64": max(
+                               (r["sums_rel_err_vs_fp64"] for r in v
+                                if "sums_rel_err_vs_fp64" in r), default=None)}
+                          if k == "in_backward" else {})}
+                   for k, v in rows.items()}
+    c2, c4 = (trace_path_calls(b, torch.bfloat16) for b in (PAR_BATCH // 2, PAR_BATCH))
+
+    def layer(n, s):  # a call's shapes without its batch
+        return n, tuple(p[1:] for p in (s[0] if n == "conv3d" else (s[0],))), s[1:]
+
+    splits2 = {layer(n, s): _splits(n, s, torch.bfloat16) for n, s in c2 if n in CONV_KERNELS}
+    splits = [(n, s[1], splits2[layer(n, s)], _splits(n, s, torch.bfloat16))
+              for n, s in c4 if n in CONV_KERNELS]
+
+    def blocks(b, x):
+        return nm.in_stats_plan(b, int(np.prod(x[1:4])), x[-1], 2, True)["blocks"] // b
+
+    k3 = [(s[0][1:], blocks(PAR_BATCH // 2, s[0]), blocks(PAR_BATCH, s[0]))
+          for n, s in c4 if n == "in_stats"]
+    emit({"phase": "parallel_kernels", "card": smi, "seconds": time.perf_counter() - t0,
+          "by_dtype": out,
+          "k1_k2_splits_batch2_vs_batch4": [list(x) for x in splits if x[2] != x[3]],
+          "k1_k2_calls_same_splits": sum(x[2] == x[3] for x in splits),
+          "k3_blocks_a_volume_batch2_vs_batch4": [list(x) for x in k3 if x[1] != x[2]]})
+
+
 def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
     """One more request of ``path`` (bf16 unless ``dtype`` says otherwise)
     under torch.profiler (outside the counted run): device busy share of
@@ -2797,6 +3404,8 @@ def main(argv=None):
         launches["train"], launches["train_bf16"] = phase_train(tmp, args.seed, smi)
         launches["evaluate"] = phase_evaluate(tmp, args.seed, smi)
         launches["fit"], launches["fit_bf16"] = phase_fit(tmp, args.seed, smi)
+        launches["parallel"], par_calls = phase_parallel(tmp, args.seed, smi, ckpt)
+        phase_parallel_kernels(par_calls, smi)
     launches["probe"], probe = phase_probe(smi)
     phase_paths()
 

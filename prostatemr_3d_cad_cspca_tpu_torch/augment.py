@@ -43,7 +43,9 @@ batch's device, from which it draws, for the whole batch at once, one
 uniform block of shape (B, 22 + 2 n_img_ch) — its columns in the order of
 :data:`UNIFORM_COLUMNS`, then ``gamma_channel`` and ``poor_channel`` — and,
 when noise is on, the standard normal ``noise`` of shape (B, D, H, W,
-n_img_ch). Or it takes a mapping that replays the draws by name
+n_img_ch); or ``prng.Draws``, whose draws ``augment`` and
+``augment_noise`` take those two (a data-parallel shard's rows of the
+global batch's, ``prng.rows``). Or it takes a mapping that replays the draws by name
 (:data:`DRAW_NAMES`), each with a leading batch axis: the gates as their
 uniforms (so the thresholds are applied here too), the rest as values.
 """
@@ -143,11 +145,11 @@ def draw(rng, shape, params: AugmentParams, train_obj: str = "lesion",
     B, D, H, W, _ = shape
     if isinstance(rng, Mapping):
         return {k: torch.as_tensor(rng[k], device=device) for k in DRAW_NAMES if k in rng}
-    if not isinstance(rng, torch.Generator):
+    if not isinstance(rng, (torch.Generator, prng.Draws)):
         raise ValueError("augmentation draws need rng: a torch.Generator on the batch's "
-                         "device or a mapping of replayed draws")
-    dev = rng.device
-    u = torch.rand((B, len(UNIFORM_COLUMNS) + 2 * n), generator=rng, device=dev)
+                         "device, prng.Draws or a mapping of replayed draws")
+    dev = rng.device if isinstance(rng, torch.Generator) else device
+    u = prng.uniform(rng, (B, len(UNIFORM_COLUMNS) + 2 * n), dev, "augment")
     col = {k: u[:, i] for i, k in enumerate(UNIFORM_COLUMNS)}
     out = {k: col[k] for k in ("master", "zoom_on", "flip_on", "rot_on", "trans_on", "cs_on",
                                "gamma_on", "poor_on", "noise_on")}
@@ -166,7 +168,7 @@ def draw(rng, shape, params: AugmentParams, train_obj: str = "lesion",
     out["gamma_channel"], out["poor_channel"] = u[:, k:k + n], u[:, k + n:]
     out["noise_std"] = col["noise_std_u"] * p.gauss_noise_stddev
     if p.gauss_noise_stddev != 0:
-        out["noise"] = torch.randn((B, D, H, W, n), generator=rng, device=dev)
+        out["noise"] = prng.normal(rng, (B, D, H, W, n), dev, "augment_noise")
     return out
 
 

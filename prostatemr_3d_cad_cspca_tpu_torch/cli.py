@@ -19,9 +19,18 @@ GPU.
 
 The JAX parser's flags with their defaults, plus ``--DEVICE`` ('cuda', the
 default, or 'cpu' for the plain PyTorch path; without a card the CLI
-raises unless asked for the CPU). ``--GPU_DEVICE_IDs`` takes one card:
-'all' on a one-card machine or a single id; more than one card raises
-``NotImplementedError`` until the multi-GPU slice.
+raises unless asked for the CPU).
+
+Several devices train data-parallel (``parallel``, ``train.trainer``):
+``initialize_distributed()`` runs first, so a world set up by the
+environment (``PROSTATEMR_COORDINATOR``/``_NUM_PROCESSES``/``_PROCESS_ID``,
+or ``PROSTATEMR_MULTIHOST=1`` under ``torchrun``) trains one rank a card.
+Otherwise ``--GPU_DEVICE_IDs 0,1`` (or 'all' on a machine with several
+cards) spawns one worker a named card, joined over a TCP store on
+localhost with NCCL; ``--DEVICE cpu --GPU_DEVICE_IDs 0,1`` spawns two gloo
+workers on the CPU (JAX's forced host devices). Every rank reads the same
+global batches and keeps its rows; only rank 0 writes weights,
+checkpoints, metrics and history.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 from typing import List
 
 import numpy as np
@@ -63,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
                            "WeightsSaver only (the flag keeps the JAX CLI's name)")
     prsr.add_argument("--CACHE_TDS_PATH", type=str, default=None)
     prsr.add_argument("--GPU_DEVICE_IDs", type=str, default="all",
-                      help="the card to train on: 'all' (a one-card machine) "
-                           "or one id; several cards wait for the multi-GPU slice")
+                      help="the cards to train on, data-parallel: 'all' or a comma "
+                           "list of ids (with --DEVICE cpu: that many CPU workers)")
     prsr.add_argument("--PRECISION", type=str, default="fp32",
                       choices=["fp32", "bf16"],
                       help="compute precision (params/optimizer stay fp32)")
@@ -119,41 +129,76 @@ def _parse_augm(s: str) -> List:
             vals[6], vals[7], bool(vals[8]), (vals[9], vals[10])]
 
 
-def assert_batch_divisible(batch_size: int, num_devices: int):
-    """train_model.py:170 parity."""
-    assert batch_size % max(num_devices, 1) == 0, (
-        f"Batch size ({batch_size}) should be a multiple of the number of "
-        f"devices ({num_devices}).")
-
-
-def setup_device(device_ids: str = "all", device: str = "cuda"):
-    """(the torch device to train on, number of devices) from
-    --GPU_DEVICE_IDs and --DEVICE (reference misc.py:27-58). More than one
-    card raises ``NotImplementedError``; no card raises unless ``device``
-    is 'cpu'."""
+def _spawned(rank: int, argv, port: int, devices):
+    """One worker of a spawned world: join it, then train as its rank."""
     import torch
+    import torch.distributed as dist
 
-    from .device import resolve_device
+    dev = devices[rank]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=len(devices), rank=rank)
+    try:
+        main(argv)
+    finally:
+        dist.destroy_process_group()
 
-    ids = ([] if device_ids in ("all", "", None)
-           else [int(i) for i in str(device_ids).split(",")])
-    if len(ids) > 1:
-        raise NotImplementedError(
-            f"--GPU_DEVICE_IDs {device_ids}: training on several cards waits for the "
-            "multi-GPU slice")
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        return dev, 1
-    if not ids and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--GPU_DEVICE_IDs all sees {torch.cuda.device_count()} cards: training on "
-            "several cards waits for the multi-GPU slice; pass one id")
-    return (torch.device("cuda", ids[0]) if ids else dev), 1
+
+def _spawn(argv, devices):
+    """One worker a device, joined over a TCP store on a free localhost
+    port; returns when all have finished (a failed worker raises)."""
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp.start_processes(_spawned, args=(argv, port, devices), nprocs=len(devices),
+                        start_method="spawn")
+
+
+def _world_devices(args):
+    """Each rank's device in a world: the CPU with --DEVICE cpu, else the
+    rank's card (its LOCAL_RANK-th id of --GPU_DEVICE_IDs, or card
+    LOCAL_RANK)."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    if str(args.DEVICE).startswith("cpu"):
+        return [torch.device("cpu")] * world
+    ids = ([] if args.GPU_DEVICE_IDs in ("all", "", None)
+           else [int(i) for i in str(args.GPU_DEVICE_IDs).split(",")])
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", 0)) or max(torch.cuda.device_count(), 1)
+    return [torch.device("cuda", ids[r % local] if ids else r % local) for r in range(world)]
 
 
 def main(argv=None):
     args, _ = build_parser().parse_known_args(argv)
-    device, n_dev = setup_device(args.GPU_DEVICE_IDs, args.DEVICE)
+    from .parallel.mesh import (assert_batch_divisible, initialize_distributed, make_mesh,
+                                setup_device)
+
+    # a world the environment sets up (no-op for one process)
+    initialize_distributed(backend="gloo" if str(args.DEVICE).startswith("cpu") else None)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        devices = _world_devices(args)
+        mesh = make_mesh(n_data=dist.get_world_size(), devices=devices)
+        device, n_dev = mesh.device, mesh.size
+    else:
+        devices, n_dev = setup_device(args.GPU_DEVICE_IDs, args.DEVICE)
+        if n_dev > 1:
+            return _spawn(argv if argv is not None else sys.argv[1:], devices)
+        mesh, device = None, devices[0]
+    writer = mesh is None or mesh.is_writer
+
+    def barrier():
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
 
     import torch
 
@@ -199,7 +244,8 @@ def main(argv=None):
             focal_gamma=args.FOCAL_LOSS_GAMMA,
             dsc_bd_weights=args.DSC_BD_LOSS_WEIGHTS)
 
-        print_overview(args)
+        if writer:
+            print_overview(args)
 
         image0 = np.load(rows[0]["image_path"])
         spatial_dims = image0[..., 0].shape
@@ -240,7 +286,7 @@ def main(argv=None):
             prob_latent_dims=tuple(args.UNET_PROBA_LATENT_DIMS),
             dense_skip=bool(args.UNET_DENSE_SKIP),
             deep_supervision=bool(args.UNET_DEEP_SUPERVISION),
-            summary=bool(args.SHOW_SUMMARY),
+            summary=bool(args.SHOW_SUMMARY) and writer,
             kernel_regularizer=args.UNET_KERNEL_REGULARIZER_L2,
             bias_regularizer=args.UNET_BIAS_REGULARIZER_L2,
             dtype=(torch.bfloat16 if args.PRECISION == "bf16" else None),
@@ -256,11 +302,15 @@ def main(argv=None):
         if args.RESUME_TRAIN:
             model, init_epoch = resume_training(model, fold_dir)
         else:
-            if os.path.exists(fold_dir):
+            exists = os.path.exists(fold_dir)
+            barrier()  # every rank has looked before rank 0 makes it
+            if exists:
                 raise Exception(
                     "Target Folder Already Exists! Either Remove It or "
                     "Enable 'RESUME_TRAIN'.")
-            os.makedirs(fold_dir)
+            if writer:
+                os.makedirs(fold_dir)
+            barrier()
 
         # Train-time validation (the reference's TBA callbacks,
         # train_model.py:240-245, with UNET_PROBA_ITER MC sampling)
@@ -278,7 +328,7 @@ def main(argv=None):
 
         metrics_dir = os.path.join(args.METRICS_DIR, args.NAME, f"F{f + 1}")
         metrics_logger = MetricsLogger(
-            os.path.join(metrics_dir, "metrics.jsonl"), echo=False)
+            os.path.join(metrics_dir, "metrics.jsonl"), echo=False) if writer else None
         checkpoint_manager = None
         if args.ORBAX_CHECKPOINTS:
             if os.path.isdir(os.path.join(fold_dir, "orbax")):
@@ -311,14 +361,17 @@ def main(argv=None):
                 schedule=schedule,
                 metrics_logger=metrics_logger,
                 checkpoint_manager=checkpoint_manager,
+                mesh=mesh,
             )
         finally:
             batches.close()
             if checkpoint_manager is not None:
                 checkpoint_manager.close()
         # the fit history (Keras History parity)
-        with open(os.path.join(metrics_dir, "history.json"), "w") as fh:
-            json.dump(history, fh, default=float)
+        if writer:
+            with open(os.path.join(metrics_dir, "history.json"), "w") as fh:
+                json.dump(history, fh, default=float)
+        barrier()
 
 
 if __name__ == "__main__":

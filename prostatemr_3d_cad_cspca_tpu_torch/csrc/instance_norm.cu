@@ -190,9 +190,12 @@ __device__ __forceinline__ void accumulate(const T* xb, long long v, long long v
 
 // One sample's fold: stats from the chunk partials pb[k][0 / 1][c], VF
 // channels a load (float4 where C % 4 == 0). J lanes a group of VF channels
-// each sum chunks j, j + J, ... in order; lanes are then added in order.
-// Uses kThreads * VF floats of each scratch array.
-template <int VF>
+// each sum chunks j, j + J, ... in order; lanes are then added in order,
+// with kFp64Lanes (K7) in fp64 and rounded once: K7's sums are what the
+// scale and bias gradients take, and a channel's total can be small beside
+// the lanes' sums, whose fp32 rounding it would then carry. Uses kThreads *
+// VF floats of each scratch array.
+template <int VF, bool kFp64Lanes>
 __device__ __forceinline__ void fold_sample(const float* pb, float* st, int C, int nchunk,
                                             int spatial, int mode, float* sh_s, float* sh_q) {
   const int tid = threadIdx.x;
@@ -226,12 +229,25 @@ __device__ __forceinline__ void fold_sample(const float* pb, float* st, int C, i
     }
     __syncthreads();
     if (j == 0 && qd < Q) {
-      for (int jj = 1; jj < J; ++jj)  // lane order
+      if constexpr (kFp64Lanes) {
 #pragma unroll
         for (int v = 0; v < VF; ++v) {
-          s[v] += sh_s[(tid + jj) * VF + v];
-          q[v] += sh_q[(tid + jj) * VF + v];
+          double ds = s[v], dq = q[v];
+          for (int jj = 1; jj < J; ++jj) {  // lane order
+            ds += (double)sh_s[(tid + jj) * VF + v];
+            dq += (double)sh_q[(tid + jj) * VF + v];
+          }
+          s[v] = (float)ds;
+          q[v] = (float)dq;
         }
+      } else {
+        for (int jj = 1; jj < J; ++jj)  // lane order
+#pragma unroll
+          for (int v = 0; v < VF; ++v) {
+            s[v] += sh_s[(tid + jj) * VF + v];
+            q[v] += sh_q[(tid + jj) * VF + v];
+          }
+      }
 #pragma unroll
       for (int v = 0; v < VF; ++v) {
         const int c = qd * VF + v;
@@ -358,12 +374,12 @@ __global__ void __launch_bounds__(kThreads)
   float* st = stats + (size_t)b * 2 * C;
   if constexpr (VEC >= 4) {
     if (C % 4 == 0) {
-      fold_sample<4>(pb, st, C, nchunk, spatial, mode, sh_s, sh_q);
+      fold_sample<4, false>(pb, st, C, nchunk, spatial, mode, sh_s, sh_q);
     } else {
-      fold_sample<1>(pb, st, C, nchunk, spatial, mode, sh_s, sh_q);
+      fold_sample<1, false>(pb, st, C, nchunk, spatial, mode, sh_s, sh_q);
     }
   } else {
-    fold_sample<1>(pb, st, C, nchunk, spatial, mode, sh_s, sh_q);
+    fold_sample<1, false>(pb, st, C, nchunk, spatial, mode, sh_s, sh_q);
   }
   if (tid == 0) tickets[b] = 0u;
 }
@@ -875,12 +891,12 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
   float* sb = sums + (size_t)b * 2 * C;
   if constexpr (VEC >= 4) {
     if (C % 4 == 0) {
-      fold_sample<4>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
+      fold_sample<4, true>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
     } else {
-      fold_sample<1>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
+      fold_sample<1, true>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
     }
   } else {
-    fold_sample<1>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
+    fold_sample<1, true>(pb, sb, C, nchunk, spatial, 3, sh_s, sh_q);
   }
   if (tid == 0) tickets[b] = 0u;
 }

@@ -49,7 +49,8 @@ def mc_predict(detect_fn: Callable, params, inputs, rng, num_samples: int = 1,
     The draws stack sample-major on the batch axis (rows ``s*B + b``) and
     go through one forward, which draws every sample's dropout masks and
     latents from ``rng``. A mapping holds masks and latents of the stacked
-    shape (N*B, ...). Inputs and outputs may be tuples (a cascade's two
+    shape (N*B, ...). A data-parallel shard's ``rng`` (``prng.rows``) takes
+    its rows ``s*B + b`` of the global batch's stacked draws. Inputs and outputs may be tuples (a cascade's two
     exams, its two stages' outputs).
 
     reduce: 'mean' | 'mean_std' | None (the stacked (N, B, ...) samples).
@@ -59,7 +60,7 @@ def mc_predict(detect_fn: Callable, params, inputs, rng, num_samples: int = 1,
     x = tree_map(_as_tensor, inputs)
     n = int(num_samples)
     out = detect_fn(params, tree_map(lambda t: t.repeat(n, *([1] * (t.dim() - 1))), x),
-                    rng=rng)
+                    rng=prng.repeat_rows(rng, n))
     # -1, not the batch as an int: a traced batch axis stays symbolic
     samples = tree_map(lambda t: t.reshape(n, -1, *t.shape[1:]), out)
     if reduce == "mean":
@@ -124,6 +125,32 @@ def _weight(window, gaussian_weights: bool, device) -> torch.Tensor:
     return torch.from_numpy(w).to(device)[..., None]
 
 
+def _case_shards(mesh, cases: int):
+    """The data devices of a one-process mesh (a device may repeat)."""
+    if mesh.distributed:
+        raise ValueError("data-parallel inference runs in one process: give a mesh made "
+                         "outside a world (make_mesh(devices=...))")
+    n = mesh.shape["data"]
+    assert cases % n == 0, f"cases={cases} must divide the mesh data axis ({n})"
+    return [mesh.devices[d, 0, 0] for d in range(n)]
+
+
+def _on_shards(predict_fn, tiles, rng, devices, k, batch_size, with_rng):
+    """One chunk's forward split by cases over ``devices``: device d runs
+    its cases' tiles (rows [d K/n bs, (d+1) K/n bs)) with its rows of the
+    chunk's draws; the outputs concatenate on the tiles' device."""
+    assert k % len(devices) == 0, f"{k} cases do not split over {len(devices)} devices"
+    per = k // len(devices) * batch_size
+    bounds = [range(d * per, (d + 1) * per) for d in range(len(devices))]
+    rngs = prng.rows(rng, bounds, k * batch_size) if with_rng else [None] * len(devices)
+    outs = []
+    for dev, rows, r in zip(devices, bounds, rngs):
+        part = tiles[rows.start:rows.stop].to(dev)
+        out = predict_fn(part, r) if with_rng else predict_fn(part)
+        outs.append(out.to(tiles.device))
+    return torch.cat(outs, 0)
+
+
 def make_sliding_window_fn(
     predict_fn: Callable,
     full_spatial: Sequence[int],
@@ -153,10 +180,17 @@ def make_sliding_window_fn(
 
     rng_per_chunk: ``run(volume, rng)``, and chunk i calls
     ``predict_fn(tiles, fold_in(rng, i))``: fresh dropout masks per chunk.
+
+    mesh (cases > 1; a one-process ``parallel.mesh.Mesh``): the case axis
+    is split over the mesh's ``data`` devices (``cases % n_data == 0``, as
+    JAX asserts). Each chunk's forward runs a part a device: its cases'
+    tiles on that device, ``predict_fn`` (which must run where its tiles
+    lie) drawing its rows of the chunk's draws for all K cases
+    (``prng.rows``), so a seed gives the one-device program's bits.
     """
+    shards = None
     if mesh is not None:
-        raise NotImplementedError(
-            "sharding the case axis over several GPUs waits for the multi-GPU slice")
+        shards = _case_shards(mesh, cases)
     full_spatial, window = tuple(full_spatial), tuple(window)
     ndim = len(window)
     if len(full_spatial) != ndim:
@@ -185,8 +219,12 @@ def make_sliding_window_fn(
             tiles = torch.stack([vols[(slice(None), *_tile_slices(c, window))]
                                  for c in cs], dim=1)
             tiles = tiles.reshape(-1, *window, in_channels)
-            outs = (predict_fn(tiles, prng.fold_in(rng, cid)) if rng_per_chunk
-                    else predict_fn(tiles))
+            chunk_rng = prng.fold_in(rng, cid) if rng_per_chunk else None
+            if shards is None:
+                outs = predict_fn(tiles, chunk_rng) if rng_per_chunk else predict_fn(tiles)
+            else:
+                outs = _on_shards(predict_fn, tiles, chunk_rng, shards, k, batch_size,
+                                  rng_per_chunk)
             outs = outs.float().reshape(-1, batch_size, *window, out_channels)
             for i, c in enumerate(cs):
                 if cid * batch_size + i >= n:  # zero-weight padding tile

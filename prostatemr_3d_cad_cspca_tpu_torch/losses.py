@@ -15,6 +15,14 @@ The boundary loss takes the signed EDT of y_true[..., 1:] as ``dist_map``;
 without one it computes it on the host (``ops.edt``), the counterpart of
 the JAX package's ``jax.pure_callback`` (and of the reference's
 ``tf.py_function``).
+
+Data parallelism: with ``axis`` (a ``parallel.collectives.Axis`` over
+which the batch's rows are split) each loss is the GLOBAL batch's, as the
+JAX package's step over a sharded batch computes it: the focal mean is the
+psum of the local sums over the global batch size, the soft Dice's
+intersect and denominator are psum'd before the ratio, and the boundary
+term is a psum'd sum. Every rank gets the same value; the psum's gradient
+sums the ranks' cotangents (``collectives.psum``).
 """
 
 from __future__ import annotations
@@ -32,6 +40,14 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
     hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def _psum(x: torch.Tensor, axis) -> torch.Tensor:
+    if axis is None:
+        return x
+    from .parallel.collectives import psum
+
+    return psum(x, axis)
 
 
 def _group_reduce(loss_fn, y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
@@ -61,12 +77,16 @@ class Focal:
         fl = w * gamma_weight * ce
         return torch.sum(fl, dim=tuple(range(1, fl.dim())))
 
-    def fl(self, y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-        """Sum over voxels and classes, mean over the batch (losses.py:32-39)."""
-        return torch.mean(self.per_sample_sums(y_true, y_pred))
+    def fl(self, y_true: torch.Tensor, y_pred: torch.Tensor, axis=None) -> torch.Tensor:
+        """Sum over voxels and classes, mean over the (global) batch
+        (losses.py:32-39)."""
+        sums = self.per_sample_sums(y_true, y_pred)
+        if axis is None:
+            return torch.mean(sums)
+        return _psum(torch.sum(sums), axis) / (sums.shape[0] * axis.size)
 
-    def __call__(self, y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-        return _group_reduce(self.fl, y_true, y_pred)
+    def __call__(self, y_true: torch.Tensor, y_pred: torch.Tensor, axis=None) -> torch.Tensor:
+        return _group_reduce(partial(self.fl, axis=axis), y_true, y_pred)
 
     loss = __call__
 
@@ -102,17 +122,18 @@ class SoftDicePlusBoundarySurface:
         y_pred = y_pred / torch.sum(y_pred, dim=-1, keepdim=True)
         return _clip(y_pred, EPSILON, 1.0 - EPSILON)
 
-    def dice_loss(self, y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    def dice_loss(self, y_true: torch.Tensor, y_pred: torch.Tensor, axis=None) -> torch.Tensor:
         """Global (flattened) soft Dice over classes 1.. (losses.py:99-106)."""
         y_pred = self._norm_pred(y_pred)
         yt = torch.as_tensor(y_true, device=y_pred.device)[..., 1:].float().reshape(-1)
         yp = y_pred[..., 1:].reshape(-1)
-        intersect = torch.sum(yt * yp)
-        denom = torch.sum(yt + yp)
+        intersect = _psum(torch.sum(yt * yp), axis)
+        denom = _psum(torch.sum(yt + yp), axis)
         return 1.0 - (2.0 * intersect / (denom + self.smooth))
 
     def boundary_surface_loss(self, y_true: torch.Tensor, y_pred: torch.Tensor,
-                              dist_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              dist_map: Optional[torch.Tensor] = None,
+                              axis=None) -> torch.Tensor:
         """sum(softmax[..., 1:] * signed_EDT(y_true[..., 1:])) (losses.py:109-113)."""
         y_pred = self._norm_pred(y_pred)
         if dist_map is None:
@@ -121,13 +142,13 @@ class SoftDicePlusBoundarySurface:
             fg = torch.as_tensor(y_true)[..., 1:].detach().float().cpu().numpy()
             dist_map = torch.from_numpy(signed_distance_map(fg))
         dist_map = torch.as_tensor(dist_map, device=y_pred.device).float()
-        return torch.sum(y_pred[..., 1:] * dist_map)
+        return _psum(torch.sum(y_pred[..., 1:] * dist_map), axis)
 
-    def db(self, y_true, y_pred, dist_map=None) -> torch.Tensor:
-        return self.loss_weights[0] * self.dice_loss(y_true, y_pred) + \
-            self.loss_weights[1] * self.boundary_surface_loss(y_true, y_pred, dist_map)
+    def db(self, y_true, y_pred, dist_map=None, axis=None) -> torch.Tensor:
+        return self.loss_weights[0] * self.dice_loss(y_true, y_pred, axis) + \
+            self.loss_weights[1] * self.boundary_surface_loss(y_true, y_pred, dist_map, axis)
 
-    def __call__(self, y_true, y_pred, dist_map=None) -> torch.Tensor:
-        return _group_reduce(partial(self.db, dist_map=dist_map), y_true, y_pred)
+    def __call__(self, y_true, y_pred, dist_map=None, axis=None) -> torch.Tensor:
+        return _group_reduce(partial(self.db, dist_map=dist_map, axis=axis), y_true, y_pred)
 
     loss = __call__

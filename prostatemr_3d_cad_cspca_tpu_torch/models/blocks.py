@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.convolution import Conv3d, ConvConfig, store_act
-from ..ops.normalization import InstanceNorm, global_spatial_mean
+from ..ops.normalization import InstanceNorm, ShardedStats, global_spatial_mean
 from ..ops.resample import upsample_nearest
 from ..prng import Draws, is_mask_map, uniform
 
@@ -110,7 +110,8 @@ class SEResNetBottleNeck(nn.Module):
     conv(f, 1^3) -> IN; projection conv(f, k, s) + IN when the channel count
     changes; squeeze-excite gate; the gated features combine with the
     shortcut by MULTIPLY (reference quirk, kept), then LReLU. The input may
-    be a part list standing for its channel concat.
+    be a part list standing for its channel concat. ``sharded`` gives every
+    norm and the squeeze whole-volume statistics (halo sharding).
     """
 
     def __init__(self, in_channels: int, filters: int, kernel_size, strides,
@@ -133,20 +134,20 @@ class SEResNetBottleNeck(nn.Module):
         self.se_conv6 = SqueezeConv(filters, filters // reduction, cfg.dtype)
         self.se_conv7 = SqueezeConv(filters // reduction, filters, cfg.dtype)
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x, sharded: Optional[ShardedStats] = None) -> torch.Tensor:
         cfg = self.conv_cfg
         parts = list(x) if isinstance(x, (list, tuple)) else [x]
         h = store_act(cfg, self.conv1(parts))
-        h = self.norm1(h, lrelu=True)
+        h = self.norm1(h, lrelu=True, sharded=sharded)
         h = store_act(cfg, self.conv2(h))
-        h = self.norm2(h, lrelu=True)
+        h = self.norm2(h, lrelu=True, sharded=sharded)
         h = store_act(cfg, self.conv3(h))
-        x_ = self.norm3(h)
+        x_ = self.norm3(h, sharded=sharded)
         if self.conv4 is not None:
-            residual = self.norm4(store_act(cfg, self.conv4(parts)))
+            residual = self.norm4(store_act(cfg, self.conv4(parts)), sharded=sharded)
         else:
             residual = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        s = global_spatial_mean(x_).to(x_.dtype)
+        s = global_spatial_mean(x_, sharded).to(x_.dtype)
         s = torch.sigmoid(self.se_conv7(leaky_relu01(self.se_conv6(s))))
         out = (x_ * s) * residual
         return store_act(cfg, leaky_relu01(out))
@@ -169,8 +170,8 @@ class GridAttentionBlock3D(nn.Module):
                           conv_cfg)
         self.norm_out = InstanceNorm(inter_channels)
 
-    def forward(self, x: torch.Tensor, g: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, g: torch.Tensor,
+                sharded: Optional[ShardedStats] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         theta_x = self.theta(x)
         phi_g = self.phi(g)
         up1 = tuple(theta_x.shape[i + 1] // phi_g.shape[i + 1] for i in range(3))
@@ -178,7 +179,7 @@ class GridAttentionBlock3D(nn.Module):
         sigm_psi_f = torch.sigmoid(self.psi(f))
         up2 = tuple(x.shape[i + 1] // sigm_psi_f.shape[i + 1] for i in range(3))
         sigm_psi_f = upsample_nearest(sigm_psi_f, up2)
-        w_y = self.norm_out(self.out(sigm_psi_f * x))
+        w_y = self.norm_out(self.out(sigm_psi_f * x), sharded=sharded)
         return w_y, sigm_psi_f
 
 

@@ -16,7 +16,10 @@ a trunk once and a ladder per latent configuration); ``assemble_outputs``
 adds the deep-supervision heads. Dropout sites (``drope1``-``drope4``,
 ``dropd3``-``dropd0``, the last at half the rate; ``dropp_0``-``dropp_3``
 in the ladder) take the ``rng`` of the call: a generator or a mapping (see
-``prng``).
+``prng``). ``sharded`` (``ops.normalization.ShardedStats``, halo-sharded
+execution) gives every norm and SE squeeze whole-volume statistics and
+re-zeroes the vacuum after each transposed conv and around the ladder's
+``dec_hi`` (JAX ``m1_core.py:231-259``, ``:322-323``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from torch import nn
 
 from ..ops.convolution import Conv3d, ConvConfig, ConvTranspose3d, store_act
 from ..ops.distributions import DiagGaussian
-from ..ops.normalization import InstanceNorm
+from ..ops.normalization import InstanceNorm, ShardedStats, revacuum
 from ..ops.resample import upsample_nearest
 from ..prng import Draws, is_mask_map
 from .blocks import ConfigurableDropout, GridAttentionBlock3D, SEResNetBottleNeck
@@ -167,28 +170,29 @@ class M1Core(nn.Module):
                 setattr(self, f"dropp_{i}", drop(dropout_rate, f"dropp_{i}"))
 
     def trunk(self, inputs: torch.Tensor, train: bool = False,
-              rng=None) -> Dict[str, Any]:
+              rng=None, sharded: Optional[ShardedStats] = None) -> Dict[str, Any]:
         """Stem -> encoder -> attention -> decoder -> logits (networks.py:
         568-630). The ``uconv*_`` entries are part tuples standing for the
         reference's stitch concats."""
         sa = lambda t: store_act(self.conv_cfg, t)  # noqa: E731
+        rv = lambda t: sa(revacuum(t, sharded))  # noqa: E731
         if self.conv_cfg.dtype is not None:
             inputs = inputs.to(self.conv_cfg.dtype)
         d: Dict[str, Any] = {}
         x = sa(self.conve0(inputs))
-        x = sa(self.norme0(x, lrelu=True))
+        x = sa(self.norme0(x, lrelu=True, sharded=sharded))
         d["x"] = x
 
-        conv1 = self.drope1(self.serse1(x), train, rng)
-        conv2 = self.drope2(self.serse2(conv1), train, rng)
-        conv3 = self.drope3(self.serse3(conv2), train, rng)
-        convm = self.drope4(self.serse4(conv3), train, rng)
+        conv1 = self.drope1(self.serse1(x, sharded), train, rng)
+        conv2 = self.drope2(self.serse2(conv1, sharded), train, rng)
+        conv3 = self.drope3(self.serse3(conv2, sharded), train, rng)
+        convm = self.drope4(self.serse4(conv3, sharded), train, rng)
         d.update(conv1=conv1, conv2=conv2, conv3=conv3, convm=convm)
 
-        att_conv0, att_0 = self.att0(x, convm)
-        att_conv1, att_1 = self.att1(conv1, convm)
-        att_conv2, att_2 = self.att2(conv2, convm)
-        att_conv3, att_3 = self.att3(conv3, convm)
+        att_conv0, att_0 = self.att0(x, convm, sharded)
+        att_conv1, att_1 = self.att1(conv1, convm, sharded)
+        att_conv2, att_2 = self.att2(conv2, convm, sharded)
+        att_conv3, att_3 = self.att3(conv3, convm, sharded)
         att_conv0, att_conv1, att_conv2, att_conv3 = (
             sa(att_conv0), sa(att_conv1), sa(att_conv2), sa(att_conv3))
         d.update(att_conv0=att_conv0, att_conv1=att_conv1,
@@ -196,37 +200,37 @@ class M1Core(nn.Module):
                  att_map0=att_0, att_map1=att_1, att_map2=att_2, att_map3=att_3)
 
         # Stage 3 (networks.py:590-597).
-        deconv3 = sa(self.convtd3(convm))
+        deconv3 = rv(self.convtd3(convm))
         if self.dense_skip:
-            deconv3_up1 = sa(self.convtd3_up1(deconv3))
-            deconv3_up2 = sa(self.convtd3_up2(deconv3_up1))
-            deconv3_up3 = sa(self.convtd3_up3(deconv3_up2))
+            deconv3_up1 = rv(self.convtd3_up1(deconv3))
+            deconv3_up2 = rv(self.convtd3_up2(deconv3_up1))
+            deconv3_up3 = rv(self.convtd3_up3(deconv3_up2))
         uconv3_ = (deconv3, att_conv3)
-        uconv3 = self.dropd3(self.sersd3(uconv3_), train, rng)
+        uconv3 = self.dropd3(self.sersd3(uconv3_, sharded), train, rng)
         # Stage 2 (networks.py:599-607).
-        deconv2 = sa(self.convtd2(uconv3))
+        deconv2 = rv(self.convtd2(uconv3))
         if self.dense_skip:
-            deconv2_up1 = sa(self.convtd2_up1(deconv2))
-            deconv2_up2 = sa(self.convtd2_up2(deconv2_up1))
+            deconv2_up1 = rv(self.convtd2_up1(deconv2))
+            deconv2_up2 = rv(self.convtd2_up2(deconv2_up1))
             uconv2_ = (deconv2, deconv3_up1, att_conv2)
         else:
             uconv2_ = (deconv2, att_conv2)
-        uconv2 = self.dropd2(self.sersd2(uconv2_), train, rng)
+        uconv2 = self.dropd2(self.sersd2(uconv2_, sharded), train, rng)
         # Stage 1 (networks.py:609-616).
-        deconv1 = sa(self.convtd1(uconv2))
+        deconv1 = rv(self.convtd1(uconv2))
         if self.dense_skip:
-            deconv1_up1 = sa(self.convtd1_up1(deconv1))
+            deconv1_up1 = rv(self.convtd1_up1(deconv1))
             uconv1_ = (deconv1, deconv2_up1, deconv3_up2, att_conv1)
         else:
             uconv1_ = (deconv1, att_conv1)
-        uconv1 = self.dropd1(self.sersd1(uconv1_), train, rng)
+        uconv1 = self.dropd1(self.sersd1(uconv1_, sharded), train, rng)
         # Stage 0 (networks.py:618-624).
-        deconv0 = sa(self.convtd0(uconv1))
+        deconv0 = rv(self.convtd0(uconv1))
         if self.dense_skip:
             uconv0_ = (deconv0, deconv1_up1, deconv2_up2, deconv3_up3, att_conv0)
         else:
             uconv0_ = (deconv0, att_conv0)
-        uconv0 = self.dropd0(self.sersd0(uconv0_), train, rng)
+        uconv0 = self.dropd0(self.sersd0(uconv0_, sharded), train, rng)
         d.update(uconv3_=uconv3_, uconv3=uconv3, uconv2_=uconv2_, uconv2=uconv2,
                  uconv1_=uconv1_, uconv1=uconv1, uconv0_=uconv0_, uconv0=uconv0)
 
@@ -240,7 +244,8 @@ class M1Core(nn.Module):
 
     def ladder(self, trunk: Dict[str, Any], prob_mean: bool = False,
                prob_z_q: Optional[Sequence[Optional[torch.Tensor]]] = None,
-               train: bool = False, rng=None) -> Dict[str, Any]:
+               train: bool = False, rng=None,
+               sharded: Optional[ShardedStats] = None) -> Dict[str, Any]:
         """Hierarchical latent decoder (networks.py:633-734). Per level (res
         3, 2, 1, 0): a per-voxel diagonal Gaussian from the running features
         (1x1x1 ``mu_logsig``); the conditioning latent is the injected
@@ -272,10 +277,12 @@ class M1Core(nn.Module):
                 distributions.append(None)
                 used.append(None)
                 dec_in = features
-            upsampled = getattr(self, f"dec_hi_{i}")(dec_in)
+            # latents carry bias and noise into the vacuum: zero it around dec_hi
+            upsampled = revacuum(getattr(self, f"dec_hi_{i}")(revacuum(dec_in, sharded)),
+                                 sharded)
             stitched = (upsampled, *skip_srcs[i])
             features = getattr(self, f"dropp_{i}")(
-                getattr(self, f"sersp_{i}")(stitched), train, rng)
+                getattr(self, f"sersp_{i}")(stitched, sharded), train, rng)
             if i < 3:
                 ds_ops.append(features)
         return dict(prob_distributions=tuple(distributions),
@@ -318,9 +325,10 @@ class M1Core(nn.Module):
         return out
 
     def forward(self, inputs: torch.Tensor, train: bool = False, rng=None,
-                prob_mean: bool = False, prob_z_q=None) -> Dict[str, Any]:
+                prob_mean: bool = False, prob_z_q=None,
+                sharded: Optional[ShardedStats] = None) -> Dict[str, Any]:
         """One reference pass (networks.py:568-759): trunk, ladder, heads."""
-        trunk = self.trunk(inputs, train, rng)
-        ladder_out = (self.ladder(trunk, prob_mean, prob_z_q, train, rng)
+        trunk = self.trunk(inputs, train, rng, sharded)
+        ladder_out = (self.ladder(trunk, prob_mean, prob_z_q, train, rng, sharded)
                       if self.probabilistic else None)
         return self.assemble_outputs(trunk, ladder_out)

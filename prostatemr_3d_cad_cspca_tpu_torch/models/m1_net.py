@@ -22,17 +22,23 @@ leaves of the full forward): no deep-supervision heads, and for a
 probabilistic net the prior trunk, the prior's sampling ladder and the
 final decoder, plus the posterior's mean pass where a cascade's stage 2
 takes stage 1's ``prob_softmax``.
+
+``sharded`` (``ops.normalization.ShardedStats``) is a forward argument
+threaded down to every norm, squeeze and transposed conv, as ``rng`` is:
+the JAX package's ``net.clone(sharded=...)`` for halo-sharded execution
+(``parallel.halo``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .. import prng
 from ..ops.distributions import kl_diag_gaussians
+from ..ops.normalization import ShardedStats
 from .blocks import StitchingProbDecoder
 from .m1_core import M1Core
 
@@ -108,7 +114,8 @@ class M1Net(nn.Module):
             label = inputs[..., c - n_lbl:]
         return image, torch.cat([image, label], dim=-1)
 
-    def _passes(self, inputs, train, rng, wanted) -> Dict[str, Tuple[dict, dict]]:
+    def _passes(self, inputs, train, rng, wanted,
+                sharded=None) -> Dict[str, Tuple[dict, dict]]:
         """(trunk, ladder output) of each pass in ``wanted`` and of the
         passes whose latents they take, run in the reference's order."""
         need = set(wanted)
@@ -125,13 +132,14 @@ class M1Net(nn.Module):
             x = image if net_name == "prior" else image_label
             if self.fused_prob_passes:
                 if net_name not in trunks:
-                    trunks[net_name] = net.trunk(x, train, prng.scope(rng, net_name))
+                    trunks[net_name] = net.trunk(x, train, prng.scope(rng, net_name), sharded)
                 trunk = trunks[net_name]
             else:
-                trunk = net.trunk(x, train, prng.scope(rng, name))
+                trunk = net.trunk(x, train, prng.scope(rng, name), sharded)
             z_q = out[src][1]["prob_used_latents"] if src in PASSES else None
             out[name] = (trunk, net.ladder(trunk, prob_mean=src == "mean", prob_z_q=z_q,
-                                           train=train, rng=prng.scope(rng, name)))
+                                           train=train, rng=prng.scope(rng, name),
+                                           sharded=sharded))
         return out
 
     def _prob_softmax(self, train_conv, p_zq_mean):
@@ -142,13 +150,13 @@ class M1Net(nn.Module):
         heads = self.prior.assemble_outputs(*p_zq_mean)["y_softmax"]
         return torch.cat([soft, heads[..., self.num_classes:]], dim=-1)
 
-    def forward(self, inputs: torch.Tensor, train: bool = False,
-                rng=None) -> Dict[str, Any]:
+    def forward(self, inputs: torch.Tensor, train: bool = False, rng=None,
+                sharded: Optional[ShardedStats] = None) -> Dict[str, Any]:
         if not self.probabilistic:
-            out = self.core(inputs, train=train, rng=rng)
+            out = self.core(inputs, train=train, rng=rng, sharded=sharded)
             return dict(y_softmax=out["y_softmax"], y_sigmoid=out["y_sigmoid"],
                         logits=out["logits"], y_=out["y_"])
-        passes = self._passes(inputs, train, rng, tuple(PASSES))
+        passes = self._passes(inputs, train, rng, tuple(PASSES), sharded)
         # latent-injected logits (networks.py:355-356)
         infer_conv = self.final_decoder(passes["p_sample"][1]["prob_decoder_features"])
         train_conv = self.final_decoder(
@@ -166,7 +174,8 @@ class M1Net(nn.Module):
                     prob_softmax=self._prob_softmax(train_conv, passes["p_sample_z_q_mean"]),
                     infer_softmax=torch.softmax(infer_conv, dim=-1))
 
-    def detect(self, inputs: torch.Tensor, rng=None, with_prob_softmax: bool = False):
+    def detect(self, inputs: torch.Tensor, rng=None, with_prob_softmax: bool = False,
+               sharded: Optional[ShardedStats] = None):
         """The inference head's output, computing only what it needs:
         ``y_softmax[..., :nc]`` (the logits' softmax: no deep-supervision
         heads), or for a probabilistic net ``infer_softmax``. With
@@ -174,10 +183,10 @@ class M1Net(nn.Module):
         ``prob_softmax`` (what a cascade's stage 2 takes): ``(infer,
         prob)``."""
         if not self.probabilistic:
-            soft = torch.softmax(self.core.trunk(inputs, False, rng)["logits"], dim=-1)
+            soft = torch.softmax(self.core.trunk(inputs, False, rng, sharded)["logits"], dim=-1)
             return (soft, soft) if with_prob_softmax else soft
         wanted = ("p_sample", "p_sample_z_q_mean") if with_prob_softmax else ("p_sample",)
-        passes = self._passes(inputs, False, rng, wanted)
+        passes = self._passes(inputs, False, rng, wanted, sharded)
         infer = torch.softmax(self.final_decoder(
             passes["p_sample"][1]["prob_decoder_features"]), dim=-1)
         if not with_prob_softmax:
@@ -208,13 +217,15 @@ class M1CascadedNet(nn.Module):
         dt = torch.promote_types(lead.dtype, image_2.dtype)
         return torch.cat([lead.to(dt), image_2.to(dt)], dim=-1)
 
-    def forward(self, inputs, train: bool = False, rng=None) -> Dict[str, Any]:
+    def forward(self, inputs, train: bool = False, rng=None,
+                sharded: Optional[ShardedStats] = None) -> Dict[str, Any]:
         image_1, image_2 = inputs
         nc, prob = self.num_classes, self.probabilistic
-        out1 = self.stage1(image_1, train=train, rng=prng.scope(rng, "stage1"))
+        out1 = self.stage1(image_1, train=train, rng=prng.scope(rng, "stage1"),
+                           sharded=sharded)
         s1_soft = out1["prob_softmax"] if prob else out1["y_softmax"]
         out2 = self.stage2(self._stage2_input(s1_soft, image_2), train=train,
-                           rng=prng.scope(rng, "stage2"))
+                           rng=prng.scope(rng, "stage2"), sharded=sharded)
         s2_soft = out2["prob_softmax"] if prob else out2["y_softmax"]
         prior_train, joint_train = decision_fusion(s1_soft[..., nc - 1], s2_soft[..., nc - 1],
                                                    self.fusion)
@@ -229,14 +240,14 @@ class M1CascadedNet(nn.Module):
                            infer_detection_1=prior_inf, infer_detection_2=joint_inf)
         return outputs
 
-    def detect(self, inputs, rng=None):
+    def detect(self, inputs, rng=None, sharded: Optional[ShardedStats] = None):
         """(stage 1, stage 2) as the inference head returns them:
         y_softmax[..., :nc] of each stage, or each stage's infer_softmax
         for probabilistic stages (stage 2 still takes stage 1's
         prob_softmax)."""
         image_1, image_2 = inputs
         infer1, soft1 = self.stage1.detect(image_1, prng.scope(rng, "stage1"),
-                                           with_prob_softmax=True)
+                                           with_prob_softmax=True, sharded=sharded)
         out2 = self.stage2.detect(self._stage2_input(soft1, image_2),
-                                  prng.scope(rng, "stage2"))
+                                  prng.scope(rng, "stage2"), sharded=sharded)
         return infer1, out2

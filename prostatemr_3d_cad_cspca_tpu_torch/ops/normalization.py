@@ -21,13 +21,27 @@ its source note in ``csrc/instance_norm.cu``:
 
 While ``torch.export`` traces, K3's and K4's wrappers call the registered
 operators ``pmr::in_stats`` and ``pmr::in_apply`` (``cuda_lib.register_op``,
-``export.py``). Cross-shard statistics (``ShardedStats``, ``revacuum``)
-wait for the multi-GPU slice.
+``export.py``).
+
+Under halo-sharded execution (``parallel.halo``) the statistics span the
+whole volume (:class:`ShardedStats`): core-masked fp32 sums ``s``, ``ss``
+and counts, summed over the spatial axis's ranks, ``var = max(ss/n -
+mean^2, 0)`` in both dtypes, and the vacuum outside the volume re-zeroed
+(:func:`revacuum`). Without grad, K3 runs on a contiguous copy of the core
+(the core is strided along H) and K4 applies the global statistics, the
+LeakyReLU fused (LReLU(0) = 0, so it commutes with the re-zeroing); K4's
+bf16 route rounds its coefficients to bf16 first, where the JAX package's
+sharded formula keeps them fp32 (held within 2**-6 of max(1, |ref|)).
+Under autograd the sharded norm is plain differentiable ops around the
+differentiable psum: K7 assumes statistics over every voxel it
+differentiates, which a slab with halos does not have.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -42,9 +56,76 @@ def _check_5d(name, x):
         raise ValueError(f"{name}: expects NDHWC, got shape {tuple(x.shape)}")
 
 
-def global_spatial_mean(x: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedStats:
+    """Context for exact full-volume statistics under halo-sharded SPMD
+    (JAX ``ops/normalization.py:29-49``).
+
+    Every rank holds slab + 2 * halo along ``spatial_axis``. The halo is a
+    multiple of the network's cumulative stride, so a tensor of local
+    extent t at any resolution has ``halo * t // extent`` halo rows a side:
+    the rest is this rank's core, and the cores of the ranks along ``axis``
+    (a ``parallel.collectives.Axis``) tile the volume. Statistics are
+    core-masked local sums summed over the axis: the unsharded reduction
+    set."""
+
+    axis: object        # parallel.collectives.Axis to sum over
+    spatial_axis: int   # NDHWC tensor axis that is sharded
+    halo: int           # halo width at the network input resolution
+    extent: int         # local input extent incl. both halos (slab + 2*halo)
+
+
+def _local_halo(x: torch.Tensor, sharded: ShardedStats) -> int:
+    return sharded.halo * x.shape[sharded.spatial_axis] // sharded.extent
+
+
+def _core_slice(x: torch.Tensor, sharded: ShardedStats) -> torch.Tensor:
+    """The core of this rank's slab (a strided view along the axis)."""
+    t, h = x.shape[sharded.spatial_axis], _local_halo(x, sharded)
+    return x.narrow(sharded.spatial_axis, h, t - 2 * h)
+
+
+def revacuum(x: torch.Tensor, sharded: Optional[ShardedStats]) -> torch.Tensor:
+    """Zero what lies outside the volume ("vacuum") on the edge ranks.
+
+    An unsharded SAME conv pads the true volume boundary with zeros at every
+    layer; sharded, the vacuum rows gather conv biases and IN offsets layer
+    over layer, and a later conv whose window crosses the volume's edge
+    would read them. Re-zeroing after each norm and transposed conv
+    restores the zero extension. The identity on interior ranks."""
+    if sharded is None:
+        return x
+    ax, t, h = sharded.spatial_axis, x.shape[sharded.spatial_axis], _local_halo(x, sharded)
+    slab = t - 2 * h
+    idx, n = sharded.axis.index, sharded.axis.size
+    gpos = torch.arange(t, device=x.device) - h + idx * slab
+    keep = ((gpos >= 0) & (gpos < n * slab)).reshape(
+        [t if i == ax % x.dim() else 1 for i in range(x.dim())])
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _core_sums(x: torch.Tensor, sharded: ShardedStats, squares: bool = True):
+    """(s, ss, n) over the spatial axes: fp32 core sums of x (and of x**2;
+    fp64 for fp64 input), summed over the axis's ranks, and the global
+    voxel count."""
+    from ..parallel.collectives import psum
+
+    axes = tuple(range(1, x.dim() - 1))
+    core = _core_slice(x, sharded).to(_acc(x))
+    n = math.prod(core.shape[1:-1]) * sharded.axis.size
+    s = psum(core.sum(dim=axes, keepdim=True), sharded.axis)
+    ss = psum(core.square().sum(dim=axes, keepdim=True), sharded.axis) if squares else None
+    return s, ss, n
+
+
+def global_spatial_mean(x: torch.Tensor, sharded: Optional[ShardedStats] = None
+                        ) -> torch.Tensor:
     """fp32-accumulated mean over all spatial dims, keepdims (the SE
-    squeeze), returned in fp32 (fp64 for fp64 input)."""
+    squeeze), returned in fp32 (fp64 for fp64 input); over the whole volume
+    when ``sharded`` is given."""
+    if sharded is not None:
+        s, _, n = _core_sums(x, sharded, squares=False)
+        return s / n
     return x.to(_acc(x)).mean(dim=tuple(range(1, x.dim() - 1)), keepdim=True)
 
 
@@ -312,7 +393,10 @@ def in_backward_plain(x, g, stats, scale, bias, lrelu=False, epsilon=EPSILON):
     sums (B, 2, C) = [sum g', sum g' * xhat] over the spatial axes and dx =
     rstd * scale * (g' - sum(g') / n - xhat * sum(g' xhat) / n) rounded
     once to x's dtype; g' is g times the LReLU's slope (0.1 where K4's
-    pre-activation was negative)."""
+    pre-activation was negative). The sums take g' and xhat as computed
+    and add them in fp64, rounded once: a channel whose total is small
+    beside its terms keeps its digits, which an fp32 sum of ~1e5 terms can
+    lose to its own rounding."""
     acc = _acc(x)
     axes = tuple(range(1, x.dim() - 1))
     shape = (x.shape[0],) + (1,) * len(axes) + (x.shape[-1],)
@@ -322,7 +406,8 @@ def in_backward_plain(x, g, stats, scale, bias, lrelu=False, epsilon=EPSILON):
     if lrelu:
         gf = torch.where(_pre_activation_sign(x, stats, scale, bias, epsilon), 0.1 * gf, gf)
     xhat = (x.to(acc) - mean) * rstd
-    s1, s2 = gf.sum(dim=axes), (gf * xhat).sum(dim=axes)
+    s1 = gf.double().sum(dim=axes).to(acc)
+    s2 = (gf.double() * xhat.double()).sum(dim=axes).to(acc)
     inv_n = 1.0 / math.prod(x.shape[1:-1])
     dx = (rstd * scale.to(acc)) * (gf - (s1 * inv_n).reshape(shape)
                                    - xhat * (s2 * inv_n).reshape(shape))
@@ -438,13 +523,47 @@ class _InstanceNormFn(torch.autograd.Function):
                 sums[:, 0].sum(0) if need[2] else None, None, None)
 
 
+def _sharded_instance_norm(x, scale, bias, epsilon, lrelu, sharded):
+    """The norm with whole-volume statistics (JAX ``normalization.py:
+    184-200``), then :func:`revacuum`. Under autograd: fp32 core sums, the
+    differentiable psum, the affine ``x * a + b`` in fp32 rounded once.
+    Without grad: K3 on a contiguous copy of the core, its (mean, var) made
+    sums again (``s = n mean``, ``ss = n (var + mean^2)``) and summed over
+    the axis, and K4 with the global statistics."""
+    from ..parallel.collectives import psum
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        s, ss, n = _core_sums(x, sharded)
+        mean = s / n
+        var = torch.clamp(ss / n - mean.square(), min=0.0)
+        a = torch.rsqrt(var + epsilon) * scale
+        y = (x.to(a.dtype) * a + (bias - mean * a)).to(x.dtype)
+        if lrelu:
+            y = torch.nn.functional.leaky_relu(y, 0.1)
+        return revacuum(y, sharded)
+    core = _core_slice(x, sharded).contiguous()
+    stats = in_stats(core)  # (B, 2, C): mean, var of this rank's core
+    n_local = math.prod(core.shape[1:-1])
+    sums = torch.stack([stats[:, 0], stats[:, 1] + stats[:, 0].square()], dim=1) * n_local
+    sums = psum(sums, sharded.axis)
+    n = n_local * sharded.axis.size
+    mean = sums[:, 0] / n
+    var = torch.clamp(sums[:, 1] / n - mean.square(), min=0.0)
+    return revacuum(in_apply(x, torch.stack([mean, var], dim=1).contiguous(), scale, bias,
+                             lrelu, epsilon), sharded)
+
+
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
-                  epsilon: float = EPSILON, lrelu: bool = False) -> torch.Tensor:
+                  epsilon: float = EPSILON, lrelu: bool = False,
+                  sharded: Optional[ShardedStats] = None) -> torch.Tensor:
     """Functional instance norm over all dims but batch (0) and channel
     (-1); ``lrelu`` fuses the LeakyReLU(0.1) that follows most norms.
     Differentiable where autograd asks for it (K7 is the backward); without
-    grad it saves nothing and launches K3 and K4 alone."""
+    grad it saves nothing and launches K3 and K4 alone. ``sharded``: the
+    statistics of the whole volume under halo sharding (module docstring)."""
     scale, bias = scale.to(_acc(x)), bias.to(_acc(x))
+    if sharded is not None:
+        return _sharded_instance_norm(x, scale, bias, epsilon, lrelu, sharded)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
         return _InstanceNormFn.apply(x, scale, bias, lrelu, epsilon)
     return in_apply(x, in_stats(x), scale, bias, lrelu, epsilon)
@@ -460,6 +579,7 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.empty(features, dtype=param_dtype))
         self.bias = nn.Parameter(torch.empty(features, dtype=param_dtype))
 
-    def forward(self, x: torch.Tensor, lrelu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lrelu: bool = False,
+                sharded: Optional[ShardedStats] = None) -> torch.Tensor:
         return instance_norm(x, self.scale, self.bias, epsilon=self.epsilon,
-                             lrelu=lrelu)
+                             lrelu=lrelu, sharded=sharded)

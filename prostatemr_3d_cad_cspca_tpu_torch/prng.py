@@ -51,6 +51,14 @@ scopes are ``stage1``/``stage2`` in a cascade, then in a probabilistic net
 ``dropp_2``) or ``z_<level>`` for the latent a sampling level draws. A
 single-stage deterministic net's sites sit at the root (``drope1``).
 
+Data parallelism. :func:`rows` gives each shard of a global batch its rows
+of the draws made for the whole batch: a generator's draws are made once,
+at the global shape, and sliced (:class:`RowSource` behind a
+:class:`Draws`); a mapping's entries are sliced (:class:`Rows`). Every draw
+has the batch on its leading axis, so the shards of one forward draw the
+one-device forward's bits; :func:`repeat_rows` follows ``infer.
+mc_predict``'s sample-major stacking.
+
 Augmentation (``augment``). ``augment_batch`` draws every value from its
 generator in one fixed order, for the whole batch at once: one uniform
 block of shape (B, 22 + 2 n_img_ch) whose columns are
@@ -73,7 +81,7 @@ a channel's coin applies at ``> 0.5``), ``noise_std`` and ``noise``.
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -261,3 +269,106 @@ def plan_draws(plan, rng: torch.Generator, shapes) -> list:
     streams = _Streams(rng)
     return [_draw(streams(tuple(e["path"])), e["kind"], shape, rng.device)
             for e, shape in zip(plan, shapes)]
+
+
+# ------------------------------------------------- rows of a global batch
+class Rows(Mapping):
+    """The rows ``index`` (along the leading batch axis) of each entry of a
+    mapping of replayed draws made for a global batch: what one shard of a
+    data-parallel batch replays."""
+
+    def __init__(self, base: Mapping, index: Sequence[int], total: int):
+        self.base, self.index, self.total = base, tuple(int(i) for i in index), int(total)
+
+    def __getitem__(self, key):
+        v = self.base[key]
+        t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+        if t.dim() == 0 or t.shape[0] != self.total:
+            raise ValueError(f"replayed draw {key!r} has shape {tuple(t.shape)}, not a "
+                             f"leading batch of {self.total}")
+        return t[torch.as_tensor(self.index, device=t.device)]
+
+    def __iter__(self):
+        return iter(self.base)
+
+    def __len__(self):
+        return len(self.base)
+
+
+class _SharedDraws:
+    """Each draw of a forward made once for the global batch, on the first
+    shard that asks for it, and handed to the others: the n-th draw on a fold
+    path is the same tensor for every shard (the shards of one process run
+    one after another and each walks the forward's draws in order)."""
+
+    def __init__(self, rng: torch.Generator):
+        self.streams, self.device = _Streams(rng), rng.device
+        self.made = {}  # path -> [(kind, site, shape, tensor)]
+
+    def get(self, path, i, kind, site, shape):
+        made = self.made.setdefault(path, [])
+        if i < len(made):
+            got = made[i]
+            if got[:3] != (kind, site, shape):
+                raise ValueError(f"shards disagree on draw {i} at {list(path)}: "
+                                 f"{got[:3]} vs {(kind, site, shape)}")
+            return got[3]
+        if i != len(made):
+            raise ValueError(f"draw {i} at {list(path)} asked before draw {len(made)}")
+        t = _draw(self.streams(path), kind, shape, self.device)
+        made.append((kind, site, shape, t))
+        return t
+
+
+class RowSource:
+    """A draw source (``Draws.take``) that gives one shard its rows of each
+    draw made for the global batch: rows ``index`` of a draw of leading size
+    ``total``, moved to the shard's device."""
+
+    def __init__(self, shared: _SharedDraws, index: Sequence[int], total: int):
+        self.shared, self.index, self.total = shared, tuple(int(i) for i in index), int(total)
+        self.count = {}
+
+    def take(self, path, kind, site, shape, device):
+        if not shape or shape[0] != len(self.index):
+            raise ValueError(f"draw {site!r} of shape {tuple(shape)} on a shard of "
+                             f"{len(self.index)} rows")
+        i = self.count.get(path, 0)
+        self.count[path] = i + 1
+        full = self.shared.get(tuple(path), i, kind, site, (self.total, *shape[1:]))
+        return full[torch.as_tensor(self.index, device=full.device)].to(device)
+
+
+def rows(rng, shards: Sequence[Sequence[int]], total: int) -> list:
+    """One ``rng`` a shard of a global batch of ``total`` rows, shard i
+    holding rows ``shards[i]``: each shard's draws are its rows of what
+    ``rng`` draws for the whole batch, so the shards together draw the bits
+    of one forward over the global batch. None passes through; a mapping
+    gives each shard its rows of every entry; a generator is drawn once for
+    the global batch (by the first shard to ask, on the generator's device)
+    and sliced for each shard (a ``Draws`` of a ``RowSource``)."""
+    if rng is None:
+        return [None] * len(shards)
+    if is_mask_map(rng):
+        return [Rows(rng, idx, total) for idx in shards]
+    if not isinstance(rng, torch.Generator):
+        raise TypeError(f"rows: rng must be None, a torch.Generator or a mapping, "
+                        f"got {type(rng).__name__}")
+    shared = _SharedDraws(rng)
+    return [Draws(RowSource(shared, idx, total)) for idx in shards]
+
+
+def repeat_rows(rng, n: int):
+    """``rng`` for a batch stacked ``n`` times (sample-major, rows ``s*B +
+    b``, as ``infer.mc_predict`` stacks its samples): a shard's rows ``b``
+    of a global batch of B become rows ``s*B + b`` of n*B. Anything but a
+    shard's rows passes through."""
+    if isinstance(rng, Rows):
+        return Rows(rng.base, [s * rng.total + i for s in range(n) for i in rng.index],
+                    n * rng.total)
+    if isinstance(rng, Draws) and isinstance(rng.source, RowSource):
+        src = rng.source
+        grown = RowSource(src.shared, [s * src.total + i for s in range(n) for i in src.index],
+                          n * src.total)
+        return Draws(grown, rng.path, rng.prefix)
+    return rng

@@ -22,7 +22,14 @@
     ``predictions.json`` with ranked lesion candidates
     (train.metrics.extract_lesion_candidates), in manifest order.
 
-``--DATA_PARALLEL`` raises and names the slice it waits for.
+``--DATA_PARALLEL N`` serves through a one-process mesh of N data devices
+(``parallel.mesh``; the first N cards, or N CPU positions with ``--DEVICE
+cpu``): each holds a replica and runs its rows of every batch, the draws
+made for the whole batch, so a seed gives the one-device session's draws.
+An exported artifact refuses it, as the JAX package's AOT artifact does.
+The replicas are dispatched in turn from this one thread, so a request
+takes no less time than on one device: the option is there for parity
+with the JAX package's single controller, not for speed.
 
 CLI:
   python -m prostatemr_3d_cad_cspca_tpu_torch.serve \\
@@ -34,6 +41,7 @@ CLI:
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 from typing import Dict, List, Optional
@@ -66,7 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--SEED", type=int, default=0)
     p.add_argument("--SAVE_UNCERTAINTY", type=int, default=1)
     p.add_argument("--DATA_PARALLEL", type=int, default=0,
-                   help="multi-GPU serving waits for the multi-GPU slice")
+                   help="shard each batch over the first N devices, a replica "
+                        "on each (0/1 = one device)")
     p.add_argument("--TRANSFER_DTYPE", type=str, default="float32",
                    choices=["float32", "float16"],
                    help="device-side output cast before the host pull")
@@ -85,9 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    index = lambda d: (d.index if d.index is not None  # noqa: E731
+                       else torch.cuda.current_device() if d.type == "cuda" else None)
+    return a.type == b.type and index(a) == index(b)
+
+
 class InferenceSession:
     """Detect wrapper around a loaded M1 (or ``ensemble.M1Ensemble``) on one
-    device.
+    device, or on the ``data`` devices of a one-process ``mesh``
+    (``parallel.mesh.make_mesh``; a device may repeat).
 
     ``__call__(batch)`` takes a (B, D, H, W, C) array (for a cascade an
     ``(image_1, image_2)`` pair of them, or one array that feeds both
@@ -96,6 +112,16 @@ class InferenceSession:
     a Monte-Carlo or probabilistic model, else None. Each such call draws
     from ``fold_in(generator(seed), n)`` for the call's number n, so a
     session's outputs depend only on its seed.
+
+    With a mesh, each data device holds a replica (the model itself where
+    the device is the model's) and runs its equal share of the batch's
+    rows; ``__call__`` pads the batch to a multiple of the data axis with
+    copies of its last case and strips them. Draws are made for the whole
+    batch on the first device and each replica takes its rows
+    (``prng.rows``), so an MC or probabilistic request draws the
+    one-device session's bits. Sliding windows of K cases split their
+    cases over the devices where K divides (``predict_cases`` rounds K up
+    to a multiple of the axis); one case runs on the first device.
     """
 
     def __init__(self, model, mc_iter: int = 1, seed: int = 0, mesh=None,
@@ -103,9 +129,20 @@ class InferenceSession:
                  transfer_channels: str = "all",
                  scan_chunk: Optional[int] = None, device="cuda"):
         dev = resolve_device(device)
+        self.mesh = mesh
+        self._n_data = int(mesh.shape["data"]) if mesh is not None else 1
+        self._devices = [dev]
         if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel serving waits for the multi-GPU slice")
+            if mesh.distributed:
+                raise ValueError("data-parallel serving runs in one process: give a mesh "
+                                 "made outside a world (make_mesh(devices=...))")
+            self._devices = [resolve_device(mesh.devices[d, 0, 0])
+                             for d in range(self._n_data)]
+            dev = self._devices[0]
+            if scan_chunk and int(scan_chunk) % self._n_data != 0:
+                raise ValueError(
+                    f"scan_chunk={scan_chunk} must be a multiple of the mesh "
+                    f"data axis ({self._n_data}) so every chunk shards evenly")
         if model.device != dev:
             model.to(dev)
         self.model = model
@@ -126,14 +163,29 @@ class InferenceSession:
             self._fg_only = False
         self._rng = prng.generator(seed, dev)
         self._draws = 0
+        self._replicas = []  # (device, detect head) a data device
+        for d in self._devices:
+            same = [det for dv, det in self._replicas if _same_device(dv, d)]
+            self._replicas.append((d, same[0] if same else self._head(
+                model if _same_device(d, dev) else copy.deepcopy(model).to(d))))
+        self._detect = self._replicas[0][1]
+        self._scan_chunk = int(scan_chunk) if scan_chunk else None
+        self._sw_cache: Dict[tuple, tuple] = {}
+
+    def _head(self, model):
         detect = model.get_detect_model()
         if self.tta:
             from .ensemble import tta_detect
 
             detect = tta_detect(detect)
-        self._detect = detect
-        self._scan_chunk = int(scan_chunk) if scan_chunk else None
-        self._sw_cache: Dict[tuple, tuple] = {}
+        return detect
+
+    def _detect_on(self, device: torch.device):
+        """The detect head of the replica on ``device``."""
+        for d, det in self._replicas:
+            if _same_device(d, device):
+                return det
+        raise ValueError(f"no replica on {device}")
 
     def _next_rng(self) -> torch.Generator:
         sub = prng.fold_in(self._rng, self._draws)
@@ -154,15 +206,30 @@ class InferenceSession:
             return out
         return tree_map(lambda a: a.to(self._out_dtype), out)
 
-    def _body(self, x, rng=None):
+    def _body_on(self, detect, x, rng=None):
         if self._needs_rng and self.mc_iter > 1:
-            out = mc_predict(self._detect, None, x, rng, num_samples=self.mc_iter,
+            out = mc_predict(detect, None, x, rng, num_samples=self.mc_iter,
                              reduce="mean_std")
         elif self._needs_rng:
-            out = self._detect(None, x, rng=rng)
+            out = detect(None, x, rng=rng)
         else:
-            out = self._detect(None, x)
+            out = detect(None, x)
         return self._cast(out)
+
+    def _body(self, x, rng=None):
+        """One forward of a batch: on the one device, or its rows a data
+        device, each replica with its rows of the batch's draws."""
+        if self._n_data == 1:
+            return self._body_on(self._detect, x, rng)
+        b = int((x[0] if isinstance(x, tuple) else x).shape[0])
+        per = b // self._n_data
+        bounds = [range(d * per, (d + 1) * per) for d in range(self._n_data)]
+        rngs = prng.rows(rng, bounds, b)
+        outs = []
+        for (dev, detect), rows, r in zip(self._replicas, bounds, rngs):
+            part = tree_map(lambda t: t[rows.start:rows.stop].to(dev), x)
+            outs.append(tree_map(lambda t: t.to(self.device), self._body_on(detect, part, r)))
+        return tree_map(lambda *ts: torch.cat(ts, 0), *outs)
 
     def __call__(self, batch):
         """Batch -> (probs, uncertainty | None), fp32 numpy."""
@@ -172,13 +239,13 @@ class InferenceSession:
         x = self._to_device(batch)
         b = int((x[0] if casc else x).shape[0])
         rng = self._next_rng() if self._needs_rng else None
+        chunked = bool(self._scan_chunk and b > self._scan_chunk)
+        pad = (-b) % (self._scan_chunk if chunked else self._n_data)
+        if pad:  # duplicate the last case up to whole chunks / the data axis
+            x = tree_map(lambda t: torch.cat([t, t[-1:].expand(pad, *t.shape[1:])], 0), x)
         with torch.no_grad():
-            if self._scan_chunk and b > self._scan_chunk:
+            if chunked:
                 ck = self._scan_chunk
-                pad = (-b) % ck
-                if pad:  # duplicate the last case up to whole chunks
-                    x = tree_map(lambda t: torch.cat([t, t[-1:].expand(pad, *t.shape[1:])], 0),
-                                 x)
                 run = make_chunked_batch_fn(self._body, ck, (b + pad) // ck,
                                             rng_per_chunk=self._needs_rng)
                 out = run(x, rng) if self._needs_rng else run(x)
@@ -252,11 +319,15 @@ class InferenceSession:
         window = tuple(self.model.input_spatial_dims)
         needs_rng = self._needs_rng
         mc = self.mc_iter if (needs_rng and self.mc_iter > 1) else 1
-        detect = self._detect  # the same (TTA/ensemble-wrapped) head as __call__
         fgo = self._fg_only
         casc, c = bool(self.model.cascaded), self.model.input_channels
+        # K cases split over the mesh's data devices where K divides
+        sw_mesh = (self.mesh if cases > 1 and self.mesh is not None
+                   and cases % self._n_data == 0 else None)
 
         def fwd(tiles, rng=None):
+            # the same (TTA/ensemble-wrapped) head as __call__, on the tiles' device
+            detect = self._detect_on(tiles.device) if sw_mesh is not None else self._detect
             inp = (tiles[..., :c], tiles[..., c:]) if casc else tiles
             out = detect(None, inp, rng=rng) if needs_rng else detect(None, inp)
             out = out[-1] if casc else out  # a cascade's stage-2 detection
@@ -274,7 +345,7 @@ class InferenceSession:
         run = make_sliding_window_fn(
             tile_fn, full_spatial=shape[:-1], window=window, in_channels=shape[-1],
             out_channels=ncp * out_mult, overlap=sw_overlap, cases=cases,
-            rng_per_chunk=needs_rng, out_dtype=self._out_dtype)
+            rng_per_chunk=needs_rng, mesh=sw_mesh, out_dtype=self._out_dtype)
         self._sw_cache[key] = (run, out_mult)
         return self._sw_cache[key]
 
@@ -288,6 +359,8 @@ class InferenceSession:
                 or len({tuple(v.shape) for v in stacked}) != 1):
             return [self.predict_case(v, sw_overlap=sw_overlap) for v in volumes]
         k = min(int(group_size), len(volumes))
+        if self._n_data > 1:  # K up to a data-axis multiple: the cases split evenly
+            k = max(self._n_data, -(-k // self._n_data) * self._n_data)
         run_k, out_mult = self._sw_program(tuple(stacked[0].shape), float(sw_overlap),
                                            cases=k)
         out: List[tuple] = []
@@ -401,9 +474,12 @@ def run(args) -> List[Dict]:
     from .train.metrics import extract_lesion_candidates
 
     device = resolve_device(getattr(args, "DEVICE", "cuda"))
-    if int(getattr(args, "DATA_PARALLEL", 0)) > 1:
-        raise NotImplementedError(
-            "--DATA_PARALLEL waits for the multi-GPU slice")
+    n_data = int(getattr(args, "DATA_PARALLEL", 0))
+    if str(args.MODEL).endswith(".zip") and n_data > 1:
+        # refused before the artifact loads, as the JAX package's
+        raise ValueError(
+            "--DATA_PARALLEL needs a live checkpoint; exported artifacts "
+            "run the program as exported (single device)")
     os.makedirs(args.OUTPUT_DIR, exist_ok=True)
     model = load_model_spec(args.MODEL, seed=args.SEED, allow_artifact=True, device=device)
     if hasattr(model, "sw_entries"):  # an artifact (export.ExportedModel)
@@ -416,9 +492,15 @@ def run(args) -> List[Dict]:
                   "export", flush=True)
         session = ExportedSession(model)
     else:
+        mesh = None
+        if n_data > 1:
+            from .parallel.mesh import make_mesh, setup_device
+
+            devices, _ = setup_device(",".join(map(str, range(n_data))), device)
+            mesh = make_mesh(n_data=n_data, devices=devices)
         tdt = getattr(args, "TRANSFER_DTYPE", "float32")
         session = InferenceSession(
-            model, mc_iter=args.MC_ITER, seed=args.SEED,
+            model, mc_iter=args.MC_ITER, seed=args.SEED, mesh=mesh,
             transfer_dtype=None if tdt == "float32" else tdt,
             tta=bool(getattr(args, "TTA", 0)),
             transfer_channels=getattr(args, "TRANSFER_CHANNELS", "all"),

@@ -26,6 +26,17 @@ sequence of one ``rng`` a step.
 train-time validation, full-state checkpoints from ``train.checkpoint``,
 a metrics stream), and ``resume_training`` reloads the latest npz of a
 fold; see ``fit`` for where it differs from the JAX loop.
+
+On a mesh (``parallel.mesh``, one process a position) the step is the JAX
+step's SPMD program over a ``data``-sharded global batch: every rank takes
+the same global batch and draws, keeps its ``data`` rows of both, and
+computes the GLOBAL batch's loss (``losses`` with the data axis; the KL's
+batch mean likewise); it differentiates that loss over the mesh's size,
+and the gradients are summed over the mesh (one all-reduce), so each
+rank's update is the global batch's and the L2 term counts once. A state
+sharded over ``model`` (``parallel.sharding.shard_state``) keeps only its
+slice of the wide parameters and their moments: the step gathers them for
+the forward, keeps its slice of their summed gradients and updates it.
 """
 
 from __future__ import annotations
@@ -53,11 +64,15 @@ Params = Dict[str, torch.Tensor]
 @dataclasses.dataclass
 class TrainState:
     """The module (whose parameters the step updates in place), the
-    optimizer's state and the number of steps taken."""
+    optimizer's state and the number of steps taken; under tensor
+    parallelism ``shards`` holds this rank's ``model`` slices of the wide
+    parameters, which the optimizer's state mirrors
+    (``parallel.sharding.shard_state``)."""
 
     module: nn.Module
     opt_state: Any
     step: int
+    shards: Optional[Dict[str, Any]] = None
 
     @property
     def params(self) -> Params:
@@ -201,6 +216,10 @@ def _on(x, device):
     return x.to(device).contiguous()
 
 
+def _leading(tree) -> int:
+    return int((tree[0] if isinstance(tree, (tuple, list)) else tree).shape[0])
+
+
 def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -219,6 +238,19 @@ def _step_rngs(rng, k: int, device):
     if rng is None:
         return [None] * k
     return [prng.fold_in(rng, i) for i in range(k)]
+
+
+def _mesh_axes(mesh):
+    """(data axis, mesh group, mesh size) of a mesh step; raises where this
+    process cannot run one."""
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} holds no position of {mesh}")
+    if mesh.size > 1 and not mesh.distributed:
+        raise ValueError(
+            f"a train step over {mesh.size} mesh positions runs one process a position: "
+            "initialize_distributed() (or spawn the ranks, as the CLI's --GPU_DEVICE_IDs "
+            "does) before make_mesh")
+    return mesh.axis("data"), mesh.group, mesh.size
 
 
 def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.0,
@@ -245,6 +277,13 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
     augmentation draws. A cascade with ``augment_params`` raises
     ``ValueError``.
 
+    ``mesh`` (``parallel.mesh.Mesh``, one process a position): the step of
+    the module docstring. ``batch`` and ``rng`` are the global batch's, the
+    same on every rank; each rank keeps its ``data`` rows of the batch and
+    of every draw (``prng.rows``), so the draws are the one-process step's.
+    ``seg_loss`` must take ``axis`` (the package's losses do) where the
+    data axis is wider than 1. The metrics are the global batch's.
+
     ``scan_steps=K``: ``step(state, batches, rng)`` runs K optimizer steps
     over batches with a leading K axis, metrics stacked (K,). ``accum_steps
     =K``: K microbatches' gradients summed in order and averaged, one
@@ -252,8 +291,6 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
     """
     if scan_steps is not None and accum_steps is not None:
         raise ValueError("scan_steps and accum_steps are mutually exclusive")
-    if mesh is not None:
-        raise NotImplementedError("a sharded train step waits for the multi-GPU slice")
     cfg = model.config
     probabilistic, cascaded = bool(cfg["probabilistic"]), bool(cfg["cascaded"])
     augment = None if augment_params is None else as_params(augment_params)
@@ -264,15 +301,38 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
     k_l2, b_l2 = float(cfg["kernel_regularizer"]), float(cfg["bias_regularizer"])
     w_seg = float(loss_weights[0]) if loss_weights else 1.0
     try:
-        takes_dist_map = "dist_map" in inspect.signature(seg_loss).parameters
+        params_of_loss = inspect.signature(seg_loss).parameters
     except (TypeError, ValueError):
-        takes_dist_map = False
+        params_of_loss = {}
+    takes_dist_map = "dist_map" in params_of_loss
     device = model.device
+    data_axis = group = None
+    world = 1
+    if mesh is not None:
+        data_axis, group, world = _mesh_axes(mesh)
+        device = mesh.device
+        if data_axis.size > 1 and "axis" not in params_of_loss:
+            raise ValueError("a data axis wider than 1 needs a seg_loss that takes axis= "
+                             "(the global batch's loss; losses.Focal and "
+                             "losses.SoftDicePlusBoundarySurface do)")
+        if mesh.shape["data"] == 1:
+            data_axis = None  # every rank holds the whole batch
+
+    def batch_mean(v, b_local):
+        # a per-sample mean (the KL's) over the global batch
+        if data_axis is None:
+            return v
+        from ..parallel.collectives import psum
+
+        return psum(v * b_local, data_axis) / (b_local * data_axis.size)
 
     def loss_fn(module, batch, rng):
         kw = ({"dist_map": batch["dist_map"]}
               if "dist_map" in batch and takes_dist_map else {})
+        if data_axis is not None:
+            kw["axis"] = data_axis
         y = batch["detection"]
+        b_local = int(y.shape[0])
         out = module(batch["image"], train=True, rng=rng)
         metrics = {}
         if cascaded:
@@ -280,7 +340,7 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
                            + seg_loss(y, out["detection_2"], **kw))
             loss = seg
             if probabilistic:
-                kl = out["KL_1"] + out["KL_2"]
+                kl = batch_mean(out["KL_1"] + out["KL_2"], b_local)
                 loss = loss + elbo_beta * kl
                 metrics["kl"] = kl
         else:
@@ -288,30 +348,58 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
             seg = w_seg * seg_loss(y, det, **kw)
             loss = seg
             if probabilistic:
-                loss = loss + elbo_beta * out["prob_kl"]
-                metrics["kl"] = out["prob_kl"]
+                kl = batch_mean(out["prob_kl"], b_local)
+                loss = loss + elbo_beta * kl
+                metrics["kl"] = kl
         reg = l2_penalty(module, k_l2, b_l2).to(loss.device)
         loss = loss + reg
         metrics.update(seg_loss=seg, reg=reg, loss=loss)
         return loss, metrics
 
+    def local_batch(batch, rng):
+        """This rank's rows of the global batch and draws, on its device."""
+        batch = {k: _on(v, device) for k, v in batch.items()}
+        rng = prng.as_rng(rng, device)
+        if mesh is None or mesh.shape["data"] == 1:
+            return batch, rng
+        from ..parallel.mesh import data_rows, host_local_batch_to_global
+
+        total = _leading(batch["detection"])
+        rows = data_rows(mesh, total)
+        return (host_local_batch_to_global(mesh, batch),
+                prng.rows(rng, [range(rows.start, rows.stop)], total)[0])
+
     def grads_of(state, batch, rng):
+        """This rank's gradients (its share; summed over the mesh by
+        ``reduce``) and the step's metrics."""
         params = state.params
         for p in params.values():
             p.grad = None
-        batch = {k: _on(v, device) for k, v in batch.items()}
-        rng = prng.as_rng(rng, device)
+        batch, rng = local_batch(batch, rng)
         if augment is not None:
             batch = augment_batch(prng.augment_rng(rng), batch, augment, train_obj)
         loss, metrics = loss_fn(state.module, batch, rng)
-        loss.backward()
+        (loss / world if world > 1 else loss).backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
         return grads, {k: v.detach() for k, v in metrics.items()}
 
+    def reduce(grads):
+        """The gradients summed over the mesh (one all-reduce)."""
+        if group is None:
+            return grads
+        from ..parallel.collectives import all_reduce_flat
+
+        keys = list(grads)
+        return dict(zip(keys, all_reduce_flat([grads[k] for k in keys], group)))
+
     def apply(state, grads):
+        if state.shards is not None:
+            from ..parallel.sharding import apply_sharded
+
+            return apply_sharded(state, grads, optimizer, mesh)
         params = state.params
         updates, opt_state = optimizer.update(grads, state.opt_state, params)
         with torch.no_grad():
@@ -321,7 +409,7 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
 
     def train_step(state: TrainState, batch, rng=None):
         grads, metrics = grads_of(state, batch, rng)
-        return apply(state, grads), metrics
+        return apply(state, reduce(grads)), metrics
 
     if accum_steps is not None:
         if accum_steps < 1:
@@ -334,7 +422,7 @@ def make_train_step(model, seg_loss: Callable, optimizer, elbo_beta: float = 10.
                 grads, m = grads_of(state, _index(batches, i), r)
                 gsum = grads if gsum is None else {n: gsum[n] + g for n, g in grads.items()}
                 metrics.append(m)
-            grads = {n: g / k for n, g in gsum.items()}
+            grads = {n: g / k for n, g in reduce(gsum).items()}
             return apply(state, grads), {n: torch.stack([m[n] for m in metrics]).mean()
                                          for n in metrics[0]}
 
@@ -444,11 +532,16 @@ def fit(
       tensors, updated in place by the step) where JAX gets a host copy;
     * the model's module is the one the step trains, so ``model.params`` is
       current throughout; ``model.opt_state`` is set at the end;
-    * ``mesh`` raises ``NotImplementedError`` until the multi-GPU slice.
+    * ``mesh`` (one process a position, every rank iterating the same
+      global batches): the step of ``make_train_step(mesh=)``, the model on
+      the rank's device; only the writer (rank 0) validates, logs, writes
+      weights, checkpoints and metrics (every rank restores a checkpoint).
     """
     resolve_device(model.device)
-    if mesh is not None:
-        raise NotImplementedError("a sharded fit waits for the multi-GPU slice")
+    writer = mesh is None or mesh.is_writer
+    if not writer:
+        weights_dir = validate_fn = metrics_logger = None
+        verbose = 0
     if optimizer is None:
         optimizer = make_optimizer("adam", 1e-3)
     seg_loss = loss if callable(loss) else make_loss(loss or "distribution_focal")
@@ -464,7 +557,7 @@ def fit(
             "multi-step programs; pick a divisor)")
     use_scan = scan_steps is not None and scan_steps > 1
     step_fn = make_train_step(model, seg_loss, optimizer,
-                              elbo_beta=elbo_beta, loss_weights=lw,
+                              elbo_beta=elbo_beta, loss_weights=lw, mesh=mesh,
                               augment_params=augment_params, train_obj=train_obj,
                               scan_steps=scan_steps if use_scan else None)
     state = init_train_state(model, optimizer)
@@ -516,7 +609,7 @@ def fit(
             if metrics_logger is not None:
                 metrics_logger.log("validation", epoch=epoch + 1, **val)
 
-        if checkpoint_manager is not None:
+        if checkpoint_manager is not None and writer:
             checkpoint_manager.save(epoch + 1, state, config=model.config)
 
         # WeightsSaver semantics (callbacks.py:44-75).
@@ -534,7 +627,7 @@ def fit(
                     os.remove(prev)
 
     model.opt_state = state.opt_state
-    if checkpoint_manager is not None:
+    if checkpoint_manager is not None and writer:
         checkpoint_manager.wait()  # async saves durable before returning
     return history
 

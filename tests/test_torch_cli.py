@@ -192,6 +192,39 @@ def test_boundary_loss_trains_on_the_cached_pipeline_dist_map(tmp_path):
 
 
 def test_several_cards_wait_for_the_multi_gpu_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        cli.main(drive_args(str(tmp_path), "x", 2, "--GPU_DEVICE_IDs", "0,1"))
-    assert not os.path.exists(os.path.join(str(tmp_path), "w"))
+    """--DEVICE cpu --GPU_DEVICE_IDs 0,1 trains on two spawned gloo workers
+    (JAX's two forced host devices), each its row of every batch of 2 and
+    of its draws: 3 epochs of the section-2 drive with SGD at lr 1e-5 give
+    the one-device CLI's losses (rtol 1e-5) and weights (relative L2 1e-5
+    of the run's update); only rank 0 writes. SGD, where an update follows
+    its gradient: Adam moves every element by about lr whatever its
+    gradient's size, so elements whose gradient is 0 but for rounding (the
+    conv biases ahead of an instance norm) take noise-signed steps and the
+    runs drift apart by rounding alone. Both warm-start from a 2-epoch run:
+    at the reference's init every IN and SE bias is 0, so the SE squeeze's
+    LReLU input is 0 but for rounding and so is the side of its kink."""
+    from test_torch_dist_util import run_cli
+
+    tmp = str(tmp_path)
+    write_dataset(os.path.join(tmp, "ds"))
+    cli.main(drive_args(tmp, "warm", 2))
+    warm = ["--USE_PRETRAINED_WEIGHTS",
+            os.path.join(tmp, "w", "warm", "F1", "model_weights_002.npz")]
+    sgd = (*warm, "--OPTIMIZER", "momentum", "--BASE_LR", "1e-5")
+    cli.main(drive_args(tmp, "one", 3, *sgd))
+    out = run_cli(drive_args(tmp, "two", 3, "--GPU_DEVICE_IDs", "0,1", *sgd))
+    assert out.count("Model Weights Saved") == 2  # epochs 2 and 3, rank 0 alone
+    hist = {}
+    for name in ("one", "two"):
+        with open(os.path.join(tmp, "m", name, "F1", "history.json")) as f:
+            hist[name] = json.load(f)["loss"]
+    np.testing.assert_allclose(hist["two"], hist["one"], rtol=1e-5)
+
+    def weights(name, epoch):
+        return np.load(os.path.join(tmp, "w", name, "F1", f"model_weights_{epoch:03d}.npz"))
+
+    start = np.load(warm[1])
+    one, two = weights("one", 3), weights("two", 3)
+    diff = sum(float(np.sum((two[k] - one[k]) ** 2)) for k in one.files)
+    norm = sum(float(np.sum((one[k] - start[k]) ** 2)) for k in one.files)
+    assert norm > 0 and (diff / norm) ** 0.5 <= 1e-5, (diff / norm) ** 0.5

@@ -284,8 +284,11 @@ def test_resumed_fit_equals_an_uninterrupted_fit(tmp_path):
 
 def test_fit_with_scan_steps_and_the_keras_surface():
     """``scan_steps`` runs the same steps as single steps (the deterministic
-    model draws nothing); a scan that does not divide the epoch and a mesh
-    raise; ``M1.fit`` needs ``compile`` first and runs the compiled recipe."""
+    model draws nothing); a scan that does not divide the epoch raises; a
+    one-position mesh runs the same steps, and a mesh of two positions in
+    one process raises (it runs one process a position:
+    tests/test_torch_parallel_train.py); ``M1.fit`` needs ``compile`` first
+    and runs the compiled recipe."""
     jm = jax_model(9, input_spatial_dims=SPATIAL, **KW)
     kw = dict(epochs=2, steps_per_epoch=STEPS, verbose=0)
     plain, scanned = port_model(jm), port_model(jm)
@@ -297,8 +300,16 @@ def test_fit_with_scan_steps_and_the_keras_surface():
         assert torch.equal(v, scanned.params[k]), k
     with pytest.raises(ValueError, match="must divide"):
         tt.fit(plain, Cycle(BATCHES), steps_per_epoch=3, scan_steps=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tt.fit(plain, Cycle(BATCHES), mesh=object())
+    from prostatemr_3d_cad_cspca_tpu_torch.parallel.mesh import make_mesh
+
+    meshed = port_model(jm)
+    h3 = tt.fit(meshed, Cycle(BATCHES), optimizer=tt.make_optimizer("adam", LR),
+                mesh=make_mesh(n_data=1, devices=["cpu"]), **kw)
+    assert h3["loss"] == h1["loss"]
+    for k, v in plain.params.items():
+        assert torch.equal(v, meshed.params[k]), k
+    with pytest.raises(ValueError, match="one process a position"):
+        tt.fit(plain, Cycle(BATCHES), mesh=make_mesh(n_data=2, devices=["cpu", "cpu"]))
     keras = port_model(jm)
     with pytest.raises(AssertionError, match="compile"):
         keras.fit(Cycle(BATCHES))

@@ -6,8 +6,8 @@ and pass 2 (in_bwd_apply_kernel) descending. The threads' walks of
 csrc/instance_norm.cu are replayed here in numpy at the 10 instance-norm
 shapes of a cfg1 train step, both element sizes and the scalar route. The
 kernel's arithmetic (per-chunk partials scaled by rstd, folded in chunk
-order; dx = fma(kx, g', fma(p, x - mean, q))) is replayed on numpy inputs
-and held to the JAX package's vjp. (The kernel itself against its twin on
+order in fp64; dx = fma(kx, g', fma(p, x - mean, q))) is replayed on numpy
+inputs and held to the JAX package's vjp. (The kernel itself against its twin on
 a card: tests/test_torch_kernels.py.)
 """
 
@@ -196,7 +196,7 @@ def test_train_shapes_are_the_train_steps_k7_calls():
 def _replay(x, g, scale, bias, lrelu, dtype):
     """numpy replay of K7's arithmetic on fp32 values (x, g already in the
     dtype's values): the table's coefficients, pass 1's per-chunk partials
-    (the second scaled by rstd) folded in chunk order, pass 2's dx =
+    (the second scaled by rstd) folded in chunk order in fp64, pass 2's dx =
     fma(kx, g', fma(p, x - mean, q)) rounded once to the dtype."""
     xt = torch.from_numpy(x).to(dtype)
     stats = nm.in_stats_plain(xt).numpy()
@@ -219,11 +219,12 @@ def _replay(x, g, scale, bias, lrelu, dtype):
     d = (xs - mean[:, None]).astype(f32)
     voxels = plan["chunk_rows"] * plan["groups"] * plan["vec"] // c  # a chunk's voxels
     edges = [min(spatial, k * voxels) for k in range(plan["nchunk"] + 1)]
-    s1 = np.zeros((b, c), f32)
-    s2 = np.zeros((b, c), f32)
-    for lo, hi in zip(edges, edges[1:]):  # chunk partials, in order
+    s1 = np.zeros((b, c), np.float64)
+    s2 = np.zeros((b, c), np.float64)
+    for lo, hi in zip(edges, edges[1:]):  # chunk partials, in order, added in fp64
         s1 += gg[:, lo:hi].sum(1, dtype=f32)
         s2 += (gg[:, lo:hi] * d[:, lo:hi]).sum(1, dtype=f32) * rstd
+    s1, s2 = s1.astype(f32), s2.astype(f32)
     kx = (rstd * scale).astype(f32)
     p = (-kx * rstd * (s2 / f32(spatial))).astype(f32)
     q = (-kx * (s1 / f32(spatial))).astype(f32)

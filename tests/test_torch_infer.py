@@ -175,7 +175,9 @@ def test_make_sliding_window_fn_matches_jax(cases):
 
 def test_sliding_window_chunk_generators_follow_the_calls():
     """rng_per_chunk: chunk i gets fold_in(rng, i), so a call is a fixed
-    function of its generator's seed; padding tiles carry no weight."""
+    function of its generator's seed; padding tiles carry no weight. A
+    one-process mesh of two CPU positions splits two cases over them and
+    gives the same output; cases that do not divide the data axis raise."""
     seen = []
 
     def fn(tiles, gen):
@@ -190,8 +192,18 @@ def test_sliding_window_chunk_generators_follow_the_calls():
     assert a.dtype == torch.float16 and torch.equal(a, b)
     n_tiles = math.prod(len(tinfer._tile_starts(f, w, 0.5)) for f, w in zip(SW_VOL, SW_WIN))
     assert len(seen) == 2 * -(-n_tiles // 4) and len(set(seen)) == len(seen) // 2
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tinfer.make_sliding_window_fn(fn, SW_VOL, SW_WIN, 3, 1, mesh=object())
+    from prostatemr_3d_cad_cspca_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=2, devices=["cpu", "cpu"])
+    vols = torch.from_numpy(np.random.default_rng(3).normal(size=(2, *SW_VOL, 3))
+                            .astype(np.float32))
+    one = tinfer.make_sliding_window_fn(lambda t: t[..., :1] * 2, SW_VOL, SW_WIN, 3, 1,
+                                        batch_size=4, cases=2)(vols)
+    two = tinfer.make_sliding_window_fn(lambda t: t[..., :1] * 2, SW_VOL, SW_WIN, 3, 1,
+                                        batch_size=4, cases=2, mesh=mesh)(vols)
+    assert torch.equal(one, two)
+    with pytest.raises(AssertionError, match="must divide"):
+        tinfer.make_sliding_window_fn(fn, SW_VOL, SW_WIN, 3, 1, cases=3, mesh=mesh)
 
 
 # ------------------------------------------------------------- mc_predict

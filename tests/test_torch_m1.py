@@ -189,7 +189,8 @@ def test_serve_refuses_what_waits_for_later_slices(jax_model, tmp_path):
     """Sliding windows, --MC_ITER, --TTA, --SCAN_CHUNK and fold ensembles
     serve now (a second exam too: tests/test_torch_cascade.py), and so do
     .zip artifacts (tests/test_torch_export_serve.py; a missing one is not
-    found); --DATA_PARALLEL still raises and names its slice."""
+    found); --DATA_PARALLEL 2 serves on two CPU positions the one-device
+    outputs (tests/test_torch_parallel_serve.py holds it against JAX)."""
     ckpt = str(tmp_path / "model.npz")
     jax_model.save(ckpt)
     rng = np.random.default_rng(3)
@@ -206,8 +207,12 @@ def test_serve_refuses_what_waits_for_later_slices(jax_model, tmp_path):
                   ["--MODEL", f"{ckpt},{ckpt}"]):
         out = tserve.main(base + ["--MANIFEST", small] + extra)
         assert [r["p-id"] for r in out] == ["case0", "case1", "case2"]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tserve.main(base + ["--MANIFEST", small, "--DATA_PARALLEL", "2"])
+    dp = tserve.main(base[:3] + [str(tmp_path / "dp"), "--DEVICE", "cpu", "--MANIFEST", small,
+                                 "--DATA_PARALLEL", "2"])
+    for a, b in zip(dp, out):
+        assert a["p-id"] == b["p-id"]
+        np.testing.assert_allclose(np.load(a["detection_path"]), np.load(b["detection_path"]),
+                                   atol=ATOL)
     with pytest.raises(FileNotFoundError, match="artifact.zip"):
         tserve.main(base + ["--MANIFEST", small, "--MODEL", str(tmp_path / "artifact.zip")])
 

@@ -295,8 +295,10 @@ def test_multi_step_programs_augment_each_batch():
 
 def test_augmentation_and_a_mesh_are_refused():
     """Augmenting a cascade's pair of exams raises (JAX's step fails there
-    too); a single-stage model takes augmentation; a mesh waits for the
-    multi-GPU slice."""
+    too); a single-stage model takes augmentation; a one-position mesh
+    gives the step without one, bit for bit, and a mesh of two positions in
+    one process is refused (one process a position:
+    tests/test_torch_parallel_train.py)."""
     from prostatemr_3d_cad_cspca_tpu_torch.models import M1 as TM1
 
     cascade = TM1(**{**KW, "input_spatial_dims": (4, 16, 16)}, num_classes=2,
@@ -306,8 +308,23 @@ def test_augmentation_and_a_mesh_are_refused():
                            augment_params=[0.5] * 9 + [(0.5, 1.5)])
     pm = port_model(jax_model(0, **KW, dropout_rate=0.0))
     tt.make_train_step(pm, tt.make_loss(), CaptureOpt(), augment_params=[0.5] * 10)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tt.make_train_step(pm, tt.make_loss(), CaptureOpt(), mesh=object())
+    from prostatemr_3d_cad_cspca_tpu_torch.parallel.mesh import make_mesh
+
+    batch = {"image": np.random.default_rng(2).normal(size=(2, *KW["input_spatial_dims"], 3))
+             .astype(np.float32)}
+    batch["detection"] = np.stack([np.ones(batch["image"].shape[:-1], np.float32),
+                                   np.zeros(batch["image"].shape[:-1], np.float32)], -1)
+    got = []
+    for mesh in (None, make_mesh(n_data=1, devices=["cpu"])):
+        m, opt = port_model(jax_model(0, **KW, dropout_rate=0.0)), CaptureOpt()
+        state, met = tt.make_train_step(m, tt.make_loss(), opt, mesh=mesh)(
+            tt.init_train_state(m, opt), batch, 0)
+        got.append((state.opt_state, met))
+    assert all(torch.equal(got[0][0][k], got[1][0][k]) for k in got[0][0])
+    assert float(got[0][1]["loss"]) == float(got[1][1]["loss"])
+    with pytest.raises(ValueError, match="one process a position"):
+        tt.make_train_step(pm, tt.make_loss(), CaptureOpt(),
+                           mesh=make_mesh(n_data=2, devices=["cpu", "cpu"]))
 
 
 def test_three_amsgrad_steps_match_jax():

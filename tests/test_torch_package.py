@@ -75,7 +75,8 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("serve", "infer", "ensemble", "prng", "ops.gemm", "probes.gemm_rate",
                 "augment", "data.generators", "data.preprocess", "cli", "train.checkpoint",
                 "utils.profiling", "utils.overview", "data.ingest", "export", "utils.flops",
-                "utils.tf_import"):
+                "utils.tf_import", "parallel.mesh", "parallel.collectives", "parallel.halo",
+                "parallel.sharding"):
         assert f"prostatemr_3d_cad_cspca_tpu_torch.{mod}" in loaded
 
 
