@@ -17,8 +17,10 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                kernels at most 64 registers and no spill.
   2. kernels   K1 conv3d, K2 conv3d_transpose, K3 in_stats, K4 in_apply at
                every distinct shape the cfg1 forward gives them at the serving
-               batch, in bf16 and fp32 (K1/K2: the mma.sync tensor-core
-               kernel, fp32 as 3xTF32), against their plain twins on the
+               batch, in bf16 and fp32 (K1/K2: bf16 on the wgmma kernel with
+               halo tiles, fp32 on the mma.sync kernel as 3xTF32; each row
+               names its route and, in bf16, its plan: tile, box, slabs, TMA
+               or staged parts), against their plain twins on the
                card; device times in both dtypes beside each shape's bound
                and, where one torch call computes the same function, that
                call's time (fp32 K1/K2: cuDNN with TF32 off). Kernel, twin
@@ -40,8 +42,9 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                launch counters must rise by exactly 50/4/37/37 per forward.
                Then one more request under torch.profiler, outside the counted
                run: device busy share and device time by kernel, which must
-               show conv3d_mma_kernel, splitk_reduce_kernel, in_stats_kernel
-               and in_apply_kernel.
+               show conv3d_wgmma_kernel, wgmma_splitk_reduce_kernel,
+               in_stats_kernel and in_apply_kernel, and no conv3d_mma_kernel
+               (every bf16 K1/K2 call on wgmma; an fp32 profile the reverse).
   4. parity    one fp32 volume through the card model and the same model on
                the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
                on the card: mean |diff| <= 1e-2.
@@ -152,7 +155,7 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                artifact), the live session on the operator route in turns
                with the direct call, and the host us per call of K3 and K1
                by each route; one artifact request profiled
-               (conv3d_mma_kernel, in_stats_kernel and in_apply_kernel must
+               (conv3d_wgmma_kernel, in_stats_kernel and in_apply_kernel must
                show); a deterministic fp32 artifact with a 24x256x256
                sliding-window program against the live session's
                predict_cases (<= 1e-4, 5 forwards for 2 cases); a tiny
@@ -217,7 +220,8 @@ meta-device trace of its detect head counts. The last line is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its launches
 on its path and on every path, error and times, and ptxas's registers,
 static shared memory and spills of its CUDA kernels, in bf16 on the serve
-path and in fp32 on the serve_sw path; for K1 and K2 also the route.
+path and in fp32 on the serve_sw path; for K1 and K2 also the route, its
+source by dtype and the run's launches by dtype and route.
 """
 
 from __future__ import annotations
@@ -258,9 +262,9 @@ LAUNCHES_PER_FORWARD = {"conv3d": 50, "conv3d_transpose": 4, "in_stats": 37,
                         "in_apply": 37}
 PKG = "prostatemr_3d_cad_cspca_tpu_torch"
 KERNEL_INFO = {  # name: (source, TPU kernel replaced, path it launches on)
-    "conv3d": (f"{PKG}/csrc/conv3d_mma.cu", "benchmarks/r2_probe_pallas_mxu.py:80",
+    "conv3d": (f"{PKG}/csrc/conv3d_wgmma.cu", "benchmarks/r2_probe_pallas_mxu.py:80",
                "serve"),
-    "conv3d_transpose": (f"{PKG}/csrc/conv3d_mma.cu",
+    "conv3d_transpose": (f"{PKG}/csrc/conv3d_wgmma.cu",
                          "benchmarks/r2_probe_pallas_mxu.py:80", "serve"),
     "in_stats": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198",
                  "serve"),
@@ -277,12 +281,17 @@ ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45",
                  "in_backward": "ops/pallas/fused_norm.py:181 (git cef1717^, the "
                                 "custom_vjp backward of :47 and :70)"}
 CONV_KERNELS = ("conv3d", "conv3d_transpose")
-CONV_ROUTES = {"bfloat16": "mma.sync bf16", "float32": "mma.sync 3xTF32"}
+# K1/K2 by dtype: the route (ops/convolution.py kernel_route), its source and
+# its CUDA kernels (main, split-K reduce)
+CONV_ROUTES = {"bfloat16": "wgmma bf16, halo tiles (TMA or staged)",
+               "float32": "mma.sync 3xTF32"}
+CONV_SOURCES = {"bfloat16": f"{PKG}/csrc/conv3d_wgmma.cu",
+                "float32": f"{PKG}/csrc/conv3d_mma.cu"}
+CONV_KERNEL_NAMES = {"bfloat16": ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel"),
+                     "float32": ("conv3d_mma_kernel", "splitk_reduce_kernel")}
 DTYPE_NAMES = ("bfloat16", "float32")
 FP32_PATH = "serve_sw"     # the path that runs K1-K4 in fp32
-MMA_KERNEL_NAMES = ("conv3d_mma_kernel", "splitk_reduce_kernel")
-PTXAS_NAMES = {  # kernel: the CUDA kernels it launches
-    "conv3d": MMA_KERNEL_NAMES, "conv3d_transpose": MMA_KERNEL_NAMES,
+PTXAS_NAMES = {  # kernel: the CUDA kernels it launches (K1/K2: CONV_KERNEL_NAMES)
     "in_stats": ("in_stats_kernel",), "in_apply": ("in_apply_kernel",),
     "gemm_loop": ("gemm_loop_kernel", "gemm_splitk_reduce_kernel"),
     "conv3d_wgrad": ("wgrad_mma_kernel", "wgrad_reduce_kernel"),
@@ -293,10 +302,22 @@ TRAIN_KERNELS = (*LAUNCHES_PER_FORWARD, *BACKWARD_KERNELS)
 # the template argument's start in a mangled name, by element type
 MANGLED_TYPE = {"bfloat16": "I13__nv_bfloat16", "float32": "If"}
 BUILT_KERNEL_NAMES = {f"{k}[{dn}]": k + MANGLED_TYPE[dn] for dn in DTYPE_NAMES
-                      for k in MMA_KERNEL_NAMES + ("in_stats_kernel", "in_apply_kernel")
+                      for k in ("in_stats_kernel", "in_apply_kernel")
                       + PTXAS_NAMES["conv3d_wgrad"] + PTXAS_NAMES["in_backward"]}
-BUILT_KERNEL_NAMES.update({k: k for k in ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")})
-PROFILE_KERNEL_NAMES = MMA_KERNEL_NAMES + ("in_stats_kernel", "in_apply_kernel")
+BUILT_KERNEL_NAMES.update({f"{k}[float32]": k + MANGLED_TYPE["float32"]
+                           for k in CONV_KERNEL_NAMES["float32"]})
+BUILT_KERNEL_NAMES.update({k: k for k in ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")
+                           + CONV_KERNEL_NAMES["bfloat16"]})
+
+
+def profile_kernel_names(dn, splits=True):
+    """The CUDA kernels a profiled forward in dtype ``dn`` must show: K1/K2's
+    main kernel of that dtype's route and, where the forward splits K, its
+    split-K reduce; K3's and K4's."""
+    return CONV_KERNEL_NAMES[dn][:1 + splits] + ("in_stats_kernel", "in_apply_kernel")
+
+
+PROFILE_KERNEL_NAMES = profile_kernel_names("float32")
 TRAIN_PROFILE_NAMES = PROFILE_KERNEL_NAMES + PTXAS_NAMES["conv3d_wgrad"] + \
     PTXAS_NAMES["in_backward"]
 # the CLI's training defaults (prostatemr_3d_cad_cspca_tpu/cli.py:54-102):
@@ -679,10 +700,11 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
     """Each call's kernel against its plain twin in each of ``dtypes``
     (default fp32 and bf16); with ``timed``, each dtype's times beside the
     bound; with ``rerun`` (default: ``timed``), in each dtype one K1/K2
-    split-K shape, K3's largest shape, every K6 shape and every K7 shape
-    run twice on the same inputs (the same bits), and each of
-    ``bit_kernels`` present must have had one. ``per_path`` ({path:
-    calls}) adds each row's calls per forward of each path."""
+    split-K shape (where none of the calls splits K in that dtype, its
+    first shape), K3's largest shape, every K6 shape and every K7 shape run
+    twice on the same inputs (the same bits), and each of ``bit_kernels``
+    present must have had one. ``per_path`` ({path: calls}) adds each
+    row's calls per forward of each path."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
@@ -695,6 +717,8 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
     bit_checked = set()  # (kernel, dtype): a K1/K2 split-K shape; K3's largest
     largest_in = max((s for n, s in calls if n == "in_stats"), key=lambda s: int(np.prod(s[0])),
                      default=None)
+    splitting = {(n, _dn(d)) for n, s in calls if n in CONV_KERNELS for d in dtypes
+                 if _splits(n, s, d) > 1}
     for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
         row = {"count": count, "sig": sig}
         if per_path:
@@ -783,6 +807,8 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
             row[f"max_abs_err_{dn}"] = abs_err
             row[f"max_rel_err_{dn}"] = rel_err
             row[f"tol_{dn}"] = limit
+            if name in CONV_KERNELS:  # the CUDA kernel this call took
+                row[f"route_{dn}"] = cv.kernel_route(dtype)
             if not (timed or rerun):
                 continue
             if timed:
@@ -816,8 +842,17 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                 row[f"routes_{dn}"] = list(cv.wgrad_routes(a, b))
                 twice = True
             else:
-                row[f"splits_{dn}"] = _splits(name, sig, dtype)
-                twice = row[f"splits_{dn}"] > 1 and (name, dn) not in bit_checked
+                plan = _conv_plan(name, sig, dtype)
+                row[f"splits_{dn}"] = plan["splits"]
+                if row[f"route_{dn}"] == "wgmma":
+                    row[f"plan_{dn}"] = {
+                        "tile": "flat" if plan["flat"] else list(plan["tile"]),
+                        "box": list(plan["box"]), "slab": plan["widths"],
+                        "tma": plan["tma"], "phase_loop": plan["phase_loop"], "bn": plan["bn"],
+                        "units": plan["units"], "grid": plan["grid"],
+                        "smem": plan["smem"]}
+                twice = (row[f"splits_{dn}"] > 1 or (name, dn) not in splitting) \
+                    and (name, dn) not in bit_checked
             if twice:
                 again = run()
                 torch.cuda.synchronize()
@@ -835,13 +870,28 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
     return rows
 
 
-def _splits(name, sig, dtype):
-    """K-splits of the kernel at one K1/K2 call in ``dtype``."""
-    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import igemm_schedule
+def _conv_plan(name, sig, dtype):
+    """The plan of the kernel that runs one K1/K2 call in ``dtype``: bf16's
+    wgmma_plan, fp32's igemm_plan."""
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
 
     transposed = name == "conv3d_transpose"
-    shapes = [sig[0]] if transposed else sig[0]
-    return igemm_schedule(shapes, sig[1], sig[2], transposed, dtype)[1]["splits"]
+    shapes = [tuple(sig[0])] if transposed else [tuple(s) for s in sig[0]]
+    if cv.kernel_route(dtype) == "wgmma":
+        return cv.wgmma_plan(shapes, tuple(sig[1]), tuple(sig[2]), transposed)
+    return cv.igemm_schedule(shapes, sig[1], sig[2], transposed, dtype)[1]
+
+
+def _routes_of(rows, dn):
+    """{"routes": the K1/K2 kernels these rows' calls took} (empty for the
+    other kernels)."""
+    routes = sorted({r[f"route_{dn}"] for r in rows if f"route_{dn}" in r})
+    return {"routes": routes} if routes else {}
+
+
+def _splits(name, sig, dtype):
+    """K-splits of the kernel at one K1/K2 call in ``dtype``."""
+    return _conv_plan(name, sig, dtype)["splits"]
 
 
 def summarize_kernels(rows, dtypes=DTYPE_NAMES):
@@ -1025,6 +1075,15 @@ def write_cfg1_checkpoint(path, seed, **overrides):
             val = 0.05 * rng.normal(size=shape)
         flat[key] = val.astype(np.float32)
     save_model(path, model.config, flat)
+
+
+def route_launches(name):
+    """K1/K2 launches of the whole run by "dtype route" (ops/convolution.py
+    ROUTE_LAUNCHES): every bf16 call on wgmma, every fp32 one on mma.sync."""
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+
+    return {f"{dn} {route}": n for (k, dn, route), n in sorted(cv.ROUTE_LAUNCHES.items())
+            if k == name}
 
 
 def counters():
@@ -1358,7 +1417,8 @@ def phase_paths():
         rows = phase_kernels(calls, 0, dtypes=(dtype,), timed=False)
         dn = _dn(dtype)
         out[f"{name}.{dn}"] = {k: {"shapes": len(v),
-                                   "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v)}
+                                   "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v),
+                                   **_routes_of(v, dn)}
                                for k, v in rows.items()}
     emit({"phase": "paths", "batch_checks": out})
 
@@ -1719,7 +1779,7 @@ def phase_export(tmp, seed, smi, det_ckpt):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t1) * 1e6
     busy, by_name, events = device_time(prof)
-    missing = [k for k in ("conv3d_mma_kernel", "in_stats_kernel", "in_apply_kernel")
+    missing = [k for k in ("conv3d_wgmma_kernel", "in_stats_kernel", "in_apply_kernel")
                if k not in by_name]
     if missing:
         raise AssertionError(f"export: the artifact's profile shows no {missing}")
@@ -3254,6 +3314,7 @@ def phase_parallel_kernels(calls, smi):
                        "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v),
                        "max_abs_err": max(r[f"max_abs_err_{dn}"] for r in v),
                        "bit_equal_reruns": sum(bool(r.get(f"bit_equal_{dn}")) for r in v),
+                       **_routes_of(v, dn),
                        **({"max_sums_rel_err": max(r[f"sums_rel_err_{dn}"] for r in v),
                            "max_sums_rel_err_vs_fp64": max(
                                (r["sums_rel_err_vs_fp64"] for r in v
@@ -3285,8 +3346,10 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
     """One more request of ``path`` (bf16 unless ``dtype`` says otherwise)
     under torch.profiler (outside the counted run): device busy share of
     the request's wall time and device time by kernel name (the ``top``
-    names, and always the conv's main and split-K reduce kernels, K3's and
-    K4's, which must have run)."""
+    names, and always the conv's main kernel, K3's and K4's, which must
+    have run, and the conv's split-K reduce where the request's own K1/K2
+    calls, recorded on its warm-up, split K; no K1/K2 kernel of the other
+    dtype's route may show)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
@@ -3295,19 +3358,27 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
     dtype = dtype or torch.bfloat16
     session = InferenceSession(M1.load(ckpt, dtype=dtype, device="cuda"),
                                mc_iter=mc_iter, device="cuda")
-    session(volume)  # warm
+    calls = []
+    with recording(calls):
+        session(volume)  # warm
     torch.cuda.synchronize()
+    splits = any(_splits(n, s, getattr(torch, d)) > 1 for n, s, d in calls if n in CONV_KERNELS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         session(volume)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, by_name, events = device_time(prof)
-    missing = [k for k in PROFILE_KERNEL_NAMES if k not in by_name]
+    names = profile_kernel_names(_dn(dtype), splits)
+    missing = [k for k in names if k not in by_name]
     if missing:
         raise AssertionError(f"{path}: the profile shows no {missing}")
+    stray = [k for dn, ks in CONV_KERNEL_NAMES.items() if dn != _dn(dtype) for k in ks
+             if k in by_name]
+    if stray:  # every K1/K2 call of a forward in one dtype takes that dtype's route
+        raise AssertionError(f"{path} ({_dn(dtype)}): the profile shows {stray}")
     shown = dict(by_name.most_common(top))
-    shown.update({k: by_name[k] for k in PROFILE_KERNEL_NAMES})
+    shown.update({k: by_name[k] for k in names})
     batch = len(volume[0] if isinstance(volume, tuple) else volume)
     emit({"phase": "profile", "path": path, "dtype": _dn(dtype),
           "volumes": batch * mc_iter, "wall_ms": wall_us / 1e3,
@@ -3438,8 +3509,13 @@ def main(argv=None):
                 continue
             on = path if dn == "bfloat16" else FP32_PATH
             n, d = launches[on][name], s[dn]
-            names = {k: k + (MANGLED_TYPE[dn] if name != "gemm_loop" else "")
-                     for k in PTXAS_NAMES[name]}
+            if name in CONV_KERNELS:
+                src = CONV_SOURCES[dn]
+                names = {k: k + (MANGLED_TYPE[dn] if dn == "float32" else "")
+                         for k in CONV_KERNEL_NAMES[dn]}
+            else:
+                names = {k: k + (MANGLED_TYPE[dn] if name != "gemm_loop" else "")
+                         for k in PTXAS_NAMES[name]}
             kernels.append({"name": name if dn == "bfloat16" else f"{name}.fp32",
                             "dtype": dn, "route": "cuda", "source": src,
                             "replaces": replaces, "path": on, "launches": n,
@@ -3451,7 +3527,8 @@ def main(argv=None):
                             **({"also_replaces": ALSO_REPLACES[name]}
                                if name in ALSO_REPLACES else {}),
                             "ptxas": ptxas_report(cuda_lib.build_log, names),
-                            **({"kernel_route": CONV_ROUTES[dn]}
+                            **({"kernel_route": CONV_ROUTES[dn],
+                                "launches_by_route": route_launches(name)}
                                if name in CONV_KERNELS else {})})
             if n == 0:
                 raise AssertionError(f"{name} never launched on the {on} path")

@@ -1,7 +1,8 @@
-// K1 conv3d and K2 conv3d_transpose: implicit-GEMM 3D convolution on
-// channels-last (NDHWC) tensors on the tensor cores, fp32 accumulation, the
-// output rounded once to the input's type. bf16 runs mma.sync m16n8k16;
-// fp32 runs mma.sync m16n8k8 on TF32 operands, error-compensated (3xTF32).
+// K1 conv3d and K2 conv3d_transpose in fp32: implicit-GEMM 3D convolution on
+// channels-last (NDHWC) tensors on the tensor cores, fp32 accumulation:
+// mma.sync m16n8k8 on TF32 operands, error-compensated (3xTF32). bf16 K1/K2
+// run on wgmma with halo tiles in conv3d_wgmma.cu; this file served bf16
+// too (mma.sync m16n8k16) until that kernel replaced it.
 //
 // Replaces: benchmarks/r2_probe_pallas_mxu.py:80 conv_probe (its body `kern`
 // at :96), the streaming (1,3,3) SAME conv + bias that built a 9-tap im2col in
@@ -32,35 +33,32 @@
 // does three TF32 products for each one (495 TFLOP/s TF32 peak: 1/6 of the
 // bf16 rate for the same convolution). The design:
 //
-//  * Tensor cores through mma.sync (the building blocks of K5, mma.cuh). Not
-//    wgmma: the path is bound by bytes and by grid fill, not by the peak
-//    tensor rate (the whole bf16 forward is 186 GFLOP, 0.19 ms at the 989
-//    TFLOP/s peak, against a byte bound of 0.34 ms), and mma.sync takes the
-//    model's narrow outputs (cout 1..16) at n8 granularity where wgmma's
-//    64-row warpgroup tile would not pay. The consumer (`mma_step`) only
-//    reads shared tiles, so a later wgmma consumer replaces it without
-//    touching the gather (`load_a`, `load_b`).
-//  * 8 warps, a 128 x BN block tile with BN in {8, 16, 32, 64, 128} (fp32:
-//    up to 64) picked by the wrapper from cout; K advances in slabs of 64
-//    bytes a row: 32 bf16 or 16 fp32 elements, two mma steps (k16 bf16, k8
-//    fp32) a slab.
+//  * Tensor cores through mma.sync (the building blocks of K5, mma.cuh).
+//    wgmma, the only way to Hopper's full tensor-core rate, takes TF32 only
+//    with K-major B and would need the hi/lo split in shared memory: not
+//    done yet. (An earlier note here declined wgmma because its "64-row
+//    tile" would not pay at cout 1-16; that misread the 64: it is M, the
+//    output voxels, of which there are always plenty, and N goes down to 8.
+//    conv3d_wgmma.cu runs bf16 so.)
+//  * 8 warps, a 128 x BN block tile with BN in {8, 16, 32, 64} picked by
+//    the wrapper from cout; K advances in slabs of 64 bytes a row: 16 fp32
+//    elements, two k8 mma steps a slab.
 //  * A 4-stage shared-memory ring with one __syncthreads per slab; the next
 //    slab's loads are issued between the current slab's two mma steps, and
 //    each thread advances its (tap, channel) cursor without a division. A is
 //    gathered by 16-byte cp.async, 8 bf16 or 4 fp32 channels of one tap of
 //    one voxel, with padding taps and rows past the end zero-filled through
 //    cp.async's src-size operand. A part whose channel count is not a
-//    multiple of the chunk (the stem's 3; in bf16 also level 0's bottleneck
-//    width 4) or whose address is not 16-byte aligned is gathered element by
+//    multiple of the chunk (the stem's 3) or whose address is not 16-byte
+//    aligned is gathered element by
 //    element through registers into the same tiles; the wrapper picks the
 //    route per part (ops/convolution.py, gather_routes). Weights take
 //    cp.async too: K1's DHWIO kernel is K x N with co contiguous, K2's
 //    (kd,kh,kw,Cout,Cin) kernel is N x K with ci contiguous; a cout (K1) or
 //    cin (K2) that is not a multiple of the chunk takes a scalar, zero-filled
 //    load.
-//  * Fragments. bf16: ldmatrix (K1's K-major B by ldmatrix .trans); rows are
-//    padded so the eight 16-byte rows of each ldmatrix phase fall in
-//    distinct banks. fp32: A and K2's N-major B by plain ldmatrix, whose
+//  * Fragments: rows are padded so the eight 16-byte rows of each ldmatrix
+//    phase fall in distinct banks. A and K2's N-major B by plain ldmatrix, whose
 //    8 rows of 16 bytes hand lane (g, t) the 32-bit element (g, t): the TF32
 //    fragment order. K1's K-major B has no 32-bit transposing load, so each
 //    lane reads its two elements with lds.32 from rows padded to BN + 8
@@ -82,9 +80,8 @@
 //    1.1e-5 with 32, 8e-5 with none (the fp32 twin: 7e-6), at device times
 //    within 2 % of each other. fp32 tiles stop at BN 64 and fewer of their
 //    blocks fit an SM: each holds twice the accumulators.
-//  * ptxas: the bf16 variants keep their registers (59-126, no spills).
-//    fp32 takes 75-128; K2's BN 64 variant, at the 128-register cap of two
-//    blocks an SM, spills 28 bytes.
+//  * ptxas: 75-128 registers; K2's BN 64 variant, at the 128-register cap
+//    of two blocks an SM, spills 28 bytes.
 //  * Parts are walked in order into one accumulator (no concat); within a
 //    part k is tap-major, each part's K rounded up to whole slabs.
 //  * Deterministic split-K for grids below ~2 waves: the wrapper picks the
@@ -101,13 +98,13 @@
 #include "common.cuh"
 #include "conv_params.cuh"
 #include "mma.cuh"
+#include "stamps.cuh"
 
 namespace {
 
 using pmr::ConvParams;
 using pmr::kMaxParts;
 using pmr::kMaxTaps;
-using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBM = 128;
@@ -119,10 +116,6 @@ constexpr int kChainSlabs = 8;  // fp32: slabs (16 k8 steps, 48 mmas) a tensor-c
 template <typename T>
 struct Elem;
 template <>
-struct Elem<bf16> {
-  static constexpr int kBK = 32, kKS = 16, kVec = 8;
-};
-template <>
 struct Elem<float> {
   static constexpr int kBK = 16, kKS = 8, kVec = 4;
 };
@@ -132,8 +125,7 @@ struct Tile {
   static constexpr int kBK = Elem<T>::kBK;
   static constexpr int kLdA = kBK + Elem<T>::kVec;  // 80 bytes a row
   // K1 keeps the weight slab K x N (row = k), K2 keeps it N x K (row = n).
-  static constexpr int kLdB =
-      kNK ? kLdA : (sizeof(T) == 2 ? (BN == 8 ? 24 : BN + 8) : (BN == 8 ? 8 : BN + 8));
+  static constexpr int kLdB = kNK ? kLdA : (BN == 8 ? 8 : BN + 8);
   static constexpr int kAElems = kBM * kLdA;
   static constexpr int kBElems = kNK ? BN * kLdA : kBK * kLdB;
   static constexpr int kSmemBytes = kStages * (kAElems + kBElems) * (int)sizeof(T);
@@ -149,11 +141,7 @@ __device__ __forceinline__ bool inside(int z, int y, int x, int d, int h, int w)
 // plan.
 template <typename T>
 constexpr int resident_blocks(int bn) {
-  return sizeof(T) == 2 ? (bn <= 16 ? 4 : bn <= 32 ? 3 : 2) : (bn <= 16 ? 3 : 2);
-}
-
-__device__ __forceinline__ void store_pair(bf16* dst, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+  return bn <= 16 ? 3 : 2;
 }
 
 __device__ __forceinline__ void store_pair(float* dst, float v0, float v1) {
@@ -164,7 +152,7 @@ __device__ __forceinline__ void store_pair(float* dst, float v0, float v1) {
 template <typename T, int BN, int WARPS_M, bool kNK>
 __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
     conv3d_mma_kernel(const ConvParams p) {
-  constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(sizeof(T) == 4, "fp32 only: bf16 runs in conv3d_wgmma.cu");
   constexpr int kBK = Elem<T>::kBK, kKS = Elem<T>::kKS, kVec = Elem<T>::kVec;
   constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int WM = kBM / WARPS_M, WN = BN / WARPS_N;
@@ -186,6 +174,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
   __shared__ int part_slab[kMaxParts + 1];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  PMR_STAMP_DECL(tid == 0);
   const int phase = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
   // the wrapper keeps rows, voxels and output elements below 2^31
   const int m_total = p.batch * p.g_d * p.g_h * p.g_w;
@@ -232,6 +221,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
     part_slab[p.nparts] = s;
   }
   __syncthreads();
+  PMR_STAMP(kStampSetup);
 
   // This split's slabs of this phase.
   const int nslab_phase = part_slab[p.nparts];
@@ -373,8 +363,8 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
   };
 
   // ---------------------------------------------------------- consumer
-  // bf16: the mmas accumulate in acc. fp32: in chain, added into acc every
-  // kChainSlabs slabs (promote).
+  // The mmas accumulate in chain, added into acc every kChainSlabs slabs
+  // (promote).
   float acc[MT][NT][4], chain[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -395,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
   };
 
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  // ldmatrix row addresses. A (and bf16 K1's K-major B): matrices (rows 0-7,
+  // ldmatrix row addresses. A: matrices (rows 0-7,
   // k 0), (rows 8-15, k 0), (rows 0-7, k +16 B), (rows 8-15, k +16 B). K2's
   // N-major B: (n 0-7, k 0), (n 0-7, k +16 B), (n 8-15, k 0), (n 8-15, k +16 B).
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
@@ -403,7 +393,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
   const int nrow = (lane & 7) + (lane >> 4) * 8;
   const int ncol = ((lane >> 3) & 1) * kVec;
 
-  // One mma step (k16 bf16, k8 fp32) of the block tile from ring stage `stage`.
+  // One k8 mma step of the block tile from ring stage `stage`.
   auto mma_step = [&](int stage, int kk) {
     const T* const ta = sa + stage * Tl::kAElems;
     const T* const tb = sb + stage * Tl::kBElems;
@@ -411,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
 #pragma unroll
     for (int i = 0; i < MT; ++i)
       pmr::ldmatrix_x4(af[i], ta + (wm * WM + i * 16 + lrow) * kLdA + kk + lcol);
-    if constexpr (kF32 && !kNK) {
+    if constexpr (!kNK) {
       const T* const col0 = tb + (kk + (lane & 3)) * Tl::kLdB + wn * WN + (lane >> 2);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -420,25 +410,19 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
         bfr[j][1] = __float_as_uint(col[4 * Tl::kLdB]);
       }
     } else if constexpr (NT == 1) {
-      if constexpr (kNK)
-        pmr::ldmatrix_x2(bfr[0], tb + (wn * WN + (lane & 7)) * Tl::kLdB + kk + ncol);
-      else
-        pmr::ldmatrix_x2_trans(bfr[0], tb + (kk + (lane & 15)) * Tl::kLdB + wn * WN);
+      pmr::ldmatrix_x2(bfr[0], tb + (wn * WN + (lane & 7)) * Tl::kLdB + kk + ncol);
     } else {
 #pragma unroll
       for (int jj = 0; jj < NT / 2; ++jj) {
         uint32_t r[4];
-        if constexpr (kNK)
-          pmr::ldmatrix_x4(r, tb + (wn * WN + jj * 16 + nrow) * Tl::kLdB + kk + ncol);
-        else
-          pmr::ldmatrix_x4_trans(r, tb + (kk + lrow) * Tl::kLdB + wn * WN + jj * 16 + lcol);
+        pmr::ldmatrix_x4(r, tb + (wn * WN + jj * 16 + nrow) * Tl::kLdB + kk + ncol);
         bfr[2 * jj][0] = r[0];
         bfr[2 * jj][1] = r[1];
         bfr[2 * jj + 1][0] = r[2];
         bfr[2 * jj + 1][1] = r[3];
       }
     }
-    if constexpr (kF32) {
+    {
       uint32_t bhi[NT][2], blo[NT][2];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -456,11 +440,6 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
           pmr::mma_tf32(chain[i][j], ahi, bhi[j][0], bhi[j][1]);
         }
       }
-    } else {
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) pmr::mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
     }
   };
 
@@ -476,24 +455,28 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
     }
     pmr::cp_async_commit();
   }
+  PMR_STAMP(kStampIssue);
   for (int i = 0; i < nslab; ++i) {
     pmr::cp_async_wait<kStages - 2>();  // slab i has landed (this thread's copies)
     __syncthreads();  // ... everyone's; and slab i - 1's stage is free again
+    PMR_STAMP(kStampWait);
     const int next = i + kStages - 1;
     const int stage = i % kStages;
     if (next < nslab) load_a(next % kStages);
+    PMR_STAMP(kStampIssue);
     mma_step(stage, 0);
+    PMR_STAMP(kStampMma);
     if (next < nslab) {
       load_b(next % kStages);
       advance();
     }
     pmr::cp_async_commit();
+    PMR_STAMP(kStampIssue);
     mma_step(stage, kKS);
-    if constexpr (kF32) {
-      if ((i + 1) % kChainSlabs == 0) promote();
-    }
+    if ((i + 1) % kChainSlabs == 0) promote();
+    PMR_STAMP(kStampMma);
   }
-  if constexpr (kF32) promote();
+  promote();
 
   // ------------------------------------------------------------ epilogue
   // C fragment: c0, c1 at (g, 2t..2t+1); c2, c3 at (g + 8, 2t..2t+1).
@@ -537,6 +520,8 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
         }
       }
     }
+  PMR_STAMP(kStampEpilogue);
+  PMR_STAMP_WRITE();
 }
 
 // y = T(sum_{j < splits} ws[j] + bias), the splits summed in order.
@@ -579,9 +564,6 @@ int launch_bn(const ConvParams& p, cudaStream_t stream) {
     case 16: return launch_tile<T, 16, 8, kNK>(p, stream);
     case 32: return launch_tile<T, 32, 4, kNK>(p, stream);
     case 64: return launch_tile<T, 64, 4, kNK>(p, stream);
-    case 128:
-      if constexpr (sizeof(T) == 2) return launch_tile<T, 128, 2, kNK>(p, stream);
-      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -599,8 +581,9 @@ int run(const ConvParams& p, cudaStream_t s) {
 
 }  // namespace
 
-// K1 and K2 in bf16 or fp32 (meta[62] and meta[67] say which): the main
-// kernel and, with split-K, the reduce, both on `stream`.
+// K1 and K2 in fp32 (meta's dtype field must say so; bf16 goes to
+// pmr_conv3d_wgmma): the main kernel and, with split-K, the reduce, both on
+// `stream`.
 extern "C" int pmr_conv3d_mma(const void* ptrs, const void* meta, const void* taps,
                               void* stream) {
   ConvParams p;
@@ -609,7 +592,9 @@ extern "C" int pmr_conv3d_mma(const void* ptrs, const void* meta, const void* ta
   if (p.splits < 1 || p.splits > 64 || (p.splits > 1 && p.ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.dtype == pmr::kBFloat16) return run<bf16>(p, s);
   if (p.dtype == pmr::kFloat32) return run<float>(p, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The stamps build's buffer for this source's kernels (stamps.cuh).
+extern "C" int pmr_conv3d_mma_stamps(void* buf) { return pmr_stamp_install(buf); }

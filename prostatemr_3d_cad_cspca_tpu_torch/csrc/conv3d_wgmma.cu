@@ -1,0 +1,812 @@
+// K1 conv3d and K2 conv3d_transpose in bf16 on Hopper's tensor cores:
+// implicit-GEMM 3D convolution on channels-last (NDHWC) tensors, fp32
+// accumulation, the output rounded once to bf16. (fp32 K1/K2 run as 3xTF32
+// on mma.sync in conv3d_mma.cu.)
+//
+// Replaces: benchmarks/r2_probe_pallas_mxu.py:80 conv_probe (its body `kern`
+// at :96), the streaming (1,3,3) SAME conv + bias that built a 9-tap im2col in
+// VMEM and ran one deep-K matmul on the MXU; generalized, as conv3d_mma.cu
+// is, to every conv of the M1 path: kernels (1,3,3), (3,3,3), (1,1,1);
+// strides (1,1,1), (1,2,2), (2,2,2); up to six channel parts summed into one
+// output; and the TF-convention transposed conv (K2) in gather form, one
+// output phase a block. ops/convolution.py wgmma_plan computes the schedule.
+//
+// What bounds it on an H100: bytes at levels 0-1 (4-64 channels over
+// 20x160x160 and 20x80x80), operations in the deep 3x3x3 stitches. The
+// mma.sync kernel this replaces (conv3d_mma.cu's bf16 form) reached
+// neither: it re-gathered every input voxel once per tap from L2 (9x at
+// (1,3,3), 27x at 3x3x3) through 16-byte cp.async with a (tap, channel)
+// cursor a chunk, and element by element at widths that are not a multiple
+// of 8. The design:
+//
+//  * A halo tile in shared memory, read once a block. A block owns 128
+//    output rows of one sample: a box (td, th, tw) of output voxels chosen
+//    per shape by the plan, or 128 consecutive rows where the conv is 1x1x1
+//    at stride 1 (flat: no halo). For each part and channel slab (8-64
+//    channels, a voxel 16-128 bytes), the producer brings the input box that
+//    the tile's taps touch into shared memory once; every tap's A rows are
+//    then read from that box. Zero padding (XLA's asymmetric SAME), the
+//    box's overhang and channels past a part's width arrive as zeros.
+//  * Two routes into the box: TMA (a 5D tiled map over NDHWC, its box
+//    origin possibly negative, its out-of-bounds fill the padding) where a
+//    part's voxel stride is a multiple of 16 bytes and its base aligned;
+//    else staged through the producer's registers, each element once a
+//    block (the stem's 3 channels, level 0's 4, the ladder's 65/130/259).
+//    The weights of each stage (64 of a slab's taps x channels) go into a
+//    4-stage ring by TMA where cout (K1) or cin (K2, at 64-wide slabs) is a
+//    multiple of 8 (one box a stage: K1's consecutive DHWIO taps, K2's one
+//    tap), by 16-byte cp.async for K2's narrower slabs, else element by
+//    element; K1's slab lands MN-major (trans-b), K2's K-major, both with
+//    the 128-byte swizzle.
+//  * wgmma consumers with A from registers. Two consumer warpgroups take 64
+//    rows each and issue wgmma.mma_async m64nNk16 (N = the plan's tile
+//    width, 8-128; WgmmaRS in wgmma.cuh): A's fragments come by ldmatrix
+//    from the box at each tap's shifted rows, the addresses per lane with
+//    the box's swizzle applied; B, the stage's weights, by descriptor. The
+//    next step's ldmatrix overlaps the wgmma in flight (two A register
+//    buffers, one wgmma group left in flight). wgmma's 64 rows are output
+//    voxels, of which there are always plenty; narrow couts take N = 8.
+//    At a slab of 8 channels a 16-deep step spans two taps (lanes 16-31
+//    read the second tap's rows).
+//  * A producer warpgroup over mbarrier rings (2-4 box stages as the plan
+//    fits them, 4 weight stages), full and empty barriers, no
+//    __syncthreads in the main loop; setmaxnreg moves registers from the
+//    producer to the consumers.
+//  * Persistent blocks: at most one wave, each walking work units (tile,
+//    channel tile, phase, split), so a block's setup is paid once and the
+//    producer fills the rings for the next unit during an epilogue.
+//  * Kept from conv3d_mma.cu: parts walked in order into one accumulator
+//    (up to six), K2's phases (up to eight), the fp32 bias added once and
+//    one rounding to bf16, deterministic split-K where the output tiles
+//    underfill the card (split j of a phase's weight stages writes fp32
+//    partials that wgmma_splitk_reduce_kernel sums in split order: the same
+//    inputs give the same bits), int32 indices under the wrapper's 2^31
+//    check. The epilogue stages each block's sums in shared memory and
+//    writes whole 16-byte chunks of output rows.
+
+#include <stdint.h>
+
+#include <cuda.h>
+
+#include "common.cuh"
+#include "conv_params.cuh"
+#include "stamps.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using pmr::kMaxParts;
+using pmr::kMaxPhases;
+using pmr::kMaxTaps;
+
+constexpr int kRows = 128;       // output rows a block (ops/convolution.py WG_ROWS)
+constexpr int kConsumers = 2;    // warpgroups of 64 rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kMaxAStages = 4, kBStages = 4;  // box stages: the plan's a_stages, 2-4
+constexpr int kKStage = 64;      // K a weight stage
+constexpr int kProducerRegs = 56;
+constexpr int kGroup = 2;  // staged chunks a producer thread keeps in flight
+
+// The launch's parameters (ops/convolution.py _wgmma_host lists the meta
+// fields they come from), with the TMA maps of the parts that take TMA.
+struct WgParams {
+  CUtensorMap maps[kMaxParts];
+  // the weights by TMA: K1's as (cout, cin, taps) in boxes of 64 x wbox x
+  // wtaps; K2's, where every slab is 64 wide, as (cin, cout, taps) in boxes
+  // of 64 x BN x 1 (a stage's one tap, K-major)
+  CUtensorMap wmap;
+  const bf16* x[kMaxParts];
+  const bf16* w;
+  const float* bias;  // null without bias
+  bf16* y;
+  float* ws;  // split-K partials (fp32), splits x output elements
+  int nparts, cin[kMaxParts], width[kMaxParts], tma_bits, b_vec, cin_total, ntaps, wbox,
+      wtaps;
+  int batch, in_d, in_h, in_w, out_d, out_h, out_w, g_d, g_h, g_w, cout;
+  int in_mul[3], in_add[3], out_mul[3], lo[3], tile[3], box[3], tiles_ax[3];
+  int nphase, ntap[kMaxPhases], res[kMaxPhases][3];
+  int splits, transposed, bn, a_stage, a_stages, b_stage, smem;
+  int phase_loop;  // 1: a unit walks every phase of its tile over its boxes, loaded once
+  signed char tap[kMaxPhases][kMaxTaps][4];  // dz, dy, dx, weight tap
+};
+
+// Blocks resident on one SM by tile width, and the consumers' registers
+// after setmaxnreg: the producer gives back down to kProducerRegs, so that
+// 128 x kProducerRegs + 256 x consumer <= 384 x the launch's registers
+// (65536 / (384 x blocks), to a multiple of 8: 168 or 80).
+__host__ __device__ constexpr int resident_blocks(int bn) { return bn <= 32 ? 2 : 1; }
+__host__ __device__ constexpr int launch_regs(int bn) {
+  return (65536 / (kThreads * resident_blocks(bn))) & ~7;
+}
+__host__ __device__ constexpr int consumer_regs(int bn) {
+  return ((kThreads * launch_regs(bn) - 128 * kProducerRegs) / (128 * kConsumers)) & ~7;
+}
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 1 << (32 - __clz(n - 1));
+}
+
+// The box's swizzle: a row (voxel) of 16 x (smask + 1) bytes; the 16-byte
+// chunk bits [4, 7) of a byte offset are XORed with bits [7, 10), as TMA's
+// 32/64/128-byte swizzle writes them (smask 1, 3, 7; 0: none).
+__device__ __forceinline__ uint32_t swizzle(uint32_t byte, uint32_t smask) {
+  return byte ^ (((byte >> 7) & smask) << 4);
+}
+
+// An mbarrier wait that traps rather than hangs if the pipeline ever lost
+// an arrival (2^24 polls: seconds).
+__device__ __forceinline__ void wait_bar(uint64_t* bar, int parity) {
+  const uint32_t addr = pmr::smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t n = 0;; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > (1u << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+}
+
+// 8 consecutive bf16 from `src` (2-byte aligned), the first n of them valid
+// (n >= 8: all), the rest zero; no byte at or past `end` is read. An aligned
+// chunk is one 16-byte load; any other is cut from the two aligned 16-byte
+// words that cover it (a funnel shift by 2 bytes where the offset is odd in
+// 2-byte units) while they lie before `end`, else read element by element.
+__device__ __forceinline__ uint4 load8_any(const bf16* src, int n, const bf16* end) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src), a0 = a & ~uintptr_t(15);
+  uint32_t o[4];
+  if (a == a0 && n >= 8) return __ldg(reinterpret_cast<const uint4*>(src));
+  if (a0 + 32 <= reinterpret_cast<uintptr_t>(end)) {
+    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(a0));
+    const uint4 hi = __ldg(reinterpret_cast<const uint4*>(a0 + 16));
+    const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const int q = (int)((a - a0) >> 2);
+    const bool half = (a & 2) != 0;
+    uint32_t r[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i)  // r[i] = w[q + i], by selects (no local memory)
+      r[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[min(i + 3, 7)];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = half ? __funnelshift_r(r[i], r[i + 1], 16) : r[i];
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t e0 = 2 * i < n ? __ldg(s + 2 * i) : 0;
+      const uint32_t e1 = 2 * i + 1 < n ? __ldg(s + 2 * i + 1) : 0;
+      o[i] = e0 | (e1 << 16);
+    }
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+  if (n < 8) {  // zero the elements past the valid ones
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] &= (2 * i < n ? 0xFFFFu : 0u) | (2 * i + 1 < n ? 0xFFFF0000u : 0u);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// The walk of one block's K: parts in order, each part's slabs, each slab's
+// weight stages; fn(q, c0, w, ci_base, j0, j1) for every slab that has
+// stages [j0, j1) inside this split's range [s0, s1) of the phase's stages.
+template <typename Fn>
+__device__ __forceinline__ void walk_slabs(const WgParams& p, int ntap, int s0, int s1,
+                                           Fn&& fn) {
+  int g = 0, ci_base = 0;
+  for (int q = 0; q < p.nparts && g < s1; ++q) {
+    const int cin = p.cin[q], wq = p.width[q];
+    const bool tma = (p.tma_bits >> q) & 1;
+    for (int c0 = 0; c0 < cin && g < s1; c0 += wq) {
+      const int w = tma ? wq : min(wq, max(8, pow2_at_least(cin - c0)));
+      const int ns = (ntap * w + kKStage - 1) / kKStage;
+      if (g + ns > s0) fn(q, c0, w, ci_base, max(0, s0 - g), min(ns, s1 - g));
+      g += ns;
+    }
+    ci_base += cin;
+  }
+}
+
+// One work unit of a block: an output tile (sample b, first grid voxel
+// g0), a tile of BN output channels, a phase (or, with phase_loop, every
+// phase in turn) and a split of its stages.
+struct Unit {
+  int b, gz0, gy0, gx0, oz, oy, ox, n0, phase, split;
+};
+
+__device__ __forceinline__ Unit unit_of(const WgParams& p, int u, int m_tiles, int n_tiles) {
+  Unit t;
+  int mt = u % m_tiles;
+  const int rest = u / m_tiles;
+  t.n0 = (rest % n_tiles) * p.bn;
+  const int z = rest / n_tiles;
+  t.phase = p.phase_loop ? 0 : z / p.splits;
+  t.split = p.phase_loop ? z : z % p.splits;
+  const int tx = mt % p.tiles_ax[2];
+  mt /= p.tiles_ax[2];
+  const int ty = mt % p.tiles_ax[1];
+  mt /= p.tiles_ax[1];
+  const int tz = mt % p.tiles_ax[0];
+  t.b = mt / p.tiles_ax[0];
+  t.gz0 = tz * p.tile[0];
+  t.gy0 = ty * p.tile[1];
+  t.gx0 = tx * p.tile[2];
+  // the input box starts here, in the input's coordinates
+  t.oz = t.gz0 * p.in_mul[0] + p.in_add[0] + p.lo[0];
+  t.oy = t.gy0 * p.in_mul[1] + p.in_add[1] + p.lo[1];
+  t.ox = t.gx0 * p.in_mul[2] + p.in_add[2] + p.lo[2];
+  return t;
+}
+
+// This unit's range [s0, s1) of its phase's weight stages.
+__device__ __forceinline__ void split_range(const WgParams& p, const Unit& t, int* s0,
+                                            int* s1) {
+  int nstage = 0;
+  walk_slabs(p, p.ntap[t.phase], 0, 1 << 30,
+             [&](int, int, int, int, int j0, int j1) { nstage += j1 - j0; });
+  *s0 = (int)((long long)nstage * t.split / p.splits);
+  *s1 = (int)((long long)nstage * (t.split + 1) / p.splits);
+}
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   pmr::smem_addr(bar))
+               : "memory");
+}
+
+template <int BN, bool kNK>
+__global__ void __launch_bounds__(kThreads, resident_blocks(BN))
+    conv3d_wgmma_kernel(const __grid_constant__ WgParams p, int m_tiles, int units) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t smem_base = pmr::smem_addr(smem);
+  // [A ring][B ring][epilogue rows][barriers, tap tables]
+  const int b_off = p.a_stages * p.a_stage;
+  const int epi_off = b_off + kBStages * p.b_stage;
+  constexpr int kPitch = BN + 4;  // floats a staged output row
+  uint8_t* const ctrl = smem + epi_off + kRows * kPitch * 4;
+  uint64_t* const full_a = reinterpret_cast<uint64_t*>(ctrl);
+  uint64_t* const empty_a = full_a + kMaxAStages;
+  uint64_t* const full_b = empty_a + kMaxAStages;
+  uint64_t* const empty_b = full_b + kBStages;
+  int* const tapvox = reinterpret_cast<int*>(empty_b + kBStages);  // kMaxPhases x 32
+  const int n_tiles = (p.cout + BN - 1) / BN;
+
+  const int tid = threadIdx.x;
+  PMR_STAMP_DECL(tid == 0 || tid == 128 * kConsumers);
+  if (tid == 0) {
+    for (int s = 0; s < p.a_stages; ++s) {
+      pmr::mbar_init(&full_a[s], 128);
+      pmr::mbar_init(&empty_a[s], 128 * kConsumers);
+    }
+    for (int s = 0; s < kBStages; ++s) {
+      pmr::mbar_init(&full_b[s], 128);
+      pmr::mbar_init(&empty_b[s], 128 * kConsumers);
+    }
+    pmr::mbar_fence_init();
+  }
+  // the box voxel of each phase's tap offsets; the padding tap reads voxel 0
+  for (int i = tid; i < p.nphase * 32; i += kThreads) {
+    const int ph = i / 32, t = i % 32;
+    tapvox[i] = t >= p.ntap[ph] ? 0
+                                : ((p.tap[ph][t][0] - p.lo[0]) * p.box[1] +
+                                   (p.tap[ph][t][1] - p.lo[1])) * p.box[2] +
+                                      (p.tap[ph][t][2] - p.lo[2]);
+  }
+  __syncthreads();
+  PMR_STAMP(kStampSetup);
+  const int box_vox = p.box[0] * p.box[1] * p.box[2];
+
+  if (tid >= 128 * kConsumers) {
+    // ------------------------------------------------------------ producer
+    pmr::setmaxnreg_dec<kProducerRegs>();
+    const int pt = tid - 128 * kConsumers;
+    if (pt == 0) {  // the TMA maps' descriptors into the cache ahead of their first use
+      for (int q = 0; q < p.nparts; ++q)
+        if ((p.tma_bits >> q) & 1) pmr::prefetch_tensormap(&p.maps[q]);
+      if (p.b_vec && (!kNK || p.wbox == kKStage)) pmr::prefetch_tensormap(&p.wmap);
+    }
+    int ai = 0, aph = 0, bi = 0, bph = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      Unit t = unit_of(p, u, m_tiles, n_tiles);
+      const int ph0 = t.phase, ph1 = p.phase_loop ? p.nphase : t.phase + 1;
+      for (t.phase = ph0; t.phase < ph1; ++t.phase) {
+        const int ntap = p.ntap[t.phase];
+        int s0, s1, slab = 0;
+        split_range(p, t, &s0, &s1);
+        walk_slabs(p, ntap, s0, s1, [&](int q, int c0, int w, int ci_base, int j0, int j1) {
+          const int cin = p.cin[q];
+          const uint32_t smask = (uint32_t)(w / 8 - 1);
+          // the input box of (part q, channels [c0, c0 + w)); a phase loop
+          // loads its unit's boxes in the first phase, slab i into stage i
+          if (p.phase_loop) ai = slab++;
+          if (t.phase == ph0) {
+            wait_bar(&empty_a[ai], aph ^ 1);
+            PMR_STAMP(kStampProducerWait);
+            uint8_t* const abox = smem + ai * p.a_stage;
+            if ((p.tma_bits >> q) & 1) {
+              if (pt == 0) {
+                pmr::mbar_arrive_expect_tx(&full_a[ai], (uint32_t)(box_vox * w * 2));
+                pmr::tma_load_5d(smem_base + ai * p.a_stage, &p.maps[q], &full_a[ai], c0, t.ox,
+                                 t.oy, t.oz, t.b);
+              } else {
+                pmr::mbar_arrive(&full_a[ai]);
+              }
+            } else {  // each element once: chunks of 8 channels of a voxel
+              const bf16* const xq = p.x[q];
+              const bf16* const xend =
+                  xq + (size_t)p.batch * p.in_d * p.in_h * p.in_w * cin;  // the part's end
+              const int lc = __ffs(w / 8) - 1, total = box_vox * (w / 8);
+              for (int base = pt; base < total; base += 128 * kGroup) {
+                uint4 val[kGroup];
+#pragma unroll
+                for (int k = 0; k < kGroup; ++k) {
+                  const int it = base + k * 128, v = it >> lc, ch = c0 + (it & (w / 8 - 1)) * 8;
+                  const int x = v % p.box[2], yz = v / p.box[2];
+                  const int gz = t.oz + yz / p.box[1], gy = t.oy + yz % p.box[1], gx = t.ox + x;
+                  val[k] = make_uint4(0, 0, 0, 0);
+                  if (it < total && (unsigned)gz < (unsigned)p.in_d &&
+                      (unsigned)gy < (unsigned)p.in_h && (unsigned)gx < (unsigned)p.in_w &&
+                      ch < cin)
+                    val[k] = load8_any(
+                        xq + (size_t)(((t.b * p.in_d + gz) * p.in_h + gy) * p.in_w + gx) * cin + ch,
+                        cin - ch, xend);
+                }
+#pragma unroll
+                for (int k = 0; k < kGroup; ++k) {
+                  const int it = base + k * 128, v = it >> lc, c = it & (w / 8 - 1);
+                  const uint32_t byte = swizzle((uint32_t)(v * w * 2 + c * 16), smask);
+                  if (it < total) *reinterpret_cast<uint4*>(abox + byte) = val[k];
+                }
+              }
+              pmr::mbar_arrive(&full_a[ai]);
+            }
+            if (!p.phase_loop && ++ai == p.a_stages) {
+              ai = 0;
+              aph ^= 1;
+            }
+            PMR_STAMP(kStampProducerLoad);
+          }
+          // its weight stages: 64 of the slab's (tap, channel) k, tap-major
+          const int lw = __ffs(w) - 1;
+          for (int j = j0; j < j1; ++j) {
+            wait_bar(&empty_b[bi], bph ^ 1);
+            PMR_STAMP(kStampProducerWait);
+            const uint32_t bst = smem_base + b_off + bi * p.b_stage;
+            if (!kNK && p.b_vec) {  // K1 by TMA: boxes of wtaps taps x wbox k rows x 64 n
+              if (pt == 0) {
+                // wbox (the call's narrowest slab, 8-64) divides every slab's
+                // width, so a box's rows are whole runs of one tap's channels;
+                // where every slab is wbox wide, one box holds the stage's
+                // 64 / wbox taps (a forward conv's taps are consecutive in
+                // DHWIO), else a box is one tap's (wtaps 1)
+                constexpr int kGroups = (BN + 63) / 64;
+                pmr::mbar_arrive_expect_tx(&full_b[bi], kKStage * kGroups * 128);
+                for (int rr = 0; rr < kKStage; rr += p.wbox * p.wtaps) {
+                  const int k = j * kKStage + rr, tp = k >> lw, ch = c0 + (k & (w - 1));
+                  // a padding tap, or channels past the part: rows of zeros
+                  const int wt = tp < ntap && ch < cin ? p.tap[t.phase][tp][3] : p.ntaps;
+#pragma unroll
+                  for (int g = 0; g < kGroups; ++g)
+                    pmr::tma_load_3d(bst + g * 8192 + rr * 128, &p.wmap, &full_b[bi],
+                                     t.n0 + g * 64, ci_base + ch, wt);
+                }
+              } else {
+                pmr::mbar_arrive(&full_b[bi]);
+              }
+            } else if (kNK && p.b_vec && p.wbox == kKStage) {  // K2 by TMA: one tap a stage
+              if (pt == 0) {
+                const int tp = (j * kKStage) >> lw;
+                pmr::mbar_arrive_expect_tx(&full_b[bi], BN * 128);
+                pmr::tma_load_3d(bst, &p.wmap, &full_b[bi], ci_base + c0, t.n0,
+                                 p.tap[t.phase][tp][3]);
+              } else {
+                pmr::mbar_arrive(&full_b[bi]);
+              }
+            } else if (p.b_vec) {  // K2: 16-byte cp.async chunks, zero-filled outside
+              for (int it = pt; it < kKStage * (BN / 8); it += 128) {
+                // row n of 64 k (128 bytes), chunk kc of 8 k
+                const int n = it >> 3, kc = it & 7;
+                const int k = j * kKStage + kc * 8, tp = k >> lw, ch = c0 + (k & (w - 1));
+                const int co = t.n0 + n;
+                const bool ok = tp < ntap && co < p.cout && ch < cin;
+                const bf16* src = ok ? p.w + ((size_t)p.tap[t.phase][tp][3] * p.cout + co) *
+                                                 p.cin_total +
+                                           ci_base + ch
+                                     : p.w;
+                cp_async16_zfill(bst + n * 128 + ((kc ^ (n & 7)) << 4), src, ok ? 16 : 0);
+              }
+              cp_async_arrive(&full_b[bi]);  // the consumers fence the async proxy
+            } else {  // chunks of 8 along the weights' last axis, staged
+              const bf16* const wend = p.w + (size_t)p.ntaps * p.cin_total * p.cout;
+              for (int base = pt; base < kKStage * (BN / 8); base += 128 * kGroup) {
+                uint4 val[kGroup];
+                uint32_t byte[kGroup];
+#pragma unroll
+                for (int k = 0; k < kGroup; ++k) {
+                  const int it = base + k * 128;
+                  val[k] = make_uint4(0, 0, 0, 0);
+                  if constexpr (kNK) {  // K2: row n, chunk kc of 8 k (one tap's channels)
+                    const int n = it >> 3, kc = it & 7;
+                    const int kq = j * kKStage + kc * 8, tp = kq >> lw, ch = c0 + (kq & (w - 1));
+                    const int co = t.n0 + n;
+                    if (it < kKStage * (BN / 8) && tp < ntap && co < p.cout && ch < cin)
+                      val[k] = load8_any(p.w + ((size_t)p.tap[t.phase][tp][3] * p.cout + co) *
+                                                   p.cin_total +
+                                             ci_base + ch,
+                                         cin - ch, wend);
+                    byte[k] = n * 128 + ((kc ^ (n & 7)) << 4);
+                  } else {  // K1: row r (k), chunk cc of 8 n
+                    const int r = it / (BN / 8), cc = it % (BN / 8);
+                    const int kq = j * kKStage + r, tp = kq >> lw, ch = c0 + (kq & (w - 1));
+                    const int co = t.n0 + cc * 8;
+                    if (it < kKStage * (BN / 8) && tp < ntap && ch < cin && co < p.cout)
+                      val[k] = load8_any(p.w + ((size_t)p.tap[t.phase][tp][3] * p.cin_total +
+                                                ci_base + ch) * p.cout +
+                                             co,
+                                         p.cout - co, wend);
+                    byte[k] = (cc >> 3) * 8192 + r * 128 + (((cc & 7) ^ (r & 7)) << 4);
+                  }
+                }
+#pragma unroll
+                for (int k = 0; k < kGroup; ++k)
+                  if (base + k * 128 < kKStage * (BN / 8))
+                    *reinterpret_cast<uint4*>(smem + b_off + bi * p.b_stage + byte[k]) = val[k];
+              }
+              pmr::fence_proxy_async();  // the wgmmas read this stage through the async proxy
+              pmr::mbar_arrive(&full_b[bi]);
+            }
+            if (++bi == kBStages) {
+              bi = 0;
+              bph ^= 1;
+            }
+            PMR_STAMP(kStampProducerLoad);
+          }
+        });
+      }
+      if (p.phase_loop) aph ^= 1;  // the unit's boxes are the ring's round
+    }
+    PMR_STAMP_WRITE();
+  } else {
+    // ----------------------------------------------------------- consumers
+    pmr::setmaxnreg_inc<consumer_regs(BN)>();
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    // this lane's ldmatrix row (of its warp's 16) and k half
+    const int m = wg * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int khalf = (lane >> 4) * 8;
+    // tile extents are powers of two: a row's (z, y, x) by shifts
+    const int sx = __ffs(p.tile[2]) - 1, sy = __ffs(p.tile[1]) - 1;
+    const int lx = m & (p.tile[2] - 1), ly = (m >> sx) & (p.tile[1] - 1), lz = m >> (sx + sy);
+    const int rowvox =
+        (lz * p.in_mul[0] * p.box[1] + ly * p.in_mul[1]) * p.box[2] + lx * p.in_mul[2];
+    float* const st = reinterpret_cast<float*>(smem + epi_off);
+    const int out_numel = p.batch * p.out_d * p.out_h * p.out_w * p.cout;
+    const bool vec = (p.cout & 7) == 0;
+    const int ec = tid % (BN / 8);  // the epilogue's column chunk of this thread, every row
+    float acc[BN / 2];
+    uint32_t a0[4][4], a1[4][4];  // a stage's steps' A fragments, two stages in turn
+    int par = 0;
+    int ai = 0, aph = 0, bi = 0, bph = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      Unit t = unit_of(p, u, m_tiles, n_tiles);
+      const int ph0 = t.phase, ph1 = p.phase_loop ? p.nphase : t.phase + 1;
+      for (t.phase = ph0; t.phase < ph1; ++t.phase) {
+        const int ntap = p.ntap[t.phase];
+        const int* const tv = tapvox + t.phase * 32;
+        int s0, s1, slab = 0;
+        split_range(p, t, &s0, &s1);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        int pend = -1;  // the weight stage whose wgmmas may still be in flight
+        walk_slabs(p, ntap, s0, s1, [&](int, int, int w, int, int j0, int j1) {
+          const uint32_t smask = (uint32_t)(w / 8 - 1), pitch = (uint32_t)(w * 2);
+          const int lw = __ffs(w) - 1, ktot = ntap * w;
+          if (p.phase_loop) ai = slab++;  // slab i's box is stage i in every phase
+          if (t.phase == ph0) wait_bar(&full_a[ai], aph);
+          PMR_STAMP(kStampWait);
+          const uint32_t abox = smem_base + ai * p.a_stage;
+          for (int j = j0; j < j1; ++j) {
+            const int ksteps = min(4, (ktot - j * kKStage + 15) / 16);
+            // A for every step of the stage, into the buffer not in flight
+            auto load_a = [&](uint32_t(&a)[4][4]) {
+#pragma unroll
+              for (int s = 0; s < 4; ++s) {
+                if (s < ksteps) {
+                  const int k = j * kKStage + s * 16 + khalf;
+                  const uint32_t byte = (uint32_t)(rowvox + tv[k >> lw]) * pitch +
+                                        (uint32_t)((k & (w - 1)) >> 3) * 16;
+                  ldmatrix_x4_at(a[s], abox + swizzle(byte, smask));
+                }
+              }
+            };
+            if (par)
+              load_a(a1);
+            else
+              load_a(a0);
+            wait_bar(&full_b[bi], bph);
+            pmr::fence_proxy_async();  // the producer's writes, before the wgmmas read them
+            PMR_STAMP(kStampWait);
+            const uint32_t bst = smem_base + b_off + bi * p.b_stage;
+            const uint64_t desc = kNK ? pmr::wgmma_desc_b128_at(bst, 16, 1024)
+                                      : pmr::wgmma_desc_b128_at(bst, 8192, 1024);
+            auto issue = [&](uint32_t(&a)[4][4]) {
+              pmr::wgmma_fence();
+#pragma unroll
+              for (int s = 0; s < 4; ++s)
+                if (s < ksteps)
+                  pmr::WgmmaRS<BN, kNK ? 0 : 1>::mma(acc, a[s], desc + (kNK ? 2 * s : 128 * s));
+              pmr::wgmma_commit();
+            };
+            if (par)
+              issue(a1);
+            else
+              issue(a0);
+            par ^= 1;
+            PMR_STAMP(kStampIssue);
+            pmr::wgmma_wait<1>();  // the stage before is done: its A buffer and B stage are free
+            PMR_STAMP(kStampMma);
+            if (pend >= 0) pmr::mbar_arrive(&empty_b[pend]);
+            pend = bi;
+            if (++bi == kBStages) {
+              bi = 0;
+              bph ^= 1;
+            }
+          }
+          if (t.phase == ph1 - 1) {
+            pmr::mbar_arrive(&empty_a[ai]);  // every ldmatrix of this box has returned
+            if (!p.phase_loop && ++ai == p.a_stages) {
+              ai = 0;
+              aph ^= 1;
+            }
+          }
+        });
+        pmr::wgmma_wait<0>();
+        pmr::fence_registers(acc);
+        if (pend >= 0) pmr::mbar_arrive(&empty_b[pend]);
+
+        // -------------------------------------------------------- epilogue
+        // Stage the 128 x BN fp32 sums (d[i] at row 16 warp + lane / 4 + 8
+        // ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2) in the
+        // epilogue rows, then write whole chunks of 8 outputs a thread: bf16
+        // with the bias, or fp32 partials of a split. The producer meanwhile
+        // fills the rings for the next unit.
+        consumers_sync();  // the previous unit's rows have been read
+#pragma unroll
+        for (int i = 0; i < BN / 2; i += 2) {
+          const int row = wg * 64 + warp * 16 + lane / 4 + 8 * ((i >> 1) & 1);
+          *reinterpret_cast<float2*>(st + row * kPitch + (i >> 2) * 8 + 2 * (lane & 3)) =
+              make_float2(acc[i], acc[i + 1]);
+        }
+        consumers_sync();
+        const int co = t.n0 + ec * 8, n = min(8, p.cout - co);
+        float bias8[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          bias8[e] = p.splits == 1 && p.bias != nullptr && e < n ? p.bias[co + e] : 0.f;
+        for (int r = tid / (BN / 8); r < kRows && co < p.cout; r += 128 * kConsumers / (BN / 8)) {
+          const int gx = t.gx0 + (r & (p.tile[2] - 1)), gy = t.gy0 + ((r >> sx) & (p.tile[1] - 1)),
+                    gz = t.gz0 + (r >> (sx + sy));
+          if (gz >= p.g_d || gy >= p.g_h || gx >= p.g_w) continue;
+          const int od = gz * p.out_mul[0] + p.res[t.phase][0];
+          const int oh = gy * p.out_mul[1] + p.res[t.phase][1];
+          const int ow = gx * p.out_mul[2] + p.res[t.phase][2];
+          const int ofs = (((t.b * p.out_d + od) * p.out_h + oh) * p.out_w + ow) * p.cout + co;
+          const float* src = st + r * kPitch + ec * 8;
+          if (p.splits > 1) {
+            float* dst = p.ws + (size_t)t.split * out_numel + ofs;
+            if (vec) {
+              reinterpret_cast<float4*>(dst)[0] = *reinterpret_cast<const float4*>(src);
+              reinterpret_cast<float4*>(dst)[1] = *reinterpret_cast<const float4*>(src + 4);
+            } else {
+              for (int e = 0; e < n; ++e) dst[e] = src[e];
+            }
+            continue;
+          }
+          union {
+            uint4 v;
+            unsigned short h[8];
+          } o;
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            o.h[e] = __bfloat16_as_ushort(__float2bfloat16(src[e] + bias8[e]));
+          if (vec) {
+            *reinterpret_cast<uint4*>(p.y + ofs) = o.v;
+          } else {
+            for (int e = 0; e < n; ++e) p.y[ofs + e] = __ushort_as_bfloat16(o.h[e]);
+          }
+        }
+        PMR_STAMP(kStampEpilogue);
+      }
+      if (p.phase_loop) aph ^= 1;
+    }
+    PMR_STAMP_WRITE();
+  }
+}
+
+// y = bf16(sum_{j < splits} ws[j] + bias), the splits summed in order.
+__global__ void __launch_bounds__(256)
+    wgmma_splitk_reduce_kernel(const float* __restrict__ ws, int splits, long long numel,
+                               int cout, const float* __restrict__ bias, bf16* __restrict__ y) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < numel;
+       e += stride) {
+    float s = ws[e];
+    for (int j = 1; j < splits; ++j) s += ws[(size_t)j * numel + e];
+    if (bias != nullptr) s += bias[e % cout];
+    y[e] = __float2bfloat16(s);
+  }
+}
+
+// Unpacks the wrapper's host arrays (ptrs: the parts, kernel, bias, output,
+// workspace; meta: ops/convolution.py _wgmma_host; taps) and encodes the
+// TMA maps of the parts that take TMA.
+int unpack(const uint64_t* ptrs, const int* m, const signed char* taps, WgParams* p) {
+  p->nparts = m[0];
+  if (p->nparts < 1 || p->nparts > kMaxParts) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < kMaxParts; ++i) {
+    p->x[i] = reinterpret_cast<const bf16*>(ptrs[i]);
+    p->cin[i] = m[1 + i];
+    p->width[i] = m[7 + i];
+  }
+  p->w = reinterpret_cast<const bf16*>(ptrs[kMaxParts]);
+  p->bias = m[84] ? reinterpret_cast<const float*>(ptrs[kMaxParts + 1]) : nullptr;
+  p->y = reinterpret_cast<bf16*>(ptrs[kMaxParts + 2]);
+  p->ws = reinterpret_cast<float*>(ptrs[kMaxParts + 3]);
+  p->tma_bits = m[13];
+  p->b_vec = m[14];
+  p->cin_total = m[15];
+  p->ntaps = m[91];
+  p->wbox = m[93];
+  p->wtaps = m[94];
+  p->batch = m[16];
+  p->in_d = m[17], p->in_h = m[18], p->in_w = m[19];
+  p->out_d = m[20], p->out_h = m[21], p->out_w = m[22];
+  p->g_d = m[23], p->g_h = m[24], p->g_w = m[25];
+  p->cout = m[26];
+  for (int a = 0; a < 3; ++a) {
+    p->in_mul[a] = m[27 + a];
+    p->in_add[a] = m[30 + a];
+    p->out_mul[a] = m[33 + a];
+    p->lo[a] = m[36 + a];
+    p->tile[a] = m[39 + a];
+    p->box[a] = m[42 + a];
+    p->tiles_ax[a] = m[45 + a];
+  }
+  p->nphase = m[48];
+  if (p->nphase < 1 || p->nphase > kMaxPhases) return (int)cudaErrorInvalidValue;
+  for (int ph = 0; ph < kMaxPhases; ++ph) {
+    p->ntap[ph] = m[49 + ph];
+    if (p->ntap[ph] < 0 || p->ntap[ph] > kMaxTaps) return (int)cudaErrorInvalidValue;
+    for (int a = 0; a < 3; ++a) p->res[ph][a] = m[57 + 3 * ph + a];
+    for (int t = 0; t < kMaxTaps; ++t)
+      for (int c = 0; c < 4; ++c) p->tap[ph][t][c] = taps[(ph * kMaxTaps + t) * 4 + c];
+  }
+  p->splits = m[81];
+  p->transposed = m[82];
+  p->bn = m[83];
+  p->a_stage = m[85];
+  p->a_stages = m[92];
+  p->phase_loop = m[95];
+  p->b_stage = m[86];
+  p->smem = m[87];
+  if (m[89] != pmr::kBFloat16 || p->splits < 1 || p->splits > 64 ||
+      (p->splits > 1 && p->ws == nullptr) || p->smem > 232448 || p->a_stages < 2 ||
+      p->a_stages > kMaxAStages || (p->wbox != 8 && p->wbox != 16 && p->wbox != 32 &&
+                                    p->wbox != 64) ||
+      (p->wtaps != 1 && p->wtaps * p->wbox != kKStage) ||
+      p->tile[0] * p->tile[1] * p->tile[2] != kRows)
+    return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < p->nparts; ++q) {
+    const int w = p->width[q];
+    if (w != 8 && w != 16 && w != 32 && w != 64) return (int)cudaErrorInvalidValue;
+    if (!((p->tma_bits >> q) & 1)) continue;
+    const uint64_t c = (uint64_t)p->cin[q];
+    const uint64_t dims[5] = {c, (uint64_t)p->in_w, (uint64_t)p->in_h, (uint64_t)p->in_d,
+                              (uint64_t)p->batch};
+    const uint64_t strides[4] = {c * 2, c * 2 * p->in_w, c * 2 * p->in_w * p->in_h,
+                                 c * 2 * p->in_w * p->in_h * p->in_d};
+    const uint32_t box[5] = {(uint32_t)w, (uint32_t)p->box[2], (uint32_t)p->box[1],
+                             (uint32_t)p->box[0], 1};
+    const int rc = pmr::encode_tensor_map_nd(&p->maps[q], p->x[q], 5, dims, strides, box);
+    if (rc != 0) return rc;
+  }
+  const uint64_t co = (uint64_t)p->cout, ci = (uint64_t)p->cin_total;
+  if (!p->transposed && p->b_vec) {  // K1's DHWIO weights: (cout, cin, taps)
+    const uint64_t dims[3] = {co, ci, (uint64_t)p->ntaps};
+    const uint64_t strides[2] = {co * 2, co * 2 * ci};
+    const uint32_t box[3] = {64, (uint32_t)p->wbox, (uint32_t)p->wtaps};
+    const int rc = pmr::encode_tensor_map_nd(&p->wmap, p->w, 3, dims, strides, box);
+    if (rc != 0) return rc;
+  } else if (p->b_vec && p->wbox == kKStage) {  // K2's (taps, cout, cin) weights
+    const uint64_t dims[3] = {ci, co, (uint64_t)p->ntaps};
+    const uint64_t strides[2] = {ci * 2, ci * 2 * co};
+    const uint32_t box[3] = {64, (uint32_t)p->bn, 1};
+    const int rc = pmr::encode_tensor_map_nd(&p->wmap, p->w, 3, dims, strides, box);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+template <int BN, bool kNK>
+int launch_tile(const WgParams& p, int m_tiles, int blocks, cudaStream_t stream) {
+  auto kernel = conv3d_wgmma_kernel<BN, kNK>;
+  static bool configured = false;  // per kernel, set once
+  if (!configured) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return (int)err;
+    // setmaxnreg's budget holds only if the launch has the registers it
+    // was planned for: refuse rather than let the consumers wait forever
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs * kThreads < 128 * kProducerRegs + 128 * kConsumers * consumer_regs(BN))
+      return (int)cudaErrorInvalidConfiguration;
+    configured = true;
+  }
+  const int units =
+      m_tiles * ((p.cout + BN - 1) / BN) * (p.phase_loop ? 1 : p.nphase) * p.splits;
+  kernel<<<(unsigned)(blocks < units ? blocks : units), kThreads, p.smem, stream>>>(p, m_tiles,
+                                                                                      units);
+  return (int)cudaGetLastError();
+}
+
+template <bool kNK>
+int launch_bn(const WgParams& p, int m_tiles, int blocks, cudaStream_t s) {
+  switch (p.bn) {
+    case 8: return launch_tile<8, kNK>(p, m_tiles, blocks, s);
+    case 16: return launch_tile<16, kNK>(p, m_tiles, blocks, s);
+    case 32: return launch_tile<32, kNK>(p, m_tiles, blocks, s);
+    case 64: return launch_tile<64, kNK>(p, m_tiles, blocks, s);
+    case 128: return launch_tile<128, kNK>(p, m_tiles, blocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// bf16 K1 (meta[82] 0) or K2 (1): the main kernel and, with split-K, the
+// reduce, both on `stream`.
+extern "C" int pmr_conv3d_wgmma(const void* ptrs, const void* meta, const void* taps,
+                                void* stream) {
+  static_assert(sizeof(WgParams) <= 4096 - 64, "kernel parameters stay under 4 KB");
+  WgParams p;
+  const int* m = static_cast<const int*>(meta);
+  int rc = unpack(static_cast<const uint64_t*>(ptrs), m, static_cast<const signed char*>(taps),
+                  &p);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rc = p.transposed ? launch_bn<true>(p, m[88], m[90], s) : launch_bn<false>(p, m[88], m[90], s);
+  if (rc != 0 || p.splits == 1) return rc;
+  const long long numel = (long long)p.batch * p.out_d * p.out_h * p.out_w * p.cout;
+  const long long blocks = (numel + 255) / 256;
+  wgmma_splitk_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      p.ws, p.splits, numel, p.cout, p.bias, p.y);
+  return (int)cudaGetLastError();
+}
+
+// The stamps build's buffer for this source's kernels (stamps.cuh).
+extern "C" int pmr_conv3d_wgmma_stamps(void* buf) { return pmr_stamp_install(buf); }

@@ -2,10 +2,14 @@
 // host-side tensor-map encoder: the loading half of a TMA + wgmma pipeline
 // (K5 gemm_loop.cu; wgmma.cuh is the consuming half).
 //
-// Device side: mbarrier init / arrive / expect-tx / parity wait, and a 2D
-// tiled TMA load that reports its bytes to an mbarrier. Host side:
-// encode_tensor_map_2d, a row-major bf16 matrix cut into boxes with
-// 128-byte swizzle (the layout wgmma's B128 descriptors read).
+// Device side: mbarrier init / arrive / expect-tx / parity wait, 2D, 3D
+// and 5D tiled TMA loads that report their bytes to an mbarrier, and the proxy
+// fence that orders threads' shared-memory writes before wgmma reads them.
+// Host side: encode_tensor_map_2d, a row-major bf16 matrix cut into boxes
+// with 128-byte swizzle (the layout wgmma's B128 descriptors read), and
+// encode_tensor_map_nd, a bf16 tensor cut into boxes whose innermost extent
+// sets the swizzle (conv3d_wgmma.cu's halo boxes of NDHWC voxels and its
+// weight rows).
 // cuTensorMapEncodeTiled (a libcuda function) is taken through the CUDA
 // runtime's entry-point query, so the library links no libcuda of its own.
 #pragma once
@@ -71,6 +75,38 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 3D map, coordinates innermost first.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same for a 5D map, coordinates innermost first.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// Brings a TMA map's descriptor into the cache ahead of its first load.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before the
+// async proxy's reads (a wgmma descriptor's operand) that follow a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------ host side
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -110,6 +146,41 @@ inline int encode_tensor_map_2d(CUtensorMap* map, const void* base, uint64_t row
                         dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A bf16 tensor of `rank` (3 or 5) dims (innermost first: dims[0]
+// contiguous, strides in bytes of dims 1.., multiples of 16) read in boxes
+// of box[0..rank) elements; box[0] x 2 bytes is 16, 32, 64 or 128 and picks
+// no swizzle or the 32-, 64- or 128-byte one, so that a box's rows of
+// box[0] elements land as conv3d_wgmma.cu's swizzle reads them. Elements
+// outside the tensor (and negative coordinates) arrive as zeros. Returns 0
+// or a cudaError_t code.
+inline int encode_tensor_map_nd(CUtensorMap* map, const void* base, int rank,
+                                const uint64_t* dims, const uint64_t* strides,
+                                const uint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMapSwizzle swizzle;
+  switch (box[0] * 2) {
+    case 16: swizzle = CU_TENSOR_MAP_SWIZZLE_NONE; break;
+    case 32: swizzle = CU_TENSOR_MAP_SWIZZLE_32B; break;
+    case 64: swizzle = CU_TENSOR_MAP_SWIZZLE_64B; break;
+    case 128: swizzle = CU_TENSOR_MAP_SWIZZLE_128B; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (rank < 1 || rank > 5) return (int)cudaErrorInvalidValue;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], es[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    es[i] = 1;
+    if (i + 1 < rank) st[i] = strides[i];
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d,
+                        st, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,8 @@
 // Hopper warpgroup MMA (wgmma) in inline PTX: the consuming half of a TMA +
-// wgmma pipeline (K5 gemm_loop.cu; tma.cuh is the loading half).
+// wgmma pipeline (K5 gemm_loop.cu and bf16 K1/K2 conv3d_wgmma.cu; tma.cuh is
+// the loading half). K5 reads both operands from shared memory
+// (wgmma_m64n128k16_bf16); the conv kernel takes A from registers and N from
+// 8 to 128 (WgmmaRS).
 //
 // A warpgroup (4 consecutive warps, the first a multiple of 4) issues
 // wgmma.mma_async on operands in shared memory described by 64-bit matrix
@@ -22,13 +25,19 @@
 
 namespace pmr {
 
-__device__ __forceinline__ uint64_t wgmma_desc_b128(const void* p, uint32_t lbo_bytes,
-                                                    uint32_t sbo_bytes) {
-  uint64_t d = (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4);
+// The same from a shared-memory address (the 32-bit shared window's).
+__device__ __forceinline__ uint64_t wgmma_desc_b128_at(uint32_t addr, uint32_t lbo_bytes,
+                                                       uint32_t sbo_bytes) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
   d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
   d |= (uint64_t)1 << 62;  // layout: 128-byte swizzle
   return d;
+}
+
+__device__ __forceinline__ uint64_t wgmma_desc_b128(const void* p, uint32_t lbo_bytes,
+                                                    uint32_t sbo_bytes) {
+  return wgmma_desc_b128_at(smem_addr(p), lbo_bytes, sbo_bytes);
 }
 
 // Orders this warpgroup's register and shared-memory writes before the
@@ -87,6 +96,103 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "n"(kTransB), "r"(accumulate));
 }
+
+// d (64 x N fp32, N / 2 registers a thread) += A (64 x 16) . B (16 x N),
+// A from registers, B in shared memory by descriptor (accumulate always: the
+// caller zeroes d first), bf16 operands. A's fragment is mma.sync m16n8k16's
+// on each warp's 16 rows (warp w of the warpgroup: rows 16 w ..16 w + 15):
+// a[0] (row g, k 2t..2t+1), a[1] (g + 8, 2t..), a[2] (g, 2t + 8..), a[3]
+// (g + 8, 2t + 8..), g = lane / 4, t = lane % 4; ldmatrix x4 of the rows
+// (lane & 7) + 8 ((lane >> 3) & 1) at k 8 (lane >> 4) gives it. d as
+// wgmma_m64n128k16_bf16's. kTransB 1: B is MN-major. The register lists are
+// spelled out per N (the instruction names every accumulator).
+template <int N, int kTransB>
+struct WgmmaRS;
+
+template <int kTransB>
+struct WgmmaRS<8, kTransB> {
+  __device__ __forceinline__ static void mma(float (&d)[4], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, %9;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
+
+template <int kTransB>
+struct WgmmaRS<16, kTransB> {
+  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %13;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
+
+template <int kTransB>
+struct WgmmaRS<32, kTransB> {
+  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %21;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
+
+template <int kTransB>
+struct WgmmaRS<64, kTransB> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
+
+template <int kTransB>
+struct WgmmaRS<128, kTransB> {
+  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %70, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
 
 // Register budget of a warp-specialised block: the producer warpgroup gives
 // registers back, the consumer warpgroups take them (multiples of 8, 24-256).

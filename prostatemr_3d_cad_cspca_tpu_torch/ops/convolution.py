@@ -20,7 +20,10 @@ directly and fp32 as error-compensated TF32 (3xTF32):
     parts (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
     conv(part_i, W_i)``), with fp32 bias and fp32 accumulation;
   * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``
-    (K1 and K2: ``csrc/conv3d_mma.cu``);
+    (K1 and K2: bf16 on Hopper's wgmma with halo tiles in shared memory,
+    ``csrc/conv3d_wgmma.cu`` and :func:`wgmma_plan`; fp32 as 3xTF32 on
+    mma.sync, ``csrc/conv3d_mma.cu`` and :func:`igemm_plan`;
+    :func:`kernel_route` picks by dtype);
   * K6 :func:`conv3d_wgrad` — the weight gradient of both
     (``csrc/conv3d_wgrad.cu``).
 
@@ -39,6 +42,7 @@ dispatched by device where it runs (``export.py``).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -158,15 +162,15 @@ def transpose_plan(kernel_size, strides, in_spatial):
                 out_mul=st, phases=tuple(phases))
 
 
-# ------------------------------------------------ the tensor-core schedule
+# --------------------------------- the fp32 tensor-core schedule (mma.sync)
 BM = 128                   # block rows of csrc/conv3d_mma.cu
-# per element type (csrc/conv3d_mma.cu Elem, resident_blocks): the K-slab
+# per element type (csrc/conv3d_mma.cu Elem, resident_blocks; fp32 only, as
+# bf16 runs csrc/conv3d_wgmma.cu, planned by wgmma_plan below): the K-slab
 # depth (64 bytes a row), the tile widths, and the blocks of each tile width
 # resident on one SM (the kernel's launch bounds): one wave of the grid
-BK = {torch.bfloat16: 32, torch.float32: 16}
-TILES_N = {torch.bfloat16: (8, 16, 32, 64, 128), torch.float32: (8, 16, 32, 64)}
-RESIDENT_BLOCKS = {torch.bfloat16: {8: 4, 16: 4, 32: 3, 64: 2, 128: 2},
-                   torch.float32: {8: 3, 16: 3, 32: 2, 64: 2}}
+BK = {torch.float32: 16}
+TILES_N = {torch.float32: (8, 16, 32, 64)}
+RESIDENT_BLOCKS = {torch.float32: {8: 3, 16: 3, 32: 2, 64: 2}}
 CHAIN_SLABS = 8            # fp32: slabs a tensor-core chain runs (kChainSlabs)
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 MIN_SLABS_PER_SPLIT = 8    # K is split only while a split keeps this many slabs
@@ -218,8 +222,8 @@ def igemm_plan(rows: int, cout: int, slabs, dtype: torch.dtype) -> dict:
 
 
 def gather_routes(parts, kernel):
-    """How the kernel loads each operand: "cp.async" (16-byte chunks: 8 bf16
-    or 4 fp32 channels, by each tensor's element size) where the chunk axis
+    """How the mma.sync kernel loads each operand: "cp.async" (16-byte
+    chunks: 4 fp32 channels, or 8 of a 2-byte type) where the chunk axis
     is a multiple of the chunk and the tensor is 16-byte aligned, else
     "scalar" (element by element through registers). Returns (one route per
     part, the weights' route). The weights' chunk axis is their last: Cout
@@ -288,6 +292,270 @@ def _pack_conv_args(parts, kernel, bias, y, plan, transposed, igemm, ws):
     return ptrs, meta, taps
 
 
+# --------------------------------- bf16 K1/K2: halo tiles on wgmma (Hopper)
+# csrc/conv3d_wgmma.cu. A block owns WG_ROWS output voxels of one sample, a
+# box of them (tile) or WG_ROWS consecutive rows (flat: 1x1x1 at stride 1);
+# for each part and channel slab the producer brings the input box its taps
+# read into shared memory once, and the consumers read every tap's rows of
+# it. See the source's note for the design; here the plan and host arrays.
+WG_ROWS = 128              # output rows a block: two consumer warpgroups of 64
+WG_TILES_N = (8, 16, 32, 64, 128)
+WG_RESIDENT = {8: 2, 16: 2, 32: 2, 64: 1, 128: 1}   # blocks an SM: launch bounds
+WG_KSTAGE = 64             # K (taps x slab channels) of one weight stage
+WG_A_STAGES, WG_B_STAGES = (2, 4), 4  # box stages: 2 to 4 as they fit; weight stages
+WG_SLAB_WIDTHS = (64, 32, 16, 8)   # channels of a slab: 128, 64, 32, 16 bytes a voxel
+WG_SMEM_SM = 233472        # shared memory of an H100 SM (228 KB)
+WG_SMEM_BLOCK = 232448     # the most one block may take (227 KB)
+WG_SMEM_RESERVED = 1024    # the runtime's own per block
+WG_SMEM_EXTRA = 1024 + 1280  # alignment slack of the dynamic base; barriers, tap tables
+WG_MIN_STAGES_PER_SPLIT = 4
+WG_BOX_MAX = 256           # TMA's largest box extent
+WG_TILE_SHAPES = tuple((d, h, w) for w in (8, 16, 32, 64, 128) for h in (1, 2, 4, 8, 16)
+                       for d in (1, 2, 4, 8) if d * h * w == WG_ROWS)
+WG_META = 96               # int32 fields of the host array (_wgmma_host)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def wgmma_slabs(cin: int, width: int, tma: bool):
+    """The channel slabs of one part: (first channel, slab width) each.
+    Every slab is ``width`` channels wide; a part on the staged route
+    narrows its last slab to the least power of two (>= 8) that holds what
+    is left, while TMA's map has one box width and zero-fills the last
+    slab's tail."""
+    out = []
+    for c0 in range(0, cin, width):
+        w = width if tma else min(width, max(8, _pow2_at_least(cin - c0)))
+        out.append((c0, w))
+    return out
+
+
+def _wgmma_smem(box_vox, width, bn, transposed, a_stages=WG_A_STAGES[0]):
+    """(A stage, B stage, dynamic shared memory) bytes of one block: the
+    box and weight rings, the epilogue's fp32 rows (BN + 4 floats each) and
+    the control block."""
+    def kb(n):
+        return -(-n // 1024) * 1024
+
+    a_stage = kb(box_vox * 2 * width)
+    b_stage = kb(bn * 128) if transposed else 8192 * -(-bn // 64)
+    rings = a_stages * a_stage + WG_B_STAGES * b_stage
+    return a_stage, b_stage, rings + WG_ROWS * (bn + 4) * 4 + WG_SMEM_EXTRA
+
+
+def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None):
+    """Tile, slabs, routes and split-K of the bf16 kernel (csrc/conv3d_wgmma.cu)
+    for one K1/K2 call, from its shapes (``tma_ok``: per part, whether its
+    base is 16-byte aligned; default all).
+
+    * Geometry: the window plan's grid, in the kernel's view. A 1x1x1 conv
+      at stride 1 is flat: one row of R = batch x voxels, tiles of WG_ROWS
+      consecutive rows, no halo. Otherwise a tile is a box (td, th, tw) of
+      WG_ROWS output voxels (WG_TILE_SHAPES) and its input box spans
+      (t - 1) * in_mul + (hi - lo) + 1 a axis (lo, hi: the least and
+      greatest tap offset over every phase); the tile is the one of least
+      tiles x (box voxels + WG_ROWS): the voxels loaded a tile beside the
+      rows it computes.
+    * Slabs: every part's channels in slabs of one ``width`` (the widest of
+      WG_SLAB_WIDTHS that is no wider than the widest part needs and whose
+      two box stages fit the block's shared memory beside the weight ring
+      and the epilogue's rows); then as many box stages, up to four, as
+      fit (``a_stages``: the producer runs further ahead of small boxes);
+      a part narrower than ``width`` takes the least power of two >= 8 that
+      holds it (wgmma_slabs).
+    * Routes: a part goes by TMA where its channels are a multiple of 8 (a
+      16-byte voxel stride) and its base is aligned, else "staged" (loaded
+      through the producer's registers, each element once a block). The
+      weights go by 16-byte loads where cout (K1) or cin (K2) is a multiple
+      of 8, else element by element.
+    * Split-K: a phase's K is its slabs' weight stages, ceil(ntap x width /
+      WG_KSTAGE) a slab. Where the output tiles fill less than one wave
+      (SMS x WG_RESIDENT), the stages are split into the most splits that
+      fit one wave, a split keeping WG_MIN_STAGES_PER_SPLIT stages on
+      average and at least one in every phase; split j of a phase of L
+      stages walks [L*j // splits, L*(j+1) // splits), and the splits'
+      fp32 partials are summed in split order by a second kernel.
+    * Blocks: ``grid`` persistent blocks (at most one wave) walk the
+      ``units`` (tile, channel tile, phase, split), block i taking units
+      i, i + grid, ... A K2 call whose slabs' boxes all fit as box stages
+      (one slab, or up to four without split-K: ``phase_loop``) makes a
+      unit of every phase of a tile: its boxes load once, not once a
+      phase.
+    """
+    cins = [int(s[-1]) for s in part_shapes]
+    batch, in_spatial = int(part_shapes[0][0]), tuple(int(n) for n in part_shapes[0][1:4])
+    ks = tuple(int(k) for k in kernel_shape[:3])
+    cout = int(kernel_shape[3 if transposed else 4])
+    geom = window_plan(ks, strides, in_spatial, transposed)
+    tma_ok = [True] * len(cins) if tma_ok is None else list(tma_ok)
+    bn = next((b for b in WG_TILES_N if cout <= b), WG_TILES_N[-1])
+    nphase = len(geom["phases"])
+    flat = (ks == (1, 1, 1) and geom["in_mul"] == (1, 1, 1) and geom["in_add"] == (0, 0, 0)
+            and geom["out_mul"] == (1, 1, 1) and nphase == 1)
+    if flat:
+        rows = batch * math.prod(geom["grid"])
+        view = dict(batch=1, ind=(1, 1, rows), outd=(1, 1, rows), grid=(1, 1, rows),
+                    in_mul=(1, 1, 1), in_add=(0, 0, 0), out_mul=(1, 1, 1), lo=(0, 0, 0))
+        tile, box = (1, 1, WG_ROWS), (1, 1, WG_ROWS)
+    else:
+        offs = [t[:3] for _, taps in geom["phases"] for t in taps]
+        lo = tuple(min(o[a] for o in offs) for a in range(3))
+        hi = tuple(max(o[a] for o in offs) for a in range(3))
+        view = dict(batch=batch, ind=in_spatial, outd=geom["out"], grid=geom["grid"],
+                    in_mul=geom["in_mul"], in_add=geom["in_add"], out_mul=geom["out_mul"],
+                    lo=lo)
+
+        def box_of(t):
+            return tuple((t[a] - 1) * geom["in_mul"][a] + hi[a] - lo[a] + 1 for a in range(3))
+
+        def cost(t):
+            tiles = math.prod(-(-g // e) for g, e in zip(geom["grid"], t))
+            return tiles * (math.prod(box_of(t)) + WG_ROWS), -t[2]
+
+        fits = [t for t in WG_TILE_SHAPES if max(box_of(t)) <= WG_BOX_MAX]
+        tile = min(fits, key=cost)
+        box = box_of(tile)
+    box_vox = math.prod(box)
+    budget = (WG_SMEM_BLOCK if WG_RESIDENT[bn] == 1
+              else (WG_SMEM_SM - WG_RESIDENT[bn] * WG_SMEM_RESERVED) // WG_RESIDENT[bn])
+    widest = max(8, _pow2_at_least(max(cins)))
+    width = next((w for w in WG_SLAB_WIDTHS if w <= widest
+                  and _wgmma_smem(box_vox, w, bn, transposed)[2] <= budget), WG_SLAB_WIDTHS[-1])
+    a_stages = max(n for n in range(WG_A_STAGES[0], WG_A_STAGES[1] + 1)
+                   if n == WG_A_STAGES[0]
+                   or _wgmma_smem(box_vox, width, bn, transposed, n)[2] <= budget)
+    a_stage, b_stage, smem = _wgmma_smem(box_vox, width, bn, transposed, a_stages)
+    widths = [min(width, max(8, _pow2_at_least(c))) for c in cins]
+    tma = [c % 8 == 0 and ok for c, ok in zip(cins, tma_ok)]
+    slabs = [wgmma_slabs(c, w, t) for c, w, t in zip(cins, widths, tma)]
+    stages = tuple(sum(-(-len(taps) * w // WG_KSTAGE) for sl in slabs for _, w in sl)
+                   for _, taps in geom["phases"])
+    ws = [w for sl in slabs for _, w in sl]
+    tiles_axis = tuple(-(-g // t) for g, t in zip(view["grid"], tile))
+    m_tiles = view["batch"] * math.prod(tiles_axis)
+    n_tiles = -(-cout // bn)
+    tiles = m_tiles * n_tiles * nphase
+    target = SMS * WG_RESIDENT[bn]
+    cap = max(1, min(min(stages), sum(stages) // (nphase * WG_MIN_STAGES_PER_SPLIT),
+                     MAX_SPLITS))
+    splits = max(1, min(target // tiles, cap))
+    ranges = tuple(tuple((n * j // splits, n * (j + 1) // splits) for j in range(splits))
+                   for n in stages)
+    # a K2 call walks all its phases in a unit over boxes loaded once, where
+    # its slabs' boxes fit as the ring's stages (one slab at any split; up
+    # to four without split-K, the box stages then the slabs)
+    # (several slabs: where the looped units still fill a wave, or a part
+    # is staged, whose loads once a phase would cost the producer most)
+    nslab = sum(len(sl) for sl in slabs)
+    phase_loop = nphase > 1 and (nslab == 1 or (
+        splits == 1 and nslab <= WG_A_STAGES[1]
+        and _wgmma_smem(box_vox, width, bn, transposed, max(nslab, 2))[2] <= budget
+        and (m_tiles * n_tiles >= target or not all(tma))))
+    if phase_loop:
+        a_stages = max(nslab, WG_A_STAGES[0])
+        a_stage, b_stage, smem = _wgmma_smem(box_vox, width, bn, transposed, a_stages)
+    units = m_tiles * n_tiles * (1 if phase_loop else nphase) * splits
+    out_numel = batch * math.prod(geom["out"]) * cout
+    return dict(geom=geom, view=view, flat=flat, tile=tile, box=box, box_vox=box_vox,
+                width=width, widths=widths, tma=tma, slabs=slabs, bn=bn, cout=cout,
+                stages=stages, ranges=ranges, tiles_axis=tiles_axis, m_tiles=m_tiles,
+                n_tiles=n_tiles, tiles=tiles, target=target, cap=cap, splits=splits,
+                blocks=tiles * splits, phase_loop=phase_loop, units=units,
+                grid=min(units, target),
+                a_stage=a_stage, a_stages=a_stages, b_stage=b_stage, smem=smem,
+                wbox=min(ws), wtaps=WG_KSTAGE // min(ws) if len(set(ws)) == 1 else 1,
+                budget=budget, workspace=splits * out_numel if splits > 1 else 0,
+                out=(batch, *geom["out"], cout))
+
+
+@functools.lru_cache(maxsize=512)
+def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias, b_vec):
+    """The plan and the two host arrays of csrc/conv3d_wgmma.cu that depend
+    only on the call's shapes, strides, bias presence and pointers'
+    alignment: built once, so a call only writes its pointers
+    (csrc/conv3d_wgmma.cu unpack_wgmma lists the fields; P = MAX_PARTS).
+
+    meta (int32[WG_META]): 0 nparts; 1..6 cin; 7..12 slab width; 13 bit p:
+      part p by TMA; 14 weights by 16-byte loads; 15 cin total; 16 batch;
+      17-19 input D,H,W; 20-22 output D,H,W; 23-25 row grid D,H,W (the
+      kernel's view: flat is one row of R voxels); 26 cout; 27-29 in_mul;
+      30-32 in_add; 33-35 out_mul; 36-38 lo (least tap offset); 39-41
+      tile; 42-44 input box; 45-47 tiles a grid axis; 48 nphase; 49-56
+      taps a phase; 57-80 phase residues; 81 splits; 82 transposed; 83
+      tile n; 84 has bias; 85 A stage bytes; 86 B stage bytes; 87 dynamic
+      shared memory; 88 m tiles; 89 dtype code; 90 persistent blocks; 91
+      the kernel's taps; 92 box stages; 93, 94 the K1 weight box's rows (the
+      narrowest slab) and taps (WG_KSTAGE / rows where every slab is that
+      wide, else 1); 95 phase loop (a unit walks every phase of its tile
+      over its boxes, slab i in box stage i).
+    taps (int8[8, 27, 4]): per phase and tap, (dz, dy, dx, weight tap).
+    """
+    plan = wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok)
+    cins = [int(s[-1]) for s in part_shapes]
+    v, geom = plan["view"], plan["geom"]
+    meta = np.zeros(WG_META, np.int32)
+    meta[0] = len(cins)
+    meta[1:1 + len(cins)] = cins
+    meta[7:7 + len(cins)] = plan["widths"]
+    meta[13] = sum(1 << i for i, t in enumerate(plan["tma"]) if t)
+    meta[14] = b_vec
+    meta[15] = sum(cins)
+    meta[16] = v["batch"]
+    meta[17:20], meta[20:23], meta[23:26] = v["ind"], v["outd"], v["grid"]
+    meta[26] = plan["cout"]
+    meta[27:30], meta[30:33], meta[33:36] = v["in_mul"], v["in_add"], v["out_mul"]
+    meta[36:39], meta[39:42], meta[42:45] = v["lo"], plan["tile"], plan["box"]
+    meta[45:48] = plan["tiles_axis"]
+    meta[48] = len(geom["phases"])
+    taps = np.zeros((MAX_PHASES, MAX_TAPS, 4), np.int8)
+    for i, (res, tp) in enumerate(geom["phases"]):
+        meta[49 + i] = len(tp)
+        meta[57 + 3 * i:60 + 3 * i] = (0, 0, 0) if plan["flat"] else res
+        taps[i, :len(tp)] = tp
+    meta[81], meta[82], meta[83] = plan["splits"], transposed, plan["bn"]
+    meta[84] = has_bias
+    meta[85], meta[86], meta[87] = plan["a_stage"], plan["b_stage"], plan["smem"]
+    meta[88] = plan["m_tiles"]
+    meta[89] = cuda_lib.DTYPE_CODES[torch.bfloat16]
+    meta[90] = plan["grid"]
+    meta[91] = math.prod(kernel_shape[:3])
+    meta[92] = plan["a_stages"]
+    meta[93] = plan["wbox"]
+    meta[94] = plan["wtaps"]
+    meta[95] = plan["phase_loop"]
+    meta.setflags(write=False)
+    taps.setflags(write=False)
+    return plan, meta, taps
+
+
+def wgmma_args(parts, kernel, bias, strides, transposed):
+    """Everything one launch of the bf16 kernel takes: the output, the
+    split-K workspace (None without split-K), the plan and the host arrays
+    (ptrs: the parts, kernel, bias, output, workspace). Device-agnostic, so
+    the CPU tests replay the very schedule the card runs."""
+    # the weights' last axis is the one the 16-byte loads run along: K1's
+    # cout (DHWIO), K2's cin ((kd, kh, kw, Cout, Cin))
+    plan, meta, taps = _wgmma_host(
+        tuple(tuple(p.shape) for p in parts), tuple(kernel.shape), tuple(strides),
+        bool(transposed), tuple(p.data_ptr() % 16 == 0 for p in parts), bias is not None,
+        int(kernel.shape[4]) % 8 == 0 and kernel.data_ptr() % 16 == 0)
+    x0 = parts[0]
+    y = torch.empty(plan["out"], dtype=x0.dtype, device=x0.device)
+    ws = None
+    if plan["splits"] > 1:
+        ws = torch.empty((plan["splits"], y.numel()), dtype=torch.float32, device=x0.device)
+    ptrs = np.zeros(MAX_PARTS + 4, np.uint64)
+    for i, p in enumerate(parts):
+        ptrs[i] = p.data_ptr()
+    ptrs[MAX_PARTS] = kernel.data_ptr()
+    ptrs[MAX_PARTS + 1] = bias.data_ptr() if bias is not None else 0
+    ptrs[MAX_PARTS + 2] = y.data_ptr()
+    ptrs[MAX_PARTS + 3] = ws.data_ptr() if ws is not None else 0
+    return y, ws, plan, (ptrs, meta, taps)
+
+
 def window_plan(kernel_size, strides, in_spatial, transposed):
     """:func:`transpose_plan` for K2, :func:`forward_plan` for K1."""
     fn = transpose_plan if transposed else forward_plan
@@ -349,16 +617,32 @@ def _check_cuda_args(name, parts, kernel, bias, cin_axis):
                          f"on {x0.device}")
 
 
+# launches of K1/K2 by (wrapper, dtype name, kernel_route): which CUDA kernel
+# each call took
+ROUTE_LAUNCHES = collections.Counter()
+
+
+def kernel_route(dtype: torch.dtype) -> str:
+    """Which CUDA kernel runs K1/K2 in ``dtype``: bf16 on Hopper's wgmma with
+    halo tiles (csrc/conv3d_wgmma.cu), fp32 as 3xTF32 on mma.sync
+    (csrc/conv3d_mma.cu)."""
+    return "wgmma" if dtype == torch.bfloat16 else "mma.sync"
+
+
 def _launch(name, fn, parts, kernel, bias, strides, transposed):
-    """Launch K1 or K2 on the tensor-core kernel (``fn`` is the wrapper,
-    whose count rises by one)."""
+    """Launch K1 or K2 on its tensor-core kernel by dtype (:func:`kernel_route`;
+    ``fn`` is the wrapper, whose count rises by one)."""
     x0 = parts[0]
     lib = cuda_lib.library()
-    y, _ws, _, arrays = igemm_args(parts, kernel, bias, strides, transposed)
+    wgmma = kernel_route(x0.dtype) == "wgmma"
+    args = wgmma_args if wgmma else igemm_args
+    y, _ws, _, arrays = args(parts, kernel, bias, strides, transposed)
     if max(t.numel() for t in (*parts, y)) >= MAX_INDEX:
         raise ValueError(f"{name}: the kernel takes tensors of fewer than 2**31 elements")
+    entry = lib.pmr_conv3d_wgmma if wgmma else lib.pmr_conv3d_mma
     fn.launches += 1
-    rc = lib.pmr_conv3d_mma(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
+    ROUTE_LAUNCHES[(name, str(x0.dtype).replace("torch.", ""), kernel_route(x0.dtype))] += 1
+    rc = entry(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
     cuda_lib.check(rc, name)
     return y
 
@@ -398,13 +682,16 @@ def conv3d(parts, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
 
     Replaces ``benchmarks/r2_probe_pallas_mxu.py:80`` ``conv_probe`` (TPU
     kernel table row 1). Bound on the H100: bytes for the path's
-    few-channel, large-extent convs, operations for the deep 3x3x3 ones. The
-    design gathers the implicit im2col tile straight into shared memory (no
-    im2col tensor in device memory) and runs on the tensor cores (mma.sync,
-    a 4-stage cp.async ring, deterministic split-K where the output tiles
-    underfill the card: csrc/conv3d_mma.cu); fp32 as 3xTF32 (each operand
-    split into two TF32 halves, three products), which holds the fp32
-    limits where TF32 alone could not.
+    few-channel, large-extent convs, operations for the deep 3x3x3 ones.
+    No im2col tensor reaches device memory. bf16 (csrc/conv3d_wgmma.cu):
+    each block loads the input box its taps read into shared memory once a
+    channel slab (TMA, or staged loads at widths that are not a multiple of
+    8) and a producer warpgroup feeds wgmma consumers over mbarrier rings.
+    fp32 (csrc/conv3d_mma.cu): the implicit im2col tile gathered by a
+    4-stage cp.async ring onto mma.sync as 3xTF32 (each operand split into
+    two TF32 halves, three products), which holds the fp32 limits where
+    TF32 alone could not. Both split K deterministically where the output
+    tiles underfill the card.
     """
     parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
     strides = tuple(int(s) for s in strides)

@@ -24,10 +24,12 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("conv3d_mma.cu", "conv3d_wgrad.cu", "instance_norm.cu", "gemm_loop.cu")
+SOURCES = ("conv3d_wgmma.cu", "conv3d_mma.cu", "conv3d_wgrad.cu", "instance_norm.cu",
+           "gemm_loop.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
+STAMPS_FLAG = "-DPMR_STAMPS"
 
 # dtype codes of csrc/common.cuh (pmr::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,6 +42,9 @@ build_seconds = {}  # each source's compile and the link, in the last build
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pmr_conv3d_mma": [_VP, _VP, _VP, _VP],
+    "pmr_conv3d_mma_stamps": [_VP],
+    "pmr_conv3d_wgmma": [_VP, _VP, _VP, _VP],
+    "pmr_conv3d_wgmma_stamps": [_VP],
     "pmr_in_stats": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     "pmr_in_apply": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP],
     "pmr_gemm_loop": [_VP, _VP, _VP, _VP, _VP, _VP],
@@ -60,8 +65,14 @@ def _nvcc() -> str:
     return found
 
 
+def compile_flags() -> tuple:
+    """nvcc's flags for one source: COMPILE_FLAGS, and STAMPS_FLAG where
+    ``PMR_STAMPS=1`` asks for the diagnostic build."""
+    return COMPILE_FLAGS + ((STAMPS_FLAG,) if os.environ.get("PMR_STAMPS") == "1" else ())
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    h = hashlib.sha256(" ".join(compile_flags() + LINK_FLAGS).encode())
     for name in sorted(os.listdir(CSRC_DIR)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC_DIR, name), "rb") as f:
@@ -86,7 +97,7 @@ def build() -> str:
     logs = [tempfile.TemporaryFile("w+") for _ in SOURCES]
     t0 = time.perf_counter()
     try:
-        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", obj,
+        procs = [subprocess.Popen([nvcc, *compile_flags(), "-c", "-o", obj,
                                    os.path.join(CSRC_DIR, src)],
                                   stdout=log, stderr=subprocess.STDOUT, text=True)
                  for src, obj, log in zip(SOURCES, objs, logs)]

@@ -41,6 +41,24 @@ def cuda_device():
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
+# the names of each kernel's two ways in, A (a part) and B (the weights):
+# bf16 on wgmma (TMA or staged boxes; weights by TMA or 16-byte loads, or
+# element by element), fp32 on mma.sync (cp.async or scalar gathers)
+A_ROUTES = {torch.bfloat16: ("tma", "staged"), torch.float32: ("cp.async", "scalar")}
+B_ROUTES = {torch.bfloat16: ("vector", "scalar"), torch.float32: ("cp.async", "scalar")}
+
+
+def _routes(parts, kernel, st=(1, 1, 1), transposed=False):
+    """(each part's route, the weights' route) of the kernel that runs in
+    the parts' dtype, from the plan the wrapper hands it."""
+    dtype = parts[0].dtype
+    if tconv.kernel_route(dtype) == "wgmma":
+        _, _, plan, (_, meta, _) = tconv.wgmma_args(parts, kernel, None, st, transposed)
+        return ([A_ROUTES[dtype][0 if t else 1] for t in plan["tma"]],
+                B_ROUTES[dtype][0 if meta[14] else 1])
+    return tconv.gather_routes(parts, kernel)
+
+
 def _card_err(got, ref):
     d = (got.float() - ref.float()).abs()
     return float((d / ref.float().abs().clamp(min=1.0)).max())
@@ -90,8 +108,7 @@ def test_card_conv3d_narrow_cout(cuda_device, cout, dtype):
     kernel = (torch.randn(3, 3, 3, 16, cout, generator=g, device=cuda_device) / 8).to(dtype)
     bias = torch.randn(cout, generator=g, device=cuda_device)
     chunk = 16 // x.element_size()
-    assert tconv.gather_routes([x], kernel)[1] == ("cp.async" if cout % chunk == 0
-                                                   else "scalar")
+    assert _routes([x], kernel)[1] == B_ROUTES[dtype][0 if cout % chunk == 0 else 1]
     got = tconv.conv3d([x], kernel, bias)
     ref = tconv.conv3d_plain([x], kernel, bias)
     torch.cuda.synchronize()
@@ -110,7 +127,7 @@ def test_card_conv3d_misaligned_part_takes_the_scalar_gather(cuda_device, dtype)
     bias = torch.randn(24, generator=g, device=cuda_device)
     parts = [aligned, shifted]
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
-    assert tconv.gather_routes(parts, kernel) == (["cp.async", "scalar"], "cp.async")
+    assert _routes(parts, kernel, (1, 2, 2)) == (list(A_ROUTES[dtype]), B_ROUTES[dtype][0])
     got = tconv.conv3d(parts, kernel, bias, (1, 2, 2))
     ref = tconv.conv3d_plain(parts, kernel, bias, (1, 2, 2))
     torch.cuda.synchronize()
@@ -151,7 +168,7 @@ def test_card_conv3d_transpose_scalar_route(cuda_device, xshape, kshape, st, dty
     kernel = (torch.randn(kshape, generator=g, device=cuda_device)
               / (27 * kshape[4]) ** 0.5).to(dtype)
     bias = torch.randn(kshape[3], generator=g, device=cuda_device)
-    assert tconv.gather_routes([x], kernel) == (["scalar"], "scalar")
+    assert _routes([x], kernel, st, True) == ([A_ROUTES[dtype][1]], B_ROUTES[dtype][1])
     got = tconv.conv3d_transpose(x, kernel, bias, st)
     ref = tconv.conv3d_transpose_plain(x, kernel, bias, st)
     torch.cuda.synchronize()
@@ -178,10 +195,11 @@ def test_card_conv3d_six_parts_and_narrow_heads(cuda_device, widths, ks, cout, d
     assert _card_err(got, ref) <= CARD_TOL[dtype]
 
 
-SPLIT_CASES = [  # (part shapes, kernel, strides, transposed): split-K at batch 2
+SPLIT_CASES = [  # (part shapes, kernel, strides, transposed): split-K in both dtypes'
+    # plans (the bf16 kernel's tiles of 128 output rows fill the card sooner)
     ([(2, 5, 10, 10, 256)], (3, 3, 3, 256, 128), (1, 1, 1), False),
-    ([(2, 10, 20, 20, 128)] * 2, (3, 3, 3, 256, 128), (1, 1, 1), False),
-    ([(2, 5, 10, 10, 256)], (3, 3, 3, 128, 256), (2, 2, 2), True),
+    ([(1, 10, 20, 20, 128)] * 2, (3, 3, 3, 256, 128), (1, 1, 1), False),
+    ([(2, 3, 5, 5, 256)], (3, 3, 3, 128, 256), (2, 2, 2), True),
 ]
 
 
@@ -202,7 +220,10 @@ def _split_run(parts, kernel, bias, st, transposed):
 
 
 def _splits(parts, kernel, st, transposed):
-    return tconv.igemm_schedule([p.shape for p in parts], kernel.shape, st, transposed,
+    shapes = [tuple(p.shape) for p in parts]
+    if tconv.kernel_route(parts[0].dtype) == "wgmma":
+        return tconv.wgmma_plan(shapes, tuple(kernel.shape), st, transposed)["splits"]
+    return tconv.igemm_schedule(shapes, kernel.shape, st, transposed,
                                 parts[0].dtype)[1]["splits"]
 
 
@@ -226,6 +247,43 @@ def test_card_split_k_is_bit_reproducible(cuda_device, shapes, kshape, st, trans
     second = _split_run(parts, kernel, bias, st, transposed)[0]
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# bf16 K1/K2 on wgmma (csrc/conv3d_wgmma.cu) at each of its routes: parts by
+# TMA (16, 64 channels) and staged (3, 4, 19; K2 at the ladder's 65, 130,
+# 259), six parts, K2 at both strides, flat 1x1x1, narrow and wide cout;
+# each call must take the wgmma kernel.
+WGMMA_CASES = [  # (part widths, spatial, kernel, strides, transposed)
+    ((16, 16), (3, 12, 20), (1, 3, 3, 32, 16), (1, 1, 1), False),
+    ((3,), (3, 12, 20), (1, 3, 3, 3, 16), (1, 1, 1), False),
+    ((4,), (4, 9, 10), (3, 3, 3, 4, 4), (1, 1, 1), False),
+    ((19, 64), (3, 7, 9), (3, 3, 3, 83, 8), (1, 2, 2), False),
+    ((16,) * 6, (2, 9, 18), (1, 3, 3, 96, 4), (1, 1, 1), False),
+    ((64,), (5, 7, 9), (3, 3, 3, 64, 128), (2, 2, 2), False),
+    ((256,), (5, 10, 10), (1, 1, 1, 256, 6), (1, 1, 1), False),
+    ((259,), (3, 5, 5), (3, 3, 3, 128, 259), (2, 2, 2), True),
+    ((130,), (3, 5, 5), (3, 3, 3, 64, 130), (2, 2, 2), True),
+    ((65,), (3, 5, 6), (3, 3, 3, 32, 65), (1, 2, 2), True),
+    ((32,), (2, 9, 10), (1, 3, 3, 16, 32), (1, 2, 2), True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,spatial,kshape,st,transposed", WGMMA_CASES)
+def test_card_bf16_wgmma_routes_match_plain(cuda_device, widths, spatial, kshape, st,
+                                            transposed):
+    shapes = [(2, *spatial, c) for c in widths]
+    parts, kernel, bias = _split_case(cuda_device, shapes, kshape, transposed, 21,
+                                      torch.bfloat16)
+    plan = tconv.wgmma_plan(shapes, kshape, st, transposed)
+    assert plan["tma"] == [c % 8 == 0 for c in widths]
+    name = "conv3d_transpose" if transposed else "conv3d"
+    key = (name, "bfloat16", "wgmma")
+    before = tconv.ROUTE_LAUNCHES[key]
+    got, ref = _split_run(parts, kernel, bias, st, transposed)
+    torch.cuda.synchronize()
+    assert tconv.ROUTE_LAUNCHES[key] == before + 1
+    assert _card_err(got, ref) <= CARD_TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda

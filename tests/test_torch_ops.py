@@ -25,6 +25,7 @@ from prostatemr_3d_cad_cspca_tpu.ops.resample import upsample_nearest as j_upsam
 from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as tconv
 from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as tnorm
 from prostatemr_3d_cad_cspca_tpu_torch.ops.resample import upsample_nearest
+from test_torch_conv_halo import replay_wgmma
 
 ATOL = 2e-5  # fp32 oracle tolerance of the repo
 # bf16 affine: JAX rounds x*a and then +b to bf16 (two roundings), the port
@@ -74,9 +75,10 @@ def _mma_3xtf32(chain, a, b, terms):
     return chain
 
 
-def _emulate_igemm(parts, kernel, bias, strides, transposed, dtype=torch.bfloat16,
+def _emulate_igemm(parts, kernel, bias, strides, transposed, dtype=torch.float32,
                    arith="float64"):
-    """numpy replay of csrc/conv3d_mma.cu's schedule in ``dtype``, from the
+    """numpy replay of csrc/conv3d_mma.cu's schedule (fp32 K1/K2; bf16 runs
+    csrc/conv3d_wgmma.cu, replayed by replay_wgmma), from the
     host arrays and the igemm_plan that the wrapper hands the C entry: per
     phase and split, the split's K-slabs of BK[dtype] (parts in order,
     tap-major within a part, each part rounded up to whole slabs), each slab
@@ -191,16 +193,35 @@ def test_conv3d_matches_flax(ks, st, size, nparts):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
     np.testing.assert_allclose(
         _emulate_igemm(parts, kernel, bias, st, transposed=False), want, atol=ATOL)
+    rp, rk = [_bf16(p) for p in parts], _bf16(kernel)  # the bf16 kernel's schedule
+    np.testing.assert_allclose(replay_wgmma(rp, rk, bias, st, False)[0],
+                               _flax_split_conv(rp, rk, bias, ks, st), atol=ATOL)
+
+
+def _bf16(a):
+    """The bf16 value of each element, as float32."""
+    return _t(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.fixture
+def fresh_wgmma_plans():
+    """The bf16 kernel's host arrays are cached by shapes; a test that
+    patches the plan's constants plans afresh, before and after."""
+    tconv._wgmma_host.cache_clear()
+    yield
+    tconv._wgmma_host.cache_clear()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("ks", [(1, 3, 3), (3, 3, 3)])
-def test_six_part_stitch_schedule_matches_flax(ks, dtype, monkeypatch):
+def test_six_part_stitch_schedule_matches_flax(ks, dtype, monkeypatch, fresh_wgmma_plans):
     """A dense-skip ladder's stage-0 stitch has six parts (the upsampled
     features, four decoder parts, the gated skip): the kernel's replay over
-    MAX_PARTS parts of mixed widths and routes (5 and 3 channels take the
-    scalar gather, 8 and 16 the cp.async one), K split finely."""
+    MAX_PARTS parts of mixed widths and routes (fp32: 5 and 3 channels take
+    the scalar gather, 8, 16 and 4 the cp.async one; bf16: 8 and 16 by TMA,
+    the rest staged), K split finely."""
     monkeypatch.setattr(tconv, "MIN_SLABS_PER_SPLIT", 1)
+    monkeypatch.setattr(tconv, "WG_MIN_STAGES_PER_SPLIT", 1)
     rng = np.random.default_rng(_seed(ks, str(dtype), "six"))
     widths = (8, 5, 16, 3, 8, 4)
     assert len(widths) == tconv.MAX_PARTS
@@ -211,19 +232,23 @@ def test_six_part_stitch_schedule_matches_flax(ks, dtype, monkeypatch):
     got = tconv.conv3d([_t(p) for p in parts], _t(kernel), _t(bias))
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
     if dtype == torch.bfloat16:  # the schedule in exact arithmetic on bf16 operands
-        rp = [_t(p).bfloat16().float().numpy() for p in parts]
-        rk = _t(kernel).bfloat16().float().numpy()
-        np.testing.assert_allclose(_emulate_igemm(rp, rk, bias, (1, 1, 1), False, dtype),
-                                   _flax_split_conv(rp, rk, bias, ks, (1, 1, 1)), atol=ATOL)
+        rp, rk = [_bf16(p) for p in parts], _bf16(kernel)
+        got, plan = replay_wgmma(rp, rk, bias, (1, 1, 1), False)
+        np.testing.assert_allclose(got, _flax_split_conv(rp, rk, bias, ks, (1, 1, 1)),
+                                   atol=ATOL)
+        assert plan["splits"] > 1
+        _, _, _, (ptrs, meta, _) = tconv.wgmma_args(
+            [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), (1, 1, 1), False)
+        bits = meta[13]  # parts whose boxes go by TMA
     else:
         np.testing.assert_allclose(
             _emulate_igemm(parts, kernel, bias, (1, 1, 1), False, dtype), want, atol=ATOL)
-    _, _, _, (ptrs, meta, _) = tconv.igemm_args(
-        [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), (1, 1, 1), False)
+        _, _, _, (ptrs, meta, _) = tconv.igemm_args(
+            [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), (1, 1, 1), False)
+        bits = meta[tconv.META0 + 59]
     assert meta[0] == 6 and list(meta[1:7]) == list(widths) and ptrs.size == 6 + 4
     chunk = 16 // torch.empty((), dtype=dtype).element_size()
-    assert meta[tconv.META0 + 59] == sum(1 << i for i, w in enumerate(widths)
-                                         if w % chunk == 0)
+    assert bits == sum(1 << i for i, w in enumerate(widths) if w % chunk == 0)
     with pytest.raises(ValueError, match="parts"):
         tconv._check_cuda_args("conv3d", [_t(parts[0])] * 7, _t(kernel), None, 3)
 
@@ -276,6 +301,9 @@ def test_conv3d_transpose_matches_flax(ks, st, size):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
     np.testing.assert_allclose(
         _emulate_igemm([x], kernel, bias, st, transposed=True), want, atol=ATOL)
+    rx, rk = _bf16(x), _bf16(kernel)  # the bf16 kernel's schedule
+    np.testing.assert_allclose(replay_wgmma([rx], rk, bias, st, True)[0],
+                               _flax_convt(rx, rk, bias, ks, st), atol=ATOL)
 
 
 def test_transpose_plan_phases_partition_the_taps():
@@ -285,13 +313,14 @@ def test_transpose_plan_phases_partition_the_taps():
     assert used == list(range(27))  # each tap feeds exactly one phase
 
 
-# ------------------------------------------- K1/K2 bf16 schedule (igemm)
+# ------------------------------------- K1/K2 fp32 schedule (igemm, mma.sync)
 @pytest.mark.parametrize("ks,st,transposed", [(ks, st, False) for ks, st in CONV_CASES]
                          + [(ks, st, True) for ks, st in CONVT_CASES])
 def test_igemm_split_schedule_matches_flax(ks, st, transposed, monkeypatch):
     """The cp.async route (K1 cin 16, K2 cin 64) beside the scalar one (K1
     cin 3), with K split as finely as the plan allows (one slab in the
-    shortest phase), so the workspace and the ordered reduce are walked."""
+    shortest phase), so the workspace and the ordered reduce are walked:
+    fp32's schedule (bf16's: tests/test_torch_conv_halo.py)."""
     monkeypatch.setattr(tconv, "MIN_SLABS_PER_SPLIT", 1)
     rng = np.random.default_rng(_seed(ks, st, transposed, "split"))
     if transposed:
@@ -304,8 +333,7 @@ def test_igemm_split_schedule_matches_flax(ks, st, transposed, monkeypatch):
         want_fn = lambda b: _flax_split_conv(parts, kernel, b, ks, st)  # noqa: E731
     bias = rng.normal(size=(4,)).astype(np.float32)
     _, _, igemm, (_, meta, _) = tconv.igemm_args(
-        [_t(p).to(torch.bfloat16) for p in parts], _t(kernel).to(torch.bfloat16), None, st,
-        transposed)
+        [_t(p) for p in parts], _t(kernel), None, st, transposed)
     assert igemm["splits"] == min(igemm["slabs"]) > 1
     assert meta[tconv.META0 + 59] == 1  # part 0 by cp.async, a K1's part 1 (cin 3) scalar
     np.testing.assert_allclose(_emulate_igemm(parts, kernel, bias, st, transposed),
@@ -397,11 +425,11 @@ def test_fp32_level0_bottleneck_takes_the_vector_gather():
               if name == "conv3d" and any(s[-1] == 4 for s in sig[0])]
     assert narrow  # level 0's bottleneck convs read 4-channel parts
     for name, sig in narrow:
-        bits = {dt: int(_path_plan(name, sig, dt)[3][1][tconv.META0 + 59])
-                for dt in DTYPES}
+        fp32 = int(_path_plan(name, sig, torch.float32)[3][1][tconv.META0 + 59])
+        bf16 = _path_plan(name, sig, torch.bfloat16)[2]["tma"]  # a box by TMA, else staged
         for i, shape in enumerate(sig[0]):
-            assert (bits[torch.float32] >> i) & 1 == 1
-            assert (bits[torch.bfloat16] >> i) & 1 == (shape[-1] % 8 == 0)
+            assert (fp32 >> i) & 1 == 1
+            assert bf16[i] == (shape[-1] % 8 == 0)
 
 
 def test_gather_routes_follow_channels_and_alignment():
@@ -432,22 +460,36 @@ DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _path_plan(name, sig, dtype):
-    """The wrapper's launch arguments of one path call in ``dtype``, on the
-    meta device."""
+    """The wrapper's launch arguments of one path call in ``dtype`` (the
+    kernel of its route: bf16 wgmma_args, fp32 igemm_args), on the meta
+    device."""
     transposed = name == "conv3d_transpose"
     shapes = [sig[0]] if transposed else sig[0]
     parts = [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
     kernel = torch.empty(sig[1], dtype=dtype, device="meta")
-    return tconv.igemm_args(parts, kernel, None, sig[2], transposed)
+    args = tconv.wgmma_args if tconv.kernel_route(dtype) == "wgmma" else tconv.igemm_args
+    return args(parts, kernel, None, sig[2], transposed)
+
+
+def _k_units(plan, dtype):
+    """A phase's units of K that split-K divides: bf16's weight stages,
+    fp32's slabs; with the tile widths, the least average a split keeps and
+    the blocks an SM of each width."""
+    if dtype == torch.bfloat16:
+        return (plan["stages"], tconv.WG_TILES_N, tconv.WG_MIN_STAGES_PER_SPLIT,
+                tconv.WG_RESIDENT)
+    return (plan["slabs"], tconv.TILES_N[dtype], tconv.MIN_SLABS_PER_SPLIT,
+            tconv.RESIDENT_BLOCKS[dtype])
 
 
 @pytest.mark.parametrize("batch", [2, 8, 16])
 def test_igemm_plan_splits_partition_k(batch):
     for (name, sig), dtype in itertools.product(_path_convs(batch), DTYPES):
         plan = _path_plan(name, sig, dtype)[2]
-        assert plan["bn"] in tconv.TILES_N[dtype]
-        assert len(plan["ranges"]) == len(plan["slabs"])
-        for n, ranges in zip(plan["slabs"], plan["ranges"]):
+        units, widths, _, _ = _k_units(plan, dtype)
+        assert plan["bn"] in widths
+        assert len(plan["ranges"]) == len(units)
+        for n, ranges in zip(units, plan["ranges"]):
             assert len(ranges) == plan["splits"]
             assert ranges[0][0] == 0 and ranges[-1][1] == n, (name, sig)
             assert all(lo < hi for lo, hi in ranges), (name, sig)  # none empty
@@ -461,26 +503,30 @@ def test_igemm_plan_fills_the_grid_or_runs_out_of_k(batch):
     split_shapes = collections.Counter()
     for (name, sig), dtype in itertools.product(_path_convs(batch), DTYPES):
         plan = _path_plan(name, sig, dtype)[2]
-        slabs = plan["slabs"]
-        cap = max(1, min(min(slabs), sum(slabs) // (len(slabs) * tconv.MIN_SLABS_PER_SPLIT),
-                         tconv.MAX_SPLITS))
+        slabs, _, least, resident = _k_units(plan, dtype)
+        cap = max(1, min(min(slabs), sum(slabs) // (len(slabs) * least), tconv.MAX_SPLITS))
         assert plan["cap"] == cap
-        assert plan["target"] == tconv.SMS * tconv.RESIDENT_BLOCKS[dtype][plan["bn"]]
+        assert plan["target"] == tconv.SMS * resident[plan["bn"]]
         if plan["splits"] > 1:
             assert plan["blocks"] <= plan["target"], (name, sig, plan)
         assert (plan["splits"] == cap  # K ran out
                 or plan["tiles"] * (plan["splits"] + 1) > plan["target"]), (name, sig, plan)
         split_shapes[dtype] += plan["splits"] > 1
-    assert min(split_shapes[d] for d in DTYPES) > 0  # the deep levels split at every batch
+    # the deep levels split at every batch in fp32; bf16's plans split at 2,
+    # and at 8 and 16 every call's tiles of 128 rows already hold a wave's
+    # worth of blocks (target // tiles is 1)
+    assert split_shapes[torch.float32] > 0 and (batch > 2 or split_shapes[torch.bfloat16] > 0)
 
 
 @pytest.mark.parametrize("batch", [2, 8, 16])
 def test_igemm_plan_workspace_is_what_the_wrapper_allocates(batch):
     for (name, sig), dtype in itertools.product(_path_convs(batch), DTYPES):
         y, ws, plan, (ptrs, meta, _) = _path_plan(name, sig, dtype)
-        f = meta[tconv.META0:]
-        assert f[56] == {torch.bfloat16: 1, torch.float32: 0}[dtype]
-        assert f[58] == plan["splits"] and f[62] == plan["bn"]
+        if dtype == torch.bfloat16:  # wgmma's fields (_wgmma_host)
+            assert meta[89] == 1 and meta[81] == plan["splits"] and meta[83] == plan["bn"]
+        else:
+            f = meta[tconv.META0:]
+            assert f[56] == 0 and f[58] == plan["splits"] and f[62] == plan["bn"]
         if plan["splits"] == 1:
             assert ws is None and plan["workspace"] == 0
         else:

@@ -5,8 +5,10 @@ calls, K6 and K7), per dtype, on one GPU, and each CUDA kernel's ptxas
 report.
 
     python3 tools/kernel_times.py [--step forward|train] [--batch 2]
+                                  [--model cfg1|prob|prob_dense]
                                   [--dtypes float32 bfloat16] [--kernels NAME ...]
-                                  [--library] [--split] [--out FILE]
+                                  [--library] [--split] [--host] [--stamps]
+                                  [--out FILE]
 
 Every distinct kernel call of the cfg1 forward (or of the train step of the
 CLI's default recipe, ``chip_smoke.TRAIN_CFG``) at ``--batch`` is timed as
@@ -18,7 +20,15 @@ it computes, ``torch.nn.grad.conv3d_weight`` for K6; fp32 with TF32 off).
 ``--kernels`` times only the kernels named (wrapper names, e.g.
 ``in_backward``); ``--split`` adds each shape's device time by CUDA kernel
 (``kernels_us``, a call's share of ``--reps`` calls under torch.profiler,
-outside the graph), e.g. K7's two passes.
+outside the graph), e.g. K7's two passes. ``--model`` traces the forward
+of another model of ``chip_smoke.py`` (``prob``: the probabilistic ladder,
+``prob_dense``: its dense-skip form with the six-part stitch) instead of
+cfg1's. ``--host`` adds the host us per call of K1 and K3
+(``chip_smoke.host_us_per_call``). ``--stamps`` builds the diagnostic
+library (``PMR_STAMPS=1``, ``csrc/stamps.cuh``) and, at each of
+STAMP_SHAPES, runs the K1/K2 call once with its blocks' clock64 counters
+installed: the mean cycles a block spends in each phase of the kernel
+(stamped times are not the kernel's times; they are its own account).
 Inputs are drawn on the
 card from a fixed seed. Run it from the root of a checkout: it uses that
 checkout's package and ``chip_smoke.py``, and builds that checkout's
@@ -39,7 +49,8 @@ import sys
 
 sys.path.insert(0, os.getcwd())
 
-PTXAS_KERNELS = ("conv3d_mma_kernel", "splitk_reduce_kernel", "in_stats_kernel",
+PTXAS_KERNELS = ("conv3d_mma_kernel", "conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel",
+                 "splitk_reduce_kernel", "in_stats_kernel",
                  "in_apply_kernel", "wgrad_mma_kernel", "wgrad_reduce_kernel",
                  "in_bwd_reduce_kernel", "in_bwd_apply_kernel")
 
@@ -63,6 +74,53 @@ def ptxas_variants(log):
         used = re.search(r"Used (\d+) registers", line)
         if used:
             out[current][0] = int(used.group(1))
+    return out
+
+
+# the bf16 K1/K2 shapes whose cycles --stamps accounts for, at batch 2: level
+# 0's two-part stitch, the dense-skip ladder's six-part one, level 2's 3x3x3
+# stitch, level 4's 1x1x1, the stem, and the ladder's K2 at cin 259
+L0, L2 = (2, 20, 160, 160, 16), (2, 20, 40, 40, 64)
+STAMP_SHAPES = {
+    "level0_two_part_32to16": ("conv3d", ((L0, L0), (1, 3, 3, 32, 16), (1, 1, 1))),
+    "level0_six_part_96to16": ("conv3d", ((L0,) * 6, (1, 3, 3, 96, 16), (1, 1, 1))),
+    "level2_64+64to64_3x3x3": ("conv3d", ((L2, L2), (3, 3, 3, 128, 64), (1, 1, 1))),
+    "level4_256to128_1x1x1": ("conv3d", (((2, 5, 10, 10, 256),), (1, 1, 1, 256, 128),
+                                         (1, 1, 1))),
+    "stem_cin3": ("conv3d", (((2, 20, 160, 160, 3),), (1, 3, 3, 3, 16), (1, 1, 1))),
+    "k2_cin259": ("conv3d_transpose", ((2, 5, 10, 10, 259), (3, 3, 3, 128, 259),
+                                       (2, 2, 2))),
+}
+STAMP_PHASES = ("setup", "issue", "wait", "mma", "epilogue", "producer_wait",
+                "producer_load")
+STAMP_ENTRIES = ("pmr_conv3d_mma_stamps", "pmr_conv3d_wgmma_stamps")
+
+
+def stamp_shapes(cs, cv, cuda_lib, dtype, gen):
+    """{shape label: mean cycles a block by phase, blocks, stamped ms} of
+    each STAMP_SHAPES call in ``dtype``, from the stamps build's counters
+    (csrc/stamps.cuh: 4096 slots of 8 unsigned 64-bit counters)."""
+    import torch
+
+    lib = cuda_lib.library()
+    buf = torch.zeros((4096, 8), dtype=torch.int64, device="cuda")
+    for entry in STAMP_ENTRIES:
+        if hasattr(lib, entry):
+            cuda_lib.check(getattr(lib, entry)(buf.data_ptr()), entry)
+    out = {}
+    for label, (name, sig) in STAMP_SHAPES.items():
+        run, _ = _calls(cs, cv, None, name, sig, dtype, gen)
+        run()
+        torch.cuda.synchronize()
+        buf.zero_()
+        run()
+        torch.cuda.synchronize()
+        tot = buf.sum(dim=0).tolist()
+        blocks = max(tot[7], 1)
+        row = {"blocks": tot[7], "cycles_per_block": {
+            ph: tot[i] / blocks for i, ph in enumerate(STAMP_PHASES) if tot[i]}}
+        row["ms_stamped"] = cs.time_ms(run, 3, capture=False)
+        out[label] = row
     return out
 
 
@@ -111,11 +169,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--step", choices=["forward", "train"], default="forward")
     ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--model", choices=["cfg1", "prob", "prob_dense"], default="cfg1")
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--kernels", nargs="+", default=None)
     ap.add_argument("--library", action="store_true")
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--host", action="store_true")
+    ap.add_argument("--stamps", action="store_true")
     ap.add_argument("--out", type=str, default=None)
     args = ap.parse_args(argv)
 
@@ -124,6 +185,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.stamps:
+        os.environ["PMR_STAMPS"] = "1"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
@@ -136,12 +199,23 @@ def main(argv=None):
         capture_output=True, text=True, check=True).stdout.strip()
     cuda_lib.library()
     out = {"checkout": os.getcwd(), "card": smi, "step": args.step, "batch": args.batch,
-           "ptxas": ptxas_variants(cuda_lib.build_log)}
+           "model": args.model, "ptxas": ptxas_variants(cuda_lib.build_log)}
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    if args.host:
+        out["host_us"] = cs.host_us_per_call()
+    if args.stamps:
+        out["stamps"] = {dn: stamp_shapes(cs, cv, cuda_lib, getattr(torch, dn), gen)
+                         for dn in args.dtypes}
+    models = {"cfg1": cs.CFG1, "prob": cs.PROB, "prob_dense": cs.PROB_DENSE}
     for dn in args.dtypes:
         dtype = getattr(torch, dn)
-        calls = (cs.trace_model_calls(cs.TRAIN_CFG, args.batch, dtype, head="train")
-                 if args.step == "train" else cs.trace_path_calls(args.batch, dtype))
+        if args.step == "train":
+            calls = cs.trace_model_calls(cs.TRAIN_CFG, args.batch, dtype, head="train")
+        elif args.model == "cfg1":
+            calls = cs.trace_path_calls(args.batch, dtype)
+        else:
+            calls = cs.trace_model_calls(models[args.model], args.batch, dtype,
+                                         head="forward")
         per = {}
         for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
             if args.kernels and name not in args.kernels:
@@ -162,7 +236,9 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(out, f)
-    print(json.dumps({**{k: out[k] for k in ("checkout", "card", "step", "batch")},
+    print(json.dumps({**{k: out[k] for k in ("checkout", "card", "step", "batch", "model")
+                         if k in out},
+                      **{k: out[k] for k in ("host_us", "stamps") if k in out},
                       **{dn: {name: {k: v for k, v in s.items() if k != "shapes"}
                               for name, s in out[dn].items()} for dn in args.dtypes}}),
           flush=True)
