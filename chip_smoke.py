@@ -17,11 +17,10 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                kernels at most 64 registers and no spill.
   2. kernels   K1 conv3d, K2 conv3d_transpose, K3 in_stats, K4 in_apply at
                every distinct shape the cfg1 forward gives them at the serving
-               batch, in bf16 and fp32 (K1/K2: bf16 on the wgmma kernel with
-               halo tiles, fp32 on the mma.sync kernel as 3xTF32; each row
-               names its route and, in bf16, its plan: tile, box, slabs, TMA
-               or staged parts), against their plain twins on the
-               card; device times in both dtypes beside each shape's bound
+               batch, in bf16 and fp32 (K1/K2 on the wgmma kernel with halo
+               tiles, bf16 directly and fp32 as 3xTF32; each row names its
+               route and its plan: tile, box, slabs, TMA or staged parts),
+               against their plain twins on the card; device times in both dtypes beside each shape's bound
                and, where one torch call computes the same function, that
                call's time (fp32 K1/K2: cuDNN with TF32 off). Kernel, twin
                and library call are each timed alike: 10 calls captured in
@@ -43,8 +42,9 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                Then one more request under torch.profiler, outside the counted
                run: device busy share and device time by kernel, which must
                show conv3d_wgmma_kernel, wgmma_splitk_reduce_kernel,
-               in_stats_kernel and in_apply_kernel, and no conv3d_mma_kernel
-               (every bf16 K1/K2 call on wgmma; an fp32 profile the reverse).
+               in_stats_kernel and in_apply_kernel, and no kernel of the
+               retired mma.sync route (conv3d_mma_kernel): every K1/K2
+               call on wgmma, in an fp32 profile too.
   4. parity    one fp32 volume through the card model and the same model on
                the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
                on the card: mean |diff| <= 1e-2.
@@ -221,7 +221,9 @@ meta-device trace of its detect head counts. The last line is {"ok": true,
 on its path and on every path, error and times, and ptxas's registers,
 static shared memory and spills of its CUDA kernels, in bf16 on the serve
 path and in fp32 on the serve_sw path; for K1 and K2 also the route, its
-source by dtype and the run's launches by dtype and route.
+source by dtype and the run's launches by dtype and route. Before it, a
+routes line gives every K1/K2 launch of the run by (kernel, dtype, route):
+all of them, both dtypes, on wgmma, or the script fails.
 """
 
 from __future__ import annotations
@@ -282,13 +284,14 @@ ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45",
                                 "custom_vjp backward of :47 and :70)"}
 CONV_KERNELS = ("conv3d", "conv3d_transpose")
 # K1/K2 by dtype: the route (ops/convolution.py kernel_route), its source and
-# its CUDA kernels (main, split-K reduce)
+# its CUDA kernels (main, split-K reduce); the retired mma.sync route's
+# kernels, which no profile may show
 CONV_ROUTES = {"bfloat16": "wgmma bf16, halo tiles (TMA or staged)",
-               "float32": "mma.sync 3xTF32"}
-CONV_SOURCES = {"bfloat16": f"{PKG}/csrc/conv3d_wgmma.cu",
-                "float32": f"{PKG}/csrc/conv3d_mma.cu"}
-CONV_KERNEL_NAMES = {"bfloat16": ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel"),
-                     "float32": ("conv3d_mma_kernel", "splitk_reduce_kernel")}
+               "float32": "wgmma 3xTF32, halo tiles (TMA or staged)"}
+CONV_SOURCES = {dn: f"{PKG}/csrc/conv3d_wgmma.cu" for dn in ("bfloat16", "float32")}
+CONV_KERNEL_NAMES = {dn: ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel")
+                     for dn in ("bfloat16", "float32")}
+RETIRED_CONV_KERNELS = ("conv3d_mma_kernel", "splitk_reduce_kernel")
 DTYPE_NAMES = ("bfloat16", "float32")
 FP32_PATH = "serve_sw"     # the path that runs K1-K4 in fp32
 PTXAS_NAMES = {  # kernel: the CUDA kernels it launches (K1/K2: CONV_KERNEL_NAMES)
@@ -303,11 +306,9 @@ TRAIN_KERNELS = (*LAUNCHES_PER_FORWARD, *BACKWARD_KERNELS)
 MANGLED_TYPE = {"bfloat16": "I13__nv_bfloat16", "float32": "If"}
 BUILT_KERNEL_NAMES = {f"{k}[{dn}]": k + MANGLED_TYPE[dn] for dn in DTYPE_NAMES
                       for k in ("in_stats_kernel", "in_apply_kernel")
-                      + PTXAS_NAMES["conv3d_wgrad"] + PTXAS_NAMES["in_backward"]}
-BUILT_KERNEL_NAMES.update({f"{k}[float32]": k + MANGLED_TYPE["float32"]
-                           for k in CONV_KERNEL_NAMES["float32"]})
-BUILT_KERNEL_NAMES.update({k: k for k in ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")
-                           + CONV_KERNEL_NAMES["bfloat16"]})
+                      + PTXAS_NAMES["conv3d_wgrad"] + PTXAS_NAMES["in_backward"]
+                      + CONV_KERNEL_NAMES[dn]}
+BUILT_KERNEL_NAMES.update({k: k for k in ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")})
 
 
 def profile_kernel_names(dn, splits=True):
@@ -871,15 +872,12 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
 
 
 def _conv_plan(name, sig, dtype):
-    """The plan of the kernel that runs one K1/K2 call in ``dtype``: bf16's
-    wgmma_plan, fp32's igemm_plan."""
+    """The wgmma_plan of one K1/K2 call in ``dtype``."""
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
 
     transposed = name == "conv3d_transpose"
     shapes = [tuple(sig[0])] if transposed else [tuple(s) for s in sig[0]]
-    if cv.kernel_route(dtype) == "wgmma":
-        return cv.wgmma_plan(shapes, tuple(sig[1]), tuple(sig[2]), transposed)
-    return cv.igemm_schedule(shapes, sig[1], sig[2], transposed, dtype)[1]
+    return cv.wgmma_plan(shapes, tuple(sig[1]), tuple(sig[2]), transposed, dtype=dtype)
 
 
 def _routes_of(rows, dn):
@@ -1079,11 +1077,23 @@ def write_cfg1_checkpoint(path, seed, **overrides):
 
 def route_launches(name):
     """K1/K2 launches of the whole run by "dtype route" (ops/convolution.py
-    ROUTE_LAUNCHES): every bf16 call on wgmma, every fp32 one on mma.sync."""
+    ROUTE_LAUNCHES): every call, bf16 and fp32, on wgmma."""
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
 
     return {f"{dn} {route}": n for (k, dn, route), n in sorted(cv.ROUTE_LAUNCHES.items())
             if k == name}
+
+
+def check_routes():
+    """Every K1/K2 launch of the run, in both dtypes, on the wgmma route
+    (ops/convolution.py ROUTE_LAUNCHES): none on the retired mma.sync one."""
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+
+    stray = {k: n for k, n in cv.ROUTE_LAUNCHES.items() if k[2] != "wgmma"}
+    if stray:
+        raise AssertionError(f"K1/K2 launches off the wgmma route: {stray}")
+    emit({"phase": "routes", "launches": {" ".join(k): n for k, n in
+                                          sorted(cv.ROUTE_LAUNCHES.items())}})
 
 
 def counters():
@@ -1867,10 +1877,13 @@ class BranchReplay:
     input and statistics the norm saves: on the card, the sign K4 and K7
     compute from the same tensors) and the focal loss's clip (``losses._clip``);
     ``replay()`` makes the next step take those sides in the same order, a
-    norm's backward finding its forward's side by its saved input."""
+    norm's backward finding its forward's side by its saved input. With
+    ``values``, ``record()`` also keeps each element's distance to its kink
+    and its tensor's largest |value|, which ``flipped`` reads."""
 
-    def __init__(self):
+    def __init__(self, values=False):
         self.sides = {"lrelu": [], "in_sign": [], "clip": []}
+        self.near = {k: [] for k in self.sides} if values else None
 
     @staticmethod
     def _sites():
@@ -1901,11 +1914,20 @@ class BranchReplay:
         return patched()
 
     def record(self):
-        sides, sign = self.sides, self._sites()["in_sign"]
+        import torch
+
+        from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization
+
+        sides, near, sign = self.sides, self.near, self._sites()["in_sign"]
+
+        def keep(kind, dist, x):
+            if near is not None:
+                near[kind].append((dist.double().cpu(), float(x.detach().abs().max())))
 
         def lrelu(orig):
             def fn(x):
                 sides["lrelu"].append(~(x > 0).detach().cpu())
+                keep("lrelu", x.detach().abs(), x)
                 return orig(x)
             return fn
 
@@ -1914,6 +1936,9 @@ class BranchReplay:
                 y = orig(ctx, x, scale, bias, lrelu, epsilon)
                 if lrelu:  # the sign K4 took, from the tensors the norm saved
                     sides["in_sign"].append(getattr(*sign)(*ctx.to_save, epsilon).cpu())
+                    if near is not None:
+                        pre = normalization._pre_activation(*ctx.to_save, epsilon)
+                        keep("in_sign", pre.abs(), pre)
                 return y
             return fn
 
@@ -1921,10 +1946,29 @@ class BranchReplay:
             def fn(x, lo, hi):
                 x_ = x.detach().cpu()
                 sides["clip"].append((x_ < lo, x_ > hi, x_ == lo, x_ == hi))
+                keep("clip", torch.minimum((x_ - lo).abs(), (x_ - hi).abs()), x_)
                 return orig(x, lo, hi)
             return fn
 
         return self._patched({"lrelu": lrelu, "in_forward": in_forward, "clip": clip})
+
+    def flipped(self, other):
+        """The elements whose side at a kink differs between this recording
+        (made with ``values``) and ``other``'s of the same forward: (kind
+        of kink, the element's distance to it in this recording over its
+        tensor's largest |value|) each."""
+        import torch
+
+        out = []
+        for kind, sides in self.sides.items():
+            if len(sides) != len(other.sides[kind]):
+                raise AssertionError(f"{kind}: {len(sides)} kinks against "
+                                     f"{len(other.sides[kind])}")
+            for (a, b), (dist, scale) in zip(zip(sides, other.sides[kind]), self.near[kind]):
+                diff = (torch.stack(a) != torch.stack(b)).any(0) if isinstance(a, tuple) \
+                    else a != b
+                out.extend((kind, float(d) / max(scale, 1e-30)) for d in dist[diff])
+        return out
 
     def replay(self):
         import torch
@@ -3348,8 +3392,8 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
     the request's wall time and device time by kernel name (the ``top``
     names, and always the conv's main kernel, K3's and K4's, which must
     have run, and the conv's split-K reduce where the request's own K1/K2
-    calls, recorded on its warm-up, split K; no K1/K2 kernel of the other
-    dtype's route may show)."""
+    calls, recorded on its warm-up, split K; no kernel of the retired
+    mma.sync route may show)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
@@ -3373,9 +3417,8 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
     missing = [k for k in names if k not in by_name]
     if missing:
         raise AssertionError(f"{path}: the profile shows no {missing}")
-    stray = [k for dn, ks in CONV_KERNEL_NAMES.items() if dn != _dn(dtype) for k in ks
-             if k in by_name]
-    if stray:  # every K1/K2 call of a forward in one dtype takes that dtype's route
+    stray = [k for k in RETIRED_CONV_KERNELS if k in by_name]
+    if stray:  # every K1/K2 call of a forward takes the wgmma route
         raise AssertionError(f"{path} ({_dn(dtype)}): the profile shows {stray}")
     shown = dict(by_name.most_common(top))
     shown.update({k: by_name[k] for k in names})
@@ -3479,6 +3522,7 @@ def main(argv=None):
         phase_parallel_kernels(par_calls, smi)
     launches["probe"], probe = phase_probe(smi)
     phase_paths()
+    check_routes()
 
     kernels = []
     from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
@@ -3511,8 +3555,7 @@ def main(argv=None):
             n, d = launches[on][name], s[dn]
             if name in CONV_KERNELS:
                 src = CONV_SOURCES[dn]
-                names = {k: k + (MANGLED_TYPE[dn] if dn == "float32" else "")
-                         for k in CONV_KERNEL_NAMES[dn]}
+                names = {k: k + MANGLED_TYPE[dn] for k in CONV_KERNEL_NAMES[dn]}
             else:
                 names = {k: k + (MANGLED_TYPE[dn] if name != "gemm_loop" else "")
                          for k in PTXAS_NAMES[name]}

@@ -1,5 +1,6 @@
 // Tensor-core building blocks in inline PTX for the conv kernels
-// (conv3d_mma.cu, conv3d_wgrad.cu): 4- to 16-byte cp.async with zero-fill,
+// (conv3d_wgrad.cu; conv3d_wgmma.cu takes split_tf32 and the cp.async
+// group calls): 4- to 16-byte cp.async with zero-fill,
 // ldmatrix (plain and transposed), mma.sync m16n8k16 bf16 -> fp32 and
 // m16n8k8 tf32 -> fp32, and the split of an fp32 value into two TF32 halves;
 // smem_addr also serves tma.cuh and wgmma.cuh.

@@ -18,12 +18,11 @@
 
 namespace pmr {
 
-// Phases of a stamped kernel. conv3d_mma.cu: row setup, load issue
-// (load_a/load_b/advance), the cp.async wait + __syncthreads stall, the mma
-// steps, the epilogue. conv3d_wgmma.cu: setup, the consumers' full-barrier
-// waits (A and B), the ldmatrix + wgmma issue, the wgmma waits, the
+// Phases of a stamped kernel (conv3d_wgmma.cu, both dtypes): setup, the
+// consumers' full-barrier waits (A and B), the ldmatrix (+ fp32's TF32
+// split) and wgmma issue, the wgmma waits (+ fp32's chain promotions), the
 // epilogue; and, by the producer's first thread, its empty-barrier waits
-// and its loads.
+// and its loads (fp32: the weight stages' cp.async issue and conversion).
 enum StampPhase {
   kStampSetup = 0,
   kStampIssue = 1,

@@ -7,8 +7,8 @@
 // fence that orders threads' shared-memory writes before wgmma reads them.
 // Host side: encode_tensor_map_2d, a row-major bf16 matrix cut into boxes
 // with 128-byte swizzle (the layout wgmma's B128 descriptors read), and
-// encode_tensor_map_nd, a bf16 tensor cut into boxes whose innermost extent
-// sets the swizzle (conv3d_wgmma.cu's halo boxes of NDHWC voxels and its
+// encode_tensor_map_nd, a bf16 or fp32 tensor cut into boxes whose innermost
+// extent sets the swizzle (conv3d_wgmma.cu's halo boxes of NDHWC voxels and its
 // weight rows).
 // cuTensorMapEncodeTiled (a libcuda function) is taken through the CUDA
 // runtime's entry-point query, so the library links no libcuda of its own.
@@ -149,20 +149,21 @@ inline int encode_tensor_map_2d(CUtensorMap* map, const void* base, uint64_t row
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A bf16 tensor of `rank` (3 or 5) dims (innermost first: dims[0]
-// contiguous, strides in bytes of dims 1.., multiples of 16) read in boxes
-// of box[0..rank) elements; box[0] x 2 bytes is 16, 32, 64 or 128 and picks
-// no swizzle or the 32-, 64- or 128-byte one, so that a box's rows of
-// box[0] elements land as conv3d_wgmma.cu's swizzle reads them. Elements
-// outside the tensor (and negative coordinates) arrive as zeros. Returns 0
-// or a cudaError_t code.
+// A bf16 (esize 2) or fp32 (esize 4) tensor of `rank` (3 or 5) dims
+// (innermost first: dims[0] contiguous, strides in bytes of dims 1..,
+// multiples of 16) read in boxes of box[0..rank) elements; box[0] x esize
+// bytes is 16, 32, 64 or 128 and picks no swizzle or the 32-, 64- or
+// 128-byte one, so that a box's rows of box[0] elements land as
+// conv3d_wgmma.cu's swizzle reads them. Elements outside the tensor (and
+// negative coordinates) arrive as zeros. Returns 0 or a cudaError_t code.
 inline int encode_tensor_map_nd(CUtensorMap* map, const void* base, int rank,
                                 const uint64_t* dims, const uint64_t* strides,
-                                const uint32_t* box) {
+                                const uint32_t* box, int esize) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (esize != 2 && esize != 4) return (int)cudaErrorInvalidValue;
   CUtensorMapSwizzle swizzle;
-  switch (box[0] * 2) {
+  switch (box[0] * esize) {
     case 16: swizzle = CU_TENSOR_MAP_SWIZZLE_NONE; break;
     case 32: swizzle = CU_TENSOR_MAP_SWIZZLE_32B; break;
     case 64: swizzle = CU_TENSOR_MAP_SWIZZLE_64B; break;
@@ -178,8 +179,11 @@ inline int encode_tensor_map_nd(CUtensorMap* map, const void* base, int rank,
     es[i] = 1;
     if (i + 1 < rank) st[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d,
-                        st, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  const CUresult r = fn(map,
+                        esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        rank, const_cast<void*>(base), d, st, bx, es,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // Hopper warpgroup MMA (wgmma) in inline PTX: the consuming half of a TMA +
-// wgmma pipeline (K5 gemm_loop.cu and bf16 K1/K2 conv3d_wgmma.cu; tma.cuh is
+// wgmma pipeline (K5 gemm_loop.cu and K1/K2 conv3d_wgmma.cu; tma.cuh is
 // the loading half). K5 reads both operands from shared memory
 // (wgmma_m64n128k16_bf16); the conv kernel takes A from registers and N from
-// 8 to 128 (WgmmaRS).
+// 8 to 128 in bf16 (WgmmaRS) and 8 to 64 in TF32 (WgmmaTF32).
 //
 // A warpgroup (4 consecutive warps, the first a multiple of 4) issues
 // wgmma.mma_async on operands in shared memory described by 64-bit matrix
@@ -191,6 +191,87 @@ struct WgmmaRS<128, kTransB> {
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
+
+// d (64 x N fp32, N / 2 registers a thread) += A (64 x 8) . B (8 x N) on
+// TF32 operands (the tensor core reads the top 19 bits of each 32-bit
+// value), A from registers, B K-major in shared memory by descriptor: TF32
+// wgmma takes neither operand transposed. A's fragment is mma.sync
+// m16n8k8's on each warp's 16 rows: a[0] (row g, k t), a[1] (g + 8, t),
+// a[2] (g, t + 4), a[3] (g + 8, t + 4), g = lane / 4, t = lane % 4; ldmatrix
+// x4 of the rows (lane & 7) + 8 ((lane >> 3) & 1) at 16 bytes (lane >> 4)
+// gives it, each 32-bit word one fp32 value. d as WgmmaRS's. The k-th
+// 8-deep step starts 32 k bytes into a 128-byte-swizzled K-major row, as
+// bf16's 16-deep one does.
+template <int N>
+struct WgmmaTF32;
+
+template <>
+struct WgmmaTF32<8> {
+  __device__ __forceinline__ static void mma(float (&d)[4], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTF32<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTF32<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTF32<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
   }
 };
 

@@ -20,10 +20,9 @@ directly and fp32 as error-compensated TF32 (3xTF32):
     parts (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
     conv(part_i, W_i)``), with fp32 bias and fp32 accumulation;
   * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``
-    (K1 and K2: bf16 on Hopper's wgmma with halo tiles in shared memory,
-    ``csrc/conv3d_wgmma.cu`` and :func:`wgmma_plan`; fp32 as 3xTF32 on
-    mma.sync, ``csrc/conv3d_mma.cu`` and :func:`igemm_plan`;
-    :func:`kernel_route` picks by dtype);
+    (K1 and K2: on Hopper's wgmma with halo tiles in shared memory, bf16
+    directly and fp32 as 3xTF32, ``csrc/conv3d_wgmma.cu`` and
+    :func:`wgmma_plan`; :func:`kernel_route` names the route);
   * K6 :func:`conv3d_wgrad` — the weight gradient of both
     (``csrc/conv3d_wgrad.cu``).
 
@@ -56,7 +55,6 @@ from torch import nn
 from . import cuda_lib
 
 MAX_PARTS = 6   # csrc/conv_params.cuh kMaxParts: a dense-skip ladder's stage-0 stitch
-META0 = 1 + MAX_PARTS  # where the fields after the parts' cin start in meta
 MAX_PHASES = 8
 MAX_TAPS = 27
 
@@ -162,193 +160,94 @@ def transpose_plan(kernel_size, strides, in_spatial):
                 out_mul=st, phases=tuple(phases))
 
 
-# --------------------------------- the fp32 tensor-core schedule (mma.sync)
-BM = 128                   # block rows of csrc/conv3d_mma.cu
-# per element type (csrc/conv3d_mma.cu Elem, resident_blocks; fp32 only, as
-# bf16 runs csrc/conv3d_wgmma.cu, planned by wgmma_plan below): the K-slab
-# depth (64 bytes a row), the tile widths, and the blocks of each tile width
-# resident on one SM (the kernel's launch bounds): one wave of the grid
-BK = {torch.float32: 16}
-TILES_N = {torch.float32: (8, 16, 32, 64)}
-RESIDENT_BLOCKS = {torch.float32: {8: 3, 16: 3, 32: 2, 64: 2}}
-CHAIN_SLABS = 8            # fp32: slabs a tensor-core chain runs (kChainSlabs)
-SMS = 132                  # streaming multiprocessors of an H100 SXM
-MIN_SLABS_PER_SPLIT = 8    # K is split only while a split keeps this many slabs
-MAX_SPLITS = 64
-MAX_INDEX = 2 ** 31        # the kernel's row, voxel and element indices are int
-
-
-def tile_n(cout: int, dtype: torch.dtype) -> int:
-    """The output-channel tile of the kernel: the least of TILES_N[dtype]
-    that holds cout, else the widest."""
-    widths = TILES_N[dtype]
-    return next((b for b in widths if cout <= b), widths[-1])
-
-
-def phase_slabs(cins, ntaps, dtype: torch.dtype):
-    """K-slabs of each phase: each part's ntap * cin rounded up to slabs of
-    BK[dtype]."""
-    return tuple(sum(-(-nt * c // BK[dtype]) for c in cins) for nt in ntaps)
-
-
-def igemm_plan(rows: int, cout: int, slabs, dtype: torch.dtype) -> dict:
-    """Tile and split-K schedule of the kernel in ``dtype`` for ``rows``
-    output rows per phase, ``cout`` output channels and ``slabs`` K-slabs
-    per phase.
-
-    Output tiles alone give ``tiles`` blocks; one wave of the card holds
-    ``target`` = SMS x RESIDENT_BLOCKS of them (2-4 per SM by type and tile
-    width).
-    Where the tiles fill less than a wave, K is split into the most
-    ``splits`` that still fit one wave, unless K runs out first: a split
-    keeps MIN_SLABS_PER_SPLIT slabs on average and at least one in every
-    phase. Split j of a phase of L slabs walks [L*j // splits,
-    L*(j+1) // splits). With splits > 1 the kernel writes ``workspace`` fp32
-    partials (splits x output elements) and a second kernel sums them in
-    split order.
-    """
-    slabs = tuple(slabs)
-    bn = tile_n(cout, dtype)
-    tiles = -(-rows // BM) * -(-cout // bn) * len(slabs)
-    target = SMS * RESIDENT_BLOCKS[dtype][bn]
-    cap = max(1, min(min(slabs), sum(slabs) // (len(slabs) * MIN_SLABS_PER_SPLIT),
-                     MAX_SPLITS))
-    splits = max(1, min(target // tiles, cap))
-    ranges = tuple(tuple((n * j // splits, n * (j + 1) // splits) for j in range(splits))
-                   for n in slabs)
-    return dict(bn=bn, tiles=tiles, splits=splits, blocks=tiles * splits, target=target,
-                cap=cap, slabs=slabs, ranges=ranges,
-                workspace=splits * rows * len(slabs) * cout if splits > 1 else 0)
-
-
-def gather_routes(parts, kernel):
-    """How the mma.sync kernel loads each operand: "cp.async" (16-byte
-    chunks: 4 fp32 channels, or 8 of a 2-byte type) where the chunk axis
-    is a multiple of the chunk and the tensor is 16-byte aligned, else
-    "scalar" (element by element through registers). Returns (one route per
-    part, the weights' route). The weights' chunk axis is their last: Cout
-    of K1's DHWIO kernel, Cin of K2's."""
-    def route(n, t):
-        chunk = 16 // t.element_size()
-        return "cp.async" if n % chunk == 0 and t.data_ptr() % 16 == 0 else "scalar"
-
-    return [route(int(p.shape[-1]), p) for p in parts], route(int(kernel.shape[4]), kernel)
-
-
-def _pack_conv_args(parts, kernel, bias, y, plan, transposed, igemm, ws):
-    """The three host arrays the C entry of csrc/conv3d_mma.cu reads
-    (csrc/conv_params.cuh unpacks them; P = MAX_PARTS, f = meta[META0:]).
-
-    ptrs (uint64[P + 4]): part pointers 0..P-1, then kernel, bias, output,
-      workspace.
-    meta (int32[72]): 0 nparts; 1..P cin of each part; then f: 0 cin total;
-      1 batch; 2-4 input D,H,W; 5-7 output D,H,W; 8-10 row grid D,H,W;
-      11 cout; 12-14 in_mul; 15-17 in_add; 18-20 out_mul; 21 weight ci
-      stride; 22 weight co stride; 23 nphase; 24-31 taps per phase; 32-55
-      phase residues (8 x 3); 56 dtype code; 57 has bias; from ``igemm``
-      (the plan): 58 splits; 59 bit p set where part p takes the cp.async
-      gather; 60 weights by cp.async; 61 transposed; 62 tile n.
-    taps (int8[8, 27, 4]): per phase and tap, (dz, dy, dx, weight tap).
-    """
-    cin = [int(p.shape[-1]) for p in parts]
-    cin_total = sum(cin)
-    cout = int(kernel.shape[3] if transposed else kernel.shape[4])
-    meta = np.zeros(72, np.int32)
-    meta[0] = len(parts)
-    meta[1:1 + len(cin)] = cin
-    f = meta[META0:]  # a view
-    f[0] = cin_total
-    f[1] = parts[0].shape[0]
-    f[2:5] = parts[0].shape[1:4]
-    f[5:8] = plan["out"]
-    f[8:11] = plan["grid"]
-    f[11] = cout
-    f[12:15] = plan["in_mul"]
-    f[15:18] = plan["in_add"]
-    f[18:21] = plan["out_mul"]
-    f[21:23] = (1, cin_total) if transposed else (cout, 1)
-    f[23] = len(plan["phases"])
-    taps = np.zeros((MAX_PHASES, MAX_TAPS, 4), np.int8)
-    for i, (res, tp) in enumerate(plan["phases"]):
-        f[24 + i] = len(tp)
-        f[32 + 3 * i:35 + 3 * i] = res
-        if tp:
-            taps[i, :len(tp)] = tp
-    f[56] = cuda_lib.DTYPE_CODES.get(parts[0].dtype, -1)
-    f[57] = bias is not None
-    ptrs = np.zeros(MAX_PARTS + 4, np.uint64)
-    for i, p in enumerate(parts):
-        ptrs[i] = p.data_ptr()
-    ptrs[MAX_PARTS] = kernel.data_ptr()
-    ptrs[MAX_PARTS + 1] = bias.data_ptr() if bias is not None else 0
-    ptrs[MAX_PARTS + 2] = y.data_ptr()
-    ptrs[MAX_PARTS + 3] = ws.data_ptr() if ws is not None else 0
-    a_routes, b_route = gather_routes(parts, kernel)
-    f[58] = igemm["splits"]
-    f[59] = sum(1 << i for i, r in enumerate(a_routes) if r == "cp.async")
-    f[60] = b_route == "cp.async"
-    f[61] = transposed
-    f[62] = igemm["bn"]
-    return ptrs, meta, taps
-
-
-# --------------------------------- bf16 K1/K2: halo tiles on wgmma (Hopper)
-# csrc/conv3d_wgmma.cu. A block owns WG_ROWS output voxels of one sample, a
-# box of them (tile) or WG_ROWS consecutive rows (flat: 1x1x1 at stride 1);
-# for each part and channel slab the producer brings the input box its taps
-# read into shared memory once, and the consumers read every tap's rows of
-# it. See the source's note for the design; here the plan and host arrays.
+# --------------------------------- K1/K2: halo tiles on wgmma (Hopper)
+# csrc/conv3d_wgmma.cu, bf16 and fp32 (3xTF32). A block owns WG_ROWS output
+# voxels of one sample, a box of them (tile) or WG_ROWS consecutive rows
+# (flat: 1x1x1 at stride 1); for each part and channel slab the producer
+# brings the input box its taps read into shared memory once, and the
+# consumers read every tap's rows of it. See the source's note for the
+# design; here the plan and host arrays. Per dtype: the tile widths, the
+# blocks of each width an SM holds (the kernel's launch bounds), a weight
+# stage's K (128 bytes of a row) and the slab widths (a voxel 128, 64, 32
+# or 16 bytes).
 WG_ROWS = 128              # output rows a block: two consumer warpgroups of 64
-WG_TILES_N = (8, 16, 32, 64, 128)
-WG_RESIDENT = {8: 2, 16: 2, 32: 2, 64: 1, 128: 1}   # blocks an SM: launch bounds
-WG_KSTAGE = 64             # K (taps x slab channels) of one weight stage
+WG_TILES_N = {torch.bfloat16: (8, 16, 32, 64, 128), torch.float32: (8, 16, 32, 64)}
+WG_RESIDENT = {torch.bfloat16: {8: 2, 16: 2, 32: 2, 64: 1, 128: 1},
+               torch.float32: {8: 1, 16: 1, 32: 1, 64: 1}}
+WG_KSTAGE = {torch.bfloat16: 64, torch.float32: 32}
+WG_SLAB_WIDTHS = {torch.bfloat16: (64, 32, 16, 8), torch.float32: (32, 16, 8, 4)}
 WG_A_STAGES, WG_B_STAGES = (2, 4), 4  # box stages: 2 to 4 as they fit; weight stages
-WG_SLAB_WIDTHS = (64, 32, 16, 8)   # channels of a slab: 128, 64, 32, 16 bytes a voxel
+WG_A_STAGES_RESIDENT = 8   # fp32: box stages beside resident weights, as they fit
+WG_RAW_STAGES = (3, 8)     # fp32: raw weight stages in flight, as many as fit beside the rings
+WG_CHAIN_STAGES = 8        # fp32: weight stages a TF32 chain runs (kChainStages)
 WG_SMEM_SM = 233472        # shared memory of an H100 SM (228 KB)
 WG_SMEM_BLOCK = 232448     # the most one block may take (227 KB)
 WG_SMEM_RESERVED = 1024    # the runtime's own per block
-WG_SMEM_EXTRA = 1024 + 1280  # alignment slack of the dynamic base; barriers, tap tables
+WG_SMEM_EXTRA = 1024 + 1408  # alignment slack of the dynamic base; barriers, tap tables
 WG_MIN_STAGES_PER_SPLIT = 4
+# waves of units split-K fills: fp32's one block an SM pays a unit's pipeline
+# fill and drain, which more, shorter units a block hide
+WG_SPLIT_WAVES = {torch.bfloat16: 1, torch.float32: 3}
 WG_BOX_MAX = 256           # TMA's largest box extent
 WG_TILE_SHAPES = tuple((d, h, w) for w in (8, 16, 32, 64, 128) for h in (1, 2, 4, 8, 16)
                        for d in (1, 2, 4, 8) if d * h * w == WG_ROWS)
-WG_META = 96               # int32 fields of the host array (_wgmma_host)
+WG_META = 98               # int32 fields of the host array (_wgmma_host)
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+MAX_SPLITS = 64
+MAX_INDEX = 2 ** 31        # the kernel's row, voxel and element indices are int
 
 
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def wgmma_slabs(cin: int, width: int, tma: bool):
+def _vec(dtype) -> int:
+    """Elements of a 16-byte chunk: 8 bf16, 4 fp32."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def wgmma_slabs(cin: int, width: int, tma: bool, dtype):
     """The channel slabs of one part: (first channel, slab width) each.
     Every slab is ``width`` channels wide; a part on the staged route
-    narrows its last slab to the least power of two (>= 8) that holds what
-    is left, while TMA's map has one box width and zero-fills the last
-    slab's tail."""
+    narrows its last slab to the least power of two (at least a 16-byte
+    chunk: 8 bf16, 4 fp32) that holds what is left, while TMA's map has one
+    box width and zero-fills the last slab's tail."""
+    vec = _vec(dtype)
     out = []
     for c0 in range(0, cin, width):
-        w = width if tma else min(width, max(8, _pow2_at_least(cin - c0)))
+        w = width if tma else min(width, max(vec, _pow2_at_least(cin - c0)))
         out.append((c0, w))
     return out
 
 
-def _wgmma_smem(box_vox, width, bn, transposed, a_stages=WG_A_STAGES[0]):
+def _wgmma_smem(box_vox, width, bn, transposed, a_stages, dtype, resident=0,
+                raw=WG_RAW_STAGES[0]):
     """(A stage, B stage, dynamic shared memory) bytes of one block: the
-    box and weight rings, the epilogue's fp32 rows (BN + 4 floats each) and
-    the control block."""
+    box and weight rings (fp32: a stage is the hi and lo tiles, the raw
+    stages ride beside the ring, and ``resident`` > 0 holds that many
+    stages, every one of the call's, in place of the ring; ``raw`` raw
+    stages), bf16's epilogue
+    rows (BN + 4 floats each; fp32 writes from its registers) and the
+    control block."""
     def kb(n):
         return -(-n // 1024) * 1024
 
-    a_stage = kb(box_vox * 2 * width)
-    b_stage = kb(bn * 128) if transposed else 8192 * -(-bn // 64)
-    rings = a_stages * a_stage + WG_B_STAGES * b_stage
-    return a_stage, b_stage, rings + WG_ROWS * (bn + 4) * 4 + WG_SMEM_EXTRA
+    esize = 16 // _vec(dtype)
+    a_stage = kb(box_vox * esize * width)
+    if dtype == torch.float32:
+        b_stage, raw, epi = 2 * bn * 128, raw * bn * 128, 0
+    else:
+        b_stage, raw = (kb(bn * 128) if transposed else 8192 * -(-bn // 64)), 0
+        epi = WG_ROWS * (bn + 4) * 4
+    rings = a_stages * a_stage + (resident or WG_B_STAGES) * b_stage + raw
+    return a_stage, b_stage, rings + epi + WG_SMEM_EXTRA
 
 
-def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None):
-    """Tile, slabs, routes and split-K of the bf16 kernel (csrc/conv3d_wgmma.cu)
-    for one K1/K2 call, from its shapes (``tma_ok``: per part, whether its
-    base is 16-byte aligned; default all).
+def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None, *, dtype):
+    """Tile, slabs, routes and split-K of the kernel (csrc/conv3d_wgmma.cu)
+    for one K1/K2 call in ``dtype`` (bf16 or fp32), from its shapes
+    (``tma_ok``: per part, whether its base is 16-byte aligned; default
+    all).
 
     * Geometry: the window plan's grid, in the kernel's view. A 1x1x1 conv
       at stride 1 is flat: one row of R = batch x voxels, tiles of WG_ROWS
@@ -359,24 +258,32 @@ def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None):
       tiles x (box voxels + WG_ROWS): the voxels loaded a tile beside the
       rows it computes.
     * Slabs: every part's channels in slabs of one ``width`` (the widest of
-      WG_SLAB_WIDTHS that is no wider than the widest part needs and whose
-      two box stages fit the block's shared memory beside the weight ring
-      and the epilogue's rows); then as many box stages, up to four, as
-      fit (``a_stages``: the producer runs further ahead of small boxes);
-      a part narrower than ``width`` takes the least power of two >= 8 that
-      holds it (wgmma_slabs).
-    * Routes: a part goes by TMA where its channels are a multiple of 8 (a
-      16-byte voxel stride) and its base is aligned, else "staged" (loaded
-      through the producer's registers, each element once a block). The
-      weights go by 16-byte loads where cout (K1) or cin (K2) is a multiple
-      of 8, else element by element.
+      WG_SLAB_WIDTHS[dtype] that is no wider than the widest part needs and
+      whose two box stages fit the block's shared memory beside the weight
+      ring and the epilogue's rows); then as many box stages, up to four,
+      as fit (``a_stages``: the producer runs further ahead of small
+      boxes); a part narrower than ``width`` takes the least power of two
+      of at least a 16-byte chunk that holds it (wgmma_slabs).
+    * fp32's weights: where every unit takes the same ones (one channel
+      tile, no split), and all of the call's weight stages fit beside the
+      box stages, a block converts them once and keeps them
+      (``resident``, with up to WG_A_STAGES_RESIDENT box stages); then as
+      many raw stages in flight (``raw_stages``, 3-8) as fit.
+    * Routes: a part goes by TMA where its channels make a 16-byte voxel
+      stride (bf16 a multiple of 8, fp32 of 4) and its base is aligned,
+      else "staged" (loaded through the producer's registers, each element
+      once a block). The weights go by 16-byte loads where cout (K1) or
+      cin (K2) is a multiple of a chunk, else element by element (bf16 by
+      TMA or through registers; fp32 by cp.async into raw stages, split
+      into TF32 hi and lo by the producer).
     * Split-K: a phase's K is its slabs' weight stages, ceil(ntap x width /
-      WG_KSTAGE) a slab. Where the output tiles fill less than one wave
-      (SMS x WG_RESIDENT), the stages are split into the most splits that
-      fit one wave, a split keeping WG_MIN_STAGES_PER_SPLIT stages on
-      average and at least one in every phase; split j of a phase of L
-      stages walks [L*j // splits, L*(j+1) // splits), and the splits'
-      fp32 partials are summed in split order by a second kernel.
+      WG_KSTAGE[dtype]) a slab. Where the output tiles fill less than
+      ``target`` (WG_SPLIT_WAVES[dtype] waves of SMS x WG_RESIDENT), the
+      stages are split into the most splits that fit it, a split keeping
+      WG_MIN_STAGES_PER_SPLIT stages on average and at least one in every
+      phase; split j of a phase of L stages walks [L*j // splits,
+      L*(j+1) // splits), and the splits' fp32 partials are summed in split
+      order by a second kernel.
     * Blocks: ``grid`` persistent blocks (at most one wave) walk the
       ``units`` (tile, channel tile, phase, split), block i taking units
       i, i + grid, ... A K2 call whose slabs' boxes all fit as box stages
@@ -390,7 +297,8 @@ def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None):
     cout = int(kernel_shape[3 if transposed else 4])
     geom = window_plan(ks, strides, in_spatial, transposed)
     tma_ok = [True] * len(cins) if tma_ok is None else list(tma_ok)
-    bn = next((b for b in WG_TILES_N if cout <= b), WG_TILES_N[-1])
+    vec, kstage, resident = _vec(dtype), WG_KSTAGE[dtype], WG_RESIDENT[dtype]
+    bn = next((b for b in WG_TILES_N[dtype] if cout <= b), WG_TILES_N[dtype][-1])
     nphase = len(geom["phases"])
     flat = (ks == (1, 1, 1) and geom["in_mul"] == (1, 1, 1) and geom["in_add"] == (0, 0, 0)
             and geom["out_mul"] == (1, 1, 1) and nphase == 1)
@@ -418,26 +326,30 @@ def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None):
         tile = min(fits, key=cost)
         box = box_of(tile)
     box_vox = math.prod(box)
-    budget = (WG_SMEM_BLOCK if WG_RESIDENT[bn] == 1
-              else (WG_SMEM_SM - WG_RESIDENT[bn] * WG_SMEM_RESERVED) // WG_RESIDENT[bn])
-    widest = max(8, _pow2_at_least(max(cins)))
-    width = next((w for w in WG_SLAB_WIDTHS if w <= widest
-                  and _wgmma_smem(box_vox, w, bn, transposed)[2] <= budget), WG_SLAB_WIDTHS[-1])
+    budget = (WG_SMEM_BLOCK if resident[bn] == 1
+              else (WG_SMEM_SM - resident[bn] * WG_SMEM_RESERVED) // resident[bn])
+
+    def smem(w, n=WG_A_STAGES[0], resident=0, raw=WG_RAW_STAGES[0]):
+        return _wgmma_smem(box_vox, w, bn, transposed, n, dtype, resident, raw)
+
+    widest = max(vec, _pow2_at_least(max(cins)))
+    width = next((w for w in WG_SLAB_WIDTHS[dtype] if w <= widest and smem(w)[2] <= budget),
+                 WG_SLAB_WIDTHS[dtype][-1])
     a_stages = max(n for n in range(WG_A_STAGES[0], WG_A_STAGES[1] + 1)
-                   if n == WG_A_STAGES[0]
-                   or _wgmma_smem(box_vox, width, bn, transposed, n)[2] <= budget)
-    a_stage, b_stage, smem = _wgmma_smem(box_vox, width, bn, transposed, a_stages)
-    widths = [min(width, max(8, _pow2_at_least(c))) for c in cins]
-    tma = [c % 8 == 0 and ok for c, ok in zip(cins, tma_ok)]
-    slabs = [wgmma_slabs(c, w, t) for c, w, t in zip(cins, widths, tma)]
-    stages = tuple(sum(-(-len(taps) * w // WG_KSTAGE) for sl in slabs for _, w in sl)
+                   if n == WG_A_STAGES[0] or smem(width, n)[2] <= budget)
+    a_stage, b_stage, smem_bytes = smem(width, a_stages)
+    widths = [min(width, max(vec, _pow2_at_least(c))) for c in cins]
+    tma = [c % vec == 0 and ok for c, ok in zip(cins, tma_ok)]
+    slabs = [wgmma_slabs(c, w, t, dtype) for c, w, t in zip(cins, widths, tma)]
+    stages = tuple(sum(-(-len(taps) * w // kstage) for sl in slabs for _, w in sl)
                    for _, taps in geom["phases"])
     ws = [w for sl in slabs for _, w in sl]
     tiles_axis = tuple(-(-g // t) for g, t in zip(view["grid"], tile))
     m_tiles = view["batch"] * math.prod(tiles_axis)
     n_tiles = -(-cout // bn)
     tiles = m_tiles * n_tiles * nphase
-    target = SMS * WG_RESIDENT[bn]
+    wave = SMS * resident[bn]
+    target = wave * WG_SPLIT_WAVES[dtype]
     cap = max(1, min(min(stages), sum(stages) // (nphase * WG_MIN_STAGES_PER_SPLIT),
                      MAX_SPLITS))
     splits = max(1, min(target // tiles, cap))
@@ -451,31 +363,50 @@ def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None):
     nslab = sum(len(sl) for sl in slabs)
     phase_loop = nphase > 1 and (nslab == 1 or (
         splits == 1 and nslab <= WG_A_STAGES[1]
-        and _wgmma_smem(box_vox, width, bn, transposed, max(nslab, 2))[2] <= budget
+        and smem(width, max(nslab, 2))[2] <= budget
         and (m_tiles * n_tiles >= target or not all(tma))))
     if phase_loop:
         a_stages = max(nslab, WG_A_STAGES[0])
-        a_stage, b_stage, smem = _wgmma_smem(box_vox, width, bn, transposed, a_stages)
+        a_stage, b_stage, smem_bytes = smem(width, a_stages)
+    # fp32: where every unit takes the same weights (one channel tile, no
+    # split) and all of the call's weight stages fit beside the box stages,
+    # a block converts them once and keeps them (``resident``: the stages),
+    # with up to WG_A_STAGES_RESIDENT box stages
+    resident = 0
+    if dtype == torch.float32 and splits == 1 and n_tiles == 1:
+        lows = [a_stages] if phase_loop else range(WG_A_STAGES[0], WG_A_STAGES_RESIDENT + 1)
+        fit = [n for n in lows if smem(width, n, sum(stages))[2] <= budget]
+        if fit:
+            resident, a_stages = sum(stages), max(fit)
+            a_stage, b_stage, smem_bytes = smem(width, a_stages, resident)
+    # fp32: then as many raw weight stages in flight as fit (the least, 3,
+    # is what the choices above counted)
+    raw = WG_RAW_STAGES[0]
+    if dtype == torch.float32:
+        raw = max(n for n in range(WG_RAW_STAGES[0], WG_RAW_STAGES[1] + 1)
+                  if n == WG_RAW_STAGES[0] or smem(width, a_stages, resident, n)[2] <= budget)
+        a_stage, b_stage, smem_bytes = smem(width, a_stages, resident, raw)
     units = m_tiles * n_tiles * (1 if phase_loop else nphase) * splits
     out_numel = batch * math.prod(geom["out"]) * cout
     return dict(geom=geom, view=view, flat=flat, tile=tile, box=box, box_vox=box_vox,
                 width=width, widths=widths, tma=tma, slabs=slabs, bn=bn, cout=cout,
                 stages=stages, ranges=ranges, tiles_axis=tiles_axis, m_tiles=m_tiles,
                 n_tiles=n_tiles, tiles=tiles, target=target, cap=cap, splits=splits,
-                blocks=tiles * splits, phase_loop=phase_loop, units=units,
-                grid=min(units, target),
-                a_stage=a_stage, a_stages=a_stages, b_stage=b_stage, smem=smem,
-                wbox=min(ws), wtaps=WG_KSTAGE // min(ws) if len(set(ws)) == 1 else 1,
+                blocks=tiles * splits, phase_loop=phase_loop, resident=resident,
+                raw_stages=raw, units=units,
+                wave=wave, grid=min(units, wave), dtype=dtype,
+                a_stage=a_stage, a_stages=a_stages, b_stage=b_stage, smem=smem_bytes,
+                wbox=min(ws), wtaps=kstage // min(ws) if len(set(ws)) == 1 else 1,
                 budget=budget, workspace=splits * out_numel if splits > 1 else 0,
                 out=(batch, *geom["out"], cout))
 
 
 @functools.lru_cache(maxsize=512)
-def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias, b_vec):
+def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias, b_vec, dtype):
     """The plan and the two host arrays of csrc/conv3d_wgmma.cu that depend
-    only on the call's shapes, strides, bias presence and pointers'
+    only on the call's shapes, strides, dtype, bias presence and pointers'
     alignment: built once, so a call only writes its pointers
-    (csrc/conv3d_wgmma.cu unpack_wgmma lists the fields; P = MAX_PARTS).
+    (csrc/conv3d_wgmma.cu unpack lists the fields; P = MAX_PARTS).
 
     meta (int32[WG_META]): 0 nparts; 1..6 cin; 7..12 slab width; 13 bit p:
       part p by TMA; 14 weights by 16-byte loads; 15 cin total; 16 batch;
@@ -486,13 +417,15 @@ def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias
       taps a phase; 57-80 phase residues; 81 splits; 82 transposed; 83
       tile n; 84 has bias; 85 A stage bytes; 86 B stage bytes; 87 dynamic
       shared memory; 88 m tiles; 89 dtype code; 90 persistent blocks; 91
-      the kernel's taps; 92 box stages; 93, 94 the K1 weight box's rows (the
-      narrowest slab) and taps (WG_KSTAGE / rows where every slab is that
-      wide, else 1); 95 phase loop (a unit walks every phase of its tile
-      over its boxes, slab i in box stage i).
+      the kernel's taps; 92 box stages; 93, 94 the bf16 K1 weight box's
+      rows (the narrowest slab) and taps (WG_KSTAGE / rows where every
+      slab is that wide, else 1); 95 phase loop (a unit walks every phase
+      of its tile over its boxes, slab i in box stage i); 96 fp32's resident
+      weight stages (0: a ring of WG_B_STAGES); 97 fp32's raw weight stages
+      in flight.
     taps (int8[8, 27, 4]): per phase and tap, (dz, dy, dx, weight tap).
     """
-    plan = wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok)
+    plan = wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok, dtype=dtype)
     cins = [int(s[-1]) for s in part_shapes]
     v, geom = plan["view"], plan["geom"]
     meta = np.zeros(WG_META, np.int32)
@@ -518,30 +451,33 @@ def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias
     meta[84] = has_bias
     meta[85], meta[86], meta[87] = plan["a_stage"], plan["b_stage"], plan["smem"]
     meta[88] = plan["m_tiles"]
-    meta[89] = cuda_lib.DTYPE_CODES[torch.bfloat16]
+    meta[89] = cuda_lib.DTYPE_CODES[dtype]
     meta[90] = plan["grid"]
     meta[91] = math.prod(kernel_shape[:3])
     meta[92] = plan["a_stages"]
     meta[93] = plan["wbox"]
     meta[94] = plan["wtaps"]
     meta[95] = plan["phase_loop"]
+    meta[96] = plan["resident"]
+    meta[97] = plan["raw_stages"]
     meta.setflags(write=False)
     taps.setflags(write=False)
     return plan, meta, taps
 
 
 def wgmma_args(parts, kernel, bias, strides, transposed):
-    """Everything one launch of the bf16 kernel takes: the output, the
-    split-K workspace (None without split-K), the plan and the host arrays
-    (ptrs: the parts, kernel, bias, output, workspace). Device-agnostic, so
-    the CPU tests replay the very schedule the card runs."""
+    """Everything one launch of the kernel takes, in the parts' dtype: the
+    output, the split-K workspace (None without split-K), the plan and the
+    host arrays (ptrs: the parts, kernel, bias, output, workspace).
+    Device-agnostic, so the CPU tests replay the very schedule the card
+    runs."""
     # the weights' last axis is the one the 16-byte loads run along: K1's
     # cout (DHWIO), K2's cin ((kd, kh, kw, Cout, Cin))
+    x0 = parts[0]
     plan, meta, taps = _wgmma_host(
         tuple(tuple(p.shape) for p in parts), tuple(kernel.shape), tuple(strides),
         bool(transposed), tuple(p.data_ptr() % 16 == 0 for p in parts), bias is not None,
-        int(kernel.shape[4]) % 8 == 0 and kernel.data_ptr() % 16 == 0)
-    x0 = parts[0]
+        int(kernel.shape[4]) % _vec(x0.dtype) == 0 and kernel.data_ptr() % 16 == 0, x0.dtype)
     y = torch.empty(plan["out"], dtype=x0.dtype, device=x0.device)
     ws = None
     if plan["splits"] > 1:
@@ -560,34 +496,6 @@ def window_plan(kernel_size, strides, in_spatial, transposed):
     """:func:`transpose_plan` for K2, :func:`forward_plan` for K1."""
     fn = transpose_plan if transposed else forward_plan
     return fn(tuple(kernel_size), tuple(strides), tuple(in_spatial))
-
-
-def igemm_schedule(part_shapes, kernel_shape, strides, transposed, dtype):
-    """(window plan, :func:`igemm_plan`) of one K1/K2 call in ``dtype``,
-    from its shapes alone."""
-    geom = window_plan(kernel_shape[:3], strides, part_shapes[0][1:4], transposed)
-    rows = int(part_shapes[0][0]) * math.prod(geom["grid"])
-    slabs = phase_slabs([int(s[-1]) for s in part_shapes],
-                        [len(taps) for _, taps in geom["phases"]], dtype)
-    return geom, igemm_plan(rows, int(kernel_shape[3 if transposed else 4]), slabs, dtype)
-
-
-def igemm_args(parts, kernel, bias, strides, transposed):
-    """Everything one launch of the kernel takes: the output, the split-K
-    workspace (None without split-K), the plan (by the parts' dtype) and
-    the host arrays. Device-agnostic, so the CPU tests replay the very
-    schedule the card runs."""
-    x0 = parts[0]
-    geom, igemm = igemm_schedule([tuple(p.shape) for p in parts], tuple(kernel.shape),
-                                 strides, transposed, x0.dtype)
-    cout = int(kernel.shape[3 if transposed else 4])
-    y = torch.empty((x0.shape[0], *geom["out"], cout), dtype=x0.dtype, device=x0.device)
-    ws = None
-    if igemm["splits"] > 1:
-        ws = torch.empty((igemm["splits"], y.numel()), dtype=torch.float32,
-                         device=x0.device)
-    arrays = _pack_conv_args(parts, kernel, bias, y, geom, transposed, igemm, ws)
-    return y, ws, igemm, arrays
 
 
 def _check_cuda_args(name, parts, kernel, bias, cin_axis):
@@ -623,26 +531,24 @@ ROUTE_LAUNCHES = collections.Counter()
 
 
 def kernel_route(dtype: torch.dtype) -> str:
-    """Which CUDA kernel runs K1/K2 in ``dtype``: bf16 on Hopper's wgmma with
-    halo tiles (csrc/conv3d_wgmma.cu), fp32 as 3xTF32 on mma.sync
-    (csrc/conv3d_mma.cu)."""
-    return "wgmma" if dtype == torch.bfloat16 else "mma.sync"
+    """Which CUDA kernel runs K1/K2 in ``dtype``: Hopper's wgmma with halo
+    tiles (csrc/conv3d_wgmma.cu), bf16 directly and fp32 as 3xTF32."""
+    if dtype not in WG_KSTAGE:
+        raise TypeError(f"K1/K2 take float32 or bfloat16, got {dtype}")
+    return "wgmma"
 
 
 def _launch(name, fn, parts, kernel, bias, strides, transposed):
-    """Launch K1 or K2 on its tensor-core kernel by dtype (:func:`kernel_route`;
-    ``fn`` is the wrapper, whose count rises by one)."""
+    """Launch K1 or K2 on the wgmma kernel (``fn`` is the wrapper, whose
+    count rises by one)."""
     x0 = parts[0]
     lib = cuda_lib.library()
-    wgmma = kernel_route(x0.dtype) == "wgmma"
-    args = wgmma_args if wgmma else igemm_args
-    y, _ws, _, arrays = args(parts, kernel, bias, strides, transposed)
+    y, _ws, _, arrays = wgmma_args(parts, kernel, bias, strides, transposed)
     if max(t.numel() for t in (*parts, y)) >= MAX_INDEX:
         raise ValueError(f"{name}: the kernel takes tensors of fewer than 2**31 elements")
-    entry = lib.pmr_conv3d_wgmma if wgmma else lib.pmr_conv3d_mma
     fn.launches += 1
     ROUTE_LAUNCHES[(name, str(x0.dtype).replace("torch.", ""), kernel_route(x0.dtype))] += 1
-    rc = entry(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
+    rc = lib.pmr_conv3d_wgmma(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
     cuda_lib.check(rc, name)
     return y
 
@@ -683,15 +589,14 @@ def conv3d(parts, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
     Replaces ``benchmarks/r2_probe_pallas_mxu.py:80`` ``conv_probe`` (TPU
     kernel table row 1). Bound on the H100: bytes for the path's
     few-channel, large-extent convs, operations for the deep 3x3x3 ones.
-    No im2col tensor reaches device memory. bf16 (csrc/conv3d_wgmma.cu):
-    each block loads the input box its taps read into shared memory once a
-    channel slab (TMA, or staged loads at widths that are not a multiple of
-    8) and a producer warpgroup feeds wgmma consumers over mbarrier rings.
-    fp32 (csrc/conv3d_mma.cu): the implicit im2col tile gathered by a
-    4-stage cp.async ring onto mma.sync as 3xTF32 (each operand split into
-    two TF32 halves, three products), which holds the fp32 limits where
-    TF32 alone could not. Both split K deterministically where the output
-    tiles underfill the card.
+    No im2col tensor reaches device memory (csrc/conv3d_wgmma.cu): each
+    block loads the input box its taps read into shared memory once a
+    channel slab (TMA, or staged loads at widths that make no 16-byte
+    voxel stride) and a producer warpgroup feeds wgmma consumers over
+    mbarrier rings. fp32 runs as 3xTF32 (each operand split into two TF32
+    halves, three products), which holds the fp32 limits where TF32 alone
+    could not. K is split deterministically where the output tiles
+    underfill the card.
     """
     parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
     strides = tuple(int(s) for s in strides)

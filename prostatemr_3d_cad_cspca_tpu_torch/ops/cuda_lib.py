@@ -24,8 +24,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("conv3d_wgmma.cu", "conv3d_mma.cu", "conv3d_wgrad.cu", "instance_norm.cu",
-           "gemm_loop.cu")
+SOURCES = ("conv3d_wgmma.cu", "conv3d_wgrad.cu", "instance_norm.cu", "gemm_loop.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -41,8 +40,6 @@ build_seconds = {}  # each source's compile and the link, in the last build
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pmr_conv3d_mma": [_VP, _VP, _VP, _VP],
-    "pmr_conv3d_mma_stamps": [_VP],
     "pmr_conv3d_wgmma": [_VP, _VP, _VP, _VP],
     "pmr_conv3d_wgmma_stamps": [_VP],
     "pmr_in_stats": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],

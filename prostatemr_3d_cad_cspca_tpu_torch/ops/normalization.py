@@ -270,11 +270,15 @@ cuda_lib.register_op(
 
 # ------------------------------------------------------------------- K4
 def _pre_activation_sign(x, stats, scale, bias, epsilon):
-    """Where K4's pre-activation is negative (its LReLU's slope 0.1), as K4
-    computes it: fp32 ``fmaf(x - center, a, c)`` with K4's per-dtype
-    coefficients (see :func:`in_apply_plain`). The product and sum are taken
-    in fp64, which gives the fused multiply-add's sign exactly (fp64 for
-    fp64 input)."""
+    """Where K4's pre-activation is negative (its LReLU's slope 0.1)."""
+    return _pre_activation(x, stats, scale, bias, epsilon) < 0
+
+
+def _pre_activation(x, stats, scale, bias, epsilon):
+    """K4's pre-activation in fp64, as K4 computes it: fp32 ``fmaf(x -
+    center, a, c)`` with K4's per-dtype coefficients (see
+    :func:`in_apply_plain`). The product and sum are taken in fp64, which
+    gives the fused multiply-add's sign exactly (fp64 for fp64 input)."""
     shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
     acc = _acc(x)
     mean = stats[:, 0].reshape(shape).to(acc)
@@ -285,7 +289,7 @@ def _pre_activation_sign(x, stats, scale, bias, epsilon):
         d = x.float()
         c = (bias.float() - mean * a).to(x.dtype)
         a = a.to(x.dtype)
-    return d.double() * a.double() + c.double() < 0
+    return d.double() * a.double() + c.double()
 
 
 def in_apply_plain(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,

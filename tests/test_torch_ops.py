@@ -25,7 +25,7 @@ from prostatemr_3d_cad_cspca_tpu.ops.resample import upsample_nearest as j_upsam
 from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as tconv
 from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as tnorm
 from prostatemr_3d_cad_cspca_tpu_torch.ops.resample import upsample_nearest
-from test_torch_conv_halo import replay_wgmma
+from test_torch_conv_halo import _tf32, replay_wgmma
 
 ATOL = 2e-5  # fp32 oracle tolerance of the repo
 # bf16 affine: JAX rounds x*a and then +b to bf16 (two roundings), the port
@@ -54,114 +54,12 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _tf32(a):
-    """cvt.rna.tf32.f32 on the int32 view: the magnitude rounded to 10
-    mantissa bits, ties away from zero, the low 13 bits cleared."""
-    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _mma_3xtf32(chain, a, b, terms):
-    """One k8 step of the fp32 kernel into ``chain`` (fp32): each operand
-    split as hi = tf32(x), lo = tf32(x - hi); the products in the kernel's
-    order, lo*hi, hi*lo, hi*hi (``terms`` ("hh",) keeps hi*hi alone, plain
-    TF32)."""
-    a, b = a.astype(np.float32), b.astype(np.float32)
-    ahi, bhi = _tf32(a), _tf32(b)
-    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
-    for t in terms:
-        x, w = {"lh": (alo, bhi), "hl": (ahi, blo), "hh": (ahi, bhi)}[t]
-        chain += x @ w
-    return chain
-
-
-def _emulate_igemm(parts, kernel, bias, strides, transposed, dtype=torch.float32,
-                   arith="float64"):
-    """numpy replay of csrc/conv3d_mma.cu's schedule (fp32 K1/K2; bf16 runs
-    csrc/conv3d_wgmma.cu, replayed by replay_wgmma), from the
-    host arrays and the igemm_plan that the wrapper hands the C entry: per
-    phase and split, the split's K-slabs of BK[dtype] (parts in order,
-    tap-major within a part, each part rounded up to whole slabs), each slab
-    gathered in 16-byte chunks of one tap (the cp.async route: 8 bf16 or 4
-    fp32 channels) or element by element (the scalar route); the partials
-    land in the workspace and are summed in split order with the bias, as
-    the reduce kernel does. ``arith`` "float64" sums exactly enough to check
-    the schedule; "3xtf32" (fp32 only) runs the kernel's arithmetic: k8
-    steps of three TF32 products into an fp32 chain added into fp32 sums
-    every CHAIN_SLABS slabs; "tf32" the same with hi*hi alone."""
-    y, ws, igemm, (_, meta, taps) = tconv.igemm_args(
-        [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), strides, transposed)
-    assert arith == "float64" or dtype == torch.float32
-    acc_t = np.float64 if arith == "float64" else np.float32
-    bk = tconv.BK[dtype]
-    f = meta[tconv.META0:]  # the fields after the parts' cin
-    splits, a_vec = int(f[58]), int(f[59])
-    assert splits == igemm["splits"] and f[61] == transposed
-    assert (ws is None if splits == 1 else ws.shape == (splits, y.numel()))
-    assert (0 if ws is None else ws.numel()) == igemm["workspace"]
-    nparts, cin_total, batch = meta[0], f[0], f[1]
-    cins = meta[1:1 + nparts]
-    ind, outd, grid = f[2:5], f[5:8], f[8:11]
-    cout = f[11]
-    in_mul, in_add, out_mul = f[12:15], f[15:18], f[18:21]
-    wci, wco = f[21], f[22]
-    wflat = kernel.reshape(-1).astype(acc_t)
-    # output rows of one phase: (batch, grid) in C order, as the kernel's m
-    rb, *g = [a.reshape(-1) for a in
-              np.meshgrid(np.arange(batch), *[np.arange(n) for n in grid], indexing="ij")]
-    workspace = np.full((splits, y.numel()), np.nan, acc_t)
-    for ph in range(f[23]):
-        ntap, res = f[24 + ph], f[32 + 3 * ph:35 + 3 * ph]
-        o = [g[a] * out_mul[a] + res[a] for a in range(3)]
-        oofs = (((rb * outd[0] + o[0]) * outd[1] + o[1]) * outd[2] + o[2]) * cout
-        starts = np.concatenate([[0], np.cumsum(-(-ntap * cins // bk))])
-        assert starts[-1] == igemm["slabs"][ph]
-        for j in range(splits):
-            lo, hi = igemm["ranges"][ph][j]
-            assert (lo, hi) == (starts[-1] * j // splits, starts[-1] * (j + 1) // splits)
-            acc = np.zeros((rb.size, cout), acc_t)
-            chain = np.zeros((rb.size, cout), acc_t)
-            for s in range(lo, hi):
-                part = int(np.searchsorted(starts, s, side="right")) - 1
-                cin, ci_base = cins[part], int(cins[:part].sum())
-                x, k0 = parts[part], (s - starts[part]) * bk
-                step = 16 // torch.empty((), dtype=dtype).element_size() \
-                    if (a_vec >> part) & 1 else 1
-                a = np.zeros((rb.size, bk), acc_t)
-                b = np.zeros((bk, cout), acc_t)
-                for kk in range(0, bk, step):  # one chunk or one element
-                    k = k0 + kk
-                    if k >= ntap * cin:
-                        continue  # zero-filled past the part's K
-                    t, ci = divmod(k, cin)
-                    dz, dy, dx, wt = taps[ph, t]
-                    coords = [g[ax] * in_mul[ax] + in_add[ax] + d
-                              for ax, d in enumerate((dz, dy, dx))]
-                    ok = np.ones(rb.size, bool)
-                    for ax in range(3):
-                        ok &= (coords[ax] >= 0) & (coords[ax] < ind[ax])
-                    cl = [np.clip(c, 0, n - 1) for c, n in zip(coords, ind)]
-                    a[:, kk:kk + step] = x[rb, cl[0], cl[1], cl[2], ci:ci + step] * ok[:, None]
-                    b[kk:kk + step] = wflat[int(wt) * cin_total * cout
-                                            + (ci_base + ci + np.arange(step))[:, None] * wci
-                                            + np.arange(cout)[None, :] * wco]
-                if arith == "float64":
-                    acc += a @ b
-                    continue
-                terms = ("lh", "hl", "hh") if arith == "3xtf32" else ("hh",)
-                for kk in range(0, bk, 8):  # the slab's two k8 mma steps
-                    _mma_3xtf32(chain, a[:, kk:kk + 8], b[kk:kk + 8], terms)
-                if (s - lo + 1) % tconv.CHAIN_SLABS == 0:
-                    acc += chain
-                    chain[:] = 0
-            acc += chain
-            workspace[j, oofs[:, None] + np.arange(cout)[None, :]] = acc
-    assert not np.isnan(workspace).any(), "some output voxel belongs to no phase"
-    total = workspace[0].copy()
-    for j in range(1, splits):  # the reduce kernel's order
-        total += workspace[j]
-    total += np.tile(bias, y.numel() // cout).astype(acc_t)
-    return total.reshape(batch, *outd, cout)
+def _emulate_fp32(parts, kernel, bias, strides, transposed, arith="float64"):
+    """The fp32 kernel's schedule (csrc/conv3d_wgmma.cu, the wrapper's own
+    host arrays) replayed in numpy: ``arith`` "float64" sums the exact
+    products, "3xtf32" the kernel's arithmetic, "tf32" hi*hi alone
+    (test_torch_conv_halo.replay_wgmma)."""
+    return replay_wgmma(parts, kernel, bias, strides, transposed, torch.float32, arith)[0]
 
 
 def _flax_split_conv(parts, kernel, bias, ks, st):
@@ -191,8 +89,8 @@ def test_conv3d_matches_flax(ks, st, size, nparts):
     got = tconv.conv3d([_t(p) for p in parts], _t(kernel), _t(bias), st)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
-    np.testing.assert_allclose(
-        _emulate_igemm(parts, kernel, bias, st, transposed=False), want, atol=ATOL)
+    np.testing.assert_allclose(  # the fp32 kernel's schedule
+        _emulate_fp32(parts, kernel, bias, st, transposed=False), want, atol=ATOL)
     rp, rk = [_bf16(p) for p in parts], _bf16(kernel)  # the bf16 kernel's schedule
     np.testing.assert_allclose(replay_wgmma(rp, rk, bias, st, False)[0],
                                _flax_split_conv(rp, rk, bias, ks, st), atol=ATOL)
@@ -217,10 +115,9 @@ def fresh_wgmma_plans():
 def test_six_part_stitch_schedule_matches_flax(ks, dtype, monkeypatch, fresh_wgmma_plans):
     """A dense-skip ladder's stage-0 stitch has six parts (the upsampled
     features, four decoder parts, the gated skip): the kernel's replay over
-    MAX_PARTS parts of mixed widths and routes (fp32: 5 and 3 channels take
-    the scalar gather, 8, 16 and 4 the cp.async one; bf16: 8 and 16 by TMA,
-    the rest staged), K split finely."""
-    monkeypatch.setattr(tconv, "MIN_SLABS_PER_SPLIT", 1)
+    MAX_PARTS parts of mixed widths and routes (bf16: 8 and 16 by TMA, the
+    rest staged; fp32: 8, 16 and 4 by TMA, 5 and 3 staged), K split
+    finely; fp32 also in the kernel's 3xTF32 arithmetic."""
     monkeypatch.setattr(tconv, "WG_MIN_STAGES_PER_SPLIT", 1)
     rng = np.random.default_rng(_seed(ks, str(dtype), "six"))
     widths = (8, 5, 16, 3, 8, 4)
@@ -236,19 +133,18 @@ def test_six_part_stitch_schedule_matches_flax(ks, dtype, monkeypatch, fresh_wgm
         got, plan = replay_wgmma(rp, rk, bias, (1, 1, 1), False)
         np.testing.assert_allclose(got, _flax_split_conv(rp, rk, bias, ks, (1, 1, 1)),
                                    atol=ATOL)
-        assert plan["splits"] > 1
-        _, _, _, (ptrs, meta, _) = tconv.wgmma_args(
-            [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), (1, 1, 1), False)
-        bits = meta[13]  # parts whose boxes go by TMA
     else:
-        np.testing.assert_allclose(
-            _emulate_igemm(parts, kernel, bias, (1, 1, 1), False, dtype), want, atol=ATOL)
-        _, _, _, (ptrs, meta, _) = tconv.igemm_args(
-            [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), (1, 1, 1), False)
-        bits = meta[tconv.META0 + 59]
+        got, plan = replay_wgmma(parts, kernel, bias, (1, 1, 1), False, dtype)
+        np.testing.assert_allclose(got, want, atol=ATOL)
+        fast = replay_wgmma(parts, kernel, bias, (1, 1, 1), False, dtype, "3xtf32")[0]
+        assert _rel_err(fast, want) <= FP32_LIMIT
+    assert plan["splits"] > 1
+    _, _, _, (ptrs, meta, _) = tconv.wgmma_args(
+        [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), (1, 1, 1), False)
     assert meta[0] == 6 and list(meta[1:7]) == list(widths) and ptrs.size == 6 + 4
     chunk = 16 // torch.empty((), dtype=dtype).element_size()
-    assert bits == sum(1 << i for i, w in enumerate(widths) if w % chunk == 0)
+    # parts whose boxes go by TMA: 16-byte voxel strides
+    assert meta[13] == sum(1 << i for i, w in enumerate(widths) if w % chunk == 0)
     with pytest.raises(ValueError, match="parts"):
         tconv._check_cuda_args("conv3d", [_t(parts[0])] * 7, _t(kernel), None, 3)
 
@@ -261,7 +157,7 @@ def test_part_limit_is_the_kernels():
     src = os.path.join(os.path.dirname(tconv.__file__), "..", "csrc", "conv_params.cuh")
     with open(src) as f:
         got = int(re.search(r"constexpr int kMaxParts = (\d+);", f.read()).group(1))
-    assert got == tconv.MAX_PARTS == 6 and tconv.META0 == 1 + got
+    assert got == tconv.MAX_PARTS == 6
 
 
 def test_conv3d_module_takes_a_part_list():
@@ -299,8 +195,8 @@ def test_conv3d_transpose_matches_flax(ks, st, size):
     got = tconv.conv3d_transpose(_t(x), _t(kernel), _t(bias), st)
     assert got.shape == want.shape == (2, *[n * s for n, s in zip(SIZES[size], st)], 4)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
-    np.testing.assert_allclose(
-        _emulate_igemm([x], kernel, bias, st, transposed=True), want, atol=ATOL)
+    np.testing.assert_allclose(  # the fp32 kernel's schedule
+        _emulate_fp32([x], kernel, bias, st, transposed=True), want, atol=ATOL)
     rx, rk = _bf16(x), _bf16(kernel)  # the bf16 kernel's schedule
     np.testing.assert_allclose(replay_wgmma([rx], rk, bias, st, True)[0],
                                _flax_convt(rx, rk, bias, ks, st), atol=ATOL)
@@ -313,15 +209,18 @@ def test_transpose_plan_phases_partition_the_taps():
     assert used == list(range(27))  # each tap feeds exactly one phase
 
 
-# ------------------------------------- K1/K2 fp32 schedule (igemm, mma.sync)
+# ------------------------------------------ K1/K2 fp32 schedule (wgmma)
 @pytest.mark.parametrize("ks,st,transposed", [(ks, st, False) for ks, st in CONV_CASES]
                          + [(ks, st, True) for ks, st in CONVT_CASES])
-def test_igemm_split_schedule_matches_flax(ks, st, transposed, monkeypatch):
-    """The cp.async route (K1 cin 16, K2 cin 64) beside the scalar one (K1
-    cin 3), with K split as finely as the plan allows (one slab in the
-    shortest phase), so the workspace and the ordered reduce are walked:
-    fp32's schedule (bf16's: tests/test_torch_conv_halo.py)."""
-    monkeypatch.setattr(tconv, "MIN_SLABS_PER_SPLIT", 1)
+def test_igemm_split_schedule_matches_flax(ks, st, transposed, monkeypatch,
+                                           fresh_wgmma_plans):
+    """The implicit-GEMM schedule in fp32 with its two box routes (TMA: K1
+    cin 16, K2 cin 64; staged: K1 cin 3), with K split as finely as the
+    plan allows (one weight stage in the shortest phase, on a card of
+    enough SMs that K, not the wave, bounds the splits), so the workspace
+    and the ordered reduce are walked (bf16's: tests/test_torch_conv_halo.py)."""
+    monkeypatch.setattr(tconv, "WG_MIN_STAGES_PER_SPLIT", 1)
+    monkeypatch.setattr(tconv, "SMS", 8 * tconv.SMS)
     rng = np.random.default_rng(_seed(ks, st, transposed, "split"))
     if transposed:
         (x,) = _parts(rng, SIZES["odd"], (64,))
@@ -332,11 +231,11 @@ def test_igemm_split_schedule_matches_flax(ks, st, transposed, monkeypatch):
         kernel = rng.normal(size=(*ks, 19, 4)).astype(np.float32)
         want_fn = lambda b: _flax_split_conv(parts, kernel, b, ks, st)  # noqa: E731
     bias = rng.normal(size=(4,)).astype(np.float32)
-    _, _, igemm, (_, meta, _) = tconv.igemm_args(
+    _, _, plan, (_, meta, _) = tconv.wgmma_args(
         [_t(p) for p in parts], _t(kernel), None, st, transposed)
-    assert igemm["splits"] == min(igemm["slabs"]) > 1
-    assert meta[tconv.META0 + 59] == 1  # part 0 by cp.async, a K1's part 1 (cin 3) scalar
-    np.testing.assert_allclose(_emulate_igemm(parts, kernel, bias, st, transposed),
+    assert plan["splits"] == min(plan["stages"]) > 1
+    assert meta[13] == 1  # part 0 by TMA, a K1's part 1 (cin 3) staged
+    np.testing.assert_allclose(_emulate_fp32(parts, kernel, bias, st, transposed),
                                want_fn(bias), atol=ATOL)
 
 
@@ -376,12 +275,13 @@ def _fp32_case(ks, st, transposed, spatial, widths, cout, batch=2):
 @pytest.mark.parametrize("ks,st,transposed", [(ks, st, False) for ks, st in CONV_CASES]
                          + [(ks, st, True) for ks, st in CONVT_CASES])
 def test_fp32_3xtf32_replay_matches_flax(ks, st, transposed):
-    """The fp32 schedule (16-deep slabs, 4-channel cp.async chunks beside
-    the scalar gather of cin 3) in the kernel's arithmetic holds the fp32
-    limit against flax at every conv of the path, K1 and K2."""
+    """The fp32 schedule (32-deep weight stages, 8-deep TF32 steps, a TMA
+    box of cin 16 beside the staged one of cin 3) in the kernel's 3xTF32
+    arithmetic holds the fp32 limit against flax at every conv of the path,
+    K1 and K2."""
     widths, cout = ((12,), 4) if transposed else ((16, 3), 8)
     parts, kernel, bias, want = _fp32_case(ks, st, transposed, SIZES["odd"], widths, cout)
-    got = _emulate_igemm(parts, kernel, bias, st, transposed, torch.float32, "3xtf32")
+    got = _emulate_fp32(parts, kernel, bias, st, transposed, "3xtf32")
     assert got.dtype == np.float32 and got.shape == want.shape
     assert _rel_err(got, want) <= FP32_LIMIT
 
@@ -389,7 +289,7 @@ def test_fp32_3xtf32_replay_matches_flax(ks, st, transposed):
 @functools.lru_cache(maxsize=1)
 def _deepest_stitch():
     """The deepest stitch of the path in miniature: two 128-channel parts,
-    3x3x3 taps, K = 6,912 (split-K walks 54 splits of 8 slabs)."""
+    3x3x3 taps, K = 6,912 (split-K walks 54 splits of 4 weight stages)."""
     return _fp32_case((3, 3, 3), (1, 1, 1), False, (3, 4, 5), (128, 128), 8, batch=1)
 
 
@@ -397,54 +297,25 @@ def _deepest_stitch():
 def test_fp32_limit_at_the_deepest_stitch_needs_the_compensation(arith, holds):
     """3xTF32 holds 2e-4 at K = 6,912; one TF32 product (hi*hi) misses it."""
     parts, kernel, bias, want = _deepest_stitch()
-    plan = tconv.igemm_args([_t(p) for p in parts], _t(kernel), None, (1, 1, 1), False)[2]
-    assert plan["slabs"] == (6912 // 16,) and plan["splits"] > 1
-    err = _rel_err(_emulate_igemm(parts, kernel, bias, (1, 1, 1), False, torch.float32, arith),
-                   want)
+    plan = tconv.wgmma_args([_t(p) for p in parts], _t(kernel), None, (1, 1, 1), False)[2]
+    assert plan["stages"] == (6912 // tconv.WG_KSTAGE[torch.float32],) and plan["splits"] > 1
+    err = _rel_err(_emulate_fp32(parts, kernel, bias, (1, 1, 1), False, arith), want)
     assert (err <= FP32_LIMIT) == holds, err
 
 
-def test_gather_routes_take_the_element_size():
-    """A 16-byte chunk is 4 fp32 channels: fp32 cin 4 (level 0's bottleneck
-    width) and cout 4 take cp.async, which bf16 (8 a chunk) cannot."""
-    flat = torch.zeros(2 * 4 * 4 * 4 * 4 + 1)
-    aligned = flat[:-1].view(2, 4, 4, 4, 4)
-    shifted = flat[1:].view(2, 4, 4, 4, 4)  # 4 bytes off a 16-byte boundary
-    stem = torch.zeros(2, 4, 4, 4, 3)
-    k1 = torch.zeros(3, 3, 3, 11, 4)
-    assert tconv.gather_routes([aligned, shifted, stem], k1) == (
-        ["cp.async", "scalar", "scalar"], "cp.async")
-    assert tconv.gather_routes([aligned], torch.zeros(1, 1, 1, 4, 2))[1] == "scalar"
-    assert tconv.gather_routes([aligned], torch.zeros(3, 3, 3, 2, 4))[1] == "cp.async"  # K2
-    assert tconv.gather_routes([aligned.to(torch.bfloat16)], k1.to(torch.bfloat16)) == (
-        ["scalar"], "scalar")
-
-
 def test_fp32_level0_bottleneck_takes_the_vector_gather():
+    """Level 0's bottleneck convs read 4-channel parts: a 16-byte voxel in
+    fp32, so their boxes go by TMA, which bf16 (8 a chunk) cannot."""
     narrow = [(name, sig) for name, sig in _path_convs(2)
               if name == "conv3d" and any(s[-1] == 4 for s in sig[0])]
-    assert narrow  # level 0's bottleneck convs read 4-channel parts
+    assert narrow
     for name, sig in narrow:
-        fp32 = int(_path_plan(name, sig, torch.float32)[3][1][tconv.META0 + 59])
+        fp32 = _path_plan(name, sig, torch.float32)[2]["tma"]
         bf16 = _path_plan(name, sig, torch.bfloat16)[2]["tma"]  # a box by TMA, else staged
         for i, shape in enumerate(sig[0]):
-            assert (fp32 >> i) & 1 == 1
+            assert fp32[i] == (shape[-1] % 4 == 0)
             assert bf16[i] == (shape[-1] % 8 == 0)
-
-
-def test_gather_routes_follow_channels_and_alignment():
-    flat = torch.zeros(2 * 4 * 4 * 4 * 16 + 1, dtype=torch.bfloat16)
-    aligned = flat[:-1].view(2, 4, 4, 4, 16)
-    shifted = flat[1:].view(2, 4, 4, 4, 16)  # 2 bytes off a 16-byte boundary
-    narrow = torch.zeros(2, 4, 4, 4, 3, dtype=torch.bfloat16)
-    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 2
-    k1 = torch.zeros(3, 3, 3, 35, 8, dtype=torch.bfloat16)
-    assert tconv.gather_routes([aligned, shifted, narrow], k1) == (
-        ["cp.async", "scalar", "scalar"], "cp.async")
-    k1_narrow = torch.zeros(1, 1, 1, 16, 4, dtype=torch.bfloat16)  # cout 4
-    assert tconv.gather_routes([aligned], k1_narrow)[1] == "scalar"
-    k2 = torch.zeros(3, 3, 3, 4, 16, dtype=torch.bfloat16)  # (.., Cout 4, Cin 16)
-    assert tconv.gather_routes([aligned], k2)[1] == "cp.async"
+        assert any(s[-1] == 4 and t for s, t in zip(sig[0], fp32))
 
 
 def _path_convs(batch):
@@ -460,26 +331,21 @@ DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _path_plan(name, sig, dtype):
-    """The wrapper's launch arguments of one path call in ``dtype`` (the
-    kernel of its route: bf16 wgmma_args, fp32 igemm_args), on the meta
-    device."""
+    """The wrapper's launch arguments of one path call in ``dtype``
+    (wgmma_args), on the meta device."""
     transposed = name == "conv3d_transpose"
     shapes = [sig[0]] if transposed else sig[0]
     parts = [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
     kernel = torch.empty(sig[1], dtype=dtype, device="meta")
-    args = tconv.wgmma_args if tconv.kernel_route(dtype) == "wgmma" else tconv.igemm_args
-    return args(parts, kernel, None, sig[2], transposed)
+    return tconv.wgmma_args(parts, kernel, None, sig[2], transposed)
 
 
 def _k_units(plan, dtype):
-    """A phase's units of K that split-K divides: bf16's weight stages,
-    fp32's slabs; with the tile widths, the least average a split keeps and
-    the blocks an SM of each width."""
-    if dtype == torch.bfloat16:
-        return (plan["stages"], tconv.WG_TILES_N, tconv.WG_MIN_STAGES_PER_SPLIT,
-                tconv.WG_RESIDENT)
-    return (plan["slabs"], tconv.TILES_N[dtype], tconv.MIN_SLABS_PER_SPLIT,
-            tconv.RESIDENT_BLOCKS[dtype])
+    """A phase's units of K that split-K divides (its weight stages), with
+    the dtype's tile widths, the least average a split keeps and the blocks
+    an SM holds of each width."""
+    return (plan["stages"], tconv.WG_TILES_N[dtype], tconv.WG_MIN_STAGES_PER_SPLIT,
+            tconv.WG_RESIDENT[dtype])
 
 
 @pytest.mark.parametrize("batch", [2, 8, 16])
@@ -506,27 +372,25 @@ def test_igemm_plan_fills_the_grid_or_runs_out_of_k(batch):
         slabs, _, least, resident = _k_units(plan, dtype)
         cap = max(1, min(min(slabs), sum(slabs) // (len(slabs) * least), tconv.MAX_SPLITS))
         assert plan["cap"] == cap
-        assert plan["target"] == tconv.SMS * resident[plan["bn"]]
+        assert plan["target"] == tconv.SMS * resident[plan["bn"]] * tconv.WG_SPLIT_WAVES[dtype]
         if plan["splits"] > 1:
             assert plan["blocks"] <= plan["target"], (name, sig, plan)
         assert (plan["splits"] == cap  # K ran out
                 or plan["tiles"] * (plan["splits"] + 1) > plan["target"]), (name, sig, plan)
         split_shapes[dtype] += plan["splits"] > 1
-    # the deep levels split at every batch in fp32; bf16's plans split at 2,
-    # and at 8 and 16 every call's tiles of 128 rows already hold a wave's
-    # worth of blocks (target // tiles is 1)
-    assert split_shapes[torch.float32] > 0 and (batch > 2 or split_shapes[torch.bfloat16] > 0)
+    # both dtypes' plans split at 2; at 8 and 16 every call's tiles of 128
+    # rows already hold (nearly) a wave's worth of blocks (target // tiles
+    # is 1)
+    assert batch > 2 or (split_shapes[torch.float32] > 0 and split_shapes[torch.bfloat16] > 0)
 
 
 @pytest.mark.parametrize("batch", [2, 8, 16])
 def test_igemm_plan_workspace_is_what_the_wrapper_allocates(batch):
     for (name, sig), dtype in itertools.product(_path_convs(batch), DTYPES):
         y, ws, plan, (ptrs, meta, _) = _path_plan(name, sig, dtype)
-        if dtype == torch.bfloat16:  # wgmma's fields (_wgmma_host)
-            assert meta[89] == 1 and meta[81] == plan["splits"] and meta[83] == plan["bn"]
-        else:
-            f = meta[tconv.META0:]
-            assert f[56] == 0 and f[58] == plan["splits"] and f[62] == plan["bn"]
+        # the kernel's fields (_wgmma_host)
+        assert meta[89] == (1 if dtype == torch.bfloat16 else 0)
+        assert meta[81] == plan["splits"] and meta[83] == plan["bn"]
         if plan["splits"] == 1:
             assert ws is None and plan["workspace"] == 0
         else:

@@ -11,8 +11,10 @@ runs (``library_ms`` over all four). The bound is the larger of the bytes
 (inputs read once, the output written once, over 3.35 TB/s) and the
 operations (over the dtype's tensor-core peak), as ``chip_smoke.py``
 computes it; the plan (tile, slab widths, TMA or staged parts, tile width,
-splits) is this checkout's ``convolution.wgmma_plan``. Prints a markdown
-table and the sums; needs no card.
+splits, fp32's resident weights) is this checkout's ``convolution.wgmma_plan``
+in ``--dtype`` (bf16
+or fp32: one kernel serves both). Prints a markdown table and the sums;
+needs no card.
 """
 
 import argparse
@@ -78,7 +80,8 @@ def main(argv=None):
                 plan = (f"{'flat' if pl['flat'] else 'x'.join(map(str, pl['tile']))}, "
                         f"slab {pl['width']}, {'+'.join(sorted(routes))}, "
                         f"N {pl['bn']}, split {pl['splits']}"
-                        + (", phase loop" if pl["phase_loop"] else ""))
+                        + (", phase loop" if pl["phase_loop"] else "")
+                        + (", resident" if pl.get("resident") else ""))
             else:
                 plan = f"N {pl['bn']}, split {pl['splits']}"
             parts = [s[-1] for s in (sig[0] if name == "conv3d" else [sig[0]])]

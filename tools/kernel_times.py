@@ -49,8 +49,7 @@ import sys
 
 sys.path.insert(0, os.getcwd())
 
-PTXAS_KERNELS = ("conv3d_mma_kernel", "conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel",
-                 "splitk_reduce_kernel", "in_stats_kernel",
+PTXAS_KERNELS = ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel", "in_stats_kernel",
                  "in_apply_kernel", "wgrad_mma_kernel", "wgrad_reduce_kernel",
                  "in_bwd_reduce_kernel", "in_bwd_apply_kernel")
 
@@ -77,10 +76,12 @@ def ptxas_variants(log):
     return out
 
 
-# the bf16 K1/K2 shapes whose cycles --stamps accounts for, at batch 2: level
-# 0's two-part stitch, the dense-skip ladder's six-part one, level 2's 3x3x3
-# stitch, level 4's 1x1x1, the stem, and the ladder's K2 at cin 259
-L0, L2 = (2, 20, 160, 160, 16), (2, 20, 40, 40, 64)
+# the K1/K2 shapes whose cycles --stamps accounts for (in each of --dtypes),
+# at batch 2: level 0's two-part stitch, the dense-skip ladder's six-part
+# one, level 2's 3x3x3 stitch, level 4's 1x1x1, the stem, the ladder's K2 at
+# cin 259, the deepest stitch (level 3's 128+128 at 3x3x3, K 6,912) and
+# level 0's flat 1x1x1 16 -> 16 (8,000 one-stage units)
+L0, L2, L3 = (2, 20, 160, 160, 16), (2, 20, 40, 40, 64), (2, 10, 20, 20, 128)
 STAMP_SHAPES = {
     "level0_two_part_32to16": ("conv3d", ((L0, L0), (1, 3, 3, 32, 16), (1, 1, 1))),
     "level0_six_part_96to16": ("conv3d", ((L0,) * 6, (1, 3, 3, 96, 16), (1, 1, 1))),
@@ -90,10 +91,12 @@ STAMP_SHAPES = {
     "stem_cin3": ("conv3d", (((2, 20, 160, 160, 3),), (1, 3, 3, 3, 16), (1, 1, 1))),
     "k2_cin259": ("conv3d_transpose", ((2, 5, 10, 10, 259), (3, 3, 3, 128, 259),
                                        (2, 2, 2))),
+    "level3_128+128to128_3x3x3": ("conv3d", ((L3, L3), (3, 3, 3, 256, 128), (1, 1, 1))),
+    "level0_flat_16to16_1x1x1": ("conv3d", ((L0,), (1, 1, 1, 16, 16), (1, 1, 1))),
 }
 STAMP_PHASES = ("setup", "issue", "wait", "mma", "epilogue", "producer_wait",
                 "producer_load")
-STAMP_ENTRIES = ("pmr_conv3d_mma_stamps", "pmr_conv3d_wgmma_stamps")
+STAMP_ENTRIES = ("pmr_conv3d_wgmma_stamps",)
 
 
 def stamp_shapes(cs, cv, cuda_lib, dtype, gen):
