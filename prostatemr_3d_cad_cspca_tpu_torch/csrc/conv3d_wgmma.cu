@@ -108,6 +108,7 @@
 
 #include "common.cuh"
 #include "conv_params.cuh"
+#include "halo.cuh"
 #include "stamps.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -118,6 +119,10 @@ using bf16 = __nv_bfloat16;
 using pmr::kMaxParts;
 using pmr::kMaxPhases;
 using pmr::kMaxTaps;
+using pmr::ldmatrix_x4_at;
+using pmr::load8_any;
+using pmr::swizzle;
+using pmr::wait_bar;
 
 constexpr int kRows = 128;       // output rows a block (ops/convolution.py WG_ROWS)
 constexpr int kConsumers = 2;    // warpgroups of 64 rows
@@ -188,13 +193,6 @@ __device__ __forceinline__ int pow2_at_least(int n) {
   return n <= 1 ? 1 : 1 << (32 - __clz(n - 1));
 }
 
-// The box's swizzle: a row (voxel) of 16 x (smask + 1) bytes; the 16-byte
-// chunk bits [4, 7) of a byte offset are XORed with bits [7, 10), as TMA's
-// 32/64/128-byte swizzle writes them (smask 1, 3, 7; 0: none).
-__device__ __forceinline__ uint32_t swizzle(uint32_t byte, uint32_t smask) {
-  return byte ^ (((byte >> 7) & smask) << 4);
-}
-
 // One poll of an mbarrier's phase: true once the phase of `parity` is done.
 __device__ __forceinline__ bool try_bar(uint64_t* bar, int parity) {
   uint32_t done;
@@ -208,93 +206,8 @@ __device__ __forceinline__ bool try_bar(uint64_t* bar, int parity) {
   return done != 0;
 }
 
-// An mbarrier wait that traps rather than hangs if the pipeline ever lost
-// an arrival (2^24 polls: seconds).
-__device__ __forceinline__ void wait_bar(uint64_t* bar, int parity) {
-  const uint32_t addr = pmr::smem_addr(bar);
-  uint32_t done = 0;
-  for (uint32_t n = 0;; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n > (1u << 24)) __trap();
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
-}
-
-// 8 consecutive bf16 from `src` (2-byte aligned), the first n of them valid
-// (n >= 8: all), the rest zero; no byte at or past `end` is read. An aligned
-// chunk is one 16-byte load; any other is cut from the two aligned 16-byte
-// words that cover it (a funnel shift by 2 bytes where the offset is odd in
-// 2-byte units) while they lie before `end`, else read element by element.
-__device__ __forceinline__ uint4 load8_any(const bf16* src, int n, const bf16* end) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src), a0 = a & ~uintptr_t(15);
-  uint32_t o[4];
-  if (a == a0 && n >= 8) return __ldg(reinterpret_cast<const uint4*>(src));
-  if (a0 + 32 <= reinterpret_cast<uintptr_t>(end)) {
-    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(a0));
-    const uint4 hi = __ldg(reinterpret_cast<const uint4*>(a0 + 16));
-    const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    const int q = (int)((a - a0) >> 2);
-    const bool half = (a & 2) != 0;
-    uint32_t r[5];
-#pragma unroll
-    for (int i = 0; i < 5; ++i)  // r[i] = w[q + i], by selects (no local memory)
-      r[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[min(i + 3, 7)];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = half ? __funnelshift_r(r[i], r[i + 1], 16) : r[i];
-  } else {
-    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t e0 = 2 * i < n ? __ldg(s + 2 * i) : 0;
-      const uint32_t e1 = 2 * i + 1 < n ? __ldg(s + 2 * i + 1) : 0;
-      o[i] = e0 | (e1 << 16);
-    }
-    return make_uint4(o[0], o[1], o[2], o[3]);
-  }
-  if (n < 8) {  // zero the elements past the valid ones
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      o[i] &= (2 * i < n ? 0xFFFFu : 0u) | (2 * i + 1 < n ? 0xFFFF0000u : 0u);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// 4 consecutive fp32 from `src`, the first n of them valid (n >= 4: all),
-// the rest zero: one 16-byte load where aligned, else element by element
-// (an fp32 element is always 4-byte aligned; none past the valid ones is
-// read).
-__device__ __forceinline__ uint4 load4_any(const float* src, int n) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && n >= 4)
-    return __ldg(reinterpret_cast<const uint4*>(src));
-  uint32_t o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = i < n ? __float_as_uint(__ldg(src + i)) : 0u;
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// One 16-byte chunk of a part's voxel: kVec elements, the first n valid.
-template <typename T>
-__device__ __forceinline__ uint4 load_chunk(const T* src, int n, const T* end) {
-  if constexpr (Elem<T>::kF32)
-    return load4_any(src, n);
-  else
-    return load8_any(src, n, end);
 }
 
 // The walk of one block's K: parts in order, each part's slabs, each slab's
@@ -650,7 +563,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
                   if (it < total && (unsigned)gz < (unsigned)p.in_d &&
                       (unsigned)gy < (unsigned)p.in_h && (unsigned)gx < (unsigned)p.in_w &&
                       ch < cin)
-                    val[k] = load_chunk<T>(
+                    val[k] = pmr::load_chunk(
                         xq + (size_t)(((t.b * p.in_d + gz) * p.in_h + gy) * p.in_w + gx) * cin + ch,
                         cin - ch, xend);
                 }

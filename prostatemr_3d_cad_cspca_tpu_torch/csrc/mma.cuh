@@ -1,9 +1,7 @@
-// Tensor-core building blocks in inline PTX for the conv kernels
-// (conv3d_wgrad.cu; conv3d_wgmma.cu takes split_tf32 and the cp.async
-// group calls): 4- to 16-byte cp.async with zero-fill,
-// ldmatrix (plain and transposed), mma.sync m16n8k16 bf16 -> fp32 and
-// m16n8k8 tf32 -> fp32, and the split of an fp32 value into two TF32 halves;
-// smem_addr also serves tma.cuh and wgmma.cuh.
+// Tensor-core helpers shared by the conv kernels: the split of an fp32 value
+// into two TF32 halves (conv3d_wgmma.cu's 3xTF32) or three bf16 parts
+// (conv3d_wgrad.cu's fp32), and smem_addr, which also serves halo.cuh,
+// tma.cuh and wgmma.cuh.
 #pragma once
 
 #include <stdint.h>
@@ -16,85 +14,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; src_bytes 0 zero-fills the destination (src must still
-// be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-// The same through L1 (.ca), for gathers whose neighbouring taps re-read
-// the same lines.
-__device__ __forceinline__ void cp_async16_l1(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-// An async copy of kBytes (4, 8 or 16) through L1 (.ca: .cg takes 16 bytes
-// only); src_bytes 0 zero-fills the destination.
-template <int kBytes>
-__device__ __forceinline__ void cp_async_l1(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "n"(kBytes), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// c += a . b on one 16x8x16 tile; A row-major, B column-major fragments.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b on one 16x8x8 tile of TF32 operands (the tensor core reads the
-// top 19 bits of each 32-bit register), fp32 accumulation. The fragments
-// hold one 32-bit element a register: a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); c as
-// mma_bf16's (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi), each rounded
 // as cvt.rna.tf32.f32 rounds a finite value (half a TF32 step added to the
 // magnitude, the low 13 bits dropped), in integer ops: cvt.rna adds an
@@ -104,6 +23,24 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
   hi = (x + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) + 0x1000u;
+}
+
+// x = x1 + x2 + x3 to 2^-24 |x| or better: x1 = bf16(x), x2 = bf16(x - x1),
+// x3 = bf16(x - x1 - x2), each rounded to nearest even; the remainders are
+// exact in fp32. Two values at once (x low, y high in each part's 32 bits):
+// the packed conversion (cvt.rn.bf16x2.f32) takes half the instructions of
+// three scalar ones a value, and conversions are what the split costs. The
+// six products a_i . b_j with i + j <= 4 give a . b to about 2^-24 of it.
+__device__ __forceinline__ void split_bf16x3(float x, float y, uint32_t (&part)[3]) {
+  const __nv_bfloat162 p1 = __floats2bfloat162_rn(x, y);
+  const float2 f1 = __bfloat1622float2(p1);
+  const float rx = x - f1.x, ry = y - f1.y;
+  const __nv_bfloat162 p2 = __floats2bfloat162_rn(rx, ry);
+  const float2 f2 = __bfloat1622float2(p2);
+  const __nv_bfloat162 p3 = __floats2bfloat162_rn(rx - f2.x, ry - f2.y);
+  part[0] = *reinterpret_cast<const uint32_t*>(&p1);
+  part[1] = *reinterpret_cast<const uint32_t*>(&p2);
+  part[2] = *reinterpret_cast<const uint32_t*>(&p3);
 }
 
 }  // namespace pmr

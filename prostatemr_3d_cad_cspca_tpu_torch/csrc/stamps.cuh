@@ -5,8 +5,8 @@
 // stamp to that phase's counter; at the end the block adds its counters
 // into slot (block % kStampSlots) of the buffer the source's C entry
 // installed: kStampPhases - 1 counters and a block count (thread 0's) a
-// slot. A kernel may stamp from two threads (conv3d_wgmma.cu: a consumer's
-// and the producer's). Each source
+// slot. A kernel may stamp from two threads (a consumer's and the
+// producer's). Each source
 // that includes this header exports its own C entry that installs the
 // buffer (pmr_stamp_install below), since the buffer's pointer is a
 // device variable of that source.
@@ -18,11 +18,14 @@
 
 namespace pmr {
 
-// Phases of a stamped kernel (conv3d_wgmma.cu, both dtypes): setup, the
-// consumers' full-barrier waits (A and B), the ldmatrix (+ fp32's TF32
-// split) and wgmma issue, the wgmma waits (+ fp32's chain promotions), the
-// epilogue; and, by the producer's first thread, its empty-barrier waits
-// and its loads (fp32: the weight stages' cp.async issue and conversion).
+// Phases of a stamped kernel (conv3d_wgmma.cu and conv3d_wgrad.cu, both
+// dtypes): setup, the consumers' full-barrier waits (A and B; K6: and its
+// first named barrier), the ldmatrix (+ fp32's TF32 split) and wgmma issue
+// (K6: the fragment loads alone), the wgmma waits (+ fp32's chain
+// promotions; K6: and the wgmma issue), the epilogue; by the producer's
+// first thread, its empty-barrier waits and its loads (fp32 K1/K2: the
+// weight stages' cp.async issue and conversion); and K6's conversion of a
+// box's B into the K-major tile (with its second named barrier).
 enum StampPhase {
   kStampSetup = 0,
   kStampIssue = 1,
@@ -31,7 +34,8 @@ enum StampPhase {
   kStampEpilogue = 4,
   kStampProducerWait = 5,
   kStampProducerLoad = 6,
-  kStampPhases = 8,  // the last counter of a slot counts blocks
+  kStampConvert = 7,
+  kStampPhases = 9,  // the last counter of a slot counts blocks
 };
 constexpr int kStampSlots = 4096;
 
@@ -43,7 +47,7 @@ static __device__ unsigned long long* pmr_stamp_buf = nullptr;  // one a source
 #define PMR_STAMP_DECL(who)                                          \
   const bool pmr_stamper = (who);                                    \
   long long pmr_stamp_t = clock64();                                 \
-  long long pmr_stamp_acc[pmr::kStampPhases] = {0, 0, 0, 0, 0, 0, 0, 0}
+  long long pmr_stamp_acc[pmr::kStampPhases] = {0, 0, 0, 0, 0, 0, 0, 0, 0}
 #define PMR_STAMP(ph)                                                \
   do {                                                               \
     if (pmr_stamper) {                                               \

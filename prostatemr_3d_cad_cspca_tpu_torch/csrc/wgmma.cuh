@@ -1,8 +1,10 @@
 // Hopper warpgroup MMA (wgmma) in inline PTX: the consuming half of a TMA +
-// wgmma pipeline (K5 gemm_loop.cu and K1/K2 conv3d_wgmma.cu; tma.cuh is
-// the loading half). K5 reads both operands from shared memory
-// (wgmma_m64n128k16_bf16); the conv kernel takes A from registers and N from
-// 8 to 128 in bf16 (WgmmaRS) and 8 to 64 in TF32 (WgmmaTF32).
+// wgmma pipeline (K5 gemm_loop.cu, K1/K2 conv3d_wgmma.cu and K6
+// conv3d_wgrad.cu; tma.cuh is the loading half). K5 reads both operands
+// from shared memory (wgmma_m64n128k16_bf16); the conv kernels take A from
+// registers and N from 8 to 128 in bf16 (WgmmaRS; K6's fp32 also 24, 48, 96:
+// two or three parts of its tile side by side) and 8 to 64 in TF32
+// (WgmmaTF32).
 //
 // A warpgroup (4 consecutive warps, the first a multiple of 4) issues
 // wgmma.mma_async on operands in shared memory described by 64-bit matrix
@@ -104,15 +106,19 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
 // a[0] (row g, k 2t..2t+1), a[1] (g + 8, 2t..), a[2] (g, 2t + 8..), a[3]
 // (g + 8, 2t + 8..), g = lane / 4, t = lane % 4; ldmatrix x4 of the rows
 // (lane & 7) + 8 ((lane >> 3) & 1) at k 8 (lane >> 4) gives it. d as
-// wgmma_m64n128k16_bf16's. kTransB 1: B is MN-major. The register lists are
-// spelled out per N (the instruction names every accumulator).
+// wgmma_m64n128k16_bf16's; d may be longer than N / 2 (its first N / 2
+// registers are the instruction's columns: a prefix of a wider tile's
+// accumulator). kTransB 1: B is MN-major. The register lists are spelled
+// out per N (the instruction names every accumulator).
 template <int N, int kTransB>
 struct WgmmaRS;
 
 template <int kTransB>
 struct WgmmaRS<8, kTransB> {
-  __device__ __forceinline__ static void mma(float (&d)[4], const uint32_t (&a)[4],
+  template <int M>
+  __device__ __forceinline__ static void mma(float (&d)[M], const uint32_t (&a)[4],
                                              uint64_t desc_b) {
+    static_assert(M >= 4, "the accumulator holds the instruction's columns");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -128,8 +134,10 @@ struct WgmmaRS<8, kTransB> {
 
 template <int kTransB>
 struct WgmmaRS<16, kTransB> {
-  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4],
+  template <int M>
+  __device__ __forceinline__ static void mma(float (&d)[M], const uint32_t (&a)[4],
                                              uint64_t desc_b) {
+    static_assert(M >= 8, "the accumulator holds the instruction's columns");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -144,9 +152,30 @@ struct WgmmaRS<16, kTransB> {
 };
 
 template <int kTransB>
-struct WgmmaRS<32, kTransB> {
-  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4],
+struct WgmmaRS<24, kTransB> {
+  template <int M>
+  __device__ __forceinline__ static void mma(float (&d)[M], const uint32_t (&a)[4],
                                              uint64_t desc_b) {
+    static_assert(M >= 12, "the accumulator holds the instruction's columns");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, %16, p, 1, 1, %17;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
+
+template <int kTransB>
+struct WgmmaRS<32, kTransB> {
+  template <int M>
+  __device__ __forceinline__ static void mma(float (&d)[M], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    static_assert(M >= 16, "the accumulator holds the instruction's columns");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -161,9 +190,30 @@ struct WgmmaRS<32, kTransB> {
 };
 
 template <int kTransB>
-struct WgmmaRS<64, kTransB> {
-  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4],
+struct WgmmaRS<48, kTransB> {
+  template <int M>
+  __device__ __forceinline__ static void mma(float (&d)[M], const uint32_t (&a)[4],
                                              uint64_t desc_b) {
+    static_assert(M >= 24, "the accumulator holds the instruction's columns");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %30, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1, %29;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
+
+template <int kTransB>
+struct WgmmaRS<64, kTransB> {
+  template <int M>
+  __device__ __forceinline__ static void mma(float (&d)[M], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    static_assert(M >= 32, "the accumulator holds the instruction's columns");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -178,9 +228,30 @@ struct WgmmaRS<64, kTransB> {
 };
 
 template <int kTransB>
-struct WgmmaRS<128, kTransB> {
-  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t (&a)[4],
+struct WgmmaRS<96, kTransB> {
+  template <int M>
+  __device__ __forceinline__ static void mma(float (&d)[M], const uint32_t (&a)[4],
                                              uint64_t desc_b) {
+    static_assert(M >= 48, "the accumulator holds the instruction's columns");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %54, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %53;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(1));
+  }
+};
+
+template <int kTransB>
+struct WgmmaRS<128, kTransB> {
+  template <int M>
+  __device__ __forceinline__ static void mma(float (&d)[M], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+    static_assert(M >= 64, "the accumulator holds the instruction's columns");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"

@@ -14,7 +14,8 @@ their windows from :func:`forward_plan` / :func:`transpose_plan`.
 
 Three kernels live here, each with its plain PyTorch twin and its launch
 counter, all on the tensor cores (the sources' notes say how), bf16
-directly and fp32 as error-compensated TF32 (3xTF32):
+directly and fp32 error-compensated (K1/K2 as 3xTF32, K6 in three bf16
+parts):
 
   * K1 :func:`conv3d` — forward conv over a list of up to MAX_PARTS channel
     parts (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
@@ -23,8 +24,8 @@ directly and fp32 as error-compensated TF32 (3xTF32):
     (K1 and K2: on Hopper's wgmma with halo tiles in shared memory, bf16
     directly and fp32 as 3xTF32, ``csrc/conv3d_wgmma.cu`` and
     :func:`wgmma_plan`; :func:`kernel_route` names the route);
-  * K6 :func:`conv3d_wgrad` — the weight gradient of both
-    (``csrc/conv3d_wgrad.cu``).
+  * K6 :func:`conv3d_wgrad` — the weight gradient of both, on wgmma with
+    halo boxes too (``csrc/conv3d_wgrad.cu`` and :func:`wgrad_plan`).
 
 K1 and K2 are differentiable where autograd asks for it (a
 ``torch.autograd.Function`` each): their data gradients are each other
@@ -44,6 +45,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Any, Optional, Sequence
 
@@ -798,84 +800,226 @@ class _ConvTranspose3dFn(torch.autograd.Function):
 
 
 # ------------------------------------------------------------------- K6
-# The tile family of csrc/conv3d_wgrad.cu, per dtype: (MT, NT, WM, WN, WK,
-# KSTEPS) of each wgrad_mma_kernel instance, a tile of BM = 16 MT WM by
-# BN = 8 NT WN outputs, WM x WN x WK warps (WK split each stage's rows) and
-# KSTEPS mma steps a warp a stage (launch_bm_bn dispatches on (BM, BN)).
-WGRAD_VARIANTS = {
-    torch.bfloat16: ((1, 1, 1, 1, 4, 2), (1, 2, 1, 1, 4, 2), (3, 1, 1, 1, 4, 2),
-                     (3, 2, 1, 1, 4, 2), (3, 1, 3, 1, 2, 2), (3, 2, 3, 1, 2, 2),
-                     (2, 4, 2, 1, 2, 2), (2, 4, 4, 2, 1, 4), (2, 8, 4, 2, 1, 4)),
-    torch.float32: ((1, 1, 1, 1, 4, 2), (1, 2, 1, 1, 4, 2), (3, 1, 1, 1, 4, 2),
-                    (3, 2, 1, 1, 4, 2), (3, 1, 3, 1, 2, 2), (3, 2, 3, 1, 2, 2),
-                    (2, 4, 2, 1, 2, 2), (2, 4, 4, 2, 1, 4)),
-}
-WGRAD_KS = {torch.bfloat16: 16, torch.float32: 8}  # rows of one mma step (k16, k8)
-WGRAD_CHAIN_STEPS = 16    # fp32: k8 steps of a warp's tensor-core chain (kChainSteps)
-WGRAD_MIN_STAGES = 4      # a chunk of rows holds at least this many stages
-WGRAD_MAX_CHUNKS = 1024
-WGRAD_REDUCE_GROUPS = 8   # wgrad_reduce_kernel's chunk groups (kReduceGroups)
-WGRAD_LOAD_COST = 24      # a gathered element's cost in products, for the tile choice
+# csrc/conv3d_wgrad.cu, bf16 and fp32 (three bf16 parts, six products in
+# three wgmmas a step): a box of WGRAD_BOX output
+# voxels is one K chunk; a block owns a group of taps x a slab of A's
+# channels (its rows, in 64-row warpgroup tiles) by a tile of B's channels
+# and walks a fixed range of the boxes, whose A halo box and B box the
+# producer loads once each (TMA, or staged at odd widths and bases; an fp32
+# operand that several blocks read split into bf16 planes first). See the
+# source's note for the design; here the plan and the geometry array. Per
+# dtype: the tile widths, the 64-row tiles a consumer warpgroup holds at
+# each (the kernel's tiles_per_wg), the slab widths (at least a 16-byte bf16
+# ldmatrix row of 8 channels; a box row of at most 128 bytes) and the bf16
+# parts an element takes.
+WGRAD_BOX = 128            # output voxels a box (kBox): one stage's K
+WGRAD_TILES_N = {torch.bfloat16: (8, 16, 32, 64, 128), torch.float32: (8, 16, 32)}
+WGRAD_MT = {torch.bfloat16: {8: 2, 16: 2, 32: 2, 64: 2, 128: 1},
+            torch.float32: {8: 2, 16: 2, 32: 1}}
+WGRAD_WIDTHS = {torch.bfloat16: (8, 16, 32, 64), torch.float32: (8, 16, 32)}
+WGRAD_PARTS = {torch.bfloat16: 1, torch.float32: 3}  # bf16 parts an element (kParts)
+WGRAD_STAGES = (2, 8)      # the ring: as many stages as fit (kMaxStages)
+WGRAD_MIN_BOXES = 4        # boxes a split walks at least, on average
+WGRAD_REDUCE_GROUPS = 8    # wgrad_reduce_kernel's split groups (kReduceGroups)
+WGRAD_GEOM = 45            # int32 fields of the geometry array (kGeom)
+WGRAD_SMEM_EXTRA = 1024 + 256  # alignment slack of the dynamic base; barriers, tap table
+# the plan's cost model (relative, not measured rates): L2 bytes a second and
+# the tensor rate it assumes a kernel reaches, per dtype (fp32: six bf16
+# products a term)
+WGRAD_L2_RATE = 5.5e12
+WGRAD_RATE = {torch.bfloat16: 0.5 * 989e12, torch.float32: 0.5 * 989e12 / 6}
+HBM_RATE = 3.35e12
+WGRAD_BOX_LATENCY = 1.0e-6  # a box's fixed cost a block
+# fp32 operands split into bf16 planes before the kernel where at least this
+# many blocks would convert each box: A's boxes are read by the blocks of
+# every tap group and channel tile of B, B's by those of every tap group and
+# slab of A (stride 1 only: a strided gradient's B is the coarse grid). Like
+# the schedule's rule (ping-pong for flat gradients), set from per-shape
+# times at the cfg1 train step on an H100 (PERF.md).
+WGRAD_PARTS_READS = (3, 4)
 
 
-def wgrad_tile(variant, dtype: torch.dtype) -> dict:
-    """The shape of one K6 tile variant: BM, BN, warps, the rows a stage
-    (``stage_rows`` = WK x KSTEPS x the mma step's rows) and the blocks its
-    launch bounds keep resident on one SM (csrc/conv3d_wgrad.cu
-    resident_blocks)."""
-    mt, nt, wm, wn, wk, ksteps = variant
-    warps = wm * wn * wk
-    return dict(variant=tuple(variant), bm=16 * mt * wm, bn=8 * nt * wn, warps=warps,
-                wk=wk, ksteps=ksteps, stage_rows=wk * ksteps * WGRAD_KS[dtype],
-                resident=2 if warps >= 6 or mt * nt > 8 else 4)
+def _kb(n: int) -> int:
+    return -(-int(n) // 1024) * 1024
 
 
-def wgrad_plan(m: int, cout: int, rows: int, dtype: torch.dtype = torch.float32) -> dict:
-    """Tile and row split of K6 (csrc/conv3d_wgrad.cu) in ``dtype`` for an
-    ``m`` = taps x CA by ``cout`` gradient over ``rows`` = batch x output
-    voxels.
+@functools.lru_cache(maxsize=512)
+def wgrad_plan(ashape, cb: int, kernel_size, strides, dtype: torch.dtype,
+               tma=(True, True), schedules=None) -> dict:
+    """Boxes, block tiles, schedule and split of K6 (csrc/conv3d_wgrad.cu) in
+    ``dtype`` for A of ``ashape`` (NDHWC), ``cb`` channels of B and a SAME
+    ``kernel_size`` / ``strides`` window (``tma``: whether A and B take the
+    TMA route, :func:`wgrad_routes`; ``schedules``: the values of
+    ``pingpong`` it may take, by default the one of WGRAD_PINGPONG's rule).
 
-    The tile is the variant of WGRAD_VARIANTS[dtype] of the least cost
-    ``padded * (1 + WGRAD_LOAD_COST * (1 / bm + 1 / bn))``: ``padded`` is the
-    outputs its tiles cover (the products), and each row loads ``bm + bn``
-    elements a tile, ``padded * (1 / bm + 1 / bn)`` in all, each costing
-    about WGRAD_LOAD_COST products (ties: the larger tile). Output tiles
-    alone give ``tiles`` blocks; the rows are cut into ``chunks`` ranges of
-    ``chunk_rows`` (a multiple of the stage's rows) so that the blocks fill
-    one wave (SMS x the variant's resident blocks), no chunk below
-    WGRAD_MIN_STAGES stages, at most WGRAD_MAX_CHUNKS. With more than one
-    chunk the kernel writes ``workspace`` fp32 partials (chunks x m x cout)
-    that a second kernel sums in a fixed order.
+    * Boxes: B's grid in tiles of WGRAD_BOX output voxels (WG_TILE_SHAPES),
+      whose halo box ((t - 1) s + k a axis) stays within TMA's 256; a 1x1x1
+      gradient at stride 1 is flat, one row of batch x voxels in boxes of
+      WGRAD_BOX.
+    * Block tiles: B's channels in tiles of ``bn`` (of WGRAD_TILES_N[dtype],
+      at most the least that holds CB); a block's rows are ``tpb`` taps x a
+      slab of ``width`` of A's channels, at most 64 x WGRAD_MT[dtype][bn] a
+      warpgroup.
+    * Schedule: split (the two consumer warpgroups share each box's rows)
+      or ping-pong (``pingpong``: the rows fit one warpgroup, which takes
+      every other box; two partial sums a split): ping-pong for a flat
+      gradient, split for the rest (WGRAD_PINGPONG).
+    * The tile, tile width and slab are the set of least estimated time
+      over the boxes: a box costs a block the largest of the L2 bytes it
+      reads (its halo slab and B's box), its padded products and a fixed
+      latency (WGRAD_BOX_LATENCY), among the sets whose two stages fit a
+      block's shared memory beside the consumers' buffers; then as many
+      stages (up to eight) as fit, an even count with ping-pong.
+    * fp32 operands in parts (``a_parts``, ``b_parts``): A, or B, split
+      into three bf16 planes by wgrad_split_kernel before the kernel and
+      TMA'd as bf16 boxes, where WGRAD_PARTS_READS blocks would convert
+      each box (A also where it takes the staged route) and the plan's
+      stages of them fit.
+    * Split: the boxes in ``splits`` ranges, the count of least estimated
+      time over the card's waves plus the partials' traffic (fp32, written
+      and read by wgrad_reduce_kernel), at most one split a WGRAD_MIN_BOXES
+      boxes and four a streaming multiprocessor; split j walks [nbox j //
+      splits, nbox (j + 1) // splits).
     """
-    def padded(t):
-        return -(-m // t["bm"]) * t["bm"] * -(-cout // t["bn"]) * t["bn"]
+    ks, st = tuple(int(k) for k in kernel_size), tuple(int(s) for s in strides)
+    batch, a_sp, ca, cb = int(ashape[0]), tuple(int(n) for n in ashape[1:4]), int(ashape[4]), \
+        int(cb)
+    geo = [same_pads(n, k, s) for n, k, s in zip(a_sp, ks, st)]
+    out, lo = tuple(g[0] for g in geo), tuple(g[1] for g in geo)
+    ntaps, es, vec = math.prod(ks), 16 // _vec(dtype), _vec(dtype)
+    flat = ks == (1, 1, 1) and st == (1, 1, 1)
+    if flat:
+        rows = batch * math.prod(out)
+        view = dict(batch=1, a=(1, 1, rows), o=(1, 1, rows), strides=(1, 1, 1), lo=(0, 0, 0))
+        tiles = [(1, 1, WGRAD_BOX)]
+    else:
+        view = dict(batch=batch, a=a_sp, o=out, strides=st, lo=lo)
+        tiles = WG_TILE_SHAPES
+    fp32, rate, parts = dtype == torch.float32, WGRAD_RATE[dtype], WGRAD_PARTS[dtype]
+    top = next((b for b in WGRAD_TILES_N[dtype] if cb <= b), WGRAD_TILES_N[dtype][-1])
 
-    def cost(t):
-        return padded(t) * (1 + WGRAD_LOAD_COST * (1 / t["bm"] + 1 / t["bn"]))
+    def smem(box_vox, a_stage, bn, n, w, pp, a_parts, b_parts=False):
+        # n stages of A and B (fp32 in parts: their three bf16 part boxes);
+        # two buffers of B's K-major tile (bf16 parts x bn rows of 64 voxels,
+        # two a box)
+        conv = 2 * parts * 2 * bn * 128
+        if fp32:  # A's part boxes and B's part rows (bf16) unless in parts, a set a
+            # warpgroup with ping-pong
+            conv += (2 if pp else 1) * parts * (
+                (0 if a_parts else _kb(box_vox * w * 2)) + (0 if b_parts else WGRAD_BOX * bn * 2))
+        b_stage = _kb(parts * WGRAD_BOX * bn * 2) if b_parts else _kb(WGRAD_BOX * bn * es)
+        return n * (a_stage + b_stage) + conv + WGRAD_SMEM_EXTRA
 
-    tile = min((wgrad_tile(v, dtype) for v in WGRAD_VARIANTS[dtype]),
-               key=lambda t: (cost(t), -t["bm"] * t["bn"]))
-    stage = tile["stage_rows"]
-    tiles = -(-m // tile["bm"]) * -(-cout // tile["bn"])
-    target = SMS * tile["resident"]
-    chunks = max(1, min(-(-target // tiles), rows // (WGRAD_MIN_STAGES * stage),
-                        WGRAD_MAX_CHUNKS))
-    per_chunk = -(-rows // chunks)
-    chunk_rows = -(-per_chunk // stage) * stage  # whole stages
-    chunks = -(-rows // chunk_rows)
-    return dict(tile, tiles=tiles, chunks=chunks, chunk_rows=chunk_rows,
-                blocks=tiles * chunks, workspace=chunks * m * cout if chunks > 1 else 0)
+    widest = max(WGRAD_WIDTHS[dtype][0], _pow2_at_least(ca))
+    best = None
+    if schedules is None:  # ping-pong for a flat gradient (WGRAD_PARTS_READS' note)
+        schedules = (flat,)
+    for tile, bn, w, pp in itertools.product(tiles, WGRAD_TILES_N[dtype], WGRAD_WIDTHS[dtype],
+                                             schedules):
+        box = tuple((tile[i] - 1) * view["strides"][i] + (1 if flat else ks[i])
+                    for i in range(3))
+        box_vox, mt = math.prod(box), WGRAD_MT[dtype][bn]
+        tpb = min(ntaps, 64 * mt * (1 if pp else 2) // w)
+        if tpb < 1:
+            continue
+        tap_groups = -(-ntaps // tpb)
+        tpb = -(-ntaps // tap_groups)
+        a_stage = _kb(box_vox * w * es)
+        if (bn > top or w > widest or max(box) > WG_BOX_MAX
+                or smem(box_vox, a_stage, bn, WGRAD_STAGES[0], w, pp, False) > WG_SMEM_BLOCK):
+            continue
+        slabs = -(-ca // w)
+        blocks = tap_groups * slabs * -(-cb // bn)
+        nbox = view["batch"] * math.prod(-(-g // e) for g, e in zip(view["o"], tile))
+        l2 = box_vox * w * es + WGRAD_BOX * bn * es  # a block's bytes a box
+        flops = -(-tpb * w // 64) * 64 * bn * WGRAD_BOX * 2
+        t_box = max(l2 / (WGRAD_L2_RATE / SMS), flops / (rate / SMS), WGRAD_BOX_LATENCY)
+        key = (nbox * blocks * t_box, -bn, -w, -tile[2])
+        if best is None or key < best[0]:
+            best = (key, dict(tile=tile, box=box, box_vox=box_vox, nbox=nbox, bn=bn, mt=mt,
+                              width=w, tpb=tpb, tap_groups=tap_groups, slabs=slabs,
+                              a_stage=a_stage, t_box=t_box, pp=pp))
+    if best is None:
+        raise ValueError(f"conv3d_wgrad: no slab of {ashape} fits shared memory")
+    pl = best[1]
+    # fp32's A and B in bf16 parts split once before the kernel (no block
+    # converts their boxes) where WGRAD_PARTS_READS blocks would and the
+    # plan's stages of them fit
+    a_reads = pl["tap_groups"] * -(-cb // pl["bn"])
+    b_reads = pl["tap_groups"] * pl["slabs"] if st == (1, 1, 1) else 0
+    parts_stage = parts * _kb(pl["box_vox"] * pl["width"] * 2)
+    pl["a_parts"] = fp32 and (not tma[0] or not flat and a_reads >= WGRAD_PARTS_READS[0]) \
+        and smem(pl["box_vox"], parts_stage, pl["bn"], WGRAD_STAGES[0], pl["width"], pl["pp"],
+                 True) <= WG_SMEM_BLOCK
+    if pl["a_parts"]:
+        pl["a_stage"] = parts_stage
+    pl["b_parts"] = fp32 and not flat and b_reads >= WGRAD_PARTS_READS[1] and smem(
+        pl["box_vox"], pl["a_stage"], pl["bn"], WGRAD_STAGES[0], pl["width"], pl["pp"],
+        pl["a_parts"], True) <= WG_SMEM_BLOCK
+    bn, mt, tile, box, box_vox, nbox = (pl[k] for k in ("bn", "mt", "tile", "box", "box_vox",
+                                                         "nbox"))
+    tiles_ax = tuple(-(-g // e) for g, e in zip(view["o"], tile))
+    n_tiles = -(-cb // bn)
+    b_stage = _kb(parts * WGRAD_BOX * bn * 2) if pl["b_parts"] else _kb(WGRAD_BOX * bn * es)
+    # ping-pong takes an even count: then every box of a stage is one
+    # warpgroup's, which never waits on a stage's phase two ahead of the
+    # last it saw (an mbarrier's parity tells only two apart)
+    stages = max(n for n in range(WGRAD_STAGES[0], WGRAD_STAGES[1] + 1)
+                 if n == WGRAD_STAGES[0]
+                 or (smem(box_vox, pl["a_stage"], bn, n, pl["width"], pl["pp"], pl["a_parts"],
+                          pl["b_parts"]) <= WG_SMEM_BLOCK and (n % 2 == 0 or not pl["pp"])))
+    units = pl["tap_groups"] * pl["slabs"] * n_tiles
+    m = ntaps * ca
+    dram = (batch * math.prod(a_sp) * ca + batch * math.prod(out) * cb) * es
+
+    per_split = 2 if pl["pp"] else 1  # partial sums a split
+    cap, cbp = -(-ca // 8) * 8, -(-cb // 8) * 8  # the bf16 planes' channels (in parts)
+
+    def est(s):  # one block an SM streams at most twice its share of HBM
+        blocks = units * s
+        run = max(-(-blocks // SMS) * -(-nbox // s) * pl["t_box"],
+                  dram / HBM_RATE * max(1.0, SMS / (2 * min(blocks, SMS))))
+        return run + (s * per_split * m * cb * 8 / HBM_RATE if s * per_split > 1 else 0.0)
+
+    smax = max(1, min(nbox // WGRAD_MIN_BOXES, 4 * SMS))
+    splits = min(range(1, smax + 1), key=lambda s: (est(s), s))
+    return dict(flat=flat, view=view, out=out, lo=lo, tile=tile, box=box, box_vox=box_vox,
+                tiles_ax=tiles_ax, nbox=nbox, ntaps=ntaps, m=m, bn=bn, mt=mt, n_tiles=n_tiles,
+                width=pl["width"], tpb=pl["tpb"], tap_groups=pl["tap_groups"],
+                slabs=pl["slabs"], a_stage=pl["a_stage"], b_stage=b_stage, stages=stages,
+                smem=smem(box_vox, pl["a_stage"], bn, stages, pl["width"], pl["pp"],
+                          pl["a_parts"], pl["b_parts"]),
+                splits=splits,
+                units=units,
+                blocks=units * splits,
+                tma=(bool(tma[0]) or pl["a_parts"], bool(tma[1]) or pl["b_parts"]),
+                pingpong=pl["pp"], a_parts=pl["a_parts"], b_parts=pl["b_parts"],
+                workspace=_wgrad_workspace(
+                    splits * per_split, m * cb,
+                    [3 * batch * math.prod(a_sp) * cap] * pl["a_parts"]
+                    + [3 * batch * math.prod(out) * cbp] * pl["b_parts"]),
+                dtype=dtype)
+
+
+def _wgrad_workspace(partials: int, numel: int, planes) -> int:
+    """K6's fp32 workspace (elements): the partials (none with one), then,
+    each at the next 256 bytes, the bf16 planes of A and of B that are in
+    parts (``planes``: their bf16 elements)."""
+    n = partials * numel if partials > 1 else 0
+    for e in planes:
+        n = -(-n // 64) * 64 + -(-e // 2)
+    return n
 
 
 def wgrad_routes(a: torch.Tensor, b: torch.Tensor):
-    """How K6 loads A and B: the width in bytes of its cp.async copies, 16, 8
-    or 4 (the widest that divides the tensor's channel row and its base
-    address, so a copy holds whole channels of one voxel), or 0, the scalar
-    route (element by element through registers: bf16 with an odd channel
-    count or a base off the 4-byte grid)."""
+    """How K6 loads A's and B's boxes: "tma" where the tensor's voxel stride
+    is a multiple of 16 bytes and its base 16-byte aligned (a tiled TMA
+    map), else "staged" (16-byte chunks through the producer's registers:
+    the stem's 3 channels, bf16's 4 and 12, the heads' 1 and 2, a base off
+    the grid)."""
     def route(t):
         row = int(t.shape[-1]) * t.element_size()
-        return next((w for w in (16, 8, 4) if row % w == 0 and t.data_ptr() % w == 0), 0)
+        return "tma" if row % 16 == 0 and t.data_ptr() % 16 == 0 else "staged"
 
     return route(a), route(b)
 
@@ -918,23 +1062,31 @@ def conv3d_wgrad_plain(a, b, kernel_size, strides=(1, 1, 1)):
 
 
 def wgrad_args(a, b, kernel_size, strides):
-    """Everything one K6 launch takes: the output, the workspace (None with
-    one chunk), the plan (by A's dtype) and the geometry array the C entry
-    reads: A's D, H, W, C; B's D, H, W, C; kernel d, h, w; strides; SAME low
-    pads; batch; chunks; BM; BN; chunk rows; A's and B's copy widths
-    (:func:`wgrad_routes`). Device-agnostic, so the CPU tests replay the
-    very schedule the card runs."""
+    """Everything one K6 launch takes: the output, the workspace (the split's
+    partials and fp32's bf16 planes; None where there are neither), the plan
+    (by A's dtype) and the geometry array the C entry reads
+    (csrc/conv3d_wgrad.cu pmr_conv3d_wgrad lists the fields: the view's
+    grids, window, tile, halo box and tiles an axis; the slab, taps a block,
+    tap groups, slabs, tile n, channel tiles, splits, boxes; the two routes;
+    stage bytes, stages, shared memory, taps, the schedule, A and B in
+    parts).
+    Device-agnostic, so the CPU tests replay the very schedule the card
+    runs."""
     ks, st = tuple(int(k) for k in kernel_size), tuple(int(s) for s in strides)
     ca, cb = int(a.shape[-1]), int(b.shape[-1])
-    plan = wgrad_plan(math.prod(ks) * ca, cb, int(b.shape[0]) * math.prod(b.shape[1:4]),
-                      a.dtype)
+    routes = wgrad_routes(a, b)
+    plan = wgrad_plan(tuple(a.shape), cb, ks, st, a.dtype, tuple(r == "tma" for r in routes))
     out = torch.empty((*ks, ca, cb), dtype=a.dtype, device=a.device)
     ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=a.device)
-          if plan["chunks"] > 1 else None)
-    lo = [same_pads(int(n), k, s)[1] for n, k, s in zip(a.shape[1:4], ks, st)]
-    geom = np.array([*a.shape[1:4], ca, *b.shape[1:4], cb, *ks, *st, *lo, a.shape[0],
-                     plan["chunks"], plan["bm"], plan["bn"], plan["chunk_rows"],
-                     *wgrad_routes(a, b)], np.int32)
+          if plan["workspace"] else None)
+    v = plan["view"]
+    geom = np.array([*v["a"], ca, *v["o"], cb, *ks, *v["strides"], *v["lo"], v["batch"],
+                     *plan["tile"], *plan["box"], *plan["tiles_ax"], plan["width"],
+                     plan["tpb"], plan["tap_groups"], plan["slabs"], plan["bn"],
+                     plan["n_tiles"], plan["splits"], plan["nbox"], *plan["tma"],
+                     plan["a_stage"], plan["b_stage"], plan["stages"], plan["smem"],
+                     plan["ntaps"], plan["pingpong"], plan["a_parts"], plan["b_parts"]], np.int32)
+    assert geom.size == WGRAD_GEOM
     return out, ws, plan, geom
 
 
@@ -949,12 +1101,16 @@ def conv3d_wgrad(a: torch.Tensor, b: torch.Tensor, kernel_size,
     Replaces the weight half of the backward of ``conv_probe``
     (``benchmarks/r2_probe_pallas_mxu.py:80``, TPU kernel table row 1; XLA
     transposed it there). Bound on the H100: bytes in bf16 and at fp32's
-    full-resolution levels, operations at fp32's deep 3x3x3 ones. An
-    implicit GEMM on the tensor cores (csrc/conv3d_wgrad.cu): tiles that fit
-    M = taps x CA and N = CB, A gathered by cp.async into a shared ring,
-    bf16 by mma.sync m16n8k16 and fp32 as 3xTF32 with its chains promoted;
-    a fixed split of the rows whose partials a second kernel sums in a fixed
-    order: no atomics, the same bits on every run.
+    full-resolution levels, operations at fp32's deep 3x3x3 ones. On
+    Hopper's wgmma (csrc/conv3d_wgrad.cu, :func:`wgrad_plan`): each box of
+    output voxels loads A's halo box and B's box once (TMA, or staged at odd
+    widths and bases), the consumers turn B K-major and read every tap's A
+    rows from the halo box, bf16 directly and fp32 in three bf16 parts (six
+    products, to about 2^-24 of each; an operand whose boxes several blocks
+    read split into bf16 planes once a call, the rest in the blocks) with its
+    chains promoted once a box; a fixed split of the boxes whose partials a
+    second kernel sums in fp64 in a fixed order: no atomics, the same bits on
+    every run.
     """
     ks, st = tuple(int(k) for k in kernel_size), tuple(int(s) for s in strides)
     if not cuda_lib.use_kernel("conv3d_wgrad", a):

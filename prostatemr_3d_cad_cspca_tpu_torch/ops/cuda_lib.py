@@ -46,6 +46,7 @@ _SIGNATURES = {
     "pmr_in_apply": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP],
     "pmr_gemm_loop": [_VP, _VP, _VP, _VP, _VP, _VP],
     "pmr_conv3d_wgrad": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
+    "pmr_conv3d_wgrad_stamps": [_VP],
     "pmr_in_backward": [_VP] * 9 + [_I] * 4 + [_F] + [_I] * 4 + [_VP],
 }
 

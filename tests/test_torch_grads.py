@@ -269,27 +269,40 @@ def test_wgrad_twin_is_the_weight_gradient_and_its_plan_covers_the_rows(ashape, 
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-11)
     m, rows = int(np.prod(ks)) * ashape[-1], ashape[0] * int(np.prod(y.shape[1:4]))
-    plan = cv.wgrad_plan(m, cb, rows)
-    assert plan["chunks"] * plan["chunk_rows"] >= rows > (plan["chunks"] - 1) * plan["chunk_rows"]
-    assert plan["workspace"] == (plan["chunks"] * m * cb if plan["chunks"] > 1 else 0)
+    plan = cv.wgrad_plan(tuple(ashape), cb, ks, st, torch.float32)
+    # the boxes hold every output voxel; the splits walk them, one box at least each
+    assert plan["nbox"] * cv.WGRAD_BOX >= rows and 1 <= plan["splits"] <= plan["nbox"]
+    parts = plan["splits"] * (2 if plan["pingpong"] else 1)  # one partial a warpgroup's walk
+    assert plan["workspace"] == (parts * m * cb if parts > 1 else 0)
     with pytest.raises(ValueError, match="SAME output"):
         cv.conv3d_wgrad(a, g[:, :1], ks, st)
 
 
+# K6's cfg1 shapes by (taps x CA, CB, batch-2 rows): A's shape, kernel, strides
+WGRAD_CFG1 = {(144, 4, 1_024_000): ((2, 20, 160, 160, 16), (1, 3, 3), (1, 1, 1)),
+              (144, 16, 1_024_000): ((2, 20, 160, 160, 16), (1, 3, 3), (1, 1, 1)),
+              (3456, 256, 1000): ((2, 10, 20, 20, 128), (3, 3, 3), (2, 2, 2)),
+              (27, 16, 1_024_000): ((2, 20, 160, 160, 3), (1, 3, 3), (1, 1, 1)),
+              (1728, 64, 64_000): ((2, 20, 40, 40, 64), (3, 3, 3), (1, 1, 1))}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,cout,rows,want", [
-    # level 0, batch 2: all nine taps of 16 channels in one tile of 3 x 2
-    # warps, 1024000 rows in 263 chunks of 3904 (a wave of 2 blocks an SM)
-    (144, 4, 1_024_000, {torch.bfloat16: (8, 144, 263), torch.float32: (8, 144, 263)}),
-    (144, 16, 1_024_000, {torch.bfloat16: (16, 144, 263), torch.float32: (16, 144, 263)}),
-    # the deepest K2: 3456 x 256 over 1000 rows, 3 chunks
-    (3456, 256, 1000, {torch.bfloat16: (128, 128, 3), torch.float32: (64, 128, 3)}),
-    # the stem (3 channels): two 16 x 16 tiles
-    (27, 16, 1_024_000, {torch.bfloat16: (16, 16, 259), torch.float32: (16, 16, 263)}),
-    (1728, 64, 64_000, {torch.bfloat16: (64, 128, 19), torch.float32: (64, 128, 19)})])
+    # level 0, batch 2: all nine taps of a 16-channel slab in one block,
+    # 8000 boxes of 1x8x16 voxels over the card; (tile n, slab, taps a block)
+    (144, 4, 1_024_000, {torch.bfloat16: (8, 16, 9), torch.float32: (8, 16, 9)}),
+    (144, 16, 1_024_000, {torch.bfloat16: (16, 16, 9), torch.float32: (16, 16, 9)}),
+    # the deepest K2: 3456 x 256 over 1000 rows; every tap in a block of 8
+    # channels
+    (3456, 256, 1000, {torch.bfloat16: (64, 8, 27), torch.float32: (16, 8, 27)}),
+    # the stem (3 channels): the staged route's slab of 8
+    (27, 16, 1_024_000, {torch.bfloat16: (16, 8, 9), torch.float32: (16, 8, 9)}),
+    (1728, 64, 64_000, {torch.bfloat16: (64, 32, 7), torch.float32: (32, 16, 7)})])
 def test_wgrad_plan_at_cfg1_shapes(m, cout, rows, want, dtype):
-    plan = cv.wgrad_plan(m, cout, rows, dtype)
-    assert (plan["bn"], plan["bm"], plan["chunks"]) == want[dtype]
+    ashape, ks, st = WGRAD_CFG1[(m, cout, rows)]
+    plan = cv.wgrad_plan(ashape, cout, ks, st, dtype)
+    assert plan["m"] == m and plan["nbox"] * cv.WGRAD_BOX >= rows
+    assert (plan["bn"], plan["width"], plan["tpb"]) == want[dtype]
 
 
 def test_no_grad_takes_the_forward_alone():

@@ -498,15 +498,14 @@ def test_card_gemm_loop_split_is_bit_reproducible(cuda_device):
 # K6 at the weight-gradient roles of the M1 path: (A's shape, kernel,
 # strides, B's channels); B's grid is A's SAME output. K1's role: A an input
 # part, B the output gradient; K2's: A the fine grid's gradient, B the coarse
-# input (the (1,2,2) and (2,2,2) cases). The cases reach every tile of the
-# family in each dtype (ops/convolution.py WGRAD_VARIANTS): 16x16 (the
-# stem's CA 3; CA 16), 144x8 (CB 4 and 8; CA 4), 128x128 in bf16 / 128x64
-# (N 70 and 256), 48x8 (CA 33, CB 1), 144x16 over 36 / 72 chunks, 16x8
-# (CB 2), 64x32, 48x16 (CA 40), 128x64 over 7 / 13 chunks; and every copy
-# width (wgrad_routes): bf16 element-wise (CA 3 and 33, CB 1), 4 bytes (CB
-# 2, 70), 8 bytes (CA 12, CA and CB 4), 16; fp32 4 (CA 3, 33), 8 (CB 2,
-# 70), 16. fp32: 3xTF32 sums in another order than the twin's matmul; bf16:
-# one rounding of fp32 sums.
+# input (the (1,2,2) and (2,2,2) cases). The cases reach every tile width of
+# each dtype (ops/convolution.py WGRAD_TILES_N: N 8 for CB 1, 2, 4, 8; 16;
+# 32; 64; 128 in bf16 for CB 70 and two tiles of 128 (bf16) or four of 64
+# for 256), taps split over blocks (CA 256 at 3x3x3), the flat 1x1x1 route,
+# and both routes of A and B (wgrad_routes): staged for the stem's CA 3,
+# CA 33, bf16's CA 12 and 4, CB 1, 2 (and bf16's 4); TMA for the rest. fp32:
+# 3xTF32 sums in another order than the twin's matmul; bf16: one rounding of
+# fp32 sums.
 WGRAD_CASES = [((2, 5, 9, 10, 3), (1, 3, 3), (1, 1, 1), 16),
                ((2, 5, 9, 10, 16), (1, 3, 3), (1, 2, 2), 4),
                ((2, 5, 9, 10, 16), (1, 3, 3), (1, 2, 2), 8),
@@ -557,16 +556,14 @@ def test_card_conv3d_wgrad_matches_plain_and_reruns_bit_equal(cuda_device, ashap
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_card_conv3d_wgrad_misaligned_base_takes_a_narrower_route(cuda_device, dtype):
     """A and B that start off the 16-byte grid (contiguous views one element
-    into their storage) take narrower copies: element by element in bf16, 4
-    bytes in fp32."""
+    into their storage) take the staged route; aligned, TMA."""
     a0, b0 = _wgrad_operands(cuda_device, (2, 5, 9, 10, 16), (1, 3, 3), (1, 2, 2), 16, dtype)
     a = torch.empty(a0.numel() + 1, dtype=dtype, device=cuda_device)[1:].view(a0.shape)
     b = torch.empty(b0.numel() + 1, dtype=dtype, device=cuda_device)[1:].view(b0.shape)
     a.copy_(a0)
     b.copy_(b0)
-    narrow = 0 if dtype == torch.bfloat16 else 4
-    assert tconv.wgrad_routes(a, b) == (narrow, narrow)
-    assert tconv.wgrad_routes(a0, b0) == (16, 16)
+    assert tconv.wgrad_routes(a, b) == ("staged", "staged")
+    assert tconv.wgrad_routes(a0, b0) == ("tma", "tma")
     got = tconv.conv3d_wgrad(a, b, (1, 3, 3), (1, 2, 2))
     vec = tconv.conv3d_wgrad(a0, b0, (1, 3, 3), (1, 2, 2))
     torch.cuda.synchronize()

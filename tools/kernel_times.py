@@ -8,6 +8,7 @@ report.
                                   [--model cfg1|prob|prob_dense]
                                   [--dtypes float32 bfloat16] [--kernels NAME ...]
                                   [--library] [--split] [--host] [--stamps]
+                                  [--wgrad-schedule auto|split|pingpong]
                                   [--out FILE]
 
 Every distinct kernel call of the cfg1 forward (or of the train step of the
@@ -20,15 +21,20 @@ it computes, ``torch.nn.grad.conv3d_weight`` for K6; fp32 with TF32 off).
 ``--kernels`` times only the kernels named (wrapper names, e.g.
 ``in_backward``); ``--split`` adds each shape's device time by CUDA kernel
 (``kernels_us``, a call's share of ``--reps`` calls under torch.profiler,
-outside the graph), e.g. K7's two passes. ``--model`` traces the forward
+outside the graph), e.g. K7's two passes. ``--wgrad-schedule split |
+pingpong`` holds K6's plans to one schedule of its consumer warpgroups
+(``convolution.wgrad_plan``'s ``schedules``; ping-pong falls back to split
+where no plan's rows fit one warpgroup; each row records the one it ran). ``--model`` traces the forward
 of another model of ``chip_smoke.py`` (``prob``: the probabilistic ladder,
 ``prob_dense``: its dense-skip form with the six-part stitch) instead of
 cfg1's. ``--host`` adds the host us per call of K1 and K3
 (``chip_smoke.host_us_per_call``). ``--stamps`` builds the diagnostic
 library (``PMR_STAMPS=1``, ``csrc/stamps.cuh``) and, at each of
-STAMP_SHAPES, runs the K1/K2 call once with its blocks' clock64 counters
-installed: the mean cycles a block spends in each phase of the kernel
-(stamped times are not the kernel's times; they are its own account).
+STAMP_SHAPES (those of ``--kernels`` where given: ``--kernels conv3d_wgrad``
+stamps K6's three), runs the K1/K2 or K6 call once with its blocks'
+clock64 counters installed: the mean cycles a block spends in each phase
+of the kernel (stamped times are not the kernel's times; they are its own
+account).
 Inputs are drawn on the
 card from a fixed seed. Run it from the root of a checkout: it uses that
 checkout's package and ``chip_smoke.py``, and builds that checkout's
@@ -41,6 +47,7 @@ with each shape's time and the ptxas report.
 """
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -50,7 +57,8 @@ import sys
 sys.path.insert(0, os.getcwd())
 
 PTXAS_KERNELS = ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel", "in_stats_kernel",
-                 "in_apply_kernel", "wgrad_mma_kernel", "wgrad_reduce_kernel",
+                 "in_apply_kernel", "wgrad_wgmma_kernel", "wgrad_reduce_kernel",
+                 "wgrad_split_kernel",
                  "in_bwd_reduce_kernel", "in_bwd_apply_kernel")
 
 
@@ -76,11 +84,14 @@ def ptxas_variants(log):
     return out
 
 
-# the K1/K2 shapes whose cycles --stamps accounts for (in each of --dtypes),
-# at batch 2: level 0's two-part stitch, the dense-skip ladder's six-part
-# one, level 2's 3x3x3 stitch, level 4's 1x1x1, the stem, the ladder's K2 at
-# cin 259, the deepest stitch (level 3's 128+128 at 3x3x3, K 6,912) and
-# level 0's flat 1x1x1 16 -> 16 (8,000 one-stage units)
+# the shapes whose cycles --stamps accounts for (in each of --dtypes), at
+# batch 2. K1/K2: level 0's two-part stitch, the dense-skip ladder's
+# six-part one, level 2's 3x3x3 stitch, level 4's 1x1x1, the stem, the
+# ladder's K2 at cin 259, the deepest stitch (level 3's 128+128 at 3x3x3, K
+# 6,912) and level 0's flat 1x1x1 16 -> 16 (8,000 one-stage units). K6:
+# level 0's 1x3x3 16 -> 16 (the longest K, 1.02 M rows), level 2's 3x3x3
+# 64 -> 64, the deepest, level 3's 3x3x3 128 -> 128, level 0's flat 1x1x1
+# 16 -> 16 and the deepest K2's (2,2,2) 3x3x3 128 -> 256
 L0, L2, L3 = (2, 20, 160, 160, 16), (2, 20, 40, 40, 64), (2, 10, 20, 20, 128)
 STAMP_SHAPES = {
     "level0_two_part_32to16": ("conv3d", ((L0, L0), (1, 3, 3, 32, 16), (1, 1, 1))),
@@ -93,25 +104,33 @@ STAMP_SHAPES = {
                                        (2, 2, 2))),
     "level3_128+128to128_3x3x3": ("conv3d", ((L3, L3), (3, 3, 3, 256, 128), (1, 1, 1))),
     "level0_flat_16to16_1x1x1": ("conv3d", ((L0,), (1, 1, 1, 16, 16), (1, 1, 1))),
+    "k6_level0_1x3x3_16to16": ("conv3d_wgrad", (L0, L0, (1, 3, 3), (1, 1, 1))),
+    "k6_level2_3x3x3_64to64": ("conv3d_wgrad", (L2, L2, (3, 3, 3), (1, 1, 1))),
+    "k6_level3_3x3x3_128to128": ("conv3d_wgrad", (L3, L3, (3, 3, 3), (1, 1, 1))),
+    "k6_level0_flat_16to16": ("conv3d_wgrad", (L0, L0, (1, 1, 1), (1, 1, 1))),
+    "k6_level3_k2_128to256": ("conv3d_wgrad", (L3, (2, 5, 10, 10, 256), (3, 3, 3), (2, 2, 2))),
 }
 STAMP_PHASES = ("setup", "issue", "wait", "mma", "epilogue", "producer_wait",
-                "producer_load")
-STAMP_ENTRIES = ("pmr_conv3d_wgmma_stamps",)
+                "producer_load", "convert")
+STAMP_ENTRIES = ("pmr_conv3d_wgmma_stamps", "pmr_conv3d_wgrad_stamps")
 
 
-def stamp_shapes(cs, cv, cuda_lib, dtype, gen):
+def stamp_shapes(cs, cv, cuda_lib, dtype, gen, kernels=None):
     """{shape label: mean cycles a block by phase, blocks, stamped ms} of
-    each STAMP_SHAPES call in ``dtype``, from the stamps build's counters
-    (csrc/stamps.cuh: 4096 slots of 8 unsigned 64-bit counters)."""
+    each STAMP_SHAPES call (of ``kernels``, default all) in ``dtype``, from
+    the stamps build's counters (csrc/stamps.cuh: 4096 slots of 9 unsigned
+    64-bit counters, the last the blocks)."""
     import torch
 
     lib = cuda_lib.library()
-    buf = torch.zeros((4096, 8), dtype=torch.int64, device="cuda")
+    buf = torch.zeros((4096, len(STAMP_PHASES) + 1), dtype=torch.int64, device="cuda")
     for entry in STAMP_ENTRIES:
         if hasattr(lib, entry):
             cuda_lib.check(getattr(lib, entry)(buf.data_ptr()), entry)
     out = {}
     for label, (name, sig) in STAMP_SHAPES.items():
+        if kernels and name not in kernels:
+            continue
         run, _ = _calls(cs, cv, None, name, sig, dtype, gen)
         run()
         torch.cuda.synchronize()
@@ -119,11 +138,15 @@ def stamp_shapes(cs, cv, cuda_lib, dtype, gen):
         run()
         torch.cuda.synchronize()
         tot = buf.sum(dim=0).tolist()
-        blocks = max(tot[7], 1)
-        row = {"blocks": tot[7], "cycles_per_block": {
+        blocks = max(tot[-1], 1)
+        row = {"blocks": tot[-1], "cycles_per_block": {
             ph: tot[i] / blocks for i, ph in enumerate(STAMP_PHASES) if tot[i]}}
         row["ms_stamped"] = cs.time_ms(run, 3, capture=False)
         out[label] = row
+    torch.cuda.synchronize()
+    for entry in STAMP_ENTRIES:  # the buffer is freed on return: no kernel may write it
+        if hasattr(lib, entry):
+            cuda_lib.check(getattr(lib, entry)(None), entry)
     return out
 
 
@@ -168,6 +191,15 @@ def _calls(cs, cv, nm, name, sig, dtype, gen):
     return (lambda: nm.in_apply(x, stats, scale, bias, sig[1])), None
 
 
+def _held_plan(plan, pingpong, *args, **kwargs):
+    """K6's plan on one schedule of its warpgroups (ping-pong where a plan's
+    rows fit one warpgroup, else split)."""
+    try:
+        return plan(*args, **kwargs, schedules=(pingpong,))
+    except ValueError:
+        return plan(*args, **kwargs, schedules=(False,))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--step", choices=["forward", "train"], default="forward")
@@ -180,6 +212,7 @@ def main(argv=None):
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--stamps", action="store_true")
+    ap.add_argument("--wgrad-schedule", choices=["auto", "split", "pingpong"], default="auto")
     ap.add_argument("--out", type=str, default=None)
     args = ap.parse_args(argv)
 
@@ -197,18 +230,22 @@ def main(argv=None):
     from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
 
+    if args.wgrad_schedule != "auto":  # K6's plans held to one schedule of its warpgroups
+        cv.wgrad_plan = functools.partial(_held_plan, cv.wgrad_plan,
+                                          args.wgrad_schedule == "pingpong")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     cuda_lib.library()
     out = {"checkout": os.getcwd(), "card": smi, "step": args.step, "batch": args.batch,
-           "model": args.model, "ptxas": ptxas_variants(cuda_lib.build_log)}
+           "model": args.model, "wgrad_schedule": args.wgrad_schedule,
+           "ptxas": ptxas_variants(cuda_lib.build_log)}
     gen = torch.Generator(device="cuda").manual_seed(1234)
     if args.host:
         out["host_us"] = cs.host_us_per_call()
     if args.stamps:
-        out["stamps"] = {dn: stamp_shapes(cs, cv, cuda_lib, getattr(torch, dn), gen)
-                         for dn in args.dtypes}
+        out["stamps"] = {dn: stamp_shapes(cs, cv, cuda_lib, getattr(torch, dn), gen,
+                                          args.kernels) for dn in args.dtypes}
     models = {"cfg1": cs.CFG1, "prob": cs.PROB, "prob_dense": cs.PROB_DENSE}
     for dn in args.dtypes:
         dtype = getattr(torch, dn)
@@ -225,6 +262,11 @@ def main(argv=None):
                 continue
             run, lib = _calls(cs, cv, nm, name, sig, dtype, gen)
             row = {"sig": sig, "count": count, "ms": cs.time_ms(run, args.reps)}
+            if name == "conv3d_wgrad":
+                ash, bsh, ks, st = sig
+                tma = tuple(s[-1] * dtype.itemsize % 16 == 0 for s in (ash, bsh))
+                row["pingpong"] = cv.wgrad_plan(tuple(ash), bsh[-1], tuple(ks), tuple(st), dtype,
+                                                tma)["pingpong"]
             if args.library and lib is not None:
                 row["library_ms"] = cs.time_ms(lib, args.reps)
             if args.split:
