@@ -1,0 +1,8 @@
+"""Model: the window's convolution FLOPs (counts/m1.py, forward) over the window times the card's tensor peak for the
+cell's dtype (counts/peaks.json), in %."""
+
+from bench_port.harness.readers import mfu
+
+
+def read(v):
+    return mfu(v)
