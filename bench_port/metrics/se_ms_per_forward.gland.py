@@ -1,0 +1,11 @@
+"""Model: device ms of the squeeze-excite tails a window forward of the
+traced window (the driver's unit): the kernels inside the program's
+``m1.se`` spans (models/blocks.py)."""
+
+from bench_port.harness.spans import ms_per_unit
+
+NAMES = ("m1.se",)
+
+
+def read(v):
+    return ms_per_unit(v, NAMES)

@@ -1144,27 +1144,6 @@ def write_cfg1_checkpoint(path, seed, **overrides):
     save_model(path, model.config, flat)
 
 
-def route_launches(name):
-    """K1/K2 launches of the whole run by "dtype route" (ops/convolution.py
-    ROUTE_LAUNCHES): every call, bf16 and fp32, on wgmma."""
-    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
-
-    return {f"{dn} {route}": n for (k, dn, route), n in sorted(cv.ROUTE_LAUNCHES.items())
-            if k == name}
-
-
-def check_routes():
-    """Every K1/K2 launch of the run, in both dtypes, on the wgmma route
-    (ops/convolution.py ROUTE_LAUNCHES): none on the retired mma.sync one."""
-    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
-
-    stray = {k: n for k, n in cv.ROUTE_LAUNCHES.items() if k[2] != "wgmma"}
-    if stray:
-        raise AssertionError(f"K1/K2 launches off the wgmma route: {stray}")
-    emit({"phase": "routes", "launches": {" ".join(k): n for k, n in
-                                          sorted(cv.ROUTE_LAUNCHES.items())}})
-
-
 def counters():
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import gemm
@@ -3594,7 +3573,6 @@ def main(argv=None):
         phase_parallel_kernels(par_calls, smi)
     launches["probe"], probe = phase_probe(smi)
     phase_paths()
-    check_routes()
 
     kernels = []
     from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
@@ -3644,8 +3622,7 @@ def main(argv=None):
                             **({"also_replaces": ALSO_REPLACES[name]}
                                if name in ALSO_REPLACES else {}),
                             "ptxas": ptxas_report(cuda_lib.build_log, names),
-                            **({"kernel_route": CONV_ROUTES[dn],
-                                "launches_by_route": route_launches(name)}
+                            **({"kernel_route": CONV_ROUTES[dn]}
                                if name in CONV_KERNELS else {})})
             if n == 0:
                 raise AssertionError(f"{name} never launched on the {on} path")

@@ -64,6 +64,7 @@ from . import prng
 from .device import resolve_device
 from .ops.resample import (_reflect_index, resize_bilinear_2d, resize_nearest_2d,
                            sample_bilinear_2d, take_2d)
+from .utils.profiling import annotate
 
 # the uniform block's columns (per sample); ``*_u`` become the values below
 UNIFORM_COLUMNS = ("master", "zoom_on", "zoom_u", "flip_on", "rot_on", "rot_u", "trans_on",
@@ -299,7 +300,7 @@ def augment_batch(rng, batch: Dict, params, train_obj: str = "lesion") -> Dict:
     dev = image.device
     label = _f32(batch["detection"], dev)
     dm = _f32(batch["dist_map"], dev) if "dist_map" in batch else None
-    with torch.profiler.record_function("augment"), torch.no_grad():
+    with annotate("augment"), torch.no_grad():
         d = draw(prng.as_rng(rng, dev), image.shape, p, train_obj, dev)
         img, lbl, dm = _augment(d, image, label, dm, p, train_obj)
     out = dict(batch, image=img, detection=lbl)

@@ -19,6 +19,7 @@ import torch
 from . import prng
 from .device import resolve_device
 from .infer import tree_map
+from .utils.profiling import annotate
 
 # W is axis -2 of (..., D, H, W, C): the axial left-right axis, the one
 # label-symmetric flip of this anatomy (the reference's train-time h-flip).
@@ -43,7 +44,8 @@ def tta_detect(detect_fn: Callable, flip_axes: Sequence[int] = (AXIAL_LR_AXIS,)
     def _flip(tree, axes):
         if not axes:
             return tree
-        return tree_map(lambda x: torch.flip(x, dims=[x.dim() + a for a in axes]), tree)
+        with annotate("tta.flip"):
+            return tree_map(lambda x: torch.flip(x, dims=[x.dim() + a for a in axes]), tree)
 
     views = [()]
     for a in flip_axes:
@@ -56,8 +58,10 @@ def tta_detect(detect_fn: Callable, flip_axes: Sequence[int] = (AXIAL_LR_AXIS,)
         for i, axes in enumerate(views):
             kw = {} if rng is None else {"rng": prng.fold_in(rng, i)}
             out = _flip(detect_fn(params, _flip(inputs, axes), **kw), axes)
-            outs = out if outs is None else tree_map(torch.add, outs, out)
-        return tree_map(lambda s: s / len(views), outs)
+            with annotate("tta.flip"):
+                outs = out if outs is None else tree_map(torch.add, outs, out)
+        with annotate("tta.flip"):
+            return tree_map(lambda s: s / len(views), outs)
 
     return detect
 
@@ -129,18 +133,22 @@ class M1Ensemble:
             if reduce is None:
                 return tree_map(lambda *ts: torch.stack(ts), *[call(i) for i in range(k)])
             first = call(0)  # a tensor, or a cascade's (stage 1, stage 2)
-            mean = tree_map(lambda t: t.float(), first)
-            m2 = tree_map(torch.zeros_like, mean)
+            with annotate("ensemble.reduce"):
+                mean = tree_map(lambda t: t.float(), first)
+                m2 = tree_map(torch.zeros_like, mean)
             for i in range(1, k):
-                out = tree_map(lambda t: t.float(), call(i))
-                delta = tree_map(torch.sub, out, mean)
-                mean = tree_map(lambda m, d: m + d / (i + 1), mean, delta)
-                m2 = tree_map(lambda a, d, o, m: a + d * (o - m), m2, delta, out, mean)
+                out = call(i)
+                with annotate("ensemble.reduce"):
+                    out = tree_map(lambda t: t.float(), out)
+                    delta = tree_map(torch.sub, out, mean)
+                    mean = tree_map(lambda m, d: m + d / (i + 1), mean, delta)
+                    m2 = tree_map(lambda a, d, o, m: a + d * (o - m), m2, delta, out, mean)
             back = lambda t, like: t.to(like.dtype)  # noqa: E731
-            if reduce == "mean":
-                return tree_map(back, mean, first)
-            return (tree_map(back, mean, first),
-                    tree_map(lambda a, like: torch.sqrt(a / k).to(like.dtype), m2, first))
+            with annotate("ensemble.reduce"):
+                if reduce == "mean":
+                    return tree_map(back, mean, first)
+                return (tree_map(back, mean, first),
+                        tree_map(lambda a, like: torch.sqrt(a / k).to(like.dtype), m2, first))
 
         return detect
 

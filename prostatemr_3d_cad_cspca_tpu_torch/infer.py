@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import prng
+from .utils.profiling import annotate
 
 
 def tree_map(fn: Callable, *trees):
@@ -42,6 +43,12 @@ def _leading(tree) -> int:
     return int((tree[0] if isinstance(tree, (tuple, list)) else tree).shape[0])
 
 
+def _stack_samples(x, n: int):
+    """``x`` repeated ``n`` times on the batch axis, sample-major."""
+    with annotate("infer.mc_stack"):
+        return tree_map(lambda t: t.repeat(n, *([1] * (t.dim() - 1))), x)
+
+
 def mc_predict(detect_fn: Callable, params, inputs, rng, num_samples: int = 1,
                reduce: Optional[str] = "mean"):
     """N Monte-Carlo posterior samples of ``detect_fn(params, x, rng=...)``.
@@ -59,16 +66,16 @@ def mc_predict(detect_fn: Callable, params, inputs, rng, num_samples: int = 1,
         raise ValueError(f"reduce must be 'mean', 'mean_std' or None, got {reduce!r}")
     x = tree_map(_as_tensor, inputs)
     n = int(num_samples)
-    out = detect_fn(params, tree_map(lambda t: t.repeat(n, *([1] * (t.dim() - 1))), x),
-                    rng=prng.repeat_rows(rng, n))
-    # -1, not the batch as an int: a traced batch axis stays symbolic
-    samples = tree_map(lambda t: t.reshape(n, -1, *t.shape[1:]), out)
-    if reduce == "mean":
-        return tree_map(lambda s: s.mean(0), samples)
-    if reduce == "mean_std":
-        return (tree_map(lambda s: s.mean(0), samples),
-                tree_map(lambda s: s.std(0, correction=0), samples))
-    return samples
+    out = detect_fn(params, _stack_samples(x, n), rng=prng.repeat_rows(rng, n))
+    with annotate("infer.mc_reduce"):
+        # -1, not the batch as an int: a traced batch axis stays symbolic
+        samples = tree_map(lambda t: t.reshape(n, -1, *t.shape[1:]), out)
+        if reduce == "mean":
+            return tree_map(lambda s: s.mean(0), samples)
+        if reduce == "mean_std":
+            return (tree_map(lambda s: s.mean(0), samples),
+                    tree_map(lambda s: s.std(0, correction=0), samples))
+        return samples
 
 
 def make_chunked_batch_fn(apply_fn: Callable, chunk: int, n_chunks: int,
@@ -209,32 +216,36 @@ def make_sliding_window_fn(
             raise ValueError(f"volume {tuple(vols.shape)} is not {'' if cases == 1 else 'K '}"
                              f"case(s) of {(*full_spatial, in_channels)}")
         k = vols.shape[0]
-        weight = _weight(window, gaussian_weights, vols.device)
-        acc = torch.zeros((k, *full_spatial, out_channels), dtype=torch.float32,
-                          device=vols.device)
-        norm = torch.zeros((k, *full_spatial, 1), dtype=torch.float32,
-                           device=vols.device)
+        with annotate("sw.blend"):  # the blend's weights and accumulators
+            weight = _weight(window, gaussian_weights, vols.device)
+            acc = torch.zeros((k, *full_spatial, out_channels), dtype=torch.float32,
+                              device=vols.device)
+            norm = torch.zeros((k, *full_spatial, 1), dtype=torch.float32,
+                               device=vols.device)
         for cid in range(n_pad // batch_size):
             cs = coords_p[cid * batch_size:(cid + 1) * batch_size]
-            tiles = torch.stack([vols[(slice(None), *_tile_slices(c, window))]
-                                 for c in cs], dim=1)
-            tiles = tiles.reshape(-1, *window, in_channels)
+            with annotate("sw.gather"):
+                tiles = torch.stack([vols[(slice(None), *_tile_slices(c, window))]
+                                     for c in cs], dim=1)
+                tiles = tiles.reshape(-1, *window, in_channels)
             chunk_rng = prng.fold_in(rng, cid) if rng_per_chunk else None
             if shards is None:
                 outs = predict_fn(tiles, chunk_rng) if rng_per_chunk else predict_fn(tiles)
             else:
                 outs = _on_shards(predict_fn, tiles, chunk_rng, shards, k, batch_size,
                                   rng_per_chunk)
-            outs = outs.float().reshape(-1, batch_size, *window, out_channels)
-            for i, c in enumerate(cs):
-                if cid * batch_size + i >= n:  # zero-weight padding tile
-                    continue
-                sl = (slice(None), *_tile_slices(c, window))
-                acc[sl] += outs[:, i] * weight
-                norm[sl] += weight
-        out = acc / torch.clamp(norm, min=1e-8)
-        out = out if cases > 1 else out[0]
-        return out if out_dtype is None else out.to(out_dtype)
+            with annotate("sw.blend"):
+                outs = outs.float().reshape(-1, batch_size, *window, out_channels)
+                for i, c in enumerate(cs):
+                    if cid * batch_size + i >= n:  # zero-weight padding tile
+                        continue
+                    sl = (slice(None), *_tile_slices(c, window))
+                    acc[sl] += outs[:, i] * weight
+                    norm[sl] += weight
+        with annotate("sw.finish"):
+            out = acc / torch.clamp(norm, min=1e-8)
+            out = out if cases > 1 else out[0]
+            return out if out_dtype is None else out.to(out_dtype)
 
     return run
 

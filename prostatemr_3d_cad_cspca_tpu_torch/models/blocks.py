@@ -19,6 +19,7 @@ from ..ops.convolution import Conv3d, ConvConfig, store_act
 from ..ops.normalization import InstanceNorm, ShardedStats, global_spatial_mean
 from ..ops.resample import upsample_nearest
 from ..prng import Draws, is_mask_map, uniform
+from ..utils.profiling import annotate
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
@@ -42,22 +43,23 @@ def dropout(x: torch.Tensor, rate: float, rng, site: Optional[str] = None
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    if is_mask_map(rng):
-        if site not in rng:
-            raise KeyError(f"no keep-mask for dropout site {site!r}")
-        mask = torch.as_tensor(rng[site], device=x.device).to(torch.bool)
-        if tuple(mask.shape) != tuple(x.shape):
-            raise ValueError(f"keep-mask of {site!r} has shape {tuple(mask.shape)}, "
-                             f"the activation {tuple(x.shape)}")
-    elif isinstance(rng, (torch.Generator, Draws)):
-        mask = uniform(rng, x.shape, x.device, site) < keep
-    else:
-        raise ValueError(f"dropout at rate {rate} needs rng: a torch.Generator on "
-                         f"{x.device} or a mapping of keep-masks")
-    # a 0-dim tensor on x's device: CUDA would turn a Python scalar divisor
-    # into a multiply by its reciprocal, which rounds differently
-    scale = torch.full((), keep, dtype=x.dtype, device=x.device)
-    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+    with annotate("m1.dropout"):  # the draw (or replayed mask) and the where
+        if is_mask_map(rng):
+            if site not in rng:
+                raise KeyError(f"no keep-mask for dropout site {site!r}")
+            mask = torch.as_tensor(rng[site], device=x.device).to(torch.bool)
+            if tuple(mask.shape) != tuple(x.shape):
+                raise ValueError(f"keep-mask of {site!r} has shape {tuple(mask.shape)}, "
+                                 f"the activation {tuple(x.shape)}")
+        elif isinstance(rng, (torch.Generator, Draws)):
+            mask = uniform(rng, x.shape, x.device, site) < keep
+        else:
+            raise ValueError(f"dropout at rate {rate} needs rng: a torch.Generator on "
+                             f"{x.device} or a mapping of keep-masks")
+        # a 0-dim tensor on x's device: CUDA would turn a Python scalar divisor
+        # into a multiply by its reciprocal, which rounds differently
+        scale = torch.full((), keep, dtype=x.dtype, device=x.device)
+        return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ConfigurableDropout(nn.Module):
@@ -147,10 +149,11 @@ class SEResNetBottleNeck(nn.Module):
             residual = self.norm4(store_act(cfg, self.conv4(parts)), sharded=sharded)
         else:
             residual = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        s = global_spatial_mean(x_, sharded).to(x_.dtype)
-        s = torch.sigmoid(self.se_conv7(leaky_relu01(self.se_conv6(s))))
-        out = (x_ * s) * residual
-        return store_act(cfg, leaky_relu01(out))
+        with annotate("m1.se"):  # the squeeze-excite tail
+            s = global_spatial_mean(x_, sharded).to(x_.dtype)
+            s = torch.sigmoid(self.se_conv7(leaky_relu01(self.se_conv6(s))))
+            out = (x_ * s) * residual
+            return store_act(cfg, leaky_relu01(out))
 
 
 class GridAttentionBlock3D(nn.Module):
@@ -172,15 +175,16 @@ class GridAttentionBlock3D(nn.Module):
 
     def forward(self, x: torch.Tensor, g: torch.Tensor,
                 sharded: Optional[ShardedStats] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        theta_x = self.theta(x)
-        phi_g = self.phi(g)
-        up1 = tuple(theta_x.shape[i + 1] // phi_g.shape[i + 1] for i in range(3))
-        f = leaky_relu01(theta_x + upsample_nearest(phi_g, up1))
-        sigm_psi_f = torch.sigmoid(self.psi(f))
-        up2 = tuple(x.shape[i + 1] // sigm_psi_f.shape[i + 1] for i in range(3))
-        sigm_psi_f = upsample_nearest(sigm_psi_f, up2)
-        w_y = self.norm_out(self.out(sigm_psi_f * x), sharded=sharded)
-        return w_y, sigm_psi_f
+        with annotate("m1.gate"):
+            theta_x = self.theta(x)
+            phi_g = self.phi(g)
+            up1 = tuple(theta_x.shape[i + 1] // phi_g.shape[i + 1] for i in range(3))
+            f = leaky_relu01(theta_x + upsample_nearest(phi_g, up1))
+            sigm_psi_f = torch.sigmoid(self.psi(f))
+            up2 = tuple(x.shape[i + 1] // sigm_psi_f.shape[i + 1] for i in range(3))
+            sigm_psi_f = upsample_nearest(sigm_psi_f, up2)
+            w_y = self.norm_out(self.out(sigm_psi_f * x), sharded=sharded)
+            return w_y, sigm_psi_f
 
 
 class StitchingProbDecoder(nn.Module):

@@ -33,6 +33,7 @@ from ..device import resolve_device
 from ..ops.convolution import (INITIALIZERS, Conv3d, ConvConfig, ConvTranspose3d,
                                resolve_initializer)
 from ..ops.normalization import InstanceNorm
+from ..utils.profiling import annotate
 from .blocks import SqueezeConv
 from .m1_net import M1CascadedNet, M1Net, decision_fusion
 
@@ -323,7 +324,8 @@ class M1:
         cascade the pair of its stages' (stage 1, stage 2)."""
 
         def detect(params, inputs, rng=None):
-            return self.apply(params, inputs, rng=rng, method="detect")
+            with annotate("m1.forward"):
+                return self.apply(params, inputs, rng=rng, method="detect")
 
         return detect
 

@@ -42,7 +42,6 @@ dispatched by device where it runs (``export.py``).
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 import itertools
@@ -527,11 +526,6 @@ def _check_cuda_args(name, parts, kernel, bias, cin_axis):
                          f"on {x0.device}")
 
 
-# launches of K1/K2 by (wrapper, dtype name, kernel_route): which CUDA kernel
-# each call took
-ROUTE_LAUNCHES = collections.Counter()
-
-
 def kernel_route(dtype: torch.dtype) -> str:
     """Which CUDA kernel runs K1/K2 in ``dtype``: Hopper's wgmma with halo
     tiles (csrc/conv3d_wgmma.cu), bf16 directly and fp32 as 3xTF32."""
@@ -549,7 +543,6 @@ def _launch(name, fn, parts, kernel, bias, strides, transposed):
     if max(t.numel() for t in (*parts, y)) >= MAX_INDEX:
         raise ValueError(f"{name}: the kernel takes tensors of fewer than 2**31 elements")
     fn.launches += 1
-    ROUTE_LAUNCHES[(name, str(x0.dtype).replace("torch.", ""), kernel_route(x0.dtype))] += 1
     rc = lib.pmr_conv3d_wgmma(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
     cuda_lib.check(rc, name)
     return y

@@ -52,6 +52,7 @@ import torch
 from . import prng
 from .device import resolve_device
 from .infer import make_chunked_batch_fn, make_sliding_window_fn, mc_predict, tree_map
+from .utils.profiling import annotate
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -232,32 +233,36 @@ class InferenceSession:
         return tree_map(lambda *ts: torch.cat(ts, 0), *outs)
 
     def __call__(self, batch):
-        """Batch -> (probs, uncertainty | None), fp32 numpy."""
-        casc = bool(self.model.cascaded)
-        if casc and not isinstance(batch, tuple):
-            batch = (batch, batch)
-        x = self._to_device(batch)
-        b = int((x[0] if casc else x).shape[0])
-        rng = self._next_rng() if self._needs_rng else None
-        chunked = bool(self._scan_chunk and b > self._scan_chunk)
-        pad = (-b) % (self._scan_chunk if chunked else self._n_data)
-        if pad:  # duplicate the last case up to whole chunks / the data axis
-            x = tree_map(lambda t: torch.cat([t, t[-1:].expand(pad, *t.shape[1:])], 0), x)
-        with torch.no_grad():
-            if chunked:
-                ck = self._scan_chunk
-                run = make_chunked_batch_fn(self._body, ck, (b + pad) // ck,
-                                            rng_per_chunk=self._needs_rng)
-                out = run(x, rng) if self._needs_rng else run(x)
-            else:
-                out = self._body(x, rng)
-        host = tree_map(lambda a: a.float().cpu().numpy()[:b], out)
-        if self.mc_iter > 1 and self._needs_rng:
-            mean, std = host
-            if casc:  # stage 2's detection and uncertainty
-                mean, std = mean[-1], std[-1]
-            return self._unpack_mean(mean), self._unpack_std(std)
-        return self._unpack_mean(host[-1] if casc else host), None
+        """Batch -> (probs, uncertainty | None), fp32 numpy. The request's
+        span carries the ``fold_in`` index of its draws."""
+        with annotate("serve.request", self._draws):
+            casc = bool(self.model.cascaded)
+            if casc and not isinstance(batch, tuple):
+                batch = (batch, batch)
+            with annotate("serve.upload"):
+                x = self._to_device(batch)
+            b = int((x[0] if casc else x).shape[0])
+            rng = self._next_rng() if self._needs_rng else None
+            chunked = bool(self._scan_chunk and b > self._scan_chunk)
+            pad = (-b) % (self._scan_chunk if chunked else self._n_data)
+            with torch.no_grad(), annotate("serve.forward"):
+                if pad:  # duplicate the last case up to whole chunks / the data axis
+                    x = tree_map(lambda t: torch.cat([t, t[-1:].expand(pad, *t.shape[1:])], 0), x)
+                if chunked:
+                    ck = self._scan_chunk
+                    run = make_chunked_batch_fn(self._body, ck, (b + pad) // ck,
+                                                rng_per_chunk=self._needs_rng)
+                    out = run(x, rng) if self._needs_rng else run(x)
+                else:
+                    out = self._body(x, rng)
+            with annotate("serve.readback"):
+                host = tree_map(lambda a: a.float().cpu().numpy()[:b], out)
+                if self.mc_iter > 1 and self._needs_rng:
+                    mean, std = host
+                    if casc:  # stage 2's detection and uncertainty
+                        mean, std = mean[-1], std[-1]
+                    return self._unpack_mean(mean), self._unpack_std(std)
+                return self._unpack_mean(host[-1] if casc else host), None
 
     # host-side inverses of the device-side foreground-channel drop
     def _unpack_mean(self, fg: np.ndarray) -> np.ndarray:
@@ -292,10 +297,13 @@ class InferenceSession:
             return probs[0], (unc[0] if unc is not None else None)
         stacked = self._stacked(volume)
         run, out_mult = self._sw_program(tuple(stacked.shape), float(sw_overlap), cases=1)
-        x = self._to_device(stacked)
-        with torch.no_grad():
-            out = run(x, self._next_rng()) if self._needs_rng else run(x)
-        return self._split_sw(out.float().cpu().numpy(), out_mult)
+        with annotate("serve.group", self._draws):
+            with annotate("serve.upload"):
+                x = self._to_device(stacked)
+            with torch.no_grad(), annotate("serve.forward"):
+                out = run(x, self._next_rng()) if self._needs_rng else run(x)
+            with annotate("serve.readback"):
+                return self._split_sw(out.float().cpu().numpy(), out_mult)
 
     def _split_sw(self, out: np.ndarray, out_mult: int):
         """Split a sliding-window output block into (probs, std | None),
@@ -366,11 +374,15 @@ class InferenceSession:
         out: List[tuple] = []
         for i in range(0, len(stacked), k):
             group = stacked[i:i + k]
-            block = self._to_device(np.stack(group + [group[0]] * (k - len(group))))
-            with torch.no_grad():
-                probs = run_k(block, self._next_rng()) if self._needs_rng else run_k(block)
-            probs = probs.float().cpu().numpy()
-            out.extend(self._split_sw(probs[j], out_mult) for j in range(len(group)))
+            # the group's span carries the fold_in index of its draws
+            with annotate("serve.group", self._draws):
+                with annotate("serve.upload"):
+                    block = self._to_device(np.stack(group + [group[0]] * (k - len(group))))
+                with torch.no_grad(), annotate("serve.forward"):
+                    probs = run_k(block, self._next_rng()) if self._needs_rng else run_k(block)
+                with annotate("serve.readback"):
+                    probs = probs.float().cpu().numpy()
+                    out.extend(self._split_sw(probs[j], out_mult) for j in range(len(group)))
         return out
 
 

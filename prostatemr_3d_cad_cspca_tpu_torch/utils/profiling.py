@@ -4,7 +4,9 @@
 * ``trace(logdir)`` — context manager around ``torch.profiler``: host and
   (on a card) device activity, written as a Chrome/Perfetto trace
   ``trace_<time>.json`` into ``logdir``;
-* ``annotate(name)`` — a named ``torch.profiler.record_function`` range;
+* ``annotate(name, args)`` — the program's one span: a named
+  ``torch.profiler.record_function`` range while a profiler runs, a shared
+  no-op context otherwise; ``SPANS`` names every span the program opens;
 * ``StepTimer`` — per-step wall-clock statistics with a warm-up skip;
 * ``MetricsLogger`` — a JSONL metric stream, one JSON object per event,
   flushed per write.
@@ -18,11 +20,13 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 
 @contextlib.contextmanager
 def trace(logdir: str, with_memory: bool = True):
     """Profile the body; yields the ``torch.profiler.profile`` object."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
@@ -34,10 +38,36 @@ def trace(logdir: str, with_memory: bool = True):
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    import torch
+# Every span the program opens, by layer. A span that launches kernels gets
+# a device-side range on the profiler's clock (the innermost span of each
+# launch owns its kernel), so its device time can be read from a trace;
+# each span's host interval names what the host was doing meanwhile.
+SPANS = (
+    # serving (serve.py): a request, a sliding-window group and their parts
+    "serve.request", "serve.group", "serve.upload", "serve.forward", "serve.readback",
+    # inference (infer.py, ensemble.py): the work around the model calls,
+    # never a model call itself
+    "infer.mc_stack", "infer.mc_reduce", "sw.gather", "sw.blend", "sw.finish",
+    "tta.flip", "ensemble.reduce",
+    # model (models/): one detect-head call and the elementwise parts in it
+    "m1.forward", "m1.se", "m1.gate", "m1.dropout",
+    # training (augment.py)
+    "augment",
+)
 
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str, args=None):
+    """The span ``name`` (``args``: a string, or a value shown as one)
+    while a ``torch.profiler`` profile runs; otherwise one shared no-op
+    context, so an untraced call pays a flag check and no range."""
+    # reads the private flag torch.autograd.profiler sets while a profile
+    # is on: a bare record_function costs 10-12 us a span with no profile
+    # running (x86 hosts, torch 2.11-2.13), the check ~0.2-0.5 us
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name, None if args is None else str(args))
 
 
 class StepTimer:

@@ -284,12 +284,11 @@ def test_card_wgmma_routes_match_plain(cuda_device, widths, spatial, kshape, st,
     plan = tconv.wgmma_plan(shapes, kshape, st, transposed, dtype=dtype)
     vec = 16 // parts[0].element_size()
     assert plan["tma"] == [c % vec == 0 for c in widths]
-    name = "conv3d_transpose" if transposed else "conv3d"
-    key = (name, str(dtype).replace("torch.", ""), "wgmma")
-    before = tconv.ROUTE_LAUNCHES[key]
+    wrapper = tconv.conv3d_transpose if transposed else tconv.conv3d
+    before = wrapper.launches
     got, ref = _split_run(parts, kernel, bias, st, transposed)
     torch.cuda.synchronize()
-    assert tconv.ROUTE_LAUNCHES[key] == before + 1
+    assert wrapper.launches == before + 1 and tconv.kernel_route(dtype) == "wgmma"
     assert _card_err(got, ref) <= CARD_TOL[dtype]
 
 
