@@ -101,6 +101,81 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and index(a) == index(b)
 
 
+# what HostCopies.counts counts: bytes up (the driver stages them from
+# pageable memory) and bytes down through pinned and through pageable host
+# memory
+COPY_COUNTS = ("up_pageable_bytes", "down_pinned_bytes", "down_pageable_bytes")
+
+
+def _host_fp32(x) -> torch.Tensor:
+    """A tensor handed in as it is; anything else as fp32, as
+    ``np.ascontiguousarray(x, np.float32)`` makes it."""
+    return x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+
+def _upload(x, device) -> torch.Tensor:
+    """A batch, or a list of same-shape rows stacked on a new leading axis
+    (a group's cases, row by row: no host-side stack), -> one tensor on
+    ``device``: numpy as fp32, a tensor in its own dtype. From pageable
+    host memory the driver stages the copy."""
+    if not isinstance(x, list):
+        return _host_fp32(x).to(device)
+    rows = [_host_fp32(r) for r in x]
+    out = torch.empty((len(rows), *rows[0].shape), dtype=rows[0].dtype, device=device)
+    for o, r in zip(out, rows):
+        o.copy_(r)
+    return out
+
+
+class HostCopies:
+    """A CUDA session's host<->device copies, and what they moved.
+
+    ``readback`` lands each output in pinned host memory of its own from
+    torch's caching host allocator, every copy issued non-blocking, then
+    waits on one event: the link's rate, where a pageable readback runs at
+    a sixth of it and faults in fresh pages. A block goes back to the
+    allocator's cache only once the caller has dropped its last numpy view
+    of it, so a result is never overwritten by a later call (a caller that
+    keeps many results keeps that much host memory pinned). An output
+    crosses in its dtype and is widened to fp32 on the host where it is not
+    fp32 (the same values).
+
+    ``upload`` leaves the staging to the driver's pageable copy. Inside
+    whole requests with torch held to one host thread, the driver's staged
+    copy of a 49 MB cfg1 batch took 9.4 ms and a pinned staging ring filled
+    by torch's ``copy_`` 11.6-15.6 ms (H100 host): one thread's memcpy
+    bounds both, and the driver's is the faster.
+
+    ``pin=False`` runs the same logic on unpinned host memory (the CPU
+    tests' form). ``counts``: see ``COPY_COUNTS``.
+    """
+
+    def __init__(self, device, pin: bool = True):
+        self.device = torch.device(device)
+        self.pin = bool(pin)
+        self.counts = dict.fromkeys(COPY_COUNTS, 0)
+
+    def upload(self, x) -> torch.Tensor:
+        """``_upload`` to the session's device, counted."""
+        out = _upload(x, self.device)
+        self.counts["up_pageable_bytes"] += out.numel() * out.element_size()
+        return out
+
+    def readback(self, arrays) -> List[np.ndarray]:
+        """Device tensors -> fp32 numpy arrays, each in host memory of its
+        own; returns once every copy has landed."""
+        host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=self.pin) for a in arrays]
+        for h, a in zip(host, arrays):
+            h.copy_(a, non_blocking=True)
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        self.counts[f"down_{'pinned' if self.pin else 'pageable'}_bytes"] += sum(
+            h.numel() * h.element_size() for h in host)
+        return [(h if h.dtype == torch.float32 else h.float()).numpy() for h in host]
+
+
 class InferenceSession:
     """Detect wrapper around a loaded M1 (or ``ensemble.M1Ensemble``) on one
     device, or on the ``data`` devices of a one-process ``mesh``
@@ -123,6 +198,11 @@ class InferenceSession:
     one-device session's bits. Sliding windows of K cases split their
     cases over the devices where K divides (``predict_cases`` rounds K up
     to a multiple of the axis); one case runs on the first device.
+
+    On a CUDA device the copies go through ``HostCopies`` (to and from the
+    first device of a mesh): results come back through pinned host memory,
+    and ``copy_counts`` says what crossed. A CPU session copies as plain
+    PyTorch does and counts nothing: nothing crosses a link.
     """
 
     def __init__(self, model, mc_iter: int = 1, seed: int = 0, mesh=None,
@@ -172,6 +252,15 @@ class InferenceSession:
         self._detect = self._replicas[0][1]
         self._scan_chunk = int(scan_chunk) if scan_chunk else None
         self._sw_cache: Dict[tuple, tuple] = {}
+        self._copies = HostCopies(dev) if dev.type == "cuda" else None
+
+    @property
+    def copy_counts(self) -> Dict[str, int]:
+        """Bytes moved each way and the host memory they went through
+        (``COPY_COUNTS``; all 0 on a CPU session)."""
+        if self._copies is None:
+            return dict.fromkeys(COPY_COUNTS, 0)
+        return self._copies.counts
 
     def _head(self, model):
         detect = model.get_detect_model()
@@ -194,11 +283,25 @@ class InferenceSession:
         return sub
 
     def _to_device(self, x):
-        if isinstance(x, (tuple, list)):
+        """Host input -> the session's device: a tuple is a cascade's exams;
+        a list is the rows of one tensor (``_upload``). A tensor already on
+        a device moves as it is."""
+        if isinstance(x, tuple):
             return tuple(self._to_device(t) for t in x)
-        if not torch.is_tensor(x):
-            x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-        return x.to(self.device)
+        if self._copies is None or (torch.is_tensor(x) and x.device.type != "cpu"):
+            return _upload(x, self.device)
+        return self._copies.upload(x)
+
+    def _readback(self, arrays) -> List[np.ndarray]:
+        """Device outputs -> fp32 numpy, one array each. The model's own
+        dtype is widened on the device (a copy at the link's rate costs less
+        than widening on the host); a ``transfer_dtype`` output crosses as
+        it is, which is what the option is for."""
+        if self._out_dtype is None:
+            arrays = [a.float() for a in arrays]
+        if self._copies is not None:
+            return self._copies.readback(arrays)
+        return [a.float().cpu().numpy() for a in arrays]
 
     def _cast(self, out):
         if self._fg_only:  # device-side background-channel drop
@@ -239,7 +342,7 @@ class InferenceSession:
             casc = bool(self.model.cascaded)
             if casc and not isinstance(batch, tuple):
                 batch = (batch, batch)
-            with annotate("serve.upload"):
+            with annotate("serve.upload", self.copy_counts):
                 x = self._to_device(batch)
             b = int((x[0] if casc else x).shape[0])
             rng = self._next_rng() if self._needs_rng else None
@@ -255,14 +358,17 @@ class InferenceSession:
                     out = run(x, rng) if self._needs_rng else run(x)
                 else:
                     out = self._body(x, rng)
-            with annotate("serve.readback"):
-                host = tree_map(lambda a: a.float().cpu().numpy()[:b], out)
+            with annotate("serve.readback", self.copy_counts):
+                # only what is returned crosses: the batch's rows, a
+                # cascade's stage 2
                 if self.mc_iter > 1 and self._needs_rng:
-                    mean, std = host
+                    mean, std = out
                     if casc:  # stage 2's detection and uncertainty
                         mean, std = mean[-1], std[-1]
+                    mean, std = self._readback([mean[:b], std[:b]])
                     return self._unpack_mean(mean), self._unpack_std(std)
-                return self._unpack_mean(host[-1] if casc else host), None
+                (probs,) = self._readback([(out[-1] if casc else out)[:b]])
+                return self._unpack_mean(probs), None
 
     # host-side inverses of the device-side foreground-channel drop
     def _unpack_mean(self, fg: np.ndarray) -> np.ndarray:
@@ -298,12 +404,13 @@ class InferenceSession:
         stacked = self._stacked(volume)
         run, out_mult = self._sw_program(tuple(stacked.shape), float(sw_overlap), cases=1)
         with annotate("serve.group", self._draws):
-            with annotate("serve.upload"):
+            with annotate("serve.upload", self.copy_counts):
                 x = self._to_device(stacked)
             with torch.no_grad(), annotate("serve.forward"):
                 out = run(x, self._next_rng()) if self._needs_rng else run(x)
-            with annotate("serve.readback"):
-                return self._split_sw(out.float().cpu().numpy(), out_mult)
+            with annotate("serve.readback", self.copy_counts):
+                (out,) = self._readback([out])
+                return self._split_sw(out, out_mult)
 
     def _split_sw(self, out: np.ndarray, out_mult: int):
         """Split a sliding-window output block into (probs, std | None),
@@ -376,12 +483,12 @@ class InferenceSession:
             group = stacked[i:i + k]
             # the group's span carries the fold_in index of its draws
             with annotate("serve.group", self._draws):
-                with annotate("serve.upload"):
-                    block = self._to_device(np.stack(group + [group[0]] * (k - len(group))))
+                with annotate("serve.upload", self.copy_counts):
+                    block = self._to_device(group + [group[0]] * (k - len(group)))
                 with torch.no_grad(), annotate("serve.forward"):
                     probs = run_k(block, self._next_rng()) if self._needs_rng else run_k(block)
-                with annotate("serve.readback"):
-                    probs = probs.float().cpu().numpy()
+                with annotate("serve.readback", self.copy_counts):
+                    (probs,) = self._readback([probs[:len(group)]])  # not the padding
                     out.extend(self._split_sw(probs[j], out_mult) for j in range(len(group)))
         return out
 
