@@ -266,7 +266,7 @@ CFG2 = dict(CFG1, dense_skip=True, deep_supervision=True)
 PROB = dict(CFG1, input_channels=4, probabilistic=True, prob_latent_dims=(3, 2, 1, 0),
             deep_supervision=True, dropout_mode="monte-carlo", dropout_rate=0.5)
 CASCADE = dict(CFG1, cascaded="noisy-or")
-PROB_DENSE = dict(PROB, dense_skip=True)  # kernels phase only: a 6-part stitch
+PROB_DENSE = dict(PROB, dense_skip=True)  # a 6-part stitch; served in bench cell prob_dense_mc4_b8
 MODEL_PATHS = {"serve_cfg2": CFG2, "serve_prob": PROB, "serve_cascade": CASCADE}
 CASCADE_CASE = (24, 256, 256)
 LAUNCHES_PER_FORWARD = {"conv3d": 50, "conv3d_transpose": 4, "in_stats": 37,

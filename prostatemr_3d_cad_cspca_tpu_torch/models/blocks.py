@@ -122,6 +122,7 @@ class SEResNetBottleNeck(nn.Module):
         cfg = self.conv_cfg = conv_cfg
         ks, st = tuple(kernel_size), tuple(strides)
         q = filters // 4
+        self.in_channels = in_channels
         self.conv1 = Conv3d(in_channels, q, ks, st, cfg)
         self.norm1 = InstanceNorm(q)
         self.conv2 = Conv3d(q, q, (3, 3, 3), (1, 1, 1), cfg)
@@ -136,17 +137,26 @@ class SEResNetBottleNeck(nn.Module):
         self.se_conv6 = SqueezeConv(filters, filters // reduction, cfg.dtype)
         self.se_conv7 = SqueezeConv(filters // reduction, filters, cfg.dtype)
 
+    def _over_parts(self, conv: Conv3d, parts) -> torch.Tensor:
+        """``conv`` of the block's input; over a part list (a decoder or
+        ladder stitch) inside the ``m1.stitch`` span."""
+        if len(parts) == 1:
+            return conv(parts)
+        with annotate("m1.stitch", {"parts": len(parts), "cin": self.in_channels}):
+            return conv(parts)
+
     def forward(self, x, sharded: Optional[ShardedStats] = None) -> torch.Tensor:
         cfg = self.conv_cfg
         parts = list(x) if isinstance(x, (list, tuple)) else [x]
-        h = store_act(cfg, self.conv1(parts))
+        h = store_act(cfg, self._over_parts(self.conv1, parts))
         h = self.norm1(h, lrelu=True, sharded=sharded)
         h = store_act(cfg, self.conv2(h))
         h = self.norm2(h, lrelu=True, sharded=sharded)
         h = store_act(cfg, self.conv3(h))
         x_ = self.norm3(h, sharded=sharded)
         if self.conv4 is not None:
-            residual = self.norm4(store_act(cfg, self.conv4(parts)), sharded=sharded)
+            residual = self.norm4(store_act(cfg, self._over_parts(self.conv4, parts)),
+                                  sharded=sharded)
         else:
             residual = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         with annotate("m1.se"):  # the squeeze-excite tail

@@ -35,6 +35,7 @@ from ..ops.distributions import DiagGaussian
 from ..ops.normalization import InstanceNorm, ShardedStats, revacuum
 from ..ops.resample import upsample_nearest
 from ..prng import Draws, is_mask_map
+from ..utils.profiling import annotate
 from .blocks import ConfigurableDropout, GridAttentionBlock3D, SEResNetBottleNeck
 
 
@@ -176,6 +177,11 @@ class M1Core(nn.Module):
         reference's stitch concats."""
         sa = lambda t: store_act(self.conv_cfg, t)  # noqa: E731
         rv = lambda t: sa(revacuum(t, sharded))  # noqa: E731
+
+        def up(conv, t):  # one transposed conv of a dense skip's up-chain
+            with annotate("m1.dense"):
+                return rv(conv(t))
+
         if self.conv_cfg.dtype is not None:
             inputs = inputs.to(self.conv_cfg.dtype)
         d: Dict[str, Any] = {}
@@ -202,16 +208,16 @@ class M1Core(nn.Module):
         # Stage 3 (networks.py:590-597).
         deconv3 = rv(self.convtd3(convm))
         if self.dense_skip:
-            deconv3_up1 = rv(self.convtd3_up1(deconv3))
-            deconv3_up2 = rv(self.convtd3_up2(deconv3_up1))
-            deconv3_up3 = rv(self.convtd3_up3(deconv3_up2))
+            deconv3_up1 = up(self.convtd3_up1, deconv3)
+            deconv3_up2 = up(self.convtd3_up2, deconv3_up1)
+            deconv3_up3 = up(self.convtd3_up3, deconv3_up2)
         uconv3_ = (deconv3, att_conv3)
         uconv3 = self.dropd3(self.sersd3(uconv3_, sharded), train, rng)
         # Stage 2 (networks.py:599-607).
         deconv2 = rv(self.convtd2(uconv3))
         if self.dense_skip:
-            deconv2_up1 = rv(self.convtd2_up1(deconv2))
-            deconv2_up2 = rv(self.convtd2_up2(deconv2_up1))
+            deconv2_up1 = up(self.convtd2_up1, deconv2)
+            deconv2_up2 = up(self.convtd2_up2, deconv2_up1)
             uconv2_ = (deconv2, deconv3_up1, att_conv2)
         else:
             uconv2_ = (deconv2, att_conv2)
@@ -219,7 +225,7 @@ class M1Core(nn.Module):
         # Stage 1 (networks.py:609-616).
         deconv1 = rv(self.convtd1(uconv2))
         if self.dense_skip:
-            deconv1_up1 = rv(self.convtd1_up1(deconv1))
+            deconv1_up1 = up(self.convtd1_up1, deconv1)
             uconv1_ = (deconv1, deconv2_up1, deconv3_up2, att_conv1)
         else:
             uconv1_ = (deconv1, att_conv1)

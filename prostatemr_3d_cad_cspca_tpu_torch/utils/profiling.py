@@ -49,8 +49,10 @@ SPANS = (
     # never a model call itself
     "infer.mc_stack", "infer.mc_reduce", "sw.gather", "sw.blend", "sw.finish",
     "tta.flip", "ensemble.reduce",
-    # model (models/): one detect-head call and the elementwise parts in it
-    "m1.forward", "m1.se", "m1.gate", "m1.dropout",
+    # model (models/): one detect-head call, the elementwise parts in it, the
+    # dense skips' up-chain transposed convs and the convs over a stitch's
+    # part list (args: the parts and their channels)
+    "m1.forward", "m1.se", "m1.gate", "m1.dropout", "m1.dense", "m1.stitch",
     # training (augment.py)
     "augment",
 )
