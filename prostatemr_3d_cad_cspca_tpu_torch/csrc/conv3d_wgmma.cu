@@ -73,6 +73,14 @@
 //    memory, a column pair a thread (a quad of lanes writes 32 contiguous
 //    bytes of a row); bf16 rows are staged in shared memory and written in
 //    16-byte chunks.
+//  * Two outputs (K1 only): where the call hands a second output y2, the
+//    weights' columns [0, split) go to y (rows of split) and [split, cout)
+//    to y2 (rows of cout - split): two convs of one input, kernel size and
+//    stride (an SE block's first and projection convs) in one pass over the
+//    input boxes. split is a multiple of 8, so no bf16 chunk of 8 columns
+//    and no fp32 column pair crosses it. The two-output epilogue is a
+//    variant of its own (kPair), so a one-output call runs the code it ran
+//    before. No split-K with two outputs.
 //  * fp32 by 3xTF32. The tensor cores take fp32 only as TF32 (10 mantissa
 //    bits, ~1e-3 relative; raw fp32 bits are truncated, not rounded), which
 //    alone cannot hold the port's fp32 limits (kernel vs twin 2e-4, card vs
@@ -167,6 +175,8 @@ struct WgParams {
   int nres;  // fp32: > 0, every unit's weight stages (nres) resident, converted once a block
   int raw_stages;  // fp32: raw weight stages in flight (3-8)
   signed char tap[kMaxPhases][kMaxTaps][4];  // dz, dy, dx, weight tap
+  void* y2;   // a pair's second output, columns [split, cout) (kPair); else null
+  int split;  // a pair's columns of y
 };
 
 // Blocks resident on one SM by element type and tile width, and the
@@ -296,7 +306,7 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-template <typename T, int BN, bool kNK>
+template <typename T, int BN, bool kNK, bool kPair>
 __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
     conv3d_wgmma_kernel(const __grid_constant__ WgParams p, int m_tiles, int units) {
   using E = Elem<T>;
@@ -706,7 +716,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
         (lz * p.in_mul[0] * p.box[1] + ly * p.in_mul[1]) * p.box[2] + lx * p.in_mul[2];
     float* const st = reinterpret_cast<float*>(smem + epi_off);
     const int out_numel = p.batch * p.out_d * p.out_h * p.out_w * p.cout;
-    const bool vec8 = (p.cout & 7) == 0;
+    const bool vec8_y = (p.cout & 7) == 0;
     const int ec = tid % (BN / 8);  // the epilogue's column chunk of this thread, every row
     float acc[BN / 2];
     float chain[kF32 ? BN / 2 : 1];  // fp32: the wgmmas' sums, added into acc (promote)
@@ -862,17 +872,27 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
             const int r = wg * 64 + warp * 16 + lane / 4 + 8 * h;
             const int gx = t.gx0 + (r & (p.tile[2] - 1)),
                       gy = t.gy0 + ((r >> sx) & (p.tile[1] - 1)), gz = t.gz0 + (r >> (sx + sy));
-            ofs[h] = -1;
+            ofs[h] = -1;  // the row's first element (a pair's: its voxel)
             if (gz < p.g_d && gy < p.g_h && gx < p.g_w)
               ofs[h] = (((t.b * p.out_d + gz * p.out_mul[0] + p.res[t.phase][0]) * p.out_h +
                          gy * p.out_mul[1] + p.res[t.phase][1]) * p.out_w +
-                        gx * p.out_mul[2] + p.res[t.phase][2]) * p.cout;
+                        gx * p.out_mul[2] + p.res[t.phase][2]) * (kPair ? 1 : p.cout);
           }
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
             const int co = t.n0 + 8 * j + 2 * (lane & 3);
             if (co >= p.cout) continue;
             const bool two = co + 1 < p.cout;
+            // a pair's column pair: y's [0, split) or y2's [split, cout), in
+            // rows of their own width
+            float* out = base;
+            int ld = 1, col = co;  // one output: ofs holds the row's first element
+            if constexpr (kPair) {
+              const bool first = co < p.split;
+              out = first ? base : static_cast<float*>(p.y2);
+              ld = first ? p.split : p.cout - p.split;
+              col = first ? co : co - p.split;
+            }
             float b0 = 0.f, b1 = 0.f;
             if (p.splits == 1 && p.bias != nullptr) {
               b0 = p.bias[co];
@@ -882,8 +902,8 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
             for (int h = 0; h < 2; ++h) {
               if (ofs[h] < 0) continue;
               const float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
-              float* const dst = base + ofs[h] + co;
-              if (two && !(p.cout & 1)) {
+              float* const dst = out + ofs[h] * ld + col;
+              if (two && !((kPair ? ld : p.cout) & 1)) {
                 *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
               } else {
                 dst[0] = v0;
@@ -901,6 +921,18 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
           }
           consumers_sync();
           const int co = t.n0 + ec * 8, n = min(8, p.cout - co);
+          // this thread's 8 columns; a pair's: y's [0, split) or y2's [split,
+          // cout), in rows of their own width
+          bf16* out = static_cast<bf16*>(p.y);
+          int ld = p.cout, col = co;
+          bool vec8 = vec8_y;
+          if constexpr (kPair) {
+            const bool first = co < p.split;
+            out = static_cast<bf16*>(first ? p.y : p.y2);
+            ld = first ? p.split : p.cout - p.split;
+            col = first ? co : co - p.split;
+            vec8 = (ld & 7) == 0;
+          }
           float bias8[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e)
@@ -913,7 +945,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
             const int od = gz * p.out_mul[0] + p.res[t.phase][0];
             const int oh = gy * p.out_mul[1] + p.res[t.phase][1];
             const int ow = gx * p.out_mul[2] + p.res[t.phase][2];
-            const int ofs = (((t.b * p.out_d + od) * p.out_h + oh) * p.out_w + ow) * p.cout + co;
+            const int ofs = (((t.b * p.out_d + od) * p.out_h + oh) * p.out_w + ow) * ld + col;
             const float* src = st + r * kPitch + ec * 8;
             if (p.splits > 1) {  // fp32 partials
               float* const dst = p.ws + (size_t)t.split * out_numel + ofs;
@@ -932,7 +964,7 @@ __global__ void __launch_bounds__(kThreads, resident_blocks<T>(BN))
 #pragma unroll
             for (int e = 0; e < 8; ++e)
               o.h[e] = __bfloat16_as_ushort(__float2bfloat16(src[e] + bias8[e]));
-            bf16* const y = static_cast<bf16*>(p.y) + ofs;
+            bf16* const y = out + ofs;
             if (vec8) {
               *reinterpret_cast<uint4*>(y) = o.v;
             } else {
@@ -964,8 +996,8 @@ __global__ void __launch_bounds__(256)
 }
 
 // Unpacks the wrapper's host arrays (ptrs: the parts, kernel, bias, output,
-// workspace; meta: ops/convolution.py _wgmma_host; taps) and encodes the
-// TMA maps of the parts (and, bf16, the weights) that take TMA. *esize:
+// workspace, second output; meta: ops/convolution.py _wgmma_host; taps) and
+// encodes the TMA maps of the parts (and, bf16, the weights) that take TMA. *esize:
 // the element size of meta[89]'s dtype (bf16 2, fp32 4).
 int unpack(const uint64_t* ptrs, const int* m, const signed char* taps, WgParams* p,
            int* esize) {
@@ -984,6 +1016,8 @@ int unpack(const uint64_t* ptrs, const int* m, const signed char* taps, WgParams
   p->bias = m[84] ? reinterpret_cast<const float*>(ptrs[kMaxParts + 1]) : nullptr;
   p->y = reinterpret_cast<void*>(ptrs[kMaxParts + 2]);
   p->ws = reinterpret_cast<float*>(ptrs[kMaxParts + 3]);
+  p->y2 = m[98] ? reinterpret_cast<void*>(ptrs[kMaxParts + 4]) : nullptr;
+  p->split = m[98] ? m[98] : m[26];
   p->tma_bits = m[13];
   p->b_vec = m[14];
   p->cin_total = m[15];
@@ -1031,7 +1065,9 @@ int unpack(const uint64_t* ptrs, const int* m, const signed char* taps, WgParams
       !row_bytes_ok(p->wbox * es) || (p->wtaps != 1 && p->wtaps * p->wbox != kstage) ||
       p->tile[0] * p->tile[1] * p->tile[2] != kRows || p->nres < 0 ||
       (es == 4 && (p->raw_stages < 1 || p->raw_stages > 8)) ||
-      (p->nres > 0 && (es != 4 || p->splits != 1)))
+      (p->nres > 0 && (es != 4 || p->splits != 1)) ||
+      (m[98] && (p->y2 == nullptr || p->transposed || p->splits != 1 || p->split % 8 ||
+                 p->split <= 0 || p->split >= p->cout)))
     return (int)cudaErrorInvalidValue;
   for (int q = 0; q < p->nparts; ++q) {
     const int w = p->width[q];
@@ -1074,9 +1110,9 @@ int unpack(const uint64_t* ptrs, const int* m, const signed char* taps, WgParams
   return 0;
 }
 
-template <typename T, int BN, bool kNK>
+template <typename T, int BN, bool kNK, bool kPair>
 int launch_tile(const WgParams& p, int m_tiles, int blocks, cudaStream_t stream) {
-  auto kernel = conv3d_wgmma_kernel<T, BN, kNK>;
+  auto kernel = conv3d_wgmma_kernel<T, BN, kNK, kPair>;
   static bool configured = false;  // per kernel, set once
   if (!configured) {
     cudaError_t err =
@@ -1100,15 +1136,16 @@ int launch_tile(const WgParams& p, int m_tiles, int blocks, cudaStream_t stream)
 }
 
 // The tile widths: bf16 8-128, fp32 8-64.
-template <typename T, bool kNK>
+template <typename T, bool kNK, bool kPair>
 int launch_bn(const WgParams& p, int m_tiles, int blocks, cudaStream_t s) {
   switch (p.bn) {
-    case 8: return launch_tile<T, 8, kNK>(p, m_tiles, blocks, s);
-    case 16: return launch_tile<T, 16, kNK>(p, m_tiles, blocks, s);
-    case 32: return launch_tile<T, 32, kNK>(p, m_tiles, blocks, s);
-    case 64: return launch_tile<T, 64, kNK>(p, m_tiles, blocks, s);
+    case 8: return launch_tile<T, 8, kNK, kPair>(p, m_tiles, blocks, s);
+    case 16: return launch_tile<T, 16, kNK, kPair>(p, m_tiles, blocks, s);
+    case 32: return launch_tile<T, 32, kNK, kPair>(p, m_tiles, blocks, s);
+    case 64: return launch_tile<T, 64, kNK, kPair>(p, m_tiles, blocks, s);
     case 128:
-      if constexpr (!Elem<T>::kF32) return launch_tile<T, 128, kNK>(p, m_tiles, blocks, s);
+      if constexpr (!Elem<T>::kF32)
+        return launch_tile<T, 128, kNK, kPair>(p, m_tiles, blocks, s);
       return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1116,8 +1153,10 @@ int launch_bn(const WgParams& p, int m_tiles, int blocks, cudaStream_t s) {
 
 template <typename T>
 int run(const WgParams& p, const int* m, cudaStream_t s) {
-  int rc = p.transposed ? launch_bn<T, true>(p, m[88], m[90], s)
-                        : launch_bn<T, false>(p, m[88], m[90], s);
+  // K2; K1; K1 with two outputs
+  int rc = p.transposed ? launch_bn<T, true, false>(p, m[88], m[90], s)
+           : p.y2 ? launch_bn<T, false, true>(p, m[88], m[90], s)
+                  : launch_bn<T, false, false>(p, m[88], m[90], s);
   if (rc != 0 || p.splits == 1) return rc;
   const long long numel = (long long)p.batch * p.out_d * p.out_h * p.out_w * p.cout;
   const long long blocks = (numel + 255) / 256;

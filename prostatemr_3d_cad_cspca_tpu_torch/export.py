@@ -7,7 +7,7 @@ fold ensemble, a cascade's composition) to StableHLO with the weights
 inside. The port freezes the same program with ``torch.export``: one traced
 graph with the weights inside, saved to one file. Deployment needs torch and
 the port's ops, whose K1-K4 are registered operators (``pmr::conv3d``,
-``pmr::conv3d_transpose``, ``pmr::in_stats``, ``pmr::in_apply``:
+``pmr::conv3d_pair``, ``pmr::conv3d_transpose``, ``pmr::in_stats``, ``pmr::in_apply``:
 ``ops/cuda_lib.register_op``) that launch the kernels on the card and run
 their plain twins on the CPU, but no model code: the counterpart of a JAX
 artifact needing jax and a platform plugin. A program traced on one device

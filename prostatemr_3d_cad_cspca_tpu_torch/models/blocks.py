@@ -9,13 +9,14 @@ names match the flax tree (``conv1/kernel``, ``norm1/scale``,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.convolution import Conv3d, ConvConfig, store_act
+from ..ops.convolution import Conv3d, ConvConfig, conv_pair, fuses, store_act
 from ..ops.normalization import InstanceNorm, ShardedStats, global_spatial_mean
 from ..ops.resample import upsample_nearest
 from ..prng import Draws, is_mask_map, uniform
@@ -113,7 +114,9 @@ class SEResNetBottleNeck(nn.Module):
     changes; squeeze-excite gate; the gated features combine with the
     shortcut by MULTIPLY (reference quirk, kept), then LReLU. The input may
     be a part list standing for its channel concat. ``sharded`` gives every
-    norm and the squeeze whole-volume statistics (halo sharding).
+    norm and the squeeze whole-volume statistics (halo sharding). The first
+    conv and the projection read the same input: where the shapes let one
+    K1 launch compute both (``convolution.pair_fuses``), it does.
     """
 
     def __init__(self, in_channels: int, filters: int, kernel_size, strides,
@@ -137,26 +140,33 @@ class SEResNetBottleNeck(nn.Module):
         self.se_conv6 = SqueezeConv(filters, filters // reduction, cfg.dtype)
         self.se_conv7 = SqueezeConv(filters // reduction, filters, cfg.dtype)
 
-    def _over_parts(self, conv: Conv3d, parts) -> torch.Tensor:
-        """``conv`` of the block's input; over a part list (a decoder or
-        ladder stitch) inside the ``m1.stitch`` span."""
+    def _stitch(self, parts, fused: bool):
+        """The ``m1.stitch`` span around a conv of the block's input where it
+        is a part list (a decoder or ladder stitch); ``fused``: conv1 and
+        conv4 in one launch."""
         if len(parts) == 1:
-            return conv(parts)
-        with annotate("m1.stitch", {"parts": len(parts), "cin": self.in_channels}):
-            return conv(parts)
+            return contextlib.nullcontext()
+        return annotate("m1.stitch", {"parts": len(parts), "cin": self.in_channels,
+                                      "fused": int(fused)})
 
     def forward(self, x, sharded: Optional[ShardedStats] = None) -> torch.Tensor:
         cfg = self.conv_cfg
         parts = list(x) if isinstance(x, (list, tuple)) else [x]
-        h = store_act(cfg, self._over_parts(self.conv1, parts))
+        fused = self.conv4 is not None and fuses(self.conv1, self.conv4, parts)
+        with self._stitch(parts, fused):
+            h, r = conv_pair(self.conv1, self.conv4, parts) if fused \
+                else (self.conv1(parts), None)
+        h = store_act(cfg, h)
         h = self.norm1(h, lrelu=True, sharded=sharded)
         h = store_act(cfg, self.conv2(h))
         h = self.norm2(h, lrelu=True, sharded=sharded)
         h = store_act(cfg, self.conv3(h))
         x_ = self.norm3(h, sharded=sharded)
         if self.conv4 is not None:
-            residual = self.norm4(store_act(cfg, self._over_parts(self.conv4, parts)),
-                                  sharded=sharded)
+            if r is None:
+                with self._stitch(parts, False):
+                    r = self.conv4(parts)
+            residual = self.norm4(store_act(cfg, r), sharded=sharded)
         else:
             residual = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         with annotate("m1.se"):  # the squeeze-excite tail

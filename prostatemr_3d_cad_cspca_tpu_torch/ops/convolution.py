@@ -19,7 +19,10 @@ parts):
 
   * K1 :func:`conv3d` — forward conv over a list of up to MAX_PARTS channel
     parts (``SplitInputConv``'s identity ``conv(concat(parts), W) = sum_i
-    conv(part_i, W_i)``), with fp32 bias and fp32 accumulation;
+    conv(part_i, W_i)``), with fp32 bias and fp32 accumulation; and
+    :func:`conv3d_pair`, K1 with two outputs: two convs of one input (an SE
+    block's first and projection convs) in one pass over it, where
+    :func:`pair_fuses` says the shapes gain;
   * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``
     (K1 and K2: on Hopper's wgmma with halo tiles in shared memory, bf16
     directly and fp32 as 3xTF32, ``csrc/conv3d_wgmma.cu`` and
@@ -35,8 +38,8 @@ Without grad (serving, ``torch.no_grad()``) they save nothing and launch
 what the forward alone launches. On a CPU (or meta) tensor each wrapper
 runs its plain twin; on a CUDA tensor it launches its kernel or raises.
 While ``torch.export`` traces (``cuda_lib.exporting``), K1's and K2's
-wrappers call the registered operators ``pmr::conv3d`` and
-``pmr::conv3d_transpose`` instead: one node each in the exported program,
+wrappers call the registered operators ``pmr::conv3d``, ``pmr::conv3d_pair``
+and ``pmr::conv3d_transpose`` instead: one node each in the exported program,
 dispatched by device where it runs (``export.py``).
 """
 
@@ -192,7 +195,7 @@ WG_SPLIT_WAVES = {torch.bfloat16: 1, torch.float32: 3}
 WG_BOX_MAX = 256           # TMA's largest box extent
 WG_TILE_SHAPES = tuple((d, h, w) for w in (8, 16, 32, 64, 128) for h in (1, 2, 4, 8, 16)
                        for d in (1, 2, 4, 8) if d * h * w == WG_ROWS)
-WG_META = 98               # int32 fields of the host array (_wgmma_host)
+WG_META = 99               # int32 fields of the host array (_wgmma_host)
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 MAX_SPLITS = 64
 MAX_INDEX = 2 ** 31        # the kernel's row, voxel and element indices are int
@@ -403,11 +406,12 @@ def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None, *, d
 
 
 @functools.lru_cache(maxsize=512)
-def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias, b_vec, dtype):
+def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias, b_vec, dtype,
+                split=0):
     """The plan and the two host arrays of csrc/conv3d_wgmma.cu that depend
-    only on the call's shapes, strides, dtype, bias presence and pointers'
-    alignment: built once, so a call only writes its pointers
-    (csrc/conv3d_wgmma.cu unpack lists the fields; P = MAX_PARTS).
+    only on the call's shapes, strides, dtype, bias presence, pointers'
+    alignment and output split: built once, so a call only writes its
+    pointers (csrc/conv3d_wgmma.cu unpack lists the fields; P = MAX_PARTS).
 
     meta (int32[WG_META]): 0 nparts; 1..6 cin; 7..12 slab width; 13 bit p:
       part p by TMA; 14 weights by 16-byte loads; 15 cin total; 16 batch;
@@ -423,7 +427,7 @@ def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias
       slab is that wide, else 1); 95 phase loop (a unit walks every phase
       of its tile over its boxes, slab i in box stage i); 96 fp32's resident
       weight stages (0: a ring of WG_B_STAGES); 97 fp32's raw weight stages
-      in flight.
+      in flight; 98 the columns of the first of two outputs (0: one output).
     taps (int8[8, 27, 4]): per phase and tap, (dz, dy, dx, weight tap).
     """
     plan = wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok, dtype=dtype)
@@ -461,34 +465,47 @@ def _wgmma_host(part_shapes, kernel_shape, strides, transposed, tma_ok, has_bias
     meta[95] = plan["phase_loop"]
     meta[96] = plan["resident"]
     meta[97] = plan["raw_stages"]
+    meta[98] = split
     meta.setflags(write=False)
     taps.setflags(write=False)
     return plan, meta, taps
 
 
-def wgmma_args(parts, kernel, bias, strides, transposed):
+def wgmma_args(parts, kernel, bias, strides, transposed, split=0):
     """Everything one launch of the kernel takes, in the parts' dtype: the
     output, the split-K workspace (None without split-K), the plan and the
-    host arrays (ptrs: the parts, kernel, bias, output, workspace).
-    Device-agnostic, so the CPU tests replay the very schedule the card
-    runs."""
+    host arrays (ptrs: the parts, kernel, bias, output, workspace, second
+    output). ``split`` > 0 (K1 only) asks for two outputs, the kernel's
+    columns [0, split) and [split, cout), returned as a tuple in place of
+    the output; such a call takes no split-K. Device-agnostic, so the CPU
+    tests replay the very schedule the card runs."""
     # the weights' last axis is the one the 16-byte loads run along: K1's
     # cout (DHWIO), K2's cin ((kd, kh, kw, Cout, Cin))
     x0 = parts[0]
     plan, meta, taps = _wgmma_host(
         tuple(tuple(p.shape) for p in parts), tuple(kernel.shape), tuple(strides),
         bool(transposed), tuple(p.data_ptr() % 16 == 0 for p in parts), bias is not None,
-        int(kernel.shape[4]) % _vec(x0.dtype) == 0 and kernel.data_ptr() % 16 == 0, x0.dtype)
-    y = torch.empty(plan["out"], dtype=x0.dtype, device=x0.device)
+        int(kernel.shape[4]) % _vec(x0.dtype) == 0 and kernel.data_ptr() % 16 == 0, x0.dtype,
+        int(split))
+    ptrs = np.zeros(MAX_PARTS + 5, np.uint64)
+    if split:
+        if transposed or plan["splits"] > 1 or split % 8 or not 0 < split < plan["cout"]:
+            raise ValueError(f"two outputs split at {split} of {plan['cout']} columns take "
+                             f"K1 without split-K (plan: {plan['splits']} splits) and a "
+                             "split that is a multiple of 8")
+        y = tuple(torch.empty((*plan["out"][:4], n), dtype=x0.dtype, device=x0.device)
+                  for n in (split, plan["cout"] - split))
+        ptrs[MAX_PARTS + 4] = y[1].data_ptr()
+    else:
+        y = torch.empty(plan["out"], dtype=x0.dtype, device=x0.device)
     ws = None
     if plan["splits"] > 1:
         ws = torch.empty((plan["splits"], y.numel()), dtype=torch.float32, device=x0.device)
-    ptrs = np.zeros(MAX_PARTS + 4, np.uint64)
     for i, p in enumerate(parts):
         ptrs[i] = p.data_ptr()
     ptrs[MAX_PARTS] = kernel.data_ptr()
     ptrs[MAX_PARTS + 1] = bias.data_ptr() if bias is not None else 0
-    ptrs[MAX_PARTS + 2] = y.data_ptr()
+    ptrs[MAX_PARTS + 2] = (y[0] if split else y).data_ptr()
     ptrs[MAX_PARTS + 3] = ws.data_ptr() if ws is not None else 0
     return y, ws, plan, (ptrs, meta, taps)
 
@@ -534,13 +551,13 @@ def kernel_route(dtype: torch.dtype) -> str:
     return "wgmma"
 
 
-def _launch(name, fn, parts, kernel, bias, strides, transposed):
+def _launch(name, fn, parts, kernel, bias, strides, transposed, split=0):
     """Launch K1 or K2 on the wgmma kernel (``fn`` is the wrapper, whose
-    count rises by one)."""
+    count rises by one); ``split``: K1's two outputs (wgmma_args)."""
     x0 = parts[0]
     lib = cuda_lib.library()
-    y, _ws, _, arrays = wgmma_args(parts, kernel, bias, strides, transposed)
-    if max(t.numel() for t in (*parts, y)) >= MAX_INDEX:
+    y, _ws, plan, arrays = wgmma_args(parts, kernel, bias, strides, transposed, split)
+    if max(max(t.numel() for t in parts), math.prod(plan["out"])) >= MAX_INDEX:
         raise ValueError(f"{name}: the kernel takes tensors of fewer than 2**31 elements")
     fn.launches += 1
     rc = lib.pmr_conv3d_wgmma(*(a.ctypes.data for a in arrays), cuda_lib.stream_of(x0))
@@ -676,26 +693,164 @@ class _Conv3dFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         kernel, *parts = ctx.saved_tensors
-        gy, st = gy.contiguous(), ctx.strides
         need = ctx.needs_input_grad
-        dparts = [None] * len(parts)
-        if any(need[3:]):
-            dx = conv3d_transpose(gy, kernel, None, st)
-            crop = dgrad_crop(parts[0].shape[1:4], gy.shape[1:4], kernel.shape[:3], st)
-            if crop is not None:  # a view, as the parts' channel slices are
-                dx = dx[(slice(None), *crop)]
-            off = 0
-            for i, p in enumerate(parts):
-                ci = int(p.shape[-1])
-                if need[3 + i]:
-                    dparts[i] = dx[..., off:off + ci]
-                off += ci
-        dk = None
-        if need[0]:
-            dws = [conv3d_wgrad(p, gy, kernel.shape[:3], st) for p in parts]
-            dk = dws[0] if len(dws) == 1 else torch.cat(dws, dim=3)
-        db = _bias_grad(gy) if need[1] else None
+        dk, db, dparts = _conv3d_grads(kernel, parts, gy.contiguous(), ctx.strides,
+                                       need[0], need[1], need[3:])
         return (dk, db, None, *dparts)
+
+
+def _conv3d_grads(kernel, parts, gy, st, need_kernel, need_bias, need_parts):
+    """K1's gradients from its output gradient ``gy`` (contiguous): the
+    parts' (K2 of gy with K1's kernel, cropped and split into the parts'
+    channel slices), the kernel's (K6 a part) and the bias's (a sum); None
+    where not needed."""
+    dparts = [None] * len(parts)
+    if any(need_parts):
+        dx = conv3d_transpose(gy, kernel, None, st)
+        crop = dgrad_crop(parts[0].shape[1:4], gy.shape[1:4], kernel.shape[:3], st)
+        if crop is not None:  # a view, as the parts' channel slices are
+            dx = dx[(slice(None), *crop)]
+        off = 0
+        for i, p in enumerate(parts):
+            ci = int(p.shape[-1])
+            if need_parts[i]:
+                dparts[i] = dx[..., off:off + ci]
+            off += ci
+    dk = None
+    if need_kernel:
+        dws = [conv3d_wgrad(p, gy, kernel.shape[:3], st) for p in parts]
+        dk = dws[0] if len(dws) == 1 else torch.cat(dws, dim=3)
+    db = _bias_grad(gy) if need_bias else None
+    return dk, db, dparts
+
+
+# ------------------------------------------------------------- K1 pair
+def pair_fuses(part_shapes, kernel_size, strides, q: int, f: int, dtype) -> bool:
+    """Whether two K1 calls over the same parts, kernel size and stride,
+    of ``q`` and ``f`` output channels (an SE block's first conv and its
+    projection), run as one launch of :func:`conv3d_pair`. From shapes
+    alone: where one call over ``f + q`` columns takes fewer output-channel
+    tiles (WG_TILES_N[dtype]) than the two calls together, its plan needs
+    no split-K, and ``f`` is a multiple of 8 (the kernel's column chunks
+    stay on one side of the split). bf16 fuses f = 16, 32 and 64, fp32 16
+    and 32; no other dtype. A symbolic batch (``torch.export``) is taken as
+    1: more samples only add tiles, so a plan without split-K at one sample
+    has none at any batch."""
+    return _pair_fuses(tuple(tuple(n if isinstance(n, int) else 1 for n in s)
+                             for s in part_shapes),
+                       tuple(int(k) for k in kernel_size), tuple(int(s) for s in strides),
+                       int(q), int(f), dtype)
+
+
+@functools.lru_cache(maxsize=512)
+def _pair_fuses(part_shapes, kernel_size, strides, q, f, dtype):
+    if dtype not in WG_TILES_N or f % 8 or q < 1:
+        return False
+    widths = WG_TILES_N[dtype]
+
+    def n_tiles(cout):
+        return -(-cout // next((b for b in widths if cout <= b), widths[-1]))
+
+    if n_tiles(f + q) >= n_tiles(f) + n_tiles(q):
+        return False
+    cin = sum(s[-1] for s in part_shapes)
+    plan = wgmma_plan(part_shapes, (*kernel_size, cin, f + q), strides, False, dtype=dtype)
+    return plan["splits"] == 1
+
+
+def conv3d_pair_plain(parts, kernel, bias, split, strides=(1, 1, 1)):
+    """Plain twin of K1's two outputs: :func:`conv3d_plain` over the whole
+    kernel, its columns [0, split) and [split, cout) as two contiguous
+    tensors."""
+    y = conv3d_plain(parts, kernel, bias, strides)
+    return y[..., :split].contiguous(), y[..., split:].contiguous()
+
+
+def conv3d_pair(parts, kernel1: torch.Tensor, bias1: Optional[torch.Tensor],
+                kernel4: torch.Tensor, bias4: Optional[torch.Tensor],
+                strides: Sequence[int] = (1, 1, 1)):
+    """K1 of two convs over one input in one launch: ``(conv3d(parts,
+    kernel1, bias1), conv3d(parts, kernel4, bias4))`` with the same kernel
+    size and strides (an SE block's first conv and its projection, where
+    :func:`pair_fuses`). The kernels are concatenated along O as ``[kernel4
+    | kernel1]`` and rounded to the parts' dtype (each element as its own
+    cast rounds it), the biases likewise in fp32; the kernel reads every
+    input box once and writes the columns [0, f) to one output and [f, f +
+    q) to the other, each rounded once to its type. ``kernel4``'s width f
+    is a multiple of 8; the plan may not split K (the wrapper raises).
+
+    Under autograd each output takes K1's own backward (:class:`_Conv3dOutFn`)
+    with its own kernel: the gradients, to the bit, of the two separate
+    calls, which training's rounding-sensitive checks (the data-parallel
+    CLI against one device) hold the port to."""
+    parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
+    strides = tuple(int(s) for s in strides)
+    split = int(kernel4.shape[4])
+    if _needs_grad(*parts, kernel1, bias1, kernel4, bias4):
+        dt = parts[0].dtype
+        k1, k4 = kernel1.to(dt), kernel4.to(dt)
+        b1, b4 = (None, None) if bias1 is None else (bias1.float(), bias4.float())
+        with torch.no_grad():
+            y4, y1 = _conv3d_pair_forward(parts, torch.cat([k4, k1], dim=4),
+                                          None if b1 is None else torch.cat([b4, b1]),
+                                          split, strides)
+        return (_Conv3dOutFn.apply(y1, k1, b1, strides, *parts),
+                _Conv3dOutFn.apply(y4, k4, b4, strides, *parts))
+    kernel = torch.cat([kernel4, kernel1], dim=4).to(parts[0].dtype)
+    bias = None if bias1 is None else torch.cat([bias4, bias1]).float()
+    if cuda_lib.exporting():
+        y4, y1 = torch.ops.pmr.conv3d_pair(parts, kernel, bias, split, list(strides))
+    else:
+        y4, y1 = _conv3d_pair_forward(parts, kernel, bias, split, strides)
+    return y1, y4
+
+
+conv3d_pair.launches = 0
+
+
+def _conv3d_pair_forward(parts, kernel, bias, split, strides):
+    if not cuda_lib.use_kernel("conv3d_pair", parts[0]):
+        return conv3d_pair_plain(parts, kernel, bias, split, strides)
+    return _conv3d_pair_cuda(parts, kernel, bias, split, strides)
+
+
+def _conv3d_pair_cuda(parts, kernel, bias, split, strides):
+    _check_cuda_args("conv3d_pair", parts, kernel, bias, cin_axis=3)
+    return _launch("conv3d_pair", conv3d_pair, list(parts), kernel, bias, tuple(strides), False,
+                   int(split))
+
+
+def _conv3d_pair_fake(parts, kernel, bias, split, strides):
+    y = _conv3d_fake(parts, kernel, bias, strides)
+    return y[..., :split].clone(), y[..., split:].clone()
+
+
+cuda_lib.register_op(
+    "conv3d_pair",
+    "(Tensor[] parts, Tensor kernel, Tensor? bias, int split, int[] strides) -> (Tensor, Tensor)",
+    cpu=lambda parts, kernel, bias, split, strides: conv3d_pair_plain(parts, kernel, bias,
+                                                                       split, strides),
+    cuda=_conv3d_pair_cuda, fake=_conv3d_pair_fake)
+
+
+class _Conv3dOutFn(torch.autograd.Function):
+    """One output ``y`` of a K1 pair, already computed, as ``conv3d(parts,
+    kernel, bias)``'s: it passes ``y`` on and takes :class:`_Conv3dFn`'s
+    backward (K2 data gradient, K6 a part, the bias's sum)."""
+
+    @staticmethod
+    def forward(ctx, y, kernel, bias, strides, *parts):
+        ctx.strides = strides
+        ctx.save_for_backward(kernel, *parts)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        kernel, *parts = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dk, db, dparts = _conv3d_grads(kernel, parts, gy.contiguous(), ctx.strides, need[1],
+                                       need[2], need[4:])
+        return (None, dk, db, None, *dparts)
 
 
 # ------------------------------------------------------------------- K2
@@ -1165,6 +1320,30 @@ class Conv3d(nn.Module):
         parts = [p.to(dt) for p in parts]
         bias = self.bias.float() if self.bias is not None else None
         return conv3d(parts, self.kernel.to(dt), bias, self.strides)
+
+
+def fuses(conv1: Conv3d, conv4: Conv3d, parts) -> bool:
+    """Whether ``conv1`` and ``conv4`` over ``parts`` run as one K1 launch
+    (:func:`conv_pair`): one kernel size, stride and config, and
+    :func:`pair_fuses` at these shapes in the compute dtype."""
+    if (conv1.kernel_size, conv1.strides, conv1.cfg) != (conv4.kernel_size, conv4.strides,
+                                                         conv4.cfg):
+        return False
+    parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
+    dt = _compute_dtype(conv1.cfg, parts[0], conv1.kernel)
+    return pair_fuses([p.shape for p in parts], conv1.kernel_size, conv1.strides,
+                      conv1.kernel.shape[4], conv4.kernel.shape[4], dt)
+
+
+def conv_pair(conv1: Conv3d, conv4: Conv3d, parts):
+    """``(conv1(parts), conv4(parts))`` by one :func:`conv3d_pair` launch,
+    the parameters concatenated at the call (so a ``functional_call`` still
+    swaps them)."""
+    parts = list(parts) if isinstance(parts, (list, tuple)) else [parts]
+    _check_width(parts, conv1.kernel.shape[3])
+    dt = _compute_dtype(conv1.cfg, parts[0], conv1.kernel)
+    parts = [p.to(dt) for p in parts]
+    return conv3d_pair(parts, conv1.kernel, conv1.bias, conv4.kernel, conv4.bias, conv1.strides)
 
 
 class ConvTranspose3d(nn.Module):

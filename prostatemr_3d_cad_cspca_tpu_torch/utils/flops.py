@@ -4,8 +4,9 @@ of the JAX package's ``utils/flops.py``.
 JAX walks a jaxpr; the port traces the call with ``torch.export`` and walks
 its graph, reading each node's output and operand shapes from
 ``meta["val"]``. Counts are 2 * MACs: a convolution (``aten.convolution``
-and the port's K1/K2 operators ``pmr::conv3d`` / ``pmr::conv3d_transpose``,
-which the wrappers call while exporting) costs 2 * output elements * input
+and the port's K1/K2 operators ``pmr::conv3d`` / ``pmr::conv3d_pair`` (two
+outputs, counted together) / ``pmr::conv3d_transpose``, which the wrappers
+call while exporting) costs 2 * output elements * input
 channels * kernel taps, the count JAX gives ``conv_general_dilated`` (a
 transposed conv included, whose lhs-dilated input JAX counts whole); a
 matrix product (``mm``, ``bmm``, ``matmul``, ``linear``, ``addmm``,
@@ -32,10 +33,13 @@ def _shape(node):
 
 def _node_flops(node) -> int:
     name = str(node.target)
-    if name == "pmr.conv3d.default":
+    if name in ("pmr.conv3d.default", "pmr.conv3d_pair.default"):
         parts, kernel = node.args[0], node.args[1]
         cin = sum(_shape(p)[-1] for p in parts)
-        return 2 * math.prod(_shape(node)) * cin * math.prod(_shape(kernel)[:3])
+        val = node.meta["val"]
+        outs = val if isinstance(val, (list, tuple)) else [val]  # conv3d_pair: two
+        return 2 * sum(math.prod(int(d) for d in o.shape) for o in outs) * cin * \
+            math.prod(_shape(kernel)[:3])
     if name == "pmr.conv3d_transpose.default":
         x, kernel = node.args[0], node.args[1]
         return 2 * math.prod(_shape(node)) * _shape(x)[-1] * math.prod(_shape(kernel)[:3])

@@ -51,7 +51,8 @@ SPANS = (
     "tta.flip", "ensemble.reduce",
     # model (models/): one detect-head call, the elementwise parts in it, the
     # dense skips' up-chain transposed convs and the convs over a stitch's
-    # part list (args: the parts and their channels)
+    # part list (args: the parts, their channels and whether the block's two
+    # convs of them ran as one launch)
     "m1.forward", "m1.se", "m1.gate", "m1.dropout", "m1.dense", "m1.stitch",
     # training (augment.py)
     "augment",

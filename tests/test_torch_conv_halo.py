@@ -87,7 +87,8 @@ def replay_wgmma(parts, kernel, bias, strides, transposed, dtype=torch.bfloat16,
     y, ws, plan, (ptrs, meta, taps) = tconv.wgmma_args(
         tparts, tkernel, None if bias is None else torch.from_numpy(bias), strides,
         transposed)
-    assert ptrs.size == tconv.MAX_PARTS + 4 and meta.size == tconv.WG_META
+    assert ptrs.size == tconv.MAX_PARTS + 5 and meta.size == tconv.WG_META
+    assert int(meta[98]) == 0  # one output
     assert (ws is None) == (meta[81] == 1) and int(meta[82]) == transposed
     assert int(meta[89]) == cuda_lib.DTYPE_CODES[dtype] and plan["dtype"] == dtype
     f32 = dtype == torch.float32
@@ -386,7 +387,9 @@ def _signatures(dtype):
     for cfg in (cs.CFG2, cs.PROB, cs.PROB_DENSE, cs.CASCADE):
         sigs.update(cs.trace_model_calls(cfg, 2, dtype, head="forward"))
     sigs.update(cs.trace_model_calls(cs.TRAIN_CFG, 2, dtype, head="train"))
-    return sorted({k for k in sigs if k[0] in ("conv3d", "conv3d_transpose")}, key=str)
+    # a K1 pair's signature holds its whole kernel: a K1 plan like any other
+    return sorted({k for k in sigs if k[0] in ("conv3d", "conv3d_pair", "conv3d_transpose")},
+                  key=str)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

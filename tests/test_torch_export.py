@@ -28,7 +28,8 @@ from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
 
 MC = dict(dropout_mode="monte-carlo", dropout_rate=0.5)
 PROB = dict(input_channels=4, probabilistic=True, prob_latent_dims=(2, 1, 0, 0))
-OPERATORS = {"conv3d": "pmr.conv3d.default", "conv3d_transpose": "pmr.conv3d_transpose.default",
+OPERATORS = {"conv3d": "pmr.conv3d.default", "conv3d_pair": "pmr.conv3d_pair.default",
+             "conv3d_transpose": "pmr.conv3d_transpose.default",
              "in_stats": "pmr.in_stats.default", "in_apply": "pmr.in_apply.default"}
 
 
@@ -51,7 +52,7 @@ def _live_calls(fn):
     """K1-K4 calls of ``fn()`` counted at the wrappers the model calls
     (``chip_smoke.py``'s meta trace does the same on the meta device)."""
     calls = collections.Counter()
-    mods = {"conv3d": convolution, "conv3d_transpose": convolution,
+    mods = {"conv3d": convolution, "conv3d_pair": convolution, "conv3d_transpose": convolution,
             "in_stats": normalization, "in_apply": normalization}
     orig = {k: getattr(m, k) for k, m in mods.items()}
 
@@ -89,7 +90,9 @@ def test_export_deterministic_symbolic_batch(tmp_path):
 def test_exported_graph_calls_the_operators_a_live_forward_launches(tmp_path):
     """No aten convolution in the artifact: K1-K4 are the ``pmr::``
     operators, exactly as many as a live forward calls (the launches on a
-    card), for a deterministic and an MC-stacked forward."""
+    card), for a deterministic and an MC-stacked forward: at the tiny widths
+    two SE blocks (f = 8 and 16) run their first and projection convs as
+    one K1 pair."""
     for kw, mc in (({}, 1), (MC, 3)):
         _, pm = _models(**kw)
         art = str(tmp_path / f"g{mc}.zip")
@@ -99,7 +102,8 @@ def test_exported_graph_calls_the_operators_a_live_forward_launches(tmp_path):
         x = inputs(0, 3)
         live = _live_calls(lambda: tinfer.mc_predict(pm.get_detect_model(), None, x,
                                                      prng.generator(0, "cpu"), mc))
-        assert live == {"conv3d": 50, "conv3d_transpose": 4, "in_stats": 37, "in_apply": 37}
+        assert live == {"conv3d": 46, "conv3d_pair": 2, "conv3d_transpose": 4, "in_stats": 37,
+                        "in_apply": 37}
         assert {k: targets[op] for k, op in OPERATORS.items()} == live
 
 

@@ -141,7 +141,7 @@ def test_six_part_stitch_schedule_matches_flax(ks, dtype, monkeypatch, fresh_wgm
     assert plan["splits"] > 1
     _, _, _, (ptrs, meta, _) = tconv.wgmma_args(
         [_t(p).to(dtype) for p in parts], _t(kernel).to(dtype), _t(bias), (1, 1, 1), False)
-    assert meta[0] == 6 and list(meta[1:7]) == list(widths) and ptrs.size == 6 + 4
+    assert meta[0] == 6 and list(meta[1:7]) == list(widths) and ptrs.size == 6 + 5
     chunk = 16 // torch.empty((), dtype=dtype).element_size()
     # parts whose boxes go by TMA: 16-byte voxel strides
     assert meta[13] == sum(1 << i for i, w in enumerate(widths) if w % chunk == 0)
@@ -320,11 +320,12 @@ def test_fp32_level0_bottleneck_takes_the_vector_gather():
 
 def _path_convs(batch):
     """Every distinct K1/K2 call of the cfg1 forward at ``batch`` (the
-    serve path's 2, serve_mc's 8, serve_sw's 16): (name, signature)."""
+    serve path's 2, serve_mc's 8, serve_sw's 16): (name, signature); a K1
+    pair's signature holds its whole kernel."""
     import chip_smoke
 
     return [key for key in chip_smoke.trace_path_calls(batch)
-            if key[0] in ("conv3d", "conv3d_transpose")]
+            if key[0] in ("conv3d", "conv3d_pair", "conv3d_transpose")]
 
 
 DTYPES = (torch.bfloat16, torch.float32)

@@ -29,6 +29,7 @@ from bench_port.reference import m1_dense
 from bench_port.reference.m1 import Net, to_ncdhw, to_ndhwc
 from bench_port.tests.conftest import TINY
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1
+from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution
 from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import Conv3d, ConvTranspose3d
 from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
 
@@ -152,11 +153,20 @@ def test_swapping_two_stitch_parts_breaks_agreement(monkeypatch, name, block):
     assert float((got - want).abs().max()) > 1e-3
 
 
-def _program_calls(cfg, batch):
+def _program_calls(cfg, batch, monkeypatch):
     """(kind, operations) of every K1/K2 call of the program's detect head
     at ``cfg``: the conv modules hooked on meta tensors (a SAME conv's
-    output voxels, a transposed conv's input voxels, x taps x Cin x Cout)."""
+    output voxels, a transposed conv's input voxels, x taps x Cin x Cout);
+    an SE block's first and projection convs run as one K1 pair launch
+    count as the two convs they compute."""
     seen = []
+    real = convolution.conv3d_pair
+
+    def pair(parts, kernel1, bias1, kernel4, bias4, strides):
+        y1, y4 = real(parts, kernel1, bias1, kernel4, bias4, strides)
+        for k, y in ((kernel1, y1), (kernel4, y4)):
+            seen.append(("K1", 2.0 * y.shape[0] * math.prod(y.shape[1:4]) * math.prod(k.shape)))
+        return y1, y4
 
     def k1(mod, args, out):
         k = mod.kernel.shape
@@ -166,6 +176,7 @@ def _program_calls(cfg, batch):
         k, x = mod.kernel.shape, args[0]
         seen.append(("K2", 2.0 * x.shape[0] * math.prod(x.shape[1:4]) * math.prod(k)))
 
+    monkeypatch.setattr(convolution, "conv3d_pair", pair)
     model = M1(**cfg, device="meta", init_params=False, summary=False)
     for mod in model.net.modules():
         if isinstance(mod, Conv3d):
@@ -180,13 +191,13 @@ def _program_calls(cfg, batch):
 
 @pytest.mark.parametrize("name,gflop,k2", [("cfg1", 60.50304, 4), ("prob", 127.301248, 8),
                                            ("prob_dense", 186.873472, 14)])
-def test_counts_are_the_programs_operations(name, gflop, k2):
+def test_counts_are_the_programs_operations(name, gflop, k2, monkeypatch):
     """At the published widths the counted K1/K2 calls are the program's,
     call for call; a volume's GFLOP and its K2 launches."""
     cfg = _config(name)["model"]
     counted = counts_dense.detect_calls(cfg, 2, "bfloat16")
     assert sorted((c.kind, c.flops) for c in counted if c.kind in ("K1", "K2")) == \
-        _program_calls(cfg, 2)
+        _program_calls(cfg, 2, monkeypatch)
     assert abs(counts_m1.model_flops(counted) / 2e9 - gflop) < 1e-6
     assert counts_m1.launches(counted)["K2"] == k2
 

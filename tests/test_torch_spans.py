@@ -132,11 +132,13 @@ def test_request_spans_come_in_order(request_spans):
 
 
 @pytest.mark.parametrize("name,count", [("m1.se", 8), ("m1.gate", 4), ("m1.dropout", 8),
-                                        ("m1.stitch", 8), ("m1.dense", 0)])
+                                        ("m1.stitch", 7), ("m1.dense", 0)])
 @pytest.mark.parametrize("which", ["request", "group"])
 def test_each_forward_holds_the_model_parts(request_spans, group_spans, which, name, count):
     """cfg1's wiring: 8 SE blocks, 4 attention gates, 8 active dropouts
-    (the last at half the rate) in every detect-head call."""
+    (the last at half the rate) in every detect-head call; 4 decoder
+    stitches, a span at each first and projection conv, one where the two
+    run as one K1 pair (``sersd1`` at these widths)."""
     spans = request_spans if which == "request" else group_spans
     forwards = _named(spans, "m1.forward")
     assert forwards
@@ -162,13 +164,13 @@ def test_a_dense_forward_holds_its_up_chains_and_stitches(dense_spans, name, cou
 
 def _stitch_args(monkeypatch, run):
     """The ``args`` of every ``m1.stitch`` span of ``run()`` under a
-    profile, as (parts, input channels)."""
+    profile, as (parts, input channels, fused)."""
     args, real = [], torch.profiler.record_function
 
     def recording(name, arg=None):
         if name == "m1.stitch":
             a = ast.literal_eval(arg)
-            args.append((a["parts"], a["cin"]))
+            args.append((a["parts"], a["cin"], a["fused"]))
         return real(name, arg)
 
     monkeypatch.setattr(torch.profiler, "record_function", recording)
@@ -178,18 +180,21 @@ def _stitch_args(monkeypatch, run):
 
 @pytest.mark.parametrize("which", ["request", "dense"])
 def test_stitch_spans_carry_their_parts_and_channels(monkeypatch, which):
-    """Each stitch span names its part count and input channels (filters
-    4/8/12/16/24): cfg1's decoder stitches 2 parts of f[i]; the dense
-    trunk's 2 to 5 and the ladder's 3 to 6 (its upsampled features, then
-    the trunk's stitch), each at the block's first and projection conv."""
+    """Each stitch span names its part count, input channels and whether
+    the block's first and projection conv ran as one K1 pair (filters
+    4/8/12/16/24): cfg1's decoder stitches 2 parts of f[i], ``sersd1``'s
+    (f = 8) fused in one span, the rest a span at each of the two convs;
+    the dense trunk's 2 to 5 and the ladder's 3 to 6 (its upsampled
+    features, then the trunk's stitch), none fused at these widths (the
+    plan would split K)."""
     f = KW["filters"]
     if which == "request":
-        want = [(2, 2 * f[i]) for i in range(4)]
+        want = [(2, 2 * f[i], 0) for i in (0, 2, 3)] * 2 + [(2, 2 * f[1], 1)]
     else:
-        trunk = [(5 - i, (5 - i) * f[i]) for i in range(4)]
-        ladder = [(1 + n, f[i] + c) for i, (n, c) in enumerate(trunk)]
-        want = trunk + ladder
-    assert _stitch_args(monkeypatch, RUNS[which]) == sorted(want * 2)
+        trunk = [(5 - i, (5 - i) * f[i], 0) for i in range(4)]
+        ladder = [(1 + n, f[i] + c, 0) for i, (n, c, _) in enumerate(trunk)]
+        want = (trunk + ladder) * 2
+    assert _stitch_args(monkeypatch, RUNS[which]) == sorted(want)
 
 
 @pytest.mark.parametrize("name", INFERENCE_SPANS)

@@ -172,6 +172,10 @@ def _calls(cs, cv, nm, name, sig, dtype, gen):
     if name == "conv3d":
         parts, kernel, bias, st = cs._conv_case(sig, dtype, gen)
         return (lambda: cv.conv3d(parts, kernel, bias, st)), cs._conv_library(parts, kernel, st)
+    if name == "conv3d_pair":  # an SE block's first and projection convs in one launch
+        parts, k1, b1, k4, b4, st = cs._pair_case(sig, dtype, gen)
+        return ((lambda: cv.conv3d_pair(parts, k1, b1, k4, b4, st)),
+                cs._conv_library(parts, torch.cat([k4, k1], dim=4), st))
     if name == "conv3d_transpose":
         x, kernel, bias, st = cs._convt_case(sig, dtype, gen)
         return ((lambda: cv.conv3d_transpose(x, kernel, bias, st)),
