@@ -9,6 +9,14 @@ kernel against its plain twin.
 
     python3 chip_smoke.py [--seed 0] [--out FILE]
 
+It checks the port. Per-kernel device times come from tools/kernel_times.py
+(--library: beside cuDNN's), request rates from the benchmark (bench_port/);
+the timings it keeps have no other home yet: the train step walls, fit's
+epoch and checkpoint ms, the augmentation's ms, the data-parallel serving
+latency and the sharded norms' core copies. What it shares with the tools
+and the tests (model configurations, the meta-device trace, the fp64
+references, the per-kernel cases) is port_support.py's.
+
 Phases (each raises on failure, so the script exits non-zero and prints no
 "ok" line):
 
@@ -22,25 +30,17 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                every distinct shape the cfg1 forward gives them at the serving
                batch, in bf16 and fp32 (K1/K2 on the wgmma kernel with halo
                tiles, bf16 directly and fp32 as 3xTF32; each row names its
-               route and its plan: tile, box, slabs, TMA or staged parts),
-               against their plain twins on the card; device times in both dtypes beside each shape's bound
-               and, where one torch call computes the same function, that
-               call's time (fp32 K1/K2: cuDNN with TF32 off); a K1 pair
+               plan: tile, box, slabs, TMA or staged parts), and the K1 pair
                (conv3d_pair: an SE block's first and projection convs in one
-               launch) also beside the two one-output K1 calls it replaces
-               (apart_ms) and their least time (apart_bound_ms). Kernel, twin
-               and library call are each timed alike: 10 calls captured in
-               one CUDA graph, replayed between CUDA events, so host dispatch
-               stays out. At one split-K shape each, K1 and K2 run twice on
+               launch), against their plain twins on the card. At one
+               split-K shape each, K1 and K2 run twice on
                the same inputs and must give the same bits; so does K3 at its
                largest path shape; in each dtype. fp32 K1 at its deepest and
                its largest path shape against the fp64 product (<= 2e-4,
                beside the twin's own error). K5 gemm_loop at the
                probe's 8 (shape, iterations): checked with 3 iterations and
                with the probe's own count (|diff|/max(1,|ref|) <= 2**-7), run
-               twice where gemm_plan splits a tile (the same bits), timed at
-               the probe's count beside its bound and the time of cuBLAS
-               torch.mm calls, one per iteration, as one CUDA graph.
+               twice where gemm_plan splits a tile (the same bits).
   3. serve     a cfg1 checkpoint in the JAX npz format (weights drawn by numpy
                from --seed, dropout 0) -> M1.load(dtype=bfloat16) ->
                InferenceSession, 3 requests of 2 volumes of 20x160x160x3;
@@ -49,9 +49,7 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                Then one more request under torch.profiler, outside the counted
                run: device busy share and device time by kernel, which must
                show conv3d_wgmma_kernel, wgmma_splitk_reduce_kernel,
-               in_stats_kernel and in_apply_kernel, and no kernel of the
-               retired mma.sync route (conv3d_mma_kernel): every K1/K2
-               call on wgmma, in an fp32 profile too.
+               in_stats_kernel and in_apply_kernel, in an fp32 profile too.
   4. parity    one fp32 volume through the card model and the same model on
                the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
                on the card: mean |diff| <= 1e-2.
@@ -73,7 +71,7 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                fp32), serve_prob (batch 8, bf16) and serve_cascade's
                whole-gland (batch 4, fp32) forwards.
   9. serve_cfg2     bench cfg2 (dense skips + deep supervision) at cfg1
-               width: 3 bf16 requests of 2 volumes (median latency), fp32
+               width: 3 bf16 requests of 2 volumes, fp32
                card vs CPU softmax <= 1e-3, bf16 vs fp32 mean <= 1e-2, one
                request profiled.
  10. serve_prob     the reference README's model (probabilistic, latent
@@ -126,10 +124,8 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                finite; the median step wall (steps 2-8) and the medians of
                the pairs' walls on and off, peak memory, one augmented step
                profiled (busy
-               share; K6's and K7's CUDA kernels must show, and no kernel
-               of K1/K2's or K6's retired mma.sync routes (wgrad_mma_kernel);
-               the device ms of the kernels under the "augment" range and
-               their share);
+               share; K6's and K7's CUDA kernels must show; the device ms
+               of the kernels under the "augment" range and their share);
                one bf16 step with a finite loss and its own meta trace's
                launches.
  14. evaluate  evaluate.run (fp32, lesion task) on a cfg1 checkpoint and 4
@@ -161,10 +157,7 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                serve.ExportedSession, each launching exactly one cfg1
                forward's 40/5/4/37/37 (K1-K4 as the registered pmr::
                operators) and giving the live session's bits for the same
-               seed; request latency in turns (artifact, live, live,
-               artifact), the live session on the operator route in turns
-               with the direct call, and the host us per call of K3 and K1
-               by each route; one artifact request profiled
+               seed; one artifact request profiled
                (conv3d_wgmma_kernel, in_stats_kernel and in_apply_kernel must
                show); a deterministic fp32 artifact with a 24x256x256
                sliding-window program against the live session's
@@ -210,19 +203,17 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                rerun for the same bits; the K1/K2 and K3 calls whose plan
                differs between a batch of 4 and of 2.
 
-The train step's own shapes (its meta trace, batch 2) are checked and timed
-after the kernels phase, in both dtypes: the data gradients' K1/K2 calls
-(K2 of the output gradient with K1's kernel; K1 for K2), K6 (and cuDNN's
-conv3d_weight beside it) and K7, with K6 and K7 rerun for the same bits and
-fp32 K6 against the fp64 product per element at its deepest shape and at
-level 0's 1x3x3 16 -> 16 (the longest K, within K6_LEVEL0_FP64_LIMIT); a
-wgrad_shapes line gives K6's time beside
-cuDNN's and the bound at each of its 40 shapes, in both dtypes, with the
-plan (box tile, slab, taps a block, tile n, schedule, splits) and the
-routes of A and B (TMA or staged); a train_kernels line sums each kernel
-over one step.
+The train step's own shapes (its meta trace, batch 2) are checked after
+the kernels phase, in both dtypes: the data gradients' K1/K2 calls (K2 of
+the output gradient with K1's kernel; K1 for K2), K6 and K7, with K6 and K7
+rerun for the same bits and fp32 K6 against the fp64 product per element at
+its deepest shape and at level 0's 1x3x3 16 -> 16 (the longest K, within
+K6_LEVEL0_FP64_LIMIT); a wgrad_shapes line gives K6's plan (box tile, slab,
+taps a block, tile n, schedule, splits) and the routes of A and B (TMA or
+staged) at each of its 40 shapes in both dtypes; a train_kernels line gives
+each kernel's launches and largest errors over one step.
 
-The kernels phase (2) also checks and times every K1-K4 shape of the three
+The kernels phase (2) also checks every K1-K4 shape of the three
 model paths above (their detect heads, and the full forwards of cfg2 and of
 the probabilistic model: deep-supervision heads, posterior) and of a
 dense-skip probabilistic model (whose ladder stitches six parts), at batch 2
@@ -232,12 +223,9 @@ Each path's launch counters are set to 0 just before it and read just
 after; each request of the model paths must launch exactly what a
 meta-device trace of its detect head counts. The last line is {"ok": true,
 "device": {...}}; the line before it lists every kernel with its launches
-on its path and on every path, error and times, and ptxas's registers,
-static shared memory and spills of its CUDA kernels, in bf16 on the serve
-path and in fp32 on the serve_sw path; for K1 and K2 also the route, its
-source by dtype and the run's launches by dtype and route. Before it, a
-routes line gives every K1/K2 launch of the run by (kernel, dtype, route):
-all of them, both dtypes, on wgmma, or the script fails.
+on its path and on every path, its error, and ptxas's registers, static
+shared memory and spills of its CUDA kernels, in bf16 on the serve path and
+in fp32 on the serve_sw path; for K1 and K2 also the route.
 """
 
 from __future__ import annotations
@@ -248,6 +236,7 @@ import contextlib
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -255,34 +244,15 @@ import time
 
 import numpy as np
 
-# cfg1: the CLI's default architecture (bench cfg1), 93.2 GFLOP per volume
-CFG1 = dict(
-    input_spatial_dims=(20, 160, 160), input_channels=3, num_classes=2,
-    filters=(16, 32, 64, 128, 256),
-    strides=((1, 1, 1), (1, 2, 2), (1, 2, 2), (2, 2, 2), (2, 2, 2)),
-    kernel_sizes=((1, 3, 3), (1, 3, 3), (3, 3, 3), (3, 3, 3), (3, 3, 3)),
-    se_reduction=(8, 8, 8, 8, 8),
-    att_sub_samp=((1, 1, 1), (1, 1, 1), (1, 1, 1), (1, 1, 1)),
-    dropout_rate=0.0, dropout_mode="standard")
-# bench cfg2 (benchmarks/bench_core.py:87-96, 300-341); the reference README's
-# model (JAX models/m1.py:7-12) at cfg1 width, its 4th input channel the label
-# that test-mode images carry as zeros; the cascade (noisy-or fusion)
-CFG2 = dict(CFG1, dense_skip=True, deep_supervision=True)
-PROB = dict(CFG1, input_channels=4, probabilistic=True, prob_latent_dims=(3, 2, 1, 0),
-            deep_supervision=True, dropout_mode="monte-carlo", dropout_rate=0.5)
-CASCADE = dict(CFG1, cascaded="noisy-or")
-PROB_DENSE = dict(PROB, dense_skip=True)  # a 6-part stitch; served in bench cell prob_dense_mc4_b8
+from port_support import (BACKWARD_KERNELS, CASCADE, CFG1, CFG2, FORWARD_KERNELS,
+                          LAUNCHES_PER_FORWARD, PROB, PROB_DENSE, TRAIN_CFG, BranchReplay,
+                          _conv_case, _conv_fp64, _conv_plan, _convt_case, _dn, _in_case,
+                          _is_range, _pair_case, _wgrad_case, device_time, launch_counts,
+                          ptxas_variants, recording, time_ms, trace_model_calls,
+                          trace_path_calls)
+
 MODEL_PATHS = {"serve_cfg2": CFG2, "serve_prob": PROB, "serve_cascade": CASCADE}
 CASCADE_CASE = (24, 256, 256)
-# a cfg1 forward's launches by dtype: 50 K1 calls, of which the SE blocks'
-# first and projection convs run as one K1 pair launch where the shapes let
-# them (ops/convolution.py pair_fuses: five blocks in bf16, three in fp32)
-LAUNCHES_PER_FORWARD = {
-    "bfloat16": {"conv3d": 40, "conv3d_pair": 5, "conv3d_transpose": 4, "in_stats": 37,
-                 "in_apply": 37},
-    "float32": {"conv3d": 44, "conv3d_pair": 3, "conv3d_transpose": 4, "in_stats": 37,
-                "in_apply": 37}}
-FORWARD_KERNELS = tuple(LAUNCHES_PER_FORWARD["bfloat16"])
 PKG = "prostatemr_3d_cad_cspca_tpu_torch"
 KERNEL_INFO = {  # name: (source, TPU kernel replaced, path it launches on)
     "conv3d": (f"{PKG}/csrc/conv3d_wgmma.cu", "benchmarks/r2_probe_pallas_mxu.py:80",
@@ -306,25 +276,18 @@ ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45",
                  "in_backward": "ops/pallas/fused_norm.py:181 (git cef1717^, the "
                                 "custom_vjp backward of :47 and :70)"}
 CONV_KERNELS = ("conv3d", "conv3d_pair", "conv3d_transpose")
-# K1/K2 by dtype: the route (ops/convolution.py kernel_route), its source and
-# its CUDA kernels (main, split-K reduce); the retired mma.sync route's
-# kernels, which no profile may show
-CONV_ROUTES = {"bfloat16": "wgmma bf16, halo tiles (TMA or staged)",
-               "float32": "wgmma 3xTF32, halo tiles (TMA or staged)"}
-CONV_SOURCES = {dn: f"{PKG}/csrc/conv3d_wgmma.cu" for dn in ("bfloat16", "float32")}
-CONV_KERNEL_NAMES = {dn: ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel")
-                     for dn in ("bfloat16", "float32")}
-RETIRED_CONV_KERNELS = ("conv3d_mma_kernel", "splitk_reduce_kernel")
-# K6's retired mma.sync kernel, which no train profile may show
-RETIRED_WGRAD_KERNELS = ("wgrad_mma_kernel",)
+# K1/K2's route in both dtypes and its CUDA kernels (main, split-K reduce)
+CONV_ROUTE = "wgmma (bf16 directly, fp32 as 3xTF32), halo tiles (TMA or staged)"
+CONV_KERNEL_NAMES = ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel")
 DTYPE_NAMES = ("bfloat16", "float32")
 FP32_PATH = "serve_sw"     # the path that runs K1-K4 in fp32
-PTXAS_NAMES = {  # kernel: the CUDA kernels it launches (K1/K2: CONV_KERNEL_NAMES)
+PTXAS_NAMES = {  # kernel: the CUDA kernels it launches
+    "conv3d": CONV_KERNEL_NAMES, "conv3d_pair": CONV_KERNEL_NAMES,
+    "conv3d_transpose": CONV_KERNEL_NAMES,
     "in_stats": ("in_stats_kernel",), "in_apply": ("in_apply_kernel",),
     "gemm_loop": ("gemm_loop_kernel", "gemm_splitk_reduce_kernel"),
     "conv3d_wgrad": ("wgrad_wgmma_kernel", "wgrad_reduce_kernel"),
     "in_backward": ("in_bwd_reduce_kernel", "in_bwd_apply_kernel")}
-BACKWARD_KERNELS = ("conv3d_wgrad", "in_backward")
 K7_MAX_REGISTERS = 64  # K7's CUDA kernels, no spill (phase_build)
 TRAIN_KERNELS = (*FORWARD_KERNELS, *BACKWARD_KERNELS)
 # the template argument's start in a mangled name, by element type
@@ -332,28 +295,21 @@ MANGLED_TYPE = {"bfloat16": "I13__nv_bfloat16", "float32": "If"}
 BUILT_KERNEL_NAMES = {f"{k}[{dn}]": k + MANGLED_TYPE[dn] for dn in DTYPE_NAMES
                       for k in ("in_stats_kernel", "in_apply_kernel")
                       + PTXAS_NAMES["conv3d_wgrad"] + PTXAS_NAMES["in_backward"]
-                      + CONV_KERNEL_NAMES[dn]}
+                      + CONV_KERNEL_NAMES}
 BUILT_KERNEL_NAMES.update({k: k for k in ("gemm_loop_kernel", "gemm_splitk_reduce_kernel")})
 # fp32 K6's split of A and B into bf16 planes (not a template: one variant)
 K6_SPLIT_KERNEL = "wgrad_split_kernel"
 BUILT_KERNEL_NAMES[f"{K6_SPLIT_KERNEL}[float32]"] = K6_SPLIT_KERNEL
 
 
-def profile_kernel_names(dn, splits=True):
-    """The CUDA kernels a profiled forward in dtype ``dn`` must show: K1/K2's
-    main kernel of that dtype's route and, where the forward splits K, its
-    split-K reduce; K3's and K4's."""
-    return CONV_KERNEL_NAMES[dn][:1 + splits] + ("in_stats_kernel", "in_apply_kernel")
+def profile_kernel_names(splits=True):
+    """The CUDA kernels a profiled forward must show: K1/K2's main kernel
+    and, where the forward splits K, its split-K reduce; K3's and K4's."""
+    return CONV_KERNEL_NAMES[:1 + splits] + ("in_stats_kernel", "in_apply_kernel")
 
 
-PROFILE_KERNEL_NAMES = profile_kernel_names("float32")
-TRAIN_PROFILE_NAMES = PROFILE_KERNEL_NAMES + PTXAS_NAMES["conv3d_wgrad"] + \
+TRAIN_PROFILE_NAMES = profile_kernel_names() + PTXAS_NAMES["conv3d_wgrad"] + \
     PTXAS_NAMES["in_backward"]
-# the CLI's training defaults (prostatemr_3d_cad_cspca_tpu/cli.py:54-102):
-# monte-carlo dropout 0.5, L2 1e-5, focal alpha (1, 1) gamma 2, Keras amsgrad
-# at 1e-3 on CALR (2, 1, 1e-3) over 250 epochs, batch 2, fp32
-TRAIN_CFG = dict(CFG1, dropout_mode="monte-carlo", dropout_rate=0.5,
-                 kernel_regularizer=1e-5, bias_regularizer=1e-5)
 TRAIN_STEPS = 8
 TRAIN_CASES = 6  # synthetic labelled cases behind the train phase's data layer
 FIT_CASES, FIT_RAW = 8, (24, 176, 176)  # raw cases the fit phase ingests to the window
@@ -371,10 +327,6 @@ GRAD_REPLAY_TOL, GRAD_REPLAY_L2_TOL, ZERO_GRAD = 1e-3, 1e-4, 1e-3
 ZERO_BIAS_C = 4
 TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = TRAIN_STEPS, 250
 EVAL_CASES = 4
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
-TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32 tensor-core peak
-FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 FP32_LIMIT = 2e-4          # fp32 kernel vs twin (and vs fp64), |diff|/max(1,|ref|)
 # fp32 K6 vs fp64 at level 0's 1x3x3 16 -> 16 (1.02 M rows), per element as
 # FP32_LIMIT: K6 read 2.4e-4 to 4.6e-4 there on an H100 and the fp32 twin's
@@ -383,12 +335,11 @@ FP32_LIMIT = 2e-4          # fp32 kernel vs twin (and vs fp64), |diff|/max(1,|re
 K6_LEVEL0_FP64_LIMIT = 6e-4
 BF16_ULP = 2.0 ** -7       # bf16 spacing just below 1: one rounding step
 REQUESTS, BATCH = 3, 2     # served requests, volumes per request
-REPS = 10                  # timed launches per kernel shape
+REPS = 10                  # timed calls of the augmentation and of each core copy
 MC_ITER = 4                # posterior samples per served MC request
 GEMM_CHECK_ITERS = 3       # K5 iterations for the check against its twin
 SW_CASE, SW_DET_CASE = (24, 256, 256), (20, 192, 192)
 SW_FORWARDS = 5 * 2 * 2 + 1  # 5 chunks x 2 views x 2 members, + 1 chunk
-EXPORT_TURN_REQUESTS = 10  # requests a turn of the export phase's latency comparisons
 # the export phase's CPU-traced artifact: the tests' tiny M1 (cfg1's strides)
 EXPORT_TINY = dict(CFG1, input_spatial_dims=(4, 16, 16), filters=(4, 8, 12, 16, 24),
                    se_reduction=(2, 2, 2, 2, 2), summary=False)
@@ -413,7 +364,7 @@ def phase_build():
     t0 = time.perf_counter()
     path = cuda_lib.build()
     cuda_lib.library()
-    ptxas = ptxas_report(cuda_lib.build_log, BUILT_KERNEL_NAMES)
+    ptxas = ptxas_summary(cuda_lib.build_log, BUILT_KERNEL_NAMES)
     emit({"phase": "build", "library": os.path.basename(path),
           "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": cuda_lib.build_seconds, "ptxas": ptxas})
@@ -456,193 +407,30 @@ def check_k6_ptxas(ptxas):
         raise AssertionError(f"ptxas reported no spill-free {K6_SPLIT_KERNEL}: {r}")
 
 
-# ------------------------------------------------- path shapes (meta trace)
-@contextlib.contextmanager
-def recording(calls):
-    """Append (kernel, shape signature, dtype name) to ``calls`` for every
-    call of a kernel wrapper (K1-K4, K6, K7) while the context is open,
-    device-agnostic: on the meta device it traces a path, on the card it
-    records the shapes that path really gave its kernels."""
-    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution, normalization
-
-    originals = {}
-
-    class Recorder:
-        """The wrapper in the module's place; its launch count is the
-        wrapped function's, which the kernel's launch raises."""
-
-        def __init__(self, name, orig, sig):
-            self.name, self.orig, self.sig = name, orig, sig
-
-        @property
-        def launches(self):
-            return self.orig.launches
-
-        @launches.setter
-        def launches(self, n):
-            self.orig.launches = n
-
-        def __call__(self, *a, **kw):
-            first = (a or tuple(kw.values()))[0]
-            first = first[0] if isinstance(first, (list, tuple)) else first
-            calls.append((self.name, self.sig(*a, **kw), _dn(first.dtype)))
-            return self.orig(*a, **kw)
-
-    def record(mod, name, sig):
-        originals[(mod, name)] = getattr(mod, name)
-        setattr(mod, name, Recorder(name, originals[(mod, name)], sig))
-
-    record(convolution, "conv3d", lambda parts, kernel, bias=None,
-           strides=(1, 1, 1): (tuple(tuple(p.shape) for p in parts),
-                               tuple(kernel.shape), tuple(strides)))
-    # a K1 pair as the one launch it is: the kernels side by side ([kernel4 |
-    # kernel1]) and the first output's columns
-    record(convolution, "conv3d_pair", lambda parts, kernel1, bias1, kernel4, bias4,
-           strides=(1, 1, 1): (tuple(tuple(p.shape) for p in parts),
-                               (*kernel1.shape[:4], kernel1.shape[4] + kernel4.shape[4]),
-                               tuple(strides), int(kernel4.shape[4])))
-    record(convolution, "conv3d_transpose", lambda x, kernel, bias=None,
-           strides=(1, 1, 1): (tuple(x.shape), tuple(kernel.shape), tuple(strides)))
-    record(normalization, "in_stats", lambda x: (tuple(x.shape),))
-    record(normalization, "in_apply", lambda x, stats, scale, bias, lrelu=False,
-           epsilon=1e-3: (tuple(x.shape), bool(lrelu)))
-    record(convolution, "conv3d_wgrad", lambda a, b, kernel_size, strides=(1, 1, 1): (
-        tuple(a.shape), tuple(b.shape), tuple(kernel_size), tuple(strides)))
-    record(normalization, "in_backward", lambda x, g, stats, scale, bias, lrelu=False,
-           epsilon=1e-3: (tuple(x.shape), bool(lrelu)))
-    try:
-        yield calls
-    finally:
-        for (mod, name), orig in originals.items():
-            setattr(mod, name, orig)
-
-
-def trace_model_calls(cfg, batch, dtype=None, head="detect"):
-    """Every kernel call of one forward of the model ``cfg`` at ``batch`` in
-    ``dtype`` (default bf16) through ``head`` ("detect": what serving runs,
-    "forward", or "train": the train step's forward in training mode, the
-    focal loss + L2 and the backward), found by running it on the meta
-    device with recording wrappers (a CPU generator draws the meta tensors
-    of dropout and latents)."""
-    import torch
-    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
-
-    calls = []
-    with recording(calls):
-        model = M1(**cfg, summary=False, init_params=False, device="meta",
-                   dtype=dtype or torch.bfloat16)
-        x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]),
-                        device="meta")
-        gen = torch.Generator().manual_seed(0)
-        if head == "train":  # the train step's forward and backward
-            from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import l2_penalty
-            from prostatemr_3d_cad_cspca_tpu_torch.train.trainer import make_loss
-
-            out = model.net(x, train=True, rng=gen)
-            y = torch.zeros(out["y_softmax"].shape, device="meta")
-            (make_loss()(y, out["y_softmax"]) + l2_penalty(model.net, 1e-5, 1e-5)).backward()
-        else:
-            kw = {"train": False} if head == "forward" else {}
-            with torch.no_grad():
-                getattr(model.net, head)((x, x) if cfg.get("cascaded") else x, rng=gen, **kw)
-    return collections.Counter((name, sig) for name, sig, _ in calls)
-
-
-def trace_path_calls(batch, dtype=None):
-    """Every kernel call of one cfg1 forward at ``batch`` in ``dtype``
-    (default bf16); raises unless they are LAUNCHES_PER_FORWARD's."""
-    import torch
-
-    calls = trace_model_calls(CFG1, batch, dtype, head="forward")
-    counts = collections.Counter()
-    for (name, _), n in calls.items():
-        counts[name] += n
-    want = LAUNCHES_PER_FORWARD[_dn(dtype or torch.bfloat16)]
-    if dict(counts) != want:
-        raise AssertionError(f"cfg1 forward calls {dict(counts)}, expected {want}")
-    return calls
-
-
-def launch_counts(calls, forwards=1):
-    """Launches per kernel of ``forwards`` forwards of a traced model."""
-    out = {k: 0 for k in (*FORWARD_KERNELS, "gemm_loop", *BACKWARD_KERNELS)}
-    for (name, _), n in calls.items():
-        out[name] += n * forwards
-    return out
-
-
-# ---------------------------------------------------------------- timing
-def time_ms(fn, reps, capture=True):
-    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
-    graph and replayed between CUDA events, after one warm-up call and one
-    warm-up replay. The capture takes each call's launches on the current
-    stream and its ``torch.empty`` allocations; the host's work (numpy
-    packing, ctypes, Python) stays outside the replay, so kernel, twin and
-    library call are timed alike, on the device. ``capture=False`` is for a
-    ``fn`` that already replays a graph: its calls are timed as they are."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    if capture:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        run = graph.replay
-    else:
-        run = lambda: [fn() for _ in range(reps)]  # noqa: E731
-    run()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def ptxas_report(log, names):
-    """Per label of ``names`` ({label: a substring of the mangled name}): how
-    many variants were compiled, their registers, static shared memory and
-    spill bytes, from nvcc's ``-Xptxas -v`` report (None when nothing was
-    built in this process)."""
+def ptxas_summary(log, names):
+    """nvcc's ``-Xptxas -v`` report ``log`` (port_support.ptxas_variants'
+    entries) by label of ``names`` ({label: a substring of the mangled
+    name}): how many variants were compiled, their registers (least, most),
+    static shared memory (most) and spill bytes (sum); None when nothing
+    was built in this process."""
     if not log:
         return None
-    out, current = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            current = next((n for n, sub in names.items() if sub in m.group(1)), None)
-            if current:
-                out.setdefault(current, {"variants": 0, "registers": [], "smem_bytes": [],
-                                         "spill_bytes": 0})["variants"] += 1
+    out = {}
+    for v in ptxas_variants(log):
+        label = next((n for n, sub in names.items() if sub in v["name"]), None)
+        if label is None:
             continue
-        if current is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spill:
-            out[current]["spill_bytes"] += int(spill.group(1)) + int(spill.group(2))
-        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
-        if used:
-            out[current]["registers"].append(int(used.group(1)))
-            out[current]["smem_bytes"].append(int(used.group(2) or 0))
+        r = out.setdefault(label, {"variants": 0, "registers": [], "smem_bytes": [],
+                                   "spill_bytes": 0})
+        r["variants"] += 1
+        r["spill_bytes"] += v["spill_bytes"]
+        if v["registers"] is not None:
+            r["registers"].append(v["registers"])
+            r["smem_bytes"].append(v["smem_bytes"])
     return {k: {"variants": v["variants"],
                 "registers": [min(v["registers"]), max(v["registers"])],
                 "static_smem_bytes": max(v["smem_bytes"]), "spill_bytes": v["spill_bytes"]}
             for k, v in out.items() if v["registers"]}
-
-
-def bound_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
-    """The least time for ``nbytes`` moved once and ``flops`` at the card's
-    peak for their type: (ms, "bytes" or "operations")."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 # ------------------------------------------------------------- kernels
@@ -652,140 +440,21 @@ def _errors(got, ref):
     return float(diff.max()), float((diff / ref.float().abs().clamp(min=1.0)).max())
 
 
-def _conv_case(sig, dtype, gen):
-    import torch
-
-    part_shapes, kshape, strides = sig
-    parts = [torch.randn(s, generator=gen, device="cuda").to(dtype) for s in part_shapes]
-    fan_in = kshape[0] * kshape[1] * kshape[2] * kshape[3]
-    kernel = (torch.randn(kshape, generator=gen, device="cuda") / fan_in ** 0.5).to(dtype)
-    bias = torch.randn(kshape[4], generator=gen, device="cuda") * 0.1
-    return parts, kernel, bias, strides
-
-
-def _pair_case(sig, dtype, gen):
-    """A K1 pair's operands: ``_conv_case`` of the whole kernel, split into
-    conv1's (the last q columns) and conv4's (the first f) kernels and
-    biases."""
-    parts, kernel, bias, st = _conv_case(sig[:3], dtype, gen)
-    f = sig[3]
-    return (parts, kernel[..., f:].contiguous(), bias[f:].contiguous(),
-            kernel[..., :f].contiguous(), bias[:f].contiguous(), st)
-
-
-def _convt_case(sig, dtype, gen):
-    import torch
-
-    xshape, kshape, strides = sig
-    x = torch.randn(xshape, generator=gen, device="cuda").to(dtype)
-    fan_in = kshape[0] * kshape[1] * kshape[2] * kshape[4]
-    kernel = (torch.randn(kshape, generator=gen, device="cuda") / fan_in ** 0.5).to(dtype)
-    bias = torch.randn(kshape[3], generator=gen, device="cuda") * 0.1
-    return x, kernel, bias, strides
-
-
-def _in_case(shape, dtype, gen):
-    import torch
-
-    c = shape[-1]
-    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
-    scale = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
-    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
-    return x, scale, bias
-
-
-def _wgrad_case(sig, dtype, gen):
-    import torch
-
-    ashape, bshape, ks, st = sig
-    a = torch.randn(ashape, generator=gen, device="cuda").to(dtype)
-    b = torch.randn(bshape, generator=gen, device="cuda").to(dtype)
-    return a, b, tuple(ks), tuple(st)
-
-
-def _wgrad_library(a, b, ks, st):
-    """One cuDNN call computing K6's function (as an NCDHW weight gradient):
-    A padded as XLA SAME pads, outside the timed call."""
-    import torch
-    import torch.nn.functional as F
-    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import same_pads
-
-    pads = []
-    for axis in (2, 1, 0):
-        _, lo, hi = same_pads(a.shape[1 + axis], ks[axis], st[axis])
-        pads += [lo, hi]
-    ap = F.pad(a.permute(0, 4, 1, 2, 3), pads).contiguous(memory_format=torch.channels_last_3d)
-    bt = b.permute(0, 4, 1, 2, 3)
-    size = (b.shape[-1], a.shape[-1], *ks)
-    return lambda: torch.nn.grad.conv3d_weight(ap, size, bt, stride=st)
-
-
-def _conv_library(parts, kernel, strides):
-    """One cuDNN call computing K1's function: the parts' concat and the XLA
-    SAME asymmetric padding are prepared outside the timed call."""
-    import torch
-    import torch.nn.functional as F
-    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import same_pads
-
-    x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
-    pads = []
-    for axis in (2, 1, 0):
-        _, lo, hi = same_pads(x.shape[1 + axis], kernel.shape[axis], strides[axis])
-        pads += [lo, hi]
-    xp = F.pad(x.permute(0, 4, 1, 2, 3), pads).contiguous(
-        memory_format=torch.channels_last_3d)
-    w = kernel.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-    return lambda: F.conv3d(xp, w, stride=strides)
-
-
-def _convt_library(x, kernel, strides):
-    """One cuDNN call computing K2's function: torch's full transposed conv,
-    whose SAME window is a view."""
-    import torch
-    import torch.nn.functional as F
-
-    xt = x.permute(0, 4, 1, 2, 3)
-    w = kernel.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-    return lambda: F.conv_transpose3d(xt, w, stride=strides)
-
-
-def _conv_flops(sig, transposed):
-    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import (
-        forward_plan, transpose_plan)
-
-    if transposed:
-        xshape, kshape, strides = sig
-        plan = transpose_plan(tuple(kshape[:3]), tuple(strides), tuple(xshape[1:4]))
-        rows = xshape[0] * int(np.prod(plan["grid"]))
-        macs = sum(rows * len(taps) for _, taps in plan["phases"])
-        return 2.0 * macs * kshape[3] * kshape[4]
-    part_shapes, kshape, strides = sig
-    plan = forward_plan(tuple(kshape[:3]), tuple(strides), tuple(part_shapes[0][1:4]))
-    rows = part_shapes[0][0] * int(np.prod(plan["out"]))
-    return 2.0 * rows * kshape[0] * kshape[1] * kshape[2] * kshape[3] * kshape[4]
-
-
-def _dn(dtype):
-    return str(dtype).replace("torch.", "")
-
-
-def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
-                  bit_kernels=CONV_KERNELS + ("in_stats",), rerun=None):
+def phase_kernels(calls, dtypes=None, per_path=None, bit_kernels=CONV_KERNELS + ("in_stats",),
+                  rerun=True):
     """Each call's kernel against its plain twin in each of ``dtypes``
-    (default fp32 and bf16); with ``timed``, each dtype's times beside the
-    bound; with ``rerun`` (default: ``timed``), in each dtype one K1/K2
-    split-K shape (where none of the calls splits K in that dtype, its
-    first shape), K3's largest shape, every K6 shape and every K7 shape run
-    twice on the same inputs (the same bits), and each of ``bit_kernels``
-    present must have had one. ``per_path`` ({path: calls}) adds each
-    row's calls per forward of each path."""
+    (default fp32 and bf16); with ``rerun``, each call's plan, and in each
+    dtype one K1/K2 split-K shape (where none of the calls splits K in that
+    dtype, its first shape), K3's largest shape, every K6 shape and every
+    K7 shape run twice on the same inputs (the same bits), and each of
+    ``bit_kernels`` present must have had one. ``per_path`` ({path:
+    calls}) adds each row's calls per forward of each path."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     dtypes = dtypes or (torch.float32, torch.bfloat16)
-    rerun = timed if rerun is None else rerun
     tol = {torch.float32: FP32_LIMIT, torch.bfloat16: 2 * BF16_ULP}
     rows = collections.defaultdict(list)
     bit_checked = set()  # (kernel, dtype): a K1/K2 split-K shape; K3's largest
@@ -804,9 +473,6 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                 parts, kernel, bias, st = _conv_case(sig, dtype, gen)
                 run = lambda: cv.conv3d(parts, kernel, bias, st)  # noqa: E731
                 plain = lambda: cv.conv3d_plain(parts, kernel, bias, st)  # noqa: E731
-                lib = _conv_library(parts, kernel, st)
-                nbytes = _nbytes(*parts, kernel, bias) + _nbytes(run())
-                flops = _conv_flops(sig, False)
                 row["shape"] = {"parts": sig[0], "kernel": sig[1], "strides": sig[2]}
             elif name == "conv3d_pair":  # compared as the kernel's columns [f | q]
                 parts, k1, b1, k4, b4, st = _pair_case(sig, dtype, gen)
@@ -814,30 +480,17 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                 run = lambda: cv.conv3d_pair(parts, k1, b1, k4, b4, st)  # noqa: E731
                 plain = lambda: cv.conv3d_pair_plain(  # noqa: E731
                     parts, kernel, bias, sig[3], st)[::-1]
-                # the two single-output calls the pair replaces
-                apart = lambda: (cv.conv3d(parts, k1, b1, st),  # noqa: E731
-                                 cv.conv3d(parts, k4, b4, st))
-                lib = _conv_library(parts, kernel, st)
-                nbytes = _nbytes(*parts, kernel, bias, *run())
-                flops = _conv_flops(sig[:3], False)
                 row["shape"] = {"parts": sig[0], "kernel": sig[1], "strides": sig[2],
                                 "split": sig[3]}
             elif name == "conv3d_transpose":
                 x, kernel, bias, st = _convt_case(sig, dtype, gen)
                 run = lambda: cv.conv3d_transpose(x, kernel, bias, st)  # noqa: E731
                 plain = lambda: cv.conv3d_transpose_plain(x, kernel, bias, st)  # noqa: E731
-                lib = _convt_library(x, kernel, st)
-                nbytes = _nbytes(x, kernel, bias) + _nbytes(run())
-                flops = _conv_flops(sig, True)
                 row["shape"] = {"x": sig[0], "kernel": sig[1], "strides": sig[2]}
             elif name == "conv3d_wgrad":
                 a, b, ks, st = _wgrad_case(sig, dtype, gen)
                 run = lambda: cv.conv3d_wgrad(a, b, ks, st)  # noqa: E731
                 plain = lambda: cv.conv3d_wgrad_plain(a, b, ks, st)  # noqa: E731
-                lib = _wgrad_library(a, b, ks, st)
-                nbytes = _nbytes(a, b) + int(np.prod(ks)) * a.shape[-1] * b.shape[-1] * \
-                    a.element_size()
-                flops = 2.0 * np.prod(ks) * a.shape[-1] * b.shape[-1] * np.prod(b.shape[:4])
                 row["shape"] = {"a": sig[0], "b": sig[1], "kernel": sig[2], "strides": sig[3]}
             elif name == "in_backward":
                 x, scale, bias = _in_case(sig[0], dtype, gen)
@@ -846,17 +499,11 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                 lr = sig[1]
                 run = lambda: nm.in_backward(x, gy, stats, scale, bias, lr)  # noqa: E731
                 plain = lambda: nm.in_backward_plain(x, gy, stats, scale, bias, lr)  # noqa: E731
-                lib = None
-                nbytes = 3 * _nbytes(x) + 2 * _nbytes(stats) + _nbytes(scale, bias)
-                flops = 12.0 * x.numel()
                 row["shape"] = {"x": sig[0], "lrelu": lr}
             elif name == "in_stats":
                 x, _, _ = _in_case(sig[0], dtype, gen)
                 run = lambda: nm.in_stats(x)  # noqa: E731
                 plain = lambda: nm.in_stats_plain(x)  # noqa: E731
-                lib = lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0)  # noqa: E731
-                nbytes = _nbytes(x) + x.shape[0] * 2 * x.shape[-1] * 4
-                flops = 3.0 * x.numel()
                 row["shape"] = {"x": sig[0]}
             else:
                 x, scale, bias = _in_case(sig[0], dtype, gen)
@@ -864,9 +511,6 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
                 lr = sig[1]
                 run = lambda: nm.in_apply(x, stats, scale, bias, lr)  # noqa: E731
                 plain = lambda: nm.in_apply_plain(x, stats, scale, bias, lr)  # noqa: E731
-                lib = None
-                nbytes = 2 * _nbytes(x) + _nbytes(stats, scale, bias)
-                flops = 3.0 * x.numel()
                 row["shape"] = {"x": sig[0], "lrelu": lr}
             got = run()
             ref = plain()
@@ -897,27 +541,8 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
             row[f"max_abs_err_{dn}"] = abs_err
             row[f"max_rel_err_{dn}"] = rel_err
             row[f"tol_{dn}"] = limit
-            if name in CONV_KERNELS:  # the CUDA kernel this call took
-                row[f"route_{dn}"] = cv.kernel_route(dtype)
-            if not (timed or rerun):
+            if not rerun:
                 continue
-            if timed:
-                # K1/K2 on the tensor cores at their type's rate (fp32: three
-                # TF32 products each); K3/K4 compute in fp32 on the CUDA cores
-                rate = {"conv3d": None, "conv3d_pair": None, "conv3d_transpose": None,
-                        "conv3d_wgrad": None}.get(name, FP32_FLOP_PER_S)
-                if rate is None:
-                    rate = TF32_FLOP_PER_S / 3 if dtype == torch.float32 else BF16_FLOP_PER_S
-                row[f"ms_{dn}"] = time_ms(run, reps)
-                row[f"plain_ms_{dn}"] = time_ms(plain, reps)
-                row[f"library_ms_{dn}"] = time_ms(lib, reps) if lib is not None else None
-                row[f"bound_ms_{dn}"], row[f"bound_by_{dn}"] = bound_ms(nbytes, flops, rate)
-                if name == "conv3d_pair":  # the two calls it replaces: time, least time
-                    row[f"apart_ms_{dn}"] = time_ms(apart, reps)
-                    row[f"apart_bound_ms_{dn}"] = sum(
-                        bound_ms(_nbytes(*parts, k, b, y), _conv_flops((sig[0], k.shape, st),
-                                                                       False), rate)[0]
-                        for k, b, y in zip((k1, k4), (b1, b4), run()))
             twice = False
             if name == "in_stats":
                 row[f"blocks_{dn}"] = nm.in_stats_plan(
@@ -937,13 +562,11 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
             else:
                 plan = _conv_plan(name, sig, dtype)
                 row[f"splits_{dn}"] = plan["splits"]
-                if row[f"route_{dn}"] == "wgmma":
-                    row[f"plan_{dn}"] = {
-                        "tile": "flat" if plan["flat"] else list(plan["tile"]),
-                        "box": list(plan["box"]), "slab": plan["widths"],
-                        "tma": plan["tma"], "phase_loop": plan["phase_loop"], "bn": plan["bn"],
-                        "units": plan["units"], "grid": plan["grid"],
-                        "smem": plan["smem"]}
+                row[f"plan_{dn}"] = {
+                    "tile": "flat" if plan["flat"] else list(plan["tile"]),
+                    "box": list(plan["box"]), "slab": plan["widths"],
+                    "tma": plan["tma"], "phase_loop": plan["phase_loop"], "bn": plan["bn"],
+                    "units": plan["units"], "grid": plan["grid"], "smem": plan["smem"]}
                 twice = (row[f"splits_{dn}"] > 1 or (name, dn) not in splitting) \
                     and (name, dn) not in bit_checked
             if twice:
@@ -965,22 +588,6 @@ def phase_kernels(calls, reps, dtypes=None, timed=True, per_path=None,
     return rows
 
 
-def _conv_plan(name, sig, dtype):
-    """The wgmma_plan of one K1/K2 call in ``dtype``."""
-    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
-
-    transposed = name == "conv3d_transpose"  # a pair's sig[1] is its whole kernel
-    shapes = [tuple(sig[0])] if transposed else [tuple(s) for s in sig[0]]
-    return cv.wgmma_plan(shapes, tuple(sig[1]), tuple(sig[2]), transposed, dtype=dtype)
-
-
-def _routes_of(rows, dn):
-    """{"routes": the K1/K2 kernels these rows' calls took} (empty for the
-    other kernels)."""
-    routes = sorted({r[f"route_{dn}"] for r in rows if f"route_{dn}" in r})
-    return {"routes": routes} if routes else {}
-
-
 def _splits(name, sig, dtype):
     """K-splits of the kernel at one K1/K2 call in ``dtype``."""
     return _conv_plan(name, sig, dtype)["splits"]
@@ -988,8 +595,7 @@ def _splits(name, sig, dtype):
 
 def summarize_kernels(rows, dtypes=DTYPE_NAMES):
     """Per kernel: launches and shapes of one forward, and per dtype the
-    largest errors and the sums over the forward of the device times and
-    bounds."""
+    largest errors over the forward's shapes."""
     out = {}
     for name, all_rows in rows.items():
         shape_rows = [r for r in all_rows if r["count"]]  # cfg1's forward
@@ -997,24 +603,17 @@ def summarize_kernels(rows, dtypes=DTYPE_NAMES):
                          distinct_shapes=len(shape_rows),
                          shapes_checked=len(all_rows))
         for dn in dtypes:
-            tot = lambda key: sum(r[f"{key}_{dn}"] * r["count"] for r in shape_rows)  # noqa
-            lib = None if any(r[f"library_ms_{dn}"] is None for r in shape_rows) \
-                else tot("library_ms")
-            by_bytes = sum(r[f"bound_ms_{dn}"] * r["count"] for r in shape_rows
-                           if r[f"bound_by_{dn}"] == "bytes")
             out[name][dn] = dict(
                 max_abs_err=max(r[f"max_abs_err_{dn}"] for r in shape_rows),
                 max_err=max(r[f"max_rel_err_{dn}"] for r in shape_rows),
-                tol=shape_rows[0][f"tol_{dn}"], kernel_ms=tot("ms"), plain_ms=tot("plain_ms"),
-                library_ms=lib, bound_ms=tot("bound_ms"),
-                bound_by="bytes" if by_bytes >= tot("bound_ms") / 2 else "operations")
+                tol=shape_rows[0][f"tol_{dn}"])
     return out
 
 
 def train_summary(calls, rows, dtypes=DTYPE_NAMES):
-    """Per kernel, sums over one train step (``calls``: its meta trace)
-    of the timed rows of each call's shape: launches, device ms, plain ms,
-    library ms (None where a shape has none), bound ms, largest error."""
+    """Per kernel over one train step (``calls``: its meta trace), from the
+    checked rows of each call's shape: launches, distinct shapes and per
+    dtype the largest errors."""
     by_sig = {(name, r["sig"]): r for name, rs in rows.items() for r in rs}
     out = {}
     for (name, sig), n in calls.items():
@@ -1023,23 +622,9 @@ def train_summary(calls, rows, dtypes=DTYPE_NAMES):
         o["launches_per_step"] += n
         o["distinct_shapes"] += 1
         for dn in dtypes:
-            d = o.setdefault(dn, {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                  "bound_ms": 0.0, "bytes_bound_ms": 0.0, "max_abs_err": 0.0,
-                                  "max_err": 0.0, "tol": r[f"tol_{dn}"]})
-            for key in ("kernel_ms", "plain_ms", "bound_ms"):
-                d[key] += n * r[f"{'ms' if key == 'kernel_ms' else key}_{dn}"]
-            lib = r[f"library_ms_{dn}"]
-            d["library_ms"] = None if lib is None or d["library_ms"] is None else \
-                d["library_ms"] + n * lib
-            if r[f"bound_by_{dn}"] == "bytes":
-                d["bytes_bound_ms"] += n * r[f"bound_ms_{dn}"]
+            d = o.setdefault(dn, {"max_abs_err": 0.0, "max_err": 0.0, "tol": r[f"tol_{dn}"]})
             d["max_abs_err"] = max(d["max_abs_err"], r[f"max_abs_err_{dn}"])
             d["max_err"] = max(d["max_err"], r[f"max_rel_err_{dn}"])
-    for o in out.values():
-        for dn in dtypes:
-            d = o[dn]
-            d["bound_by"] = "bytes" if d.pop("bytes_bound_ms") >= d["bound_ms"] / 2 \
-                else "operations"
     return out
 
 
@@ -1060,17 +645,12 @@ def wgrad_plan_row(a, b, ks, st):
 
 
 def wgrad_shape_table(calls, rows):
-    """K6's train-step shapes, heaviest first: A, B, kernel, strides, calls a
-    step, and per dtype the plan, the routes of A and B, device ms, cuDNN ms
-    and bound ms."""
-    out = []
-    for r in rows:
-        n = calls[("conv3d_wgrad", r["sig"])]
-        out.append({"a": r["sig"][0], "b": r["sig"][1], "kernel": r["sig"][2],
-                    "strides": r["sig"][3], "calls": n,
-                    **{f"{k}_{dn}": r[f"{k}_{dn}"] for dn in DTYPE_NAMES
-                       for k in ("plan", "routes", "ms", "library_ms", "bound_ms")}})
-    return sorted(out, key=lambda r: -r["calls"] * r["ms_float32"])
+    """K6's train-step shapes: A, B, kernel, strides, calls a step, and per
+    dtype the plan and the routes of A and B."""
+    return [{"a": r["sig"][0], "b": r["sig"][1], "kernel": r["sig"][2], "strides": r["sig"][3],
+             "calls": calls[("conv3d_wgrad", r["sig"])],
+             **{f"{k}_{dn}": r[f"{k}_{dn}"] for dn in DTYPE_NAMES for k in ("plan", "routes")}}
+            for r in rows]
 
 
 def phase_wgrad_fp64(calls):
@@ -1109,34 +689,6 @@ def phase_wgrad_fp64(calls):
             raise AssertionError(f"fp32 K6 at {label}: {row} from the fp64 product")
         out.append(row)
     return out
-
-
-def _conv_fp64(parts, kernel, bias, strides):
-    """K1's function in fp64, the exact product's stand-in: the parts'
-    concat padded as XLA SAME pads, one fp64 matmul (cuBLAS) a tap over the
-    strided window, summed, + bias; NDHWC."""
-    import torch
-    import torch.nn.functional as F
-    from prostatemr_3d_cad_cspca_tpu_torch.ops.convolution import same_pads
-
-    x = torch.cat(parts, dim=-1).double()
-    ks, st = tuple(kernel.shape[:3]), tuple(strides)
-    pads, out = [0, 0], []
-    for axis in (2, 1, 0):  # F.pad lists the last axis first: C, W, H, D
-        o, lo, hi = same_pads(int(x.shape[1 + axis]), ks[axis], st[axis])
-        pads += [lo, hi]
-        out.insert(0, o)
-    x = F.pad(x, pads)
-    w = kernel.double()
-    y = torch.zeros((x.shape[0], *out, kernel.shape[4]), dtype=torch.float64, device=x.device)
-    for a in range(ks[0]):
-        for b in range(ks[1]):
-            for c in range(ks[2]):
-                win = x[:, a:a + (out[0] - 1) * st[0] + 1:st[0],
-                        b:b + (out[1] - 1) * st[1] + 1:st[1],
-                        c:c + (out[2] - 1) * st[2] + 1:st[2]]
-                y += win @ w[a, b, c]
-    return y + bias.double()
 
 
 def phase_fp64(calls):
@@ -1262,11 +814,6 @@ def _serve_requests(session, requests, mc, expect=None):
     return latencies, outputs, read_counts()
 
 
-def _median_after_first(latencies):
-    steady = sorted(latencies[1:] or latencies)
-    return steady[len(steady) // 2]
-
-
 def _requests(seed, channels=3):
     rng = np.random.default_rng(seed + 1)
     return [rng.normal(size=(BATCH, *CFG1["input_spatial_dims"], channels)).astype(np.float32)
@@ -1281,12 +828,9 @@ def phase_serve(ckpt, seed, smi):
     session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
                                device="cuda")
     requests = _requests(seed)
-    latencies, outputs, launches = _serve_requests(session, requests, mc=False)
-    med = _median_after_first(latencies)
+    _, _, launches = _serve_requests(session, requests, mc=False)
     emit({"phase": "serve", "card": smi, "dtype": "bfloat16", "batch": BATCH,
-          "requests": REQUESTS, "latency_ms": latencies,
-          "median_latency_ms_after_first": med, "vol_per_s": BATCH / med * 1e3,
-          "launches": launches,
+          "requests": REQUESTS, "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     return launches, requests[0]
 
@@ -1309,7 +853,7 @@ def phase_serve_mc(tmp, seed, smi, det_ckpt):
 
     requests = _requests(seed)
     torch.cuda.reset_peak_memory_stats()
-    latencies, outputs, launches = _serve_requests(session(ckpt), requests, mc=True)
+    _, outputs, launches = _serve_requests(session(ckpt), requests, mc=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     phase_profile(ckpt, requests[0], mc_iter=MC_ITER, path="serve_mc")
     probs, std = outputs[0]
@@ -1328,11 +872,9 @@ def phase_serve_mc(tmp, seed, smi, det_ckpt):
     if not (np.all(std0 == 0.0) and det_diff == 0.0):
         raise AssertionError(f"rate 0: std max {std0.max()}, mean vs deterministic "
                              f"{det_diff}")
-    med = _median_after_first(latencies)
     emit({"phase": "serve_mc", "card": smi, "dtype": "bfloat16", "batch": BATCH,
           "mc_iter": MC_ITER, "dropout": ["monte-carlo", 0.5], "requests": REQUESTS,
-          "latency_ms": latencies, "median_latency_ms_after_first": med,
-          "vol_per_s": BATCH / med * 1e3, "launches": launches,
+          "launches": launches,
           "std_max": float(std.max()), "std_mean": float(std.mean()),
           "rate0_std_max": float(std0.max()), "rate0_vs_deterministic_max": det_diff,
           "peak_mem_gib": peak})
@@ -1432,12 +974,10 @@ def phase_serve_sw(tmp, seed, smi, det_ckpt):
     return launches
 
 
-def phase_gemm(reps):
+def phase_gemm():
     """K5 at the probe's 8 (shape, iterations): checked against its twin
     with a few iterations and with the probe's count, run twice where the
-    plan splits a tile (the same bits), then timed at the probe's count
-    beside its bound, the twin and one cuBLAS torch.mm per iteration (the
-    loop replayed as one CUDA graph)."""
+    plan splits a tile (the same bits)."""
     import torch
     from prostatemr_3d_cad_cspca_tpu_torch.ops import gemm
     from prostatemr_3d_cad_cspca_tpu_torch.probes import gemm_rate as gr
@@ -1464,32 +1004,16 @@ def phase_gemm(reps):
             if not torch.equal(got, again):
                 raise AssertionError(f"gemm_loop {m}x{k}x{n}: two split runs differ")
             row["bit_equal"] = True
-        nbytes = _nbytes(a, w) + m * n * 2
-        flops = 2.0 * m * k * n * iters
-        bound, by = bound_ms(nbytes, flops)
-        row.update({"kernel_ms": time_ms(lambda: gemm.gemm_loop(a, w, iters), reps),
-                    "plain_ms": time_ms(lambda: gemm.gemm_loop_plain(a, w, iters), reps)})
-        # captured just before its replay: a graph captured in between (each
-        # capture starts by emptying the allocator's cache) could free memory
-        # that cuBLAS's captured launches still name
-        library = gr.cublas_loop(a, w, iters)
-        row.update({"library_ms": time_ms(library, reps, capture=False), "bound_ms": bound,
-                    "bound_by": by, "split": plan["split"], "blocks": plan["blocks"],
-                    "splits": plan["splits"], "units": len(gemm.plan_units(plan))})
-        row["tflops"] = flops / row["kernel_ms"] / 1e9
-        row["library_tflops"] = flops / row["library_ms"] / 1e9
+        row.update({"split": plan["split"], "blocks": plan["blocks"], "splits": plan["splits"],
+                    "units": len(gemm.plan_units(plan))})
         rows.append(row)
     if not any(r.get("bit_equal") for r in rows):
         raise AssertionError("no split K5 case checked for determinism")
-    tot = lambda key: sum(r[key] for r in rows)  # noqa: E731
     return dict(launches_per_pass=len(rows), distinct_shapes=len(rows),
                 bfloat16=dict(max_abs_err=max(max(r["max_abs_err_check"],
                                                   r["max_abs_err_full"]) for r in rows),
                               max_err=max(max(r["max_rel_err_check"], r["max_rel_err_full"])
-                                          for r in rows), tol=BF16_ULP,
-                              kernel_ms=tot("kernel_ms"), plain_ms=tot("plain_ms"),
-                              library_ms=tot("library_ms"), bound_ms=tot("bound_ms"),
-                              bound_by="operations")), rows
+                                          for r in rows), tol=BF16_ULP)), rows
 
 
 def phase_probe(smi):
@@ -1529,11 +1053,10 @@ def phase_paths():
             ("serve_cascade", CASCADE, 4, torch.float32)):
         calls = (trace_path_calls(batch, dtype) if cfg is CFG1
                  else trace_model_calls(cfg, batch, dtype))
-        rows = phase_kernels(calls, 0, dtypes=(dtype,), timed=False)
+        rows = phase_kernels(calls, dtypes=(dtype,), rerun=False)
         dn = _dn(dtype)
         out[f"{name}.{dn}"] = {k: {"shapes": len(v),
-                                   "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v),
-                                   **_routes_of(v, dn)}
+                                   "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v)}
                                for k, v in rows.items()}
     emit({"phase": "paths", "batch_checks": out})
 
@@ -1578,13 +1101,11 @@ def _serve_model_path(name, ckpt, requests, smi, mc_iter=1, seed=0):
     torch.cuda.reset_peak_memory_stats()
     session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
                                mc_iter=mc_iter, seed=seed, device="cuda")
-    latencies, outputs, launches = _serve_requests(session, requests, mc_iter > 1, expect)
+    _, outputs, launches = _serve_requests(session, requests, mc_iter > 1, expect)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     phase_profile(ckpt, requests[0], mc_iter=mc_iter, path=name)
-    med = _median_after_first(latencies)
     result = {"card": smi, "dtype": "bfloat16", "batch": BATCH, "requests": REQUESTS,
-              "latency_ms": latencies, "median_latency_ms_after_first": med,
-              "vol_per_s": BATCH / med * 1e3, "launches": launches,
+              "launches": launches,
               "launches_per_request": expect, "peak_mem_gib": peak}
     return result, outputs, launches
 
@@ -1726,102 +1247,15 @@ def phase_serve_cascade(tmp, seed, smi):
     return launches
 
 
-def _is_range(evt):
-    """A ``record_function`` range shown on the device's timeline (it spans
-    its kernels and the gaps between them), not a kernel."""
-    return bool(getattr(evt, "is_user_annotation", False)) or evt.name == "augment"
-
-
-def device_time(prof):
-    """(device busy us: the union of the device's intervals, device us by
-    kernel name, device events) of a torch.profiler run."""
-    import torch
-
-    spans, by_name = [], collections.Counter()
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.time_range.elapsed_us() > 0 \
-                and not _is_range(evt):
-            spans.append((evt.time_range.start, evt.time_range.end))
-            ident = re.search(r"(\w+)[<(]", evt.name)
-            by_name[ident.group(1) if ident else evt.name[:40]] += evt.time_range.elapsed_us()
-    busy, end = 0.0, None
-    for s, e in sorted(spans):
-        if end is None or s > end:
-            busy, end = busy + e - s, e
-        elif e > end:
-            busy, end = busy + e - end, e
-    return busy, by_name, len(spans)
-
-
 # ---------------------------------------------------------------- export
-def _timed_requests(session, requests):
-    """Host ms of each request through ``session`` (ending in a synchronize)."""
-    import torch
-
-    out = []
-    for req in requests:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        session(req)
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
-
-
-@contextlib.contextmanager
-def operator_route():
-    """K1-K4's wrappers call their registered ``pmr::`` operators, as they do
-    while ``torch.export`` traces, in place of the direct call."""
-    from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
-
-    direct = cuda_lib.exporting
-    cuda_lib.exporting = lambda: True
-    try:
-        yield
-    finally:
-        cuda_lib.exporting = direct
-
-
-def host_us_per_call(n=2000):
-    """Host us per call of K3 and K1 through the direct call and through the
-    operator, at a shape whose kernel is shorter than its dispatch (16x16x16
-    voxels, 16 channels, bf16): wall time of n calls over n, in turns
-    (direct, operator, operator, direct)."""
-    import torch
-    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
-    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((1, 16, 16, 16, 16), generator=gen, device="cuda").bfloat16()
-    k = (0.1 * torch.randn((1, 3, 3, 16, 16), generator=gen, device="cuda")).bfloat16()
-    b = torch.zeros(16, device="cuda")
-    fns = {"in_stats": lambda: nm.in_stats(x), "conv3d": lambda: cv.conv3d([x], k, b)}
-    out = {}
-    for name, fn in fns.items():
-        times = {"direct": [], "operator": []}
-        for route in ("direct", "operator", "operator", "direct"):
-            with (operator_route() if route == "operator" else contextlib.nullcontext()):
-                for _ in range(50):
-                    fn()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-                times[route].append((time.perf_counter() - t0) / n * 1e6)
-        out[name] = times
-    return out
-
-
 def phase_export(tmp, seed, smi, det_ckpt):
     """The export slice on the card: the CLI's MC checkpoint (serve_mc's,
     monte-carlo 0.5) frozen by export.main at MC 4 in bf16 and validated;
     serve.run from the artifact on two window cases; 3 requests of 2
     volumes through ExportedSession (one cfg1 forward each, the live
-    session's bits for the same seed), in turns with the live session; one
-    artifact request profiled; a sliding-window artifact against the live
-    session; a CPU-traced artifact on the card; the operator route's host
-    cost per call and per request."""
+    session's bits for the same seed); one artifact request profiled; a
+    sliding-window artifact against the live session; a CPU-traced artifact
+    on the card."""
     import io
 
     import torch
@@ -1859,38 +1293,21 @@ def phase_export(tmp, seed, smi, det_ckpt):
                 and np.isfinite(det).all() and float(unc.min()) >= 0.0):
             raise AssertionError(f"serve.run from the artifact: {r}")
     session = serve.ExportedSession(export.ExportedModel.load(art, seed=seed, device="cuda"))
-    art_ms, outputs, launches = _serve_requests(session, requests, mc=True)
+    _, outputs, launches = _serve_requests(session, requests, mc=True)
     launches = {k: v + run_launches[k] for k, v in launches.items()}
 
-    def live_session():
-        return serve.InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
-                                      mc_iter=MC_ITER, seed=seed, device="cuda")
-
-    live = live_session()
+    live = serve.InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
+                                  mc_iter=MC_ITER, seed=seed, device="cuda")
     for (gm, gs), req in zip(outputs, requests):
         lm, ls = live(req)
         if not (np.array_equal(gm, lm) and np.array_equal(gs, ls)):
             raise AssertionError("the artifact and the live session gave other bits "
                                  "for the same seed")
-    # request latency in turns (artifact, live, live, artifact), and the live
-    # session on the operator route in turns with the direct call: each turn
-    # EXPORT_TURN_REQUESTS requests cycling over the three
-    turn = [requests[i % len(requests)] for i in range(EXPORT_TURN_REQUESTS)]
-    again = serve.ExportedSession(export.ExportedModel.load(art, seed=seed, device="cuda"))
-    turns = {"artifact": [], "live": []}
-    for kind in ("artifact", "live", "live", "artifact"):
-        turns[kind].append(_timed_requests(again if kind == "artifact" else live, turn))
-    route_ms = {"direct": [], "operator": []}
-    for route in ("direct", "operator", "operator", "direct"):
-        with (operator_route() if route == "operator" else contextlib.nullcontext()):
-            route_ms[route].append(_timed_requests(live, turn))
-    per_call = host_us_per_call()
 
-    again(requests[0])  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        again(requests[0])
+        session(requests[0])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t1) * 1e6
     busy, by_name, events = device_time(prof)
@@ -1936,18 +1353,10 @@ def phase_export(tmp, seed, smi, det_ckpt):
         raise AssertionError(f"export: a CPU-traced artifact on the card: {moved_diff} from "
                              f"the card's live model, launches {moved_launches}")
 
-    med = _median_after_first
     emit({"phase": "export", "card": smi, "dtype": "bfloat16", "mc_iter": MC_ITER,
           "batch": BATCH, "export_s": export_s, "export_main_s": main_s,
           "artifact_mb": os.path.getsize(art) / 1e6, "validated_max_abs": validated,
           "draws": len(session.model.meta["draws"]), "launches": launches,
-          "request_latency_ms": art_ms,
-          "artifact_latency_ms": turns["artifact"], "live_latency_ms": turns["live"],
-          "median_artifact_ms": [med(t) for t in turns["artifact"]],
-          "median_live_ms": [med(t) for t in turns["live"]],
-          "live_route_latency_ms": route_ms,
-          "median_route_ms": {k: [med(t) for t in v] for k, v in route_ms.items()},
-          "host_us_per_call": per_call,
           "profile": {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
                       "device_events": events,
                       "top_ms": {k: v / 1e3 for k, v in by_name.most_common(8)}},
@@ -1971,215 +1380,6 @@ class _CaptureOpt:
         import torch
 
         return {k: torch.zeros_like(g) for k, g in grads.items()}, grads
-
-
-class BranchReplay:
-    """The branch decisions of one fp32 step, replayed in its fp64
-    evaluation (tests/test_torch_util.py holds the same helper). Where a
-    value lies within rounding of a kink, the fp32 step and an fp64
-    evaluation that decides for itself can take different sides (an LReLU
-    input near 0: slope 1 in one, 0.1 in the other). ``record()`` notes,
-    in call order, the side every element took at each kink of the
-    forward: the LReLU sites (``models.blocks.leaky_relu01``), the instance
-    norm's fused LReLU (``ops.normalization._pre_activation_sign`` of the
-    input and statistics the norm saves: on the card, the sign K4 and K7
-    compute from the same tensors) and the focal loss's clip (``losses._clip``);
-    ``replay()`` makes the next step take those sides in the same order, a
-    norm's backward finding its forward's side by its saved input. With
-    ``values``, ``record()`` also keeps each element's distance to its kink
-    and its tensor's largest |value|, which ``flipped`` reads."""
-
-    def __init__(self, values=False):
-        self.sides = {"lrelu": [], "in_sign": [], "clip": []}
-        self.near = {k: [] for k in self.sides} if values else None
-
-    @staticmethod
-    def _sites():
-        from prostatemr_3d_cad_cspca_tpu_torch import losses
-        from prostatemr_3d_cad_cspca_tpu_torch.models import blocks
-        from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization
-
-        return {"lrelu": (blocks, "leaky_relu01"),
-                "in_forward": (normalization._InstanceNormFn, "forward"),
-                "in_backward": (normalization._InstanceNormFn, "backward"),
-                "in_sign": (normalization, "_pre_activation_sign"), "clip": (losses, "_clip")}
-
-    def _patched(self, fns):
-        import contextlib
-
-        @contextlib.contextmanager
-        def patched():
-            sites = self._sites()
-            raw = {k: vars(sites[k][0])[sites[k][1]] for k in fns}
-            for k, fn in fns.items():
-                new = fn(getattr(*sites[k]))
-                setattr(*sites[k], staticmethod(new) if isinstance(raw[k], staticmethod) else new)
-            try:
-                yield self
-            finally:
-                for k, orig in raw.items():
-                    setattr(*sites[k], orig)
-        return patched()
-
-    def record(self):
-        import torch
-
-        from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization
-
-        sides, near, sign = self.sides, self.near, self._sites()["in_sign"]
-
-        def keep(kind, dist, x):
-            if near is not None:
-                near[kind].append((dist.double().cpu(), float(x.detach().abs().max())))
-
-        def lrelu(orig):
-            def fn(x):
-                sides["lrelu"].append(~(x > 0).detach().cpu())
-                keep("lrelu", x.detach().abs(), x)
-                return orig(x)
-            return fn
-
-        def in_forward(orig):
-            def fn(ctx, x, scale, bias, lrelu, epsilon):
-                y = orig(ctx, x, scale, bias, lrelu, epsilon)
-                if lrelu:  # the sign K4 took, from the tensors the norm saved
-                    sides["in_sign"].append(getattr(*sign)(*ctx.to_save, epsilon).cpu())
-                    if near is not None:
-                        pre = normalization._pre_activation(*ctx.to_save, epsilon)
-                        keep("in_sign", pre.abs(), pre)
-                return y
-            return fn
-
-        def clip(orig):
-            def fn(x, lo, hi):
-                x_ = x.detach().cpu()
-                sides["clip"].append((x_ < lo, x_ > hi, x_ == lo, x_ == hi))
-                keep("clip", torch.minimum((x_ - lo).abs(), (x_ - hi).abs()), x_)
-                return orig(x, lo, hi)
-            return fn
-
-        return self._patched({"lrelu": lrelu, "in_forward": in_forward, "clip": clip})
-
-    def flipped(self, other):
-        """The elements whose side at a kink differs between this recording
-        (made with ``values``) and ``other``'s of the same forward: (kind
-        of kink, the element's distance to it in this recording over its
-        tensor's largest |value|) each."""
-        import torch
-
-        out = []
-        for kind, sides in self.sides.items():
-            if len(sides) != len(other.sides[kind]):
-                raise AssertionError(f"{kind}: {len(sides)} kinks against "
-                                     f"{len(other.sides[kind])}")
-            for (a, b), (dist, scale) in zip(zip(sides, other.sides[kind]), self.near[kind]):
-                diff = (torch.stack(a) != torch.stack(b)).any(0) if isinstance(a, tuple) \
-                    else a != b
-                out.extend((kind, float(d) / max(scale, 1e-30)) for d in dist[diff])
-        return out
-
-    def replay(self):
-        import torch
-
-        cursor = {k: iter(v) for k, v in self.sides.items()}
-        by_input = {}
-
-        def take(name, like):
-            got = next(cursor[name])
-            got = tuple(t.to(like.device) for t in got) if isinstance(got, tuple) \
-                else got.to(like.device)
-            shape = (got[0] if isinstance(got, tuple) else got).shape
-            if tuple(shape) != tuple(like.shape):
-                raise AssertionError(f"replay {name}: recorded {tuple(shape)}, "
-                                     f"got {tuple(like.shape)}")
-            return got
-
-        def lrelu(orig):
-            return lambda x: torch.where(take("lrelu", x), 0.1 * x, x)
-
-        def in_forward(orig):
-            def fn(ctx, x, scale, bias, lrelu, epsilon):
-                if lrelu:
-                    by_input[x.data_ptr()] = take("in_sign", x)
-                return orig(ctx, x, scale, bias, lrelu, epsilon)
-            return fn
-
-        def in_sign(orig):
-            return lambda x, *args: by_input[x.data_ptr()]
-
-        def clip(orig):
-            def fn(x, lo, hi):  # jnp.clip's gradients: 0 outside, 1/2 on a tie
-                below, above, tie_lo, tie_hi = take("clip", x)
-                lo_t, hi_t = (torch.full_like(x, v) for v in (lo, hi))
-                out = torch.where(tie_lo, 0.5 * (x + lo_t), x)
-                out = torch.where(tie_hi, 0.5 * (x + hi_t), out)
-                return torch.where(below, lo_t, torch.where(above, hi_t, out))
-            return fn
-
-        return self._patched({"lrelu": lrelu, "in_forward": in_forward, "in_sign": in_sign,
-                              "clip": clip})
-
-    def replay_rows(self, rows, flips):
-        """The recorded sides, cut to the batch rows ``rows``, taken by a
-        step on any device (a data-parallel rank's share of the recorded
-        step). The card's K4 and K7 decide a fused LReLU's side themselves,
-        so each norm with one runs K4 and K7 without it and the recorded
-        slope between them (forward: on K4's output; backward: on the
-        gradient K7 takes). ``flips`` (a Counter) gets, per kind of kink,
-        the elements whose own side differs from the recorded one."""
-        import torch
-
-        cursor = {k: iter(v) for k, v in self.sides.items()}
-        sign = self._sites()["in_sign"]
-
-        def take(name, like):
-            got = next(cursor[name])
-            got = tuple(t[rows].to(like.device) for t in got) if isinstance(got, tuple) \
-                else got[rows].to(like.device)
-            shape = (got[0] if isinstance(got, tuple) else got).shape
-            if tuple(shape) != tuple(like.shape):
-                raise AssertionError(f"replay {name}: recorded {tuple(shape)}, "
-                                     f"got {tuple(like.shape)}")
-            return got
-
-        def lrelu(orig):
-            def fn(x):
-                side = take("lrelu", x)
-                flips["lrelu"] += int((side != ~(x > 0)).sum())
-                return torch.where(side, 0.1 * x, x)
-            return fn
-
-        def in_forward(orig):
-            def fn(ctx, x, scale, bias, lrelu, epsilon):
-                ctx.side = None
-                if not lrelu:
-                    return orig(ctx, x, scale, bias, lrelu, epsilon)
-                y = orig(ctx, x, scale, bias, False, epsilon)
-                ctx.side = take("in_sign", x)
-                own = getattr(*sign)(x, ctx.to_save[1], scale, bias, epsilon)
-                flips["in_sign"] += int((ctx.side != own).sum())
-                return torch.where(ctx.side, 0.1 * y, y)
-            return fn
-
-        def in_backward(orig):
-            def fn(ctx, gy):
-                if ctx.side is not None:
-                    gy = torch.where(ctx.side, 0.1 * gy, gy)
-                return orig(ctx, gy)
-            return fn
-
-        def clip(orig):
-            def fn(x, lo, hi):  # the recorded sides of the clip, ties as jnp.clip's
-                below, above, tie_lo, tie_hi = take("clip", x)
-                flips["clip"] += int(((x < lo) != below).sum() + ((x > hi) != above).sum())
-                lo_t, hi_t = (torch.full_like(x, v) for v in (lo, hi))
-                out = torch.where(tie_lo, 0.5 * (x + lo_t), x)
-                out = torch.where(tie_hi, 0.5 * (x + hi_t), out)
-                return torch.where(below, lo_t, torch.where(above, hi_t, out))
-            return fn
-
-        return self._patched({"lrelu": lrelu, "in_forward": in_forward,
-                              "in_backward": in_backward, "clip": clip})
 
 
 def train_batch(seed, batch):
@@ -2380,7 +1580,6 @@ def phase_augment(seed, smi):
     range_ms, range_kernels = range_device_ms(prof, "augment")
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
               and not _is_range(e) and e.time_range.elapsed_us() > 0]
-    nbytes = sum(v.nbytes for v in host.values()) * 2  # read once, written once
     emit({"phase": "augment", "card": smi, "batch": shape[0], "shape": list(shape[1:]),
           "params": AUGM_PARAMS, "card_vs_cpu": errors, "card_vs_cpu_worst": worst,
           "tol": AUGMENT_TOL, "generator_same_bits": same_bits,
@@ -2388,8 +1587,7 @@ def phase_augment(seed, smi):
           "events_ms": events_ms, "graph_ms": graph_ms,
           "profiled_device_ms": sum(e.time_range.elapsed_us() for e in device) / 1e3,
           "profiled_kernels": len(device), "range_device_ms": range_ms,
-          "range_kernels": range_kernels, "batch_bytes_in_out": nbytes,
-          "bound_ms": bound_ms(nbytes, 0)[0]})
+          "range_kernels": range_kernels})
     if not worst <= AUGMENT_TOL:
         raise AssertionError(f"augment: card vs CPU differs by {errors}")
     if not same_bits:
@@ -2440,9 +1638,6 @@ def profile_step(step, state, batch, rng, names=TRAIN_PROFILE_NAMES):
     missing = [k for k in names if k not in by_name]
     if missing:
         raise AssertionError(f"train: the profile shows no {missing}")
-    stray = [k for k in RETIRED_CONV_KERNELS + RETIRED_WGRAD_KERNELS if k in by_name]
-    if stray:  # every K1/K2 and K6 call of a step takes the wgmma kernels
-        raise AssertionError(f"train: the profile shows {stray}")
     return state, wall_us / 1e3, busy / 1e3, by_name, range_device_ms(prof, "augment")
 
 
@@ -3122,8 +2317,8 @@ def _dp_serving(ckpt, mc_ckpt, seed, calls):
                                               for a, b in zip(outs[0], outs[1]))),
            "mc_other_seed_max_diff": float(np.abs(outs[2][0] - outs[0][0]).max()),
            "request_ms": dp_ms, "one_device_request_ms": one_ms,
-           "median_request_ms": _median_after_first(dp_ms),
-           "median_one_device_request_ms": _median_after_first(one_ms)}
+           "median_request_ms": statistics.median(dp_ms[1:]),
+           "median_one_device_request_ms": statistics.median(one_ms[1:])}
     if (not shards_equal or out["bf16_vs_one_device_mean_abs"] > BF16_MEAN_LIMIT
             or out["fp32_max_abs_err"] > PAR_FP32_TOL
             or out["mc_fp32_max_abs_err"] > PAR_FP32_TOL
@@ -3469,13 +2664,11 @@ def phase_parallel_kernels(calls, smi):
         these = collections.Counter({(n, s): c for (n, s, d), c in calls.items() if d == dn})
         if not these:
             continue
-        rows = phase_kernels(these, 0, dtypes=(dtype,), timed=False, rerun=True,
-                             bit_kernels=())
+        rows = phase_kernels(these, dtypes=(dtype,), bit_kernels=())
         out[dn] = {k: {"shapes": len(v),
                        "max_rel_err": max(r[f"max_rel_err_{dn}"] for r in v),
                        "max_abs_err": max(r[f"max_abs_err_{dn}"] for r in v),
                        "bit_equal_reruns": sum(bool(r.get(f"bit_equal_{dn}")) for r in v),
-                       **_routes_of(v, dn),
                        **({"max_sums_rel_err": max(r[f"sums_rel_err_{dn}"] for r in v),
                            "max_sums_rel_err_vs_fp64": max(
                                (r["sums_rel_err_vs_fp64"] for r in v
@@ -3509,8 +2702,7 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
     the request's wall time and device time by kernel name (the ``top``
     names, and always the conv's main kernel, K3's and K4's, which must
     have run, and the conv's split-K reduce where the request's own K1/K2
-    calls, recorded on its warm-up, split K; no kernel of the retired
-    mma.sync route may show)."""
+    calls, recorded on its warm-up, split K)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
@@ -3530,13 +2722,10 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, by_name, events = device_time(prof)
-    names = profile_kernel_names(_dn(dtype), splits)
+    names = profile_kernel_names(splits)
     missing = [k for k in names if k not in by_name]
     if missing:
         raise AssertionError(f"{path}: the profile shows no {missing}")
-    stray = [k for k in RETIRED_CONV_KERNELS if k in by_name]
-    if stray:  # every K1/K2 call of a forward takes the wgmma route
-        raise AssertionError(f"{path} ({_dn(dtype)}): the profile shows {stray}")
     shown = dict(by_name.most_common(top))
     shown.update({k: by_name[k] for k in names})
     batch = len(volume[0] if isinstance(volume, tuple) else volume)
@@ -3597,18 +2786,18 @@ def main(argv=None):
                                                          head="forward")
     every = collections.Counter({key: 0 for c in per_path.values() for key in c})
     every.update(calls)  # a row's count: its calls per cfg1 forward
-    rows = phase_kernels(every, REPS, per_path=per_path)
+    rows = phase_kernels(every, per_path=per_path)
     summary = summarize_kernels(rows)
     fp64 = phase_fp64(calls)
-    summary["gemm_loop"], rows["gemm_loop"] = phase_gemm(REPS)
+    summary["gemm_loop"], rows["gemm_loop"] = phase_gemm()
     for name, s in summary.items():
         emit({"kernel": name, "card": smi, **s, "shapes": rows[name]})
     # the train step's calls (its meta trace): the shapes the forward above
-    # did not time (the data gradients' K1/K2 calls, K6, K7), then the sums
+    # did not check (the data gradients' K1/K2 calls, K6, K7), then the step
     train_calls = trace_model_calls(TRAIN_CFG, BATCH, torch.float32, head="train")
-    timed = {(n, r["sig"]) for n, rs in rows.items() if n in TRAIN_KERNELS for r in rs}
+    checked = {(n, r["sig"]) for n, rs in rows.items() if n in TRAIN_KERNELS for r in rs}
     train_rows = phase_kernels(
-        collections.Counter({k: v for k, v in train_calls.items() if k not in timed}), REPS,
+        collections.Counter({k: v for k, v in train_calls.items() if k not in checked}),
         per_path={"train": train_calls}, bit_kernels=BACKWARD_KERNELS)
     train_sum = train_summary(train_calls, {n: rows.get(n, []) + train_rows.get(n, [])
                                             for n in TRAIN_KERNELS})
@@ -3643,55 +2832,31 @@ def main(argv=None):
     kernels = []
     from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
 
-    for name in BACKWARD_KERNELS:  # K6 and K7: over one train step, fp32 and bf16
+    # K6 and K7 over one train step in fp32 and in bf16; the others in bf16
+    # on their own path, K1-K4 also in fp32 on FP32_PATH
+    entries = [(name, dn, on, label, train_sum[name][dn]) for name in BACKWARD_KERNELS
+               for dn, on, label in (("float32", "train", name),
+                                     ("bfloat16", "train_bf16", f"{name}.bf16"))]
+    entries += [(name, dn, KERNEL_INFO[name][2] if dn == "bfloat16" else FP32_PATH,
+                 name if dn == "bfloat16" else f"{name}.fp32", s[dn])
+                for name, s in summary.items() for dn in DTYPE_NAMES if dn in s]
+    for name, dn, on, label, d in entries:
         src, replaces, _ = KERNEL_INFO[name]
-        for dn, on, label in (("float32", "train", name), ("bfloat16", "train_bf16",
-                                                             f"{name}.bf16")):
-            n, d = launches[on][name], train_sum[name][dn]
-            kernels.append({"name": label, "dtype": dn, "route": "cuda", "source": src,
-                            "replaces": replaces, "path": on, "launches": n,
-                            "max_abs_err": d["max_abs_err"], "ms": d["kernel_ms"],
-                            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-                            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
-                            "launches_by_path": {p: c[name] for p, c in launches.items()
-                                                 if c[name]},
-                            **({"also_replaces": ALSO_REPLACES[name]}
-                               if name in ALSO_REPLACES else {}),
-                            "ptxas": ptxas_report(cuda_lib.build_log, {
-                                **{k: k + MANGLED_TYPE[dn] for k in PTXAS_NAMES[name]},
-                                **({K6_SPLIT_KERNEL: K6_SPLIT_KERNEL}
-                                   if name == "conv3d_wgrad" and dn == "float32" else {})})})
-            if n == 0:
-                raise AssertionError(f"{name} never launched on the {on} path")
-
-    for name, s in summary.items():
-        src, replaces, path = KERNEL_INFO[name]
-        for dn in DTYPE_NAMES:  # bf16 on its own path; K1-K4 in fp32 on serve_sw
-            if dn not in s:
-                continue
-            on = path if dn == "bfloat16" else FP32_PATH
-            n, d = launches[on][name], s[dn]
-            if name in CONV_KERNELS:
-                src = CONV_SOURCES[dn]
-                names = {k: k + MANGLED_TYPE[dn] for k in CONV_KERNEL_NAMES[dn]}
-            else:
-                names = {k: k + (MANGLED_TYPE[dn] if name != "gemm_loop" else "")
-                         for k in PTXAS_NAMES[name]}
-            kernels.append({"name": name if dn == "bfloat16" else f"{name}.fp32",
-                            "dtype": dn, "route": "cuda", "source": src,
-                            "replaces": replaces, "path": on, "launches": n,
-                            "max_abs_err": d["max_abs_err"], "ms": d["kernel_ms"],
-                            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-                            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
-                            "launches_by_path": {p: c[name] for p, c in launches.items()
-                                                 if c[name]},
-                            **({"also_replaces": ALSO_REPLACES[name]}
-                               if name in ALSO_REPLACES else {}),
-                            "ptxas": ptxas_report(cuda_lib.build_log, names),
-                            **({"kernel_route": CONV_ROUTES[dn]}
-                               if name in CONV_KERNELS else {})})
-            if n == 0:
-                raise AssertionError(f"{name} never launched on the {on} path")
+        names = {k: k + (MANGLED_TYPE[dn] if name != "gemm_loop" else "")
+                 for k in PTXAS_NAMES[name]}
+        if name == "conv3d_wgrad" and dn == "float32":
+            names[K6_SPLIT_KERNEL] = K6_SPLIT_KERNEL
+        n = launches[on][name]
+        kernels.append({"name": label, "dtype": dn, "route": "cuda", "source": src,
+                        "replaces": replaces, "path": on, "launches": n,
+                        "max_abs_err": d["max_abs_err"],
+                        "launches_by_path": {p: c[name] for p, c in launches.items() if c[name]},
+                        **({"also_replaces": ALSO_REPLACES[name]}
+                           if name in ALSO_REPLACES else {}),
+                        "ptxas": ptxas_summary(cuda_lib.build_log, names),
+                        **({"conv_route": CONV_ROUTE} if name in CONV_KERNELS else {})})
+        if n == 0:
+            raise AssertionError(f"{name} never launched on the {on} path")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

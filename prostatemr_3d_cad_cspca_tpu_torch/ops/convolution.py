@@ -26,7 +26,7 @@ parts):
   * K2 :func:`conv3d_transpose` — the SAME transposed conv, output ``n * s``
     (K1 and K2: on Hopper's wgmma with halo tiles in shared memory, bf16
     directly and fp32 as 3xTF32, ``csrc/conv3d_wgmma.cu`` and
-    :func:`wgmma_plan`; :func:`kernel_route` names the route);
+    :func:`wgmma_plan`);
   * K6 :func:`conv3d_wgrad` — the weight gradient of both, on wgmma with
     halo boxes too (``csrc/conv3d_wgrad.cu`` and :func:`wgrad_plan`).
 
@@ -294,7 +294,11 @@ def wgmma_plan(part_shapes, kernel_shape, strides, transposed, tma_ok=None, *, d
       (one slab, or up to four without split-K: ``phase_loop``) makes a
       unit of every phase of a tile: its boxes load once, not once a
       phase.
+
+    Any dtype but fp32 and bf16 raises ``TypeError``.
     """
+    if dtype not in WG_KSTAGE:
+        raise TypeError(f"K1/K2 take float32 or bfloat16, got {dtype}")
     cins = [int(s[-1]) for s in part_shapes]
     batch, in_spatial = int(part_shapes[0][0]), tuple(int(n) for n in part_shapes[0][1:4])
     ks = tuple(int(k) for k in kernel_shape[:3])
@@ -541,14 +545,6 @@ def _check_cuda_args(name, parts, kernel, bias, cin_axis):
                              or not bias.is_contiguous() or bias.numel() != cout):
         raise ValueError(f"{name}: bias must be contiguous float32 of {cout} "
                          f"on {x0.device}")
-
-
-def kernel_route(dtype: torch.dtype) -> str:
-    """Which CUDA kernel runs K1/K2 in ``dtype``: Hopper's wgmma with halo
-    tiles (csrc/conv3d_wgmma.cu), bf16 directly and fp32 as 3xTF32."""
-    if dtype not in WG_KSTAGE:
-        raise TypeError(f"K1/K2 take float32 or bfloat16, got {dtype}")
-    return "wgmma"
 
 
 def _launch(name, fn, parts, kernel, bias, strides, transposed, split=0):

@@ -29,6 +29,7 @@ from prostatemr_3d_cad_cspca_tpu import augment as ja
 from prostatemr_3d_cad_cspca_tpu_torch import augment as ta
 from prostatemr_3d_cad_cspca_tpu_torch import prng
 from test_torch_util import jax_augment_draws, jax_batch_draws
+from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 D, H, W = 8, 32, 32

@@ -16,6 +16,7 @@ import torch
 from prostatemr_3d_cad_cspca_tpu.models import blocks as jblocks
 from prostatemr_3d_cad_cspca_tpu_torch.bridge import from_jax_params, to_jax_params
 from prostatemr_3d_cad_cspca_tpu_torch.models import blocks as tblocks
+from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 

@@ -379,14 +379,14 @@ def _signatures(dtype):
     (cfg1, cfg2, the probabilistic ladder, its dense-skip form, the cascade)
     at batch 2, 8 and 16, and of the train step at batch 2 (its data
     gradients)."""
-    import chip_smoke as cs
+    import port_support as ps
 
     sigs = collections.Counter()
     for batch in (2, 8, 16):
-        sigs.update(cs.trace_path_calls(batch, dtype))
-    for cfg in (cs.CFG2, cs.PROB, cs.PROB_DENSE, cs.CASCADE):
-        sigs.update(cs.trace_model_calls(cfg, 2, dtype, head="forward"))
-    sigs.update(cs.trace_model_calls(cs.TRAIN_CFG, 2, dtype, head="train"))
+        sigs.update(ps.trace_path_calls(batch, dtype))
+    for cfg in (ps.CFG2, ps.PROB, ps.PROB_DENSE, ps.CASCADE):
+        sigs.update(ps.trace_model_calls(cfg, 2, dtype, head="forward"))
+    sigs.update(ps.trace_model_calls(ps.TRAIN_CFG, 2, dtype, head="train"))
     # a K1 pair's signature holds its whole kernel: a K1 plan like any other
     return sorted({k for k in sigs if k[0] in ("conv3d", "conv3d_pair", "conv3d_transpose")},
                   key=str)
@@ -439,7 +439,10 @@ def test_host_arrays_are_built_once_per_signature(dtype):
 
 
 def test_both_dtypes_route_to_wgmma():
-    """One K1/K2 kernel serves both dtypes; any other dtype is refused."""
-    assert tconv.kernel_route(torch.bfloat16) == tconv.kernel_route(torch.float32) == "wgmma"
+    """One K1/K2 kernel serves fp32 and bf16; any other dtype is refused."""
+    for dtype in DTYPES:
+        assert tconv.wgmma_plan([(2, 4, 8, 8, 16)], (3, 3, 3, 16, 8), (1, 1, 1), False,
+                                dtype=dtype)["splits"] >= 1
     with pytest.raises(TypeError):
-        tconv.kernel_route(torch.float16)
+        tconv.wgmma_plan([(2, 4, 8, 8, 16)], (3, 3, 3, 16, 8), (1, 1, 1), False,
+                         dtype=torch.float16)

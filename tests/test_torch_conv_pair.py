@@ -20,6 +20,7 @@ from prostatemr_3d_cad_cspca_tpu_torch.models import blocks
 from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
 from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as tconv
 from prostatemr_3d_cad_cspca_tpu_torch.ops.normalization import global_spatial_mean
+from port_support import CFG1, PROB, PROB_DENSE
 
 KERNELS = [(1, 3, 3), (3, 3, 3), (1, 1, 1)]
 STRIDES = [(1, 1, 1), (1, 2, 2), (2, 2, 2)]
@@ -79,14 +80,8 @@ def test_pair_gradients_are_the_two_convs(nparts, ks, st):
 CFG1_BF16 = {"serse1", "serse2", "sersd2", "sersd1", "sersd0"}
 LADDER_BF16 = {"sersp_1", "sersp_2", "sersp_3"}
 CFG1_FP32 = {"serse1", "sersd1", "sersd0"}
-CFG1 = dict(input_spatial_dims=(20, 160, 160), input_channels=3, num_classes=2,
-            filters=(16, 32, 64, 128, 256),
-            strides=((1, 1, 1), (1, 2, 2), (1, 2, 2), (2, 2, 2), (2, 2, 2)),
-            kernel_sizes=((1, 3, 3), (1, 3, 3), (3, 3, 3), (3, 3, 3), (3, 3, 3)),
-            se_reduction=(8, 8, 8, 8, 8), dropout_mode="monte-carlo", dropout_rate=0.5)
-PROB = dict(CFG1, input_channels=4, probabilistic=True, prob_latent_dims=(3, 2, 1, 0),
-            deep_supervision=True)
-MODELS = {"cfg1": CFG1, "prob": PROB, "prob_dense": dict(PROB, dense_skip=True)}
+MODELS = {"cfg1": dict(CFG1, dropout_mode="monte-carlo", dropout_rate=0.5), "prob": PROB,
+          "prob_dense": PROB_DENSE}
 
 
 @pytest.mark.parametrize("dtype,batch,name,want", [

@@ -1,7 +1,8 @@
 """Spawned gloo worlds for the port's multi-rank CPU tests
-(tests/test_torch_{mesh,parallel_train,halo}.py); this module holds no test
-of its own, and imports neither JAX nor the JAX package, so the ranks start
-quickly.
+(tests/test_torch_{mesh,parallel_train,halo}.py), and the CPU tests'
+``one_torch_thread`` fixture; this module holds no test of its own, and
+imports neither JAX nor the JAX package, so the ranks start quickly and
+the files that run on a card without JAX can take the fixture.
 
 :func:`run_world` starts ``world`` processes (``multiprocessing`` spawn),
 each of which joins a gloo world over a TCP store on localhost, runs one
@@ -21,9 +22,23 @@ import time
 import traceback
 
 import numpy as np
+import pytest
 import torch
 
 WORLD_TIMEOUT_S = 120
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tiny models' CPU convs run one thread each: with a thread per
+    core, every small conv3d waits on a team of threads that the workers
+    running beside it also want (30-100x slower here). A test file takes
+    it by importing it (autouse: every test of the file, both sides of its
+    comparisons)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def free_port() -> int:

@@ -50,7 +50,7 @@ def _graph_targets(gm):
 
 def _live_calls(fn):
     """K1-K4 calls of ``fn()`` counted at the wrappers the model calls
-    (``chip_smoke.py``'s meta trace does the same on the meta device)."""
+    (``port_support.py``'s meta trace does the same on the meta device)."""
     calls = collections.Counter()
     mods = {"conv3d": convolution, "conv3d_pair": convolution, "conv3d_transpose": convolution,
             "in_stats": normalization, "in_apply": normalization}

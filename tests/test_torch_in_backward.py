@@ -186,9 +186,10 @@ def test_in_backward_plan_refuses_what_the_kernel_does_not_take(batch, spatial, 
 
 
 def test_train_shapes_are_the_train_steps_k7_calls():
-    import chip_smoke
+    import port_support
 
-    calls = chip_smoke.trace_model_calls(chip_smoke.TRAIN_CFG, 2, torch.float32, head="train")
+    calls = port_support.trace_model_calls(port_support.TRAIN_CFG, 2, torch.float32,
+                                           head="train")
     shapes = sorted({sig[0] for name, sig in calls if name == "in_backward"})
     assert shapes == sorted(TRAIN_SHAPES)
 

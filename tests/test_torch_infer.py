@@ -38,6 +38,7 @@ from prostatemr_3d_cad_cspca_tpu_torch import serve as tserve
 from prostatemr_3d_cad_cspca_tpu_torch.bridge import from_jax_params
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1 as TM1
 from prostatemr_3d_cad_cspca_tpu_torch.models import blocks as tblocks
+from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 SPATIAL = (8, 32, 32)

@@ -24,6 +24,7 @@ from prostatemr_3d_cad_cspca_tpu.models import M1 as JM1
 from prostatemr_3d_cad_cspca_tpu_torch import serve as tserve
 from prostatemr_3d_cad_cspca_tpu_torch.bridge import from_jax_params
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1 as TM1
+from test_torch_util import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 SPATIAL = (4, 16, 16)

@@ -322,9 +322,9 @@ def _path_convs(batch):
     """Every distinct K1/K2 call of the cfg1 forward at ``batch`` (the
     serve path's 2, serve_mc's 8, serve_sw's 16): (name, signature); a K1
     pair's signature holds its whole kernel."""
-    import chip_smoke
+    import port_support
 
-    return [key for key in chip_smoke.trace_path_calls(batch)
+    return [key for key in port_support.trace_path_calls(batch)
             if key[0] in ("conv3d", "conv3d_pair", "conv3d_transpose")]
 
 
@@ -461,9 +461,9 @@ def test_in_stats_formulas(dtype):
 # ------------------------------------------------------ K3's grid (plan)
 def _path_norm_shapes(batch):
     """The distinct K3 input shapes of the cfg1 forward at ``batch``."""
-    import chip_smoke
+    import port_support
 
-    return sorted({sig[0] for name, sig in chip_smoke.trace_path_calls(batch)
+    return sorted({sig[0] for name, sig in port_support.trace_path_calls(batch)
                    if name == "in_stats"})
 
 

@@ -85,7 +85,8 @@ IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
 
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(PKG_DIR) for f in fs
-     if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]),
+     if f.endswith(".py")] + [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                                                  "port_support.py")]),
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_nothing_of_jax(path):
     with open(path) as f:

@@ -26,6 +26,7 @@ from prostatemr_3d_cad_cspca_tpu_torch import serve
 from prostatemr_3d_cad_cspca_tpu_torch.ensemble import M1Ensemble
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1
 from prostatemr_3d_cad_cspca_tpu_torch.serve import COPY_COUNTS, HostCopies, InferenceSession
+from test_torch_dist_util import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPATIAL = (4, 16, 16)

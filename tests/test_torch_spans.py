@@ -28,6 +28,7 @@ from prostatemr_3d_cad_cspca_tpu_torch.ensemble import M1Ensemble
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1
 from prostatemr_3d_cad_cspca_tpu_torch.serve import InferenceSession
 from prostatemr_3d_cad_cspca_tpu_torch.utils import profiling
+from test_torch_dist_util import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPATIAL = (4, 16, 16)

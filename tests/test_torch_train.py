@@ -11,7 +11,7 @@ gradients as its state, so the gradients are those of JAX's own step.
 
 The fp64 evaluation replays the fp32 step's branch decisions at every kink
 (LReLU, the instance norm's fused LReLU, the focal clip;
-tests/test_torch_util.py ``BranchReplay``): where an input lies within
+port_support.py ``BranchReplay``): where an input lies within
 rounding of a kink the two would otherwise take different slopes.
 
 Tolerances. The focal loss sums 16,384 voxels to about 2.9e3, so its fp32

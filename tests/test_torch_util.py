@@ -14,12 +14,9 @@ an eager flax forward, records the latent each sampling ladder pass used
 the port's mapping of latents (paths as ``prng`` names them).
 """
 
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from flax import linen as nn
 
@@ -27,6 +24,8 @@ from prostatemr_3d_cad_cspca_tpu.models import M1 as JM1
 from prostatemr_3d_cad_cspca_tpu.models.m1_core import M1Core as JM1Core
 from prostatemr_3d_cad_cspca_tpu_torch.bridge import from_jax_params
 from prostatemr_3d_cad_cspca_tpu_torch.models import M1 as TM1
+from port_support import BranchReplay  # noqa: F401  (the train tests' fp64 replays)
+from test_torch_dist_util import one_torch_thread  # noqa: F401  (the files' autouse fixture)
 
 ATOL = 2e-5  # fp32: the repo's oracle tolerance (tests/test_tf_parity.py:43)
 SPATIAL = (4, 16, 16)
@@ -35,17 +34,6 @@ TINY = dict(input_spatial_dims=SPATIAL, num_classes=2, filters=(4, 8, 12, 16, 24
             kernel_sizes=((1, 3, 3), (1, 3, 3), (3, 3, 3), (3, 3, 3), (3, 3, 3)),
             se_reduction=(2, 2, 2, 2, 2), summary=False)
 DIMS = (2, 1, 1, 0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tiny models' CPU convs run one thread each: with a thread per
-    core, every small conv3d waits on a team of threads that the workers
-    running beside it also want (30-100x slower here)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def redraw(params, seed):
@@ -253,120 +241,6 @@ def port_step_grads(pmodel, batch, draws, loss=None, **kw):
     state, metrics = step(tt.init_train_state(pmodel, opt), batch, draws)
     return ({k: to_np(v) for k, v in state.opt_state.items()},
             {k: float(v) for k, v in metrics.items()})
-
-
-class BranchReplay:
-    """The branch decisions of one fp32 step, replayed in its fp64
-    evaluation.
-
-    Where a value lies within rounding of a kink (a point where the slope
-    jumps), the fp32 step and its fp64 evaluation can take different sides:
-    an LReLU input near 0 takes slope 1 in one and 0.1 in the other, a 10x
-    difference in that element's gradient that is no error of either step.
-    ``record()`` notes, in call order, the side every element took at each
-    kink of the port's forward: the LReLU sites (``models.blocks.
-    leaky_relu01``: the SE tail and the attention gates), the instance
-    norm's fused LReLU (the sign of K4's pre-activation,
-    ``ops.normalization._pre_activation_sign`` of the input and statistics
-    the norm saves, which K7 reads again in the backward) and the focal loss's clip
-    (``losses._clip``); on a card the fused LReLU's side is computed from
-    the kernel's own inputs. ``replay()`` makes the next step take those
-    sides in the same order; a norm's backward finds its forward's side by
-    its saved input."""
-
-    def __init__(self):
-        self.sides = {"lrelu": [], "in_sign": [], "clip": []}
-
-    @staticmethod
-    def _sites():
-        from prostatemr_3d_cad_cspca_tpu_torch import losses
-        from prostatemr_3d_cad_cspca_tpu_torch.models import blocks
-        from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization
-
-        return {"lrelu": (blocks, "leaky_relu01"),
-                "in_forward": (normalization._InstanceNormFn, "forward"),
-                "in_sign": (normalization, "_pre_activation_sign"), "clip": (losses, "_clip")}
-
-    @contextlib.contextmanager
-    def _patched(self, fns):
-        sites = self._sites()
-        raw = {k: vars(sites[k][0])[sites[k][1]] for k in fns}
-        for k, fn in fns.items():
-            new = fn(getattr(*sites[k]))
-            setattr(*sites[k], staticmethod(new) if isinstance(raw[k], staticmethod) else new)
-        try:
-            yield self
-        finally:
-            for k, orig in raw.items():
-                setattr(*sites[k], orig)
-
-    def record(self):
-        sides = self.sides
-        sign = self._sites()["in_sign"]
-
-        def lrelu(orig):
-            def fn(x):
-                sides["lrelu"].append(~(x > 0).detach().cpu())
-                return orig(x)
-            return fn
-
-        def in_forward(orig):
-            def fn(ctx, x, scale, bias, lrelu, epsilon):
-                y = orig(ctx, x, scale, bias, lrelu, epsilon)
-                if lrelu:  # the sign K4 took, from the tensors the norm saved
-                    sides["in_sign"].append(getattr(*sign)(*ctx.to_save, epsilon).cpu())
-                return y
-            return fn
-
-        def clip(orig):
-            def fn(x, lo, hi):
-                x_ = x.detach().cpu()
-                sides["clip"].append((x_ < lo, x_ > hi, x_ == lo, x_ == hi))
-                return orig(x, lo, hi)
-            return fn
-
-        return self._patched({"lrelu": lrelu, "in_forward": in_forward, "clip": clip})
-
-    @contextlib.contextmanager
-    def replay(self):
-        cursor = {k: iter(v) for k, v in self.sides.items()}
-        by_input = {}  # a fused LReLU's side by its norm's input, for the backward
-
-        def take(name, like):
-            got = next(cursor[name])
-            got = tuple(t.to(like.device) for t in got) if isinstance(got, tuple) \
-                else got.to(like.device)
-            shape = (got[0] if isinstance(got, tuple) else got).shape
-            assert tuple(shape) == tuple(like.shape), (name, tuple(shape), tuple(like.shape))
-            return got
-
-        def lrelu(orig):
-            return lambda x: torch.where(take("lrelu", x), 0.1 * x, x)
-
-        def in_forward(orig):
-            def fn(ctx, x, scale, bias, lrelu, epsilon):
-                if lrelu:
-                    by_input[x.data_ptr()] = take("in_sign", x)
-                return orig(ctx, x, scale, bias, lrelu, epsilon)
-            return fn
-
-        def in_sign(orig):
-            return lambda x, *args: by_input[x.data_ptr()]
-
-        def clip(orig):
-            def fn(x, lo, hi):  # jnp.clip's gradients: 0 outside, 1/2 on a tie
-                below, above, tie_lo, tie_hi = take("clip", x)
-                lo_t, hi_t = (torch.full_like(x, v) for v in (lo, hi))
-                out = torch.where(tie_lo, 0.5 * (x + lo_t), x)
-                out = torch.where(tie_hi, 0.5 * (x + hi_t), out)
-                return torch.where(below, lo_t, torch.where(above, hi_t, out))
-            return fn
-
-        with self._patched({"lrelu": lrelu, "in_forward": in_forward, "in_sign": in_sign,
-                            "clip": clip}):
-            yield self
-        left = {k: sum(1 for _ in it) for k, it in cursor.items()}
-        assert not any(left.values()), f"recorded sides not replayed: {left}"
 
 
 def leaf_errors(got, want):

@@ -12,9 +12,10 @@ report.
                                   [--out FILE]
 
 Every distinct kernel call of the cfg1 forward (or of the train step of the
-CLI's default recipe, ``chip_smoke.TRAIN_CFG``) at ``--batch`` is timed as
-``chip_smoke.py`` times it (10 calls captured in one CUDA graph, replayed
-between CUDA events, after warm-up) and weighted by its count;
+CLI's default recipe, ``port_support.TRAIN_CFG``) at ``--batch``, traced on
+the meta device, is timed by ``port_support.time_ms`` (10 calls captured in
+one CUDA graph, replayed between CUDA events, after warm-up) and weighted by
+its count;
 ``--library`` also times the one torch call computing the same function
 (cuDNN: ``F.conv3d``, ``F.conv_transpose3d`` for K2 and the data gradients
 it computes, ``torch.nn.grad.conv3d_weight`` for K6; fp32 with TF32 off).
@@ -25,10 +26,11 @@ outside the graph), e.g. K7's two passes. ``--wgrad-schedule split |
 pingpong`` holds K6's plans to one schedule of its consumer warpgroups
 (``convolution.wgrad_plan``'s ``schedules``; ping-pong falls back to split
 where no plan's rows fit one warpgroup; each row records the one it ran). ``--model`` traces the forward
-of another model of ``chip_smoke.py`` (``prob``: the probabilistic ladder,
+of another model of ``port_support.py`` (``prob``: the probabilistic ladder,
 ``prob_dense``: its dense-skip form with the six-part stitch) instead of
-cfg1's. ``--host`` adds the host us per call of K1 and K3
-(``chip_smoke.host_us_per_call``). ``--stamps`` builds the diagnostic
+cfg1's. ``--host`` adds the host us per call of K1 and K3, through the
+direct call and through the registered operator (``host_us_per_call``).
+``--stamps`` builds the diagnostic
 library (``PMR_STAMPS=1``, ``csrc/stamps.cuh``) and, at each of
 STAMP_SHAPES (those of ``--kernels`` where given: ``--kernels conv3d_wgrad``
 stamps K6's three), runs the K1/K2 or K6 call once with its blocks'
@@ -37,7 +39,7 @@ of the kernel (stamped times are not the kernel's times; they are its own
 account).
 Inputs are drawn on the
 card from a fixed seed. Run it from the root of a checkout: it uses that
-checkout's package and ``chip_smoke.py``, and builds that checkout's
+checkout's package and ``port_support.py``, and builds that checkout's
 kernels, so ``ptxas`` lists each compiled variant's registers and spills
 (from the log kept beside the library where it was already built). To
 compare two versions, unpack one into a directory of the other and run the
@@ -47,12 +49,13 @@ with each shape's time and the ptxas report.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import os
-import re
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.getcwd())
 
@@ -60,28 +63,6 @@ PTXAS_KERNELS = ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel", "in_stats_
                  "in_apply_kernel", "wgrad_wgmma_kernel", "wgrad_reduce_kernel",
                  "wgrad_split_kernel",
                  "in_bwd_reduce_kernel", "in_bwd_apply_kernel")
-
-
-def ptxas_variants(log):
-    """{mangled name: [registers, spill bytes (stores + loads)]} of the
-    kernels in PTXAS_KERNELS, from nvcc's -Xptxas -v report."""
-    out, current = {}, None
-    for line in (log or "").splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            current = m.group(1) if any(k in m.group(1) for k in PTXAS_KERNELS) else None
-            if current:
-                out[current] = [None, 0]
-            continue
-        if current is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spill:
-            out[current][1] += int(spill.group(1)) + int(spill.group(2))
-        used = re.search(r"Used (\d+) registers", line)
-        if used:
-            out[current][0] = int(used.group(1))
-    return out
 
 
 # the shapes whose cycles --stamps accounts for (in each of --dtypes), at
@@ -115,7 +96,7 @@ STAMP_PHASES = ("setup", "issue", "wait", "mma", "epilogue", "producer_wait",
 STAMP_ENTRIES = ("pmr_conv3d_wgmma_stamps", "pmr_conv3d_wgrad_stamps")
 
 
-def stamp_shapes(cs, cv, cuda_lib, dtype, gen, kernels=None):
+def stamp_shapes(ps, cv, cuda_lib, dtype, gen, kernels=None):
     """{shape label: mean cycles a block by phase, blocks, stamped ms} of
     each STAMP_SHAPES call (of ``kernels``, default all) in ``dtype``, from
     the stamps build's counters (csrc/stamps.cuh: 4096 slots of 9 unsigned
@@ -131,7 +112,7 @@ def stamp_shapes(cs, cv, cuda_lib, dtype, gen, kernels=None):
     for label, (name, sig) in STAMP_SHAPES.items():
         if kernels and name not in kernels:
             continue
-        run, _ = _calls(cs, cv, None, name, sig, dtype, gen)
+        run, _ = _calls(ps, cv, None, name, sig, dtype, gen)
         run()
         torch.cuda.synchronize()
         buf.zero_()
@@ -141,7 +122,7 @@ def stamp_shapes(cs, cv, cuda_lib, dtype, gen, kernels=None):
         blocks = max(tot[-1], 1)
         row = {"blocks": tot[-1], "cycles_per_block": {
             ph: tot[i] / blocks for i, ph in enumerate(STAMP_PHASES) if tot[i]}}
-        row["ms_stamped"] = cs.time_ms(run, 3, capture=False)
+        row["ms_stamped"] = ps.time_ms(run, 3, capture=False)
         out[label] = row
     torch.cuda.synchronize()
     for entry in STAMP_ENTRIES:  # the buffer is freed on return: no kernel may write it
@@ -150,7 +131,7 @@ def stamp_shapes(cs, cv, cuda_lib, dtype, gen, kernels=None):
     return out
 
 
-def kernel_split(cs, run, reps):
+def kernel_split(ps, run, reps):
     """{CUDA kernel name: device us a call} over ``reps`` calls of ``run``
     under torch.profiler, after one warm-up call."""
     import torch
@@ -162,28 +143,73 @@ def kernel_split(cs, run, reps):
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    return {k: v / reps for k, v in cs.device_time(prof)[1].items()}
+    return {k: v / reps for k, v in ps.device_time(prof)[1].items()}
 
 
-def _calls(cs, cv, nm, name, sig, dtype, gen):
+@contextlib.contextmanager
+def operator_route():
+    """K1-K4's wrappers call their registered ``pmr::`` operators, as they do
+    while ``torch.export`` traces, in place of the direct call."""
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
+
+    direct = cuda_lib.exporting
+    cuda_lib.exporting = lambda: True
+    try:
+        yield
+    finally:
+        cuda_lib.exporting = direct
+
+
+def host_us_per_call(n=2000):
+    """Host us per call of K3 and K1 through the direct call and through the
+    operator, at a shape whose kernel is shorter than its dispatch (16x16x16
+    voxels, 16 channels, bf16): wall time of n calls over n, in turns
+    (direct, operator, operator, direct)."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 16, 16, 16, 16), generator=gen, device="cuda").bfloat16()
+    k = (0.1 * torch.randn((1, 3, 3, 16, 16), generator=gen, device="cuda")).bfloat16()
+    b = torch.zeros(16, device="cuda")
+    fns = {"in_stats": lambda: nm.in_stats(x), "conv3d": lambda: cv.conv3d([x], k, b)}
+    out = {}
+    for name, fn in fns.items():
+        times = {"direct": [], "operator": []}
+        for route in ("direct", "operator", "operator", "direct"):
+            with (operator_route() if route == "operator" else contextlib.nullcontext()):
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                times[route].append((time.perf_counter() - t0) / n * 1e6)
+        out[name] = times
+    return out
+
+
+def _calls(ps, cv, nm, name, sig, dtype, gen):
     """(the kernel call, its library call or None) at one path signature."""
     import torch
 
     if name == "conv3d":
-        parts, kernel, bias, st = cs._conv_case(sig, dtype, gen)
-        return (lambda: cv.conv3d(parts, kernel, bias, st)), cs._conv_library(parts, kernel, st)
+        parts, kernel, bias, st = ps._conv_case(sig, dtype, gen)
+        return (lambda: cv.conv3d(parts, kernel, bias, st)), ps._conv_library(parts, kernel, st)
     if name == "conv3d_pair":  # an SE block's first and projection convs in one launch
-        parts, k1, b1, k4, b4, st = cs._pair_case(sig, dtype, gen)
+        parts, k1, b1, k4, b4, st = ps._pair_case(sig, dtype, gen)
         return ((lambda: cv.conv3d_pair(parts, k1, b1, k4, b4, st)),
-                cs._conv_library(parts, torch.cat([k4, k1], dim=4), st))
+                ps._conv_library(parts, torch.cat([k4, k1], dim=4), st))
     if name == "conv3d_transpose":
-        x, kernel, bias, st = cs._convt_case(sig, dtype, gen)
+        x, kernel, bias, st = ps._convt_case(sig, dtype, gen)
         return ((lambda: cv.conv3d_transpose(x, kernel, bias, st)),
-                cs._convt_library(x, kernel, st))
+                ps._convt_library(x, kernel, st))
     if name == "conv3d_wgrad":
-        a, b, ks, st = cs._wgrad_case(sig, dtype, gen)
-        return (lambda: cv.conv3d_wgrad(a, b, ks, st)), cs._wgrad_library(a, b, ks, st)
-    x, scale, bias = cs._in_case(sig[0], dtype, gen)
+        a, b, ks, st = ps._wgrad_case(sig, dtype, gen)
+        return (lambda: cv.conv3d_wgrad(a, b, ks, st)), ps._wgrad_library(a, b, ks, st)
+    x, scale, bias = ps._in_case(sig[0], dtype, gen)
     if name == "in_backward":
         gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
         stats = nm.in_stats_plain(x)
@@ -229,7 +255,7 @@ def main(argv=None):
         os.environ["PMR_STAMPS"] = "1"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    import chip_smoke as cs
+    import port_support as ps
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
@@ -243,38 +269,40 @@ def main(argv=None):
     cuda_lib.library()
     out = {"checkout": os.getcwd(), "card": smi, "step": args.step, "batch": args.batch,
            "model": args.model, "wgrad_schedule": args.wgrad_schedule,
-           "ptxas": ptxas_variants(cuda_lib.build_log)}
+           "ptxas": {v["name"]: [v["registers"], v["spill_bytes"]]
+                     for v in ps.ptxas_variants(cuda_lib.build_log)
+                     if any(k in v["name"] for k in PTXAS_KERNELS)}}
     gen = torch.Generator(device="cuda").manual_seed(1234)
     if args.host:
-        out["host_us"] = cs.host_us_per_call()
+        out["host_us"] = host_us_per_call()
     if args.stamps:
-        out["stamps"] = {dn: stamp_shapes(cs, cv, cuda_lib, getattr(torch, dn), gen,
+        out["stamps"] = {dn: stamp_shapes(ps, cv, cuda_lib, getattr(torch, dn), gen,
                                           args.kernels) for dn in args.dtypes}
-    models = {"cfg1": cs.CFG1, "prob": cs.PROB, "prob_dense": cs.PROB_DENSE}
+    models = {"cfg1": ps.CFG1, "prob": ps.PROB, "prob_dense": ps.PROB_DENSE}
     for dn in args.dtypes:
         dtype = getattr(torch, dn)
         if args.step == "train":
-            calls = cs.trace_model_calls(cs.TRAIN_CFG, args.batch, dtype, head="train")
+            calls = ps.trace_model_calls(ps.TRAIN_CFG, args.batch, dtype, head="train")
         elif args.model == "cfg1":
-            calls = cs.trace_path_calls(args.batch, dtype)
+            calls = ps.trace_path_calls(args.batch, dtype)
         else:
-            calls = cs.trace_model_calls(models[args.model], args.batch, dtype,
+            calls = ps.trace_model_calls(models[args.model], args.batch, dtype,
                                          head="forward")
         per = {}
         for (name, sig), count in sorted(calls.items(), key=lambda kv: str(kv[0])):
             if args.kernels and name not in args.kernels:
                 continue
-            run, lib = _calls(cs, cv, nm, name, sig, dtype, gen)
-            row = {"sig": sig, "count": count, "ms": cs.time_ms(run, args.reps)}
+            run, lib = _calls(ps, cv, nm, name, sig, dtype, gen)
+            row = {"sig": sig, "count": count, "ms": ps.time_ms(run, args.reps)}
             if name == "conv3d_wgrad":
                 ash, bsh, ks, st = sig
                 tma = tuple(s[-1] * dtype.itemsize % 16 == 0 for s in (ash, bsh))
                 row["pingpong"] = cv.wgrad_plan(tuple(ash), bsh[-1], tuple(ks), tuple(st), dtype,
                                                 tma)["pingpong"]
             if args.library and lib is not None:
-                row["library_ms"] = cs.time_ms(lib, args.reps)
+                row["library_ms"] = ps.time_ms(lib, args.reps)
             if args.split:
-                row["kernels_us"] = kernel_split(cs, run, args.reps)
+                row["kernels_us"] = kernel_split(ps, run, args.reps)
             per.setdefault(name, []).append(row)
         out[dn] = {}
         for name, rows in per.items():
