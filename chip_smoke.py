@@ -41,21 +41,29 @@ Phases (each raises on failure, so the script exits non-zero and prints no
                probe's 8 (shape, iterations): checked with 3 iterations and
                with the probe's own count (|diff|/max(1,|ref|) <= 2**-7), run
                twice where gemm_plan splits a tile (the same bits).
+               K8 (se_tail.cu) at every SE output shape of the served
+               models at the serving batch, in bf16 and fp32: the apply
+               against its twin bit for bit, unmasked and masked at keep 0.5
+               and 0.75; the mean within fp32 rounding of the twin's
+               (torch's fp32 mean), twice the same bits.
   3. serve     a cfg1 checkpoint in the JAX npz format (weights drawn by numpy
                from --seed, dropout 0) -> M1.load(dtype=bfloat16) ->
                InferenceSession, 3 requests of 2 volumes of 20x160x160x3;
                launch counters must rise by exactly 40/5/4/37/37 per forward
-               (K1, K1 pairs, K2, K3, K4: LAUNCHES_PER_FORWARD, bf16).
+               (K1, K1 pairs, K2, K3, K4: LAUNCHES_PER_FORWARD, bf16) and K8's
+               se_tail.launches by 8 (se_tail.masked by 0: dropout 0).
                Then one more request under torch.profiler, outside the counted
                run: device busy share and device time by kernel, which must
                show conv3d_wgmma_kernel, wgmma_splitk_reduce_kernel,
-               in_stats_kernel and in_apply_kernel, in an fp32 profile too.
+               in_stats_kernel, in_apply_kernel, se_sums_kernel and
+               se_apply_kernel, in an fp32 profile too.
   4. parity    one fp32 volume through the card model and the same model on
                the CPU (plain twins): softmax max |diff| <= 1e-3; bf16 vs fp32
                on the card: mean |diff| <= 1e-2.
   5. serve_mc  the same weights with the CLI's default dropout (monte-carlo,
                0.5), bf16, 3 requests of 2 volumes at mc_iter=4 (one forward
-               of 8 each); std > 0, the same seed the same outputs; at rate 0
+               of 8 each), 8 K8 applies a request, all masked; std > 0, the
+               same seed the same outputs; at rate 0
                std exactly 0 and the mean equal to the deterministic model's
                output on the same stacked batch. One more request profiled.
   6. serve_sw  serve.run on two 24x256x256x3 cases (18 tiles each) with
@@ -249,7 +257,7 @@ from port_support import (BACKWARD_KERNELS, CASCADE, CFG1, CFG2, FORWARD_KERNELS
                           _conv_case, _conv_fp64, _conv_plan, _convt_case, _dn, _in_case,
                           _is_range, _pair_case, _wgrad_case, device_time, launch_counts,
                           ptxas_variants, recording, time_ms, trace_model_calls,
-                          trace_path_calls)
+                          trace_path_calls, trace_se_shapes)
 
 MODEL_PATHS = {"serve_cfg2": CFG2, "serve_prob": PROB, "serve_cascade": CASCADE}
 CASCADE_CASE = (24, 256, 256)
@@ -272,6 +280,13 @@ KERNEL_INFO = {  # name: (source, TPU kernel replaced, path it launches on)
     "in_backward": (f"{PKG}/csrc/instance_norm.cu", "benchmarks/r2_probe_conv.py:198",
                     "train"),
 }
+# K8, an SE block's squeeze-excite tail and its MC dropout: its own kernels
+# phase, launch counter and kernels-line entry (no TPU kernel computes it)
+SE_TAIL_INFO = (f"{PKG}/csrc/se_tail.cu", "none (XLA's fusion of the SE tail and dropout)",
+                "serve_mc")
+SE_KERNEL_NAMES = ("se_sums_kernel", "se_apply_kernel")
+SE_KEEPS = (None, 0.5, 0.75)  # K8's apply: unmasked, and masked at each keep
+SE_MEAN_TOL = 1e-5  # K8's mean vs its twin's, |diff| / (mean |x| over the sample)
 ALSO_REPLACES = {"gemm_loop": "benchmarks/r2_probe_pallas_mm2.py:45",
                  "in_backward": "ops/pallas/fused_norm.py:181 (git cef1717^, the "
                                 "custom_vjp backward of :47 and :70)"}
@@ -588,6 +603,59 @@ def phase_kernels(calls, dtypes=None, per_path=None, bit_kernels=CONV_KERNELS + 
     return rows
 
 
+def phase_se_tail(smi):
+    """K8 against its twins at every SE output shape of the served models'
+    forwards (cfg1, prob, prob_dense: ``port_support.trace_se_shapes``) at
+    the serving batch, in bf16 and fp32: the apply bit for bit, unmasked
+    and masked at each keep of SE_KEEPS, given the same gate; the mean
+    within SE_MEAN_TOL of the twin's (torch's fp32 mean) and a second run's
+    bits. Returns the largest mean error by dtype."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import se_tail as k8
+
+    per_model = {name: trace_se_shapes(cfg, BATCH)
+                 for name, cfg in (("cfg1", CFG1), ("prob", PROB), ("prob_dense", PROB_DENSE))}
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows, worst = [], {}
+    for shape in sorted(set().union(*per_model.values())):
+        row = {"shape": list(shape),
+               "per_forward": {m: c[shape] for m, c in per_model.items() if shape in c}}
+        b, spatial, c = shape[0], int(np.prod(shape[1:4])), shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = _dn(dtype)
+            x = (2 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+            res = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            s = torch.sigmoid(torch.randn((b, 1, 1, 1, c), generator=gen,
+                                          device="cuda")).to(dtype)
+            u = torch.rand(shape, generator=gen, device="cuda")
+            for keep in SE_KEEPS:
+                uu, kk = (None, 1.0) if keep is None else (u, keep)
+                got, want = k8.se_tail(x, s, res, uu, kk), k8.se_tail_plain(x, s, res, uu, kk)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"se_tail {dn} {shape} keep {keep}: "
+                                         f"{int((got != want).sum())} elements off the twin")
+            mean, ref = k8.se_mean(x), k8.se_mean_plain(x)
+            scale = x.float().abs().mean(dim=(1, 2, 3), keepdim=True)
+            err = float(((mean - ref).abs() / scale).max())
+            if not err <= SE_MEAN_TOL:
+                raise AssertionError(f"se_mean {dn} {shape}: error {err} > {SE_MEAN_TOL}")
+            if not torch.equal(mean, k8.se_mean(x)):
+                raise AssertionError(f"se_mean {dn} {shape}: two runs on the same inputs "
+                                     "differ")
+            aligned = x.data_ptr() % 16 == 0
+            row[dn] = {"apply_bit_equal": True, "mean_err": err, "mean_bit_equal": True,
+                       "blocks": [nm.in_stats_plan(b, spatial, c, x.element_size(),
+                                                   aligned)["blocks"],
+                                  nm.in_apply_plan(b, spatial, c, x.element_size(),
+                                                   aligned)["blocks"]]}
+            worst[dn] = max(worst.get(dn, 0.0), err)
+        rows.append(row)
+    emit({"phase": "kernels_se_tail", "card": smi, "batch": BATCH,
+          "keeps": [k or 1.0 for k in SE_KEEPS], "mean_tol": SE_MEAN_TOL, "rows": rows})
+    return worst
+
+
 def _splits(name, sig, dtype):
     """K-splits of the kernel at one K1/K2 call in ``dtype``."""
     return _conv_plan(name, sig, dtype)["splits"]
@@ -780,23 +848,29 @@ def forwards(n, dn="bfloat16"):
             **{k: 0 for k in BACKWARD_KERNELS}}
 
 
-def _serve_requests(session, requests, mc, expect=None):
+def _serve_requests(session, requests, mc, expect=None, se=None):
     """Serve ``requests`` through ``session``; check each output and that it
-    took exactly one forward (``expect``: its launches, default cfg1's).
-    Returns latencies (ms), outputs, launches."""
+    took exactly one forward (``expect``: its launches, default cfg1's;
+    ``se``: K8's (applies, masked applies) a request, where given).
+    Returns latencies (ms), outputs, launches (with ``se``, also K8's
+    ``se_tail`` and ``se_tail_masked``)."""
     import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.se_tail import se_tail as k8
 
     expect = expect or forwards(1)
-    latencies, outputs, per_request = [], [], []
+    latencies, outputs, per_request, se_per_request = [], [], [], []
     reset_counts()
+    k8.launches = k8.masked = 0
     for req in requests:
         before = read_counts()
+        se_before = (k8.launches, k8.masked)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         probs, unc = session(req)
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
         per_request.append({k: v - before[k] for k, v in read_counts().items()})
+        se_per_request.append((k8.launches - se_before[0], k8.masked - se_before[1]))
         shape = (len(req[0] if isinstance(req, tuple) else req),
                  *CFG1["input_spatial_dims"], 2)
         if probs.shape != shape or (unc is None) == mc or (mc and unc.shape != shape):
@@ -811,7 +885,13 @@ def _serve_requests(session, requests, mc, expect=None):
     for got in per_request:
         if got != expect:
             raise AssertionError(f"launches per request {got}, expected {expect}")
-    return latencies, outputs, read_counts()
+    counts = read_counts()
+    if se is not None:
+        if any(got != tuple(se) for got in se_per_request):
+            raise AssertionError(f"K8 (applies, masked) per request {se_per_request}, "
+                                 f"expected {tuple(se)}")
+        counts.update(se_tail=k8.launches, se_tail_masked=k8.masked)
+    return latencies, outputs, counts
 
 
 def _requests(seed, channels=3):
@@ -828,7 +908,7 @@ def phase_serve(ckpt, seed, smi):
     session = InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
                                device="cuda")
     requests = _requests(seed)
-    _, _, launches = _serve_requests(session, requests, mc=False)
+    _, _, launches = _serve_requests(session, requests, mc=False, se=(8, 0))
     emit({"phase": "serve", "card": smi, "dtype": "bfloat16", "batch": BATCH,
           "requests": REQUESTS, "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
@@ -853,7 +933,7 @@ def phase_serve_mc(tmp, seed, smi, det_ckpt):
 
     requests = _requests(seed)
     torch.cuda.reset_peak_memory_stats()
-    _, outputs, launches = _serve_requests(session(ckpt), requests, mc=True)
+    _, outputs, launches = _serve_requests(session(ckpt), requests, mc=True, se=(8, 8))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     phase_profile(ckpt, requests[0], mc_iter=MC_ITER, path="serve_mc")
     probs, std = outputs[0]
@@ -1124,33 +1204,60 @@ def phase_serve_cfg2(tmp, seed, smi):
     return launches
 
 
+def dropout_shapes(net, forward, key=lambda site: site):
+    """The shape at each dropout site that ``forward()`` (a meta forward of
+    ``net``) reaches, under ``key(site)``. Each dropout follows an SE block,
+    which is handed it (its third argument, ``drop``) and applies it, on the
+    block's output: a hook on the blocks sees every site, whether the
+    dropout runs as its own ops or inside K8."""
+    from prostatemr_3d_cad_cspca_tpu_torch.models.blocks import SEResNetBottleNeck
+
+    shapes = {}
+
+    def hook(_m, args, out):
+        if len(args) > 2 and args[2] is not None:
+            shapes[key(args[2][0].site)] = tuple(out.shape)
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, SEResNetBottleNeck)]
+    try:
+        forward()
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
 def prob_detect_draws(cfg, batch, seed):
     """Every draw of one detect forward of the probabilistic model ``cfg``
     at ``batch``, made by numpy on the host: the prior trunk's and the
     sampling ladder's keep-masks and the ladder's latents, under the paths
     ``prng`` names (fused passes)."""
     import torch
-    from prostatemr_3d_cad_cspca_tpu_torch.models.blocks import ConfigurableDropout
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
 
     model = M1(**cfg, summary=False, init_params=False, device="meta")
     prior, dims = model.net.prior, model.net.prior.prob_latent_dims
-    shapes, hooks = {}, []
+    latents, hooks = {}, []
     for name, mod in prior.named_modules():
-        if isinstance(mod, ConfigurableDropout):
-            scope = "p_sample" if mod.site.startswith("dropp") else "prior"
-            key = f"{scope}/{mod.site}"
-        elif name.startswith("mu_logsig_") and "." not in name:
-            key = f"p_sample/z_{name[-1]}"
-        else:
-            continue
-        hooks.append(mod.register_forward_hook(
-            lambda _m, _i, out, key=key: shapes.update({key: tuple(out.shape)})))
+        if name.startswith("mu_logsig_") and "." not in name:
+            hooks.append(mod.register_forward_hook(
+                lambda _m, _i, out, key=f"p_sample/z_{name[-1]}":
+                    latents.update({key: tuple(out.shape)})))
     x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]), device="meta")
-    with torch.no_grad():
-        model.net.detect(x, rng=torch.Generator().manual_seed(0))
-    for h in hooks:
-        h.remove()
+
+    def forward():
+        with torch.no_grad():
+            model.net.detect(x, rng=torch.Generator().manual_seed(0))
+
+    try:
+        shapes = dropout_shapes(
+            prior, forward,
+            key=lambda site: f"{'p_sample' if site.startswith('dropp') else 'prior'}/{site}")
+    finally:
+        for h in hooks:
+            h.remove()
+    shapes.update(latents)
     rng = np.random.default_rng(seed)
     draws = {}
     for key, shape in sorted(shapes.items()):
@@ -1293,8 +1400,8 @@ def phase_export(tmp, seed, smi, det_ckpt):
                 and np.isfinite(det).all() and float(unc.min()) >= 0.0):
             raise AssertionError(f"serve.run from the artifact: {r}")
     session = serve.ExportedSession(export.ExportedModel.load(art, seed=seed, device="cuda"))
-    _, outputs, launches = _serve_requests(session, requests, mc=True)
-    launches = {k: v + run_launches[k] for k, v in launches.items()}
+    _, outputs, launches = _serve_requests(session, requests, mc=True, se=(8, 8))
+    launches = {k: v + run_launches.get(k, 0) for k, v in launches.items()}
 
     live = serve.InferenceSession(M1.load(ckpt, dtype=torch.bfloat16, device="cuda"),
                                   mc_iter=MC_ITER, seed=seed, device="cuda")
@@ -1311,8 +1418,8 @@ def phase_export(tmp, seed, smi, det_ckpt):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t1) * 1e6
     busy, by_name, events = device_time(prof)
-    missing = [k for k in ("conv3d_wgmma_kernel", "in_stats_kernel", "in_apply_kernel")
-               if k not in by_name]
+    missing = [k for k in ("conv3d_wgmma_kernel", "in_stats_kernel", "in_apply_kernel",
+                           *SE_KERNEL_NAMES) if k not in by_name]
     if missing:
         raise AssertionError(f"export: the artifact's profile shows no {missing}")
 
@@ -1341,17 +1448,22 @@ def phase_export(tmp, seed, smi, det_ckpt):
     moved = export.ExportedModel.load(tiny_art, device="cuda")
     x = np.random.default_rng(seed + 62).normal(
         size=(2, *EXPORT_TINY["input_spatial_dims"], 3)).astype(np.float32)
+    from prostatemr_3d_cad_cspca_tpu_torch.ops.se_tail import se_tail as k8
+
     reset_counts()
+    k8.launches = k8.masked = 0
     moved_out = moved.predict(x)
     moved_launches = read_counts()
+    moved_se = (k8.launches, k8.masked)  # dropout 0: 8 applies, none masked
     card_out = tiny.to("cuda").predict(x).float().cpu().numpy()
     moved_diff = float(np.abs(moved_out - card_out).max())
     # its K1 pairs are the tiny widths' at the traced (symbolic) batch, taken as 1
     tiny_cfg = {k: v for k, v in EXPORT_TINY.items() if k != "summary"}
     moved_expect = launch_counts(trace_model_calls(tiny_cfg, 1, torch.float32))
-    if moved_launches != moved_expect or not moved_diff <= 1e-3:
+    if moved_launches != moved_expect or moved_se != (8, 0) or not moved_diff <= 1e-3:
         raise AssertionError(f"export: a CPU-traced artifact on the card: {moved_diff} from "
-                             f"the card's live model, launches {moved_launches}")
+                             f"the card's live model, launches {moved_launches}, K8 "
+                             f"(applies, masked) {moved_se}")
 
     emit({"phase": "export", "card": smi, "dtype": "bfloat16", "mc_iter": MC_ITER,
           "batch": BATCH, "export_s": export_s, "export_main_s": main_s,
@@ -1364,7 +1476,7 @@ def phase_export(tmp, seed, smi, det_ckpt):
                  "artifact_mb": os.path.getsize(sw_art) / 1e6, "vs_live_max": sw_diff,
                  "launches": sw_launches},
           "cpu_traced": {"config": "filters 4-24, 4x16x16", "vs_card_live_max": moved_diff,
-                         "launches": moved_launches}})
+                         "launches": moved_launches, "se_tail": list(moved_se)}})
     return launches
 
 
@@ -1397,18 +1509,16 @@ def train_draws(cfg, batch, seed):
     """The keep-masks of one training forward of ``cfg`` at ``batch``, drawn
     by numpy on the host, under the sites' names (``prng``)."""
     import torch
-    from prostatemr_3d_cad_cspca_tpu_torch.models.blocks import ConfigurableDropout
     from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
 
     model = M1(**cfg, summary=False, init_params=False, device="meta")
-    shapes = {}
-    for mod in model.net.modules():
-        if isinstance(mod, ConfigurableDropout):
-            mod.register_forward_hook(
-                lambda m, i, o: shapes.update({m.site: tuple(o.shape)}))
     x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]), device="meta")
-    with torch.no_grad():
-        model.net(x, train=True, rng=torch.Generator().manual_seed(0))
+
+    def forward():
+        with torch.no_grad():
+            model.net(x, train=True, rng=torch.Generator().manual_seed(0))
+
+    shapes = dropout_shapes(model.net, forward)
     rng = np.random.default_rng(seed)
     return {k: rng.random(v) < 1.0 - cfg["dropout_rate"] for k, v in sorted(shapes.items())}
 
@@ -2700,8 +2810,8 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
     """One more request of ``path`` (bf16 unless ``dtype`` says otherwise)
     under torch.profiler (outside the counted run): device busy share of
     the request's wall time and device time by kernel name (the ``top``
-    names, and always the conv's main kernel, K3's and K4's, which must
-    have run, and the conv's split-K reduce where the request's own K1/K2
+    names, and always the conv's main kernel, K3's, K4's and K8's two,
+    which must have run, and the conv's split-K reduce where the request's own K1/K2
     calls, recorded on its warm-up, split K)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2722,7 +2832,7 @@ def phase_profile(ckpt, volume, top=12, mc_iter=1, path="serve", dtype=None):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, by_name, events = device_time(prof)
-    names = profile_kernel_names(splits)
+    names = profile_kernel_names(splits) + SE_KERNEL_NAMES
     missing = [k for k in names if k not in by_name]
     if missing:
         raise AssertionError(f"{path}: the profile shows no {missing}")
@@ -2788,6 +2898,7 @@ def main(argv=None):
     every.update(calls)  # a row's count: its calls per cfg1 forward
     rows = phase_kernels(every, per_path=per_path)
     summary = summarize_kernels(rows)
+    se_mean_err = phase_se_tail(smi)
     fp64 = phase_fp64(calls)
     summary["gemm_loop"], rows["gemm_loop"] = phase_gemm()
     for name, s in summary.items():
@@ -2857,12 +2968,24 @@ def main(argv=None):
                         **({"conv_route": CONV_ROUTE} if name in CONV_KERNELS else {})})
         if n == 0:
             raise AssertionError(f"{name} never launched on the {on} path")
+    src, replaces, on = SE_TAIL_INFO
+    kernels.append({"name": "se_tail", "dtypes": list(DTYPE_NAMES), "route": "cuda",
+                    "source": src, "replaces": replaces, "path": on,
+                    "launches": launches[on]["se_tail"],
+                    "masked": launches[on]["se_tail_masked"], "apply_vs_twin": "bit-equal",
+                    "max_mean_err": se_mean_err,
+                    "launches_by_path": {p: c["se_tail"] for p, c in launches.items()
+                                         if c.get("se_tail")},
+                    "ptxas": ptxas_summary(cuda_lib.build_log,
+                                           {f"{k}[{dn}]": k + MANGLED_TYPE[dn]
+                                            for k in SE_KERNEL_NAMES for dn in DTYPE_NAMES})})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "summary": summary, "rows": rows, "fp32_vs_fp64": fp64,
                        "train_summary": train_sum, "train_rows": train_rows,
-                       "wgrad_fp32_vs_fp64": wgrad64, "launches": launches, "probe": probe},
+                       "wgrad_fp32_vs_fp64": wgrad64, "se_mean_err": se_mean_err,
+                       "launches": launches, "probe": probe},
                       f, indent=1)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

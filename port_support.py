@@ -9,7 +9,8 @@ that need them.
   default M1) and its variants ``CFG2``, ``PROB``, ``PROB_DENSE``,
   ``CASCADE`` and ``TRAIN_CFG``.
 * The kernel calls of a path, traced on the meta device: ``recording``,
-  ``trace_model_calls``, ``trace_path_calls``, ``launch_counts``.
+  ``trace_model_calls``, ``trace_path_calls``, ``launch_counts``; the SE
+  blocks' output shapes (K8's operands), ``trace_se_shapes``.
 * fp64 references: ``_conv_fp64`` (K1's function) and ``BranchReplay`` (an
   fp32 step's branch decisions, replayed in its fp64 evaluation).
 * One kernel call's operands on the card at a traced signature
@@ -172,6 +173,30 @@ def trace_path_calls(batch, dtype=None):
     if dict(counts) != want:
         raise AssertionError(f"cfg1 forward calls {dict(counts)}, expected {want}")
     return calls
+
+
+def trace_se_shapes(cfg, batch):
+    """The output shapes (B, D, H, W, C) of the SE blocks of one serving
+    forward (``detect``) of ``cfg`` at ``batch``, with MC dropout at 0.5,
+    counted (a meta forward): the tensors K8 runs over."""
+    import torch
+    from prostatemr_3d_cad_cspca_tpu_torch.models.blocks import SEResNetBottleNeck
+    from prostatemr_3d_cad_cspca_tpu_torch.models.m1 import M1
+
+    shapes = collections.Counter()
+    model = M1(**dict(cfg, dropout_mode="monte-carlo", dropout_rate=0.5), summary=False,
+               init_params=False, device="meta", dtype=torch.bfloat16)
+    hooks = [m.register_forward_hook(lambda _m, _i, out: shapes.update([tuple(out.shape)]))
+             for m in model.net.modules() if isinstance(m, SEResNetBottleNeck)]
+    x = torch.zeros((batch, *cfg["input_spatial_dims"], cfg["input_channels"]), device="meta")
+    try:
+        with torch.no_grad():
+            model.net.detect((x, x) if cfg.get("cascaded") else x,
+                             rng=torch.Generator().manual_seed(0))
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
 
 
 def launch_counts(calls, forwards=1):

@@ -6,8 +6,9 @@ package lowers the whole detect program (Monte-Carlo sampling, flip TTA, a
 fold ensemble, a cascade's composition) to StableHLO with the weights
 inside. The port freezes the same program with ``torch.export``: one traced
 graph with the weights inside, saved to one file. Deployment needs torch and
-the port's ops, whose K1-K4 are registered operators (``pmr::conv3d``,
-``pmr::conv3d_pair``, ``pmr::conv3d_transpose``, ``pmr::in_stats``, ``pmr::in_apply``:
+the port's ops, whose K1-K4 and K8 are registered operators
+(``pmr::conv3d``, ``pmr::conv3d_pair``, ``pmr::conv3d_transpose``,
+``pmr::in_stats``, ``pmr::in_apply``, ``pmr::se_mean``, ``pmr::se_tail``:
 ``ops/cuda_lib.register_op``) that launch the kernels on the card and run
 their plain twins on the CPU, but no model code: the counterpart of a JAX
 artifact needing jax and a platform plugin. A program traced on one device
@@ -345,7 +346,7 @@ class ExportedModel:
         ``device="cpu"``); the port's ops are imported first, so the
         ``pmr::`` operators exist before ``torch.export.load``."""
         dev = resolve_device(device)
-        from .ops import convolution, normalization  # noqa: F401  (registers pmr::)
+        from .ops import convolution, normalization, se_tail  # noqa: F401  (registers pmr::)
 
         with zipfile.ZipFile(path, "r") as z:
             meta = json.loads(z.read("meta.json"))

@@ -19,6 +19,7 @@ from torch import nn
 from ..ops.convolution import Conv3d, ConvConfig, conv_pair, fuses, store_act
 from ..ops.normalization import InstanceNorm, ShardedStats, global_spatial_mean
 from ..ops.resample import upsample_nearest
+from ..ops.se_tail import drop_where, se_mean, se_tail
 from ..prng import Draws, is_mask_map, uniform
 from ..utils.profiling import annotate
 
@@ -57,10 +58,7 @@ def dropout(x: torch.Tensor, rate: float, rng, site: Optional[str] = None
         else:
             raise ValueError(f"dropout at rate {rate} needs rng: a torch.Generator on "
                              f"{x.device} or a mapping of keep-masks")
-        # a 0-dim tensor on x's device: CUDA would turn a Python scalar divisor
-        # into a multiply by its reciprocal, which rounds differently
-        scale = torch.full((), keep, dtype=x.dtype, device=x.device)
-        return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+        return drop_where(x, mask, keep)
 
 
 class ConfigurableDropout(nn.Module):
@@ -71,8 +69,12 @@ class ConfigurableDropout(nn.Module):
         super().__init__()
         self.rate, self.mode, self.site = float(rate), mode, site
 
+    def active(self, train: bool = False) -> bool:
+        """Whether a call with ``train`` drops anything (draws, or replays)."""
+        return self.rate != 0.0 and (self.mode != "standard" or train)
+
     def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
-        if self.rate == 0.0 or (self.mode == "standard" and not train):
+        if not self.active(train):
             return x
         return dropout(x, self.rate, rng, self.site)
 
@@ -117,6 +119,14 @@ class SEResNetBottleNeck(nn.Module):
     norm and the squeeze whole-volume statistics (halo sharding). The first
     conv and the projection read the same input: where the shapes let one
     K1 launch compute both (``convolution.pair_fuses``), it does.
+
+    ``drop`` = (dropout module, train, rng): the dropout that follows the
+    block, applied to its output. Where :meth:`_fused_tail` finds it can,
+    the squeeze-excite tail and that dropout run as K8 (``ops.se_tail``):
+    the uniforms drawn (under ``m1.dropout``) just before the tail, then
+    the squeeze's mean, the squeeze MLP and one pass applying gate,
+    shortcut, LReLU and mask (under ``m1.se``); nothing draws between the
+    block's end and that draw, so the draws keep their bits and order.
     """
 
     def __init__(self, in_channels: int, filters: int, kernel_size, strides,
@@ -149,7 +159,38 @@ class SEResNetBottleNeck(nn.Module):
         return annotate("m1.stitch", {"parts": len(parts), "cin": self.in_channels,
                                       "fused": int(fused)})
 
-    def forward(self, x, sharded: Optional[ShardedStats] = None) -> torch.Tensor:
+    def _fused_tail(self, x_, residual, sharded, drop) -> Optional[float]:
+        """The keep probability with which the block's tail and ``drop`` run
+        as K8 (1.0: no active dropout, the tail alone), or None where the
+        plain ops run: K8 takes a tensor of bf16 or fp32 whose gate and
+        shortcut keep its dtype, without autograd, halo sharding or an fp8
+        activation store, and a dropout that is inactive or draws uniforms
+        (a generator or ``prng.Draws``, at 0 < rate < 1). The device is the
+        wrappers' to decide, as for K1-K4: a card launches K8, the CPU runs
+        its twins (the chain's bits), and an export traced on either holds
+        ``pmr::se_mean`` and ``pmr::se_tail``."""
+        if drop is None:
+            return None
+        if sharded is not None or self.conv_cfg.act_store is not None:
+            return None
+        if x_.dtype not in (torch.float32, torch.bfloat16) or residual.dtype != x_.dtype \
+                or residual.shape != x_.shape:
+            return None
+        sq6, sq7 = self.se_conv6, self.se_conv7
+        dt = sq6.dtype or torch.promote_types(x_.dtype, sq6.kernel.dtype)
+        if (sq7.dtype or torch.promote_types(dt, sq7.kernel.dtype)) != x_.dtype:
+            return None
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (
+                x_, residual, *sq6.parameters(), *sq7.parameters())):
+            return None
+        module, train, rng = drop
+        if not module.active(train):
+            return 1.0
+        if not (0.0 < module.rate < 1.0 and isinstance(rng, (torch.Generator, Draws))):
+            return None
+        return 1.0 - module.rate
+
+    def forward(self, x, sharded: Optional[ShardedStats] = None, drop=None) -> torch.Tensor:
         cfg = self.conv_cfg
         parts = list(x) if isinstance(x, (list, tuple)) else [x]
         fused = self.conv4 is not None and fuses(self.conv1, self.conv4, parts)
@@ -169,11 +210,25 @@ class SEResNetBottleNeck(nn.Module):
             residual = self.norm4(store_act(cfg, r), sharded=sharded)
         else:
             residual = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        keep = self._fused_tail(x_, residual, sharded, drop)
+        if keep is not None:
+            u = None
+            if keep < 1.0:
+                module, _, rng = drop
+                with annotate("m1.dropout"):  # the draw alone; K8 applies the mask
+                    u = uniform(rng, x_.shape, x_.device, module.site)
+            with annotate("m1.se", {"fused": 1, "masked": int(u is not None)}):
+                return se_tail(x_, self._gate(se_mean(x_), x_.dtype), residual, u, keep)
         with annotate("m1.se"):  # the squeeze-excite tail
-            s = global_spatial_mean(x_, sharded).to(x_.dtype)
-            s = torch.sigmoid(self.se_conv7(leaky_relu01(self.se_conv6(s))))
-            out = (x_ * s) * residual
-            return store_act(cfg, leaky_relu01(out))
+            s = self._gate(global_spatial_mean(x_, sharded), x_.dtype)
+            out = store_act(cfg, leaky_relu01((x_ * s) * residual))
+        return out if drop is None else drop[0](out, drop[1], drop[2])
+
+    def _gate(self, mean: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The squeeze MLP: sigmoid(conv7(LReLU(conv6(mean)))), the fp32
+        mean cast to the activation's ``dtype`` first."""
+        s = self.se_conv6(mean.to(dtype))
+        return torch.sigmoid(self.se_conv7(leaky_relu01(s)))
 
 
 class GridAttentionBlock3D(nn.Module):

@@ -16,7 +16,8 @@ a trunk once and a ladder per latent configuration); ``assemble_outputs``
 adds the deep-supervision heads. Dropout sites (``drope1``-``drope4``,
 ``dropd3``-``dropd0``, the last at half the rate; ``dropp_0``-``dropp_3``
 in the ladder) take the ``rng`` of the call: a generator or a mapping (see
-``prng``). ``sharded`` (``ops.normalization.ShardedStats``, halo-sharded
+``prng``); each follows an SE block, which is handed it and applies it
+(``blocks.SEResNetBottleNeck``'s ``drop``: on a card, in K8's pass). ``sharded`` (``ops.normalization.ShardedStats``, halo-sharded
 execution) gives every norm and SE squeeze whole-volume statistics and
 re-zeroes the vacuum after each transposed conv and around the ladder's
 ``dec_hi`` (JAX ``m1_core.py:231-259``, ``:322-323``).
@@ -189,10 +190,10 @@ class M1Core(nn.Module):
         x = sa(self.norme0(x, lrelu=True, sharded=sharded))
         d["x"] = x
 
-        conv1 = self.drope1(self.serse1(x, sharded), train, rng)
-        conv2 = self.drope2(self.serse2(conv1, sharded), train, rng)
-        conv3 = self.drope3(self.serse3(conv2, sharded), train, rng)
-        convm = self.drope4(self.serse4(conv3, sharded), train, rng)
+        conv1 = self.serse1(x, sharded, (self.drope1, train, rng))
+        conv2 = self.serse2(conv1, sharded, (self.drope2, train, rng))
+        conv3 = self.serse3(conv2, sharded, (self.drope3, train, rng))
+        convm = self.serse4(conv3, sharded, (self.drope4, train, rng))
         d.update(conv1=conv1, conv2=conv2, conv3=conv3, convm=convm)
 
         att_conv0, att_0 = self.att0(x, convm, sharded)
@@ -212,7 +213,7 @@ class M1Core(nn.Module):
             deconv3_up2 = up(self.convtd3_up2, deconv3_up1)
             deconv3_up3 = up(self.convtd3_up3, deconv3_up2)
         uconv3_ = (deconv3, att_conv3)
-        uconv3 = self.dropd3(self.sersd3(uconv3_, sharded), train, rng)
+        uconv3 = self.sersd3(uconv3_, sharded, (self.dropd3, train, rng))
         # Stage 2 (networks.py:599-607).
         deconv2 = rv(self.convtd2(uconv3))
         if self.dense_skip:
@@ -221,7 +222,7 @@ class M1Core(nn.Module):
             uconv2_ = (deconv2, deconv3_up1, att_conv2)
         else:
             uconv2_ = (deconv2, att_conv2)
-        uconv2 = self.dropd2(self.sersd2(uconv2_, sharded), train, rng)
+        uconv2 = self.sersd2(uconv2_, sharded, (self.dropd2, train, rng))
         # Stage 1 (networks.py:609-616).
         deconv1 = rv(self.convtd1(uconv2))
         if self.dense_skip:
@@ -229,14 +230,14 @@ class M1Core(nn.Module):
             uconv1_ = (deconv1, deconv2_up1, deconv3_up2, att_conv1)
         else:
             uconv1_ = (deconv1, att_conv1)
-        uconv1 = self.dropd1(self.sersd1(uconv1_, sharded), train, rng)
+        uconv1 = self.sersd1(uconv1_, sharded, (self.dropd1, train, rng))
         # Stage 0 (networks.py:618-624).
         deconv0 = rv(self.convtd0(uconv1))
         if self.dense_skip:
             uconv0_ = (deconv0, deconv1_up1, deconv2_up2, deconv3_up3, att_conv0)
         else:
             uconv0_ = (deconv0, att_conv0)
-        uconv0 = self.dropd0(self.sersd0(uconv0_, sharded), train, rng)
+        uconv0 = self.sersd0(uconv0_, sharded, (self.dropd0, train, rng))
         d.update(uconv3_=uconv3_, uconv3=uconv3, uconv2_=uconv2_, uconv2=uconv2,
                  uconv1_=uconv1_, uconv1=uconv1, uconv0_=uconv0_, uconv0=uconv0)
 
@@ -287,8 +288,8 @@ class M1Core(nn.Module):
             upsampled = revacuum(getattr(self, f"dec_hi_{i}")(revacuum(dec_in, sharded)),
                                  sharded)
             stitched = (upsampled, *skip_srcs[i])
-            features = getattr(self, f"dropp_{i}")(
-                getattr(self, f"sersp_{i}")(stitched, sharded), train, rng)
+            features = getattr(self, f"sersp_{i}")(
+                stitched, sharded, (getattr(self, f"dropp_{i}"), train, rng))
             if i < 3:
                 ds_ops.append(features)
         return dict(prob_distributions=tuple(distributions),

@@ -24,7 +24,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("conv3d_wgmma.cu", "conv3d_wgrad.cu", "instance_norm.cu", "gemm_loop.cu")
+SOURCES = ("conv3d_wgmma.cu", "conv3d_wgrad.cu", "instance_norm.cu", "gemm_loop.cu",
+           "se_tail.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "pmr_conv3d_wgrad": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
     "pmr_conv3d_wgrad_stamps": [_VP],
     "pmr_in_backward": [_VP] * 9 + [_I] * 4 + [_F] + [_I] * 4 + [_VP],
+    "pmr_se_sums": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "pmr_se_apply": [_VP] * 5 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_VP],
 }
 
 
@@ -171,7 +174,7 @@ def use_kernel(name: str, t: torch.Tensor) -> bool:
 
 
 def exporting() -> bool:
-    """True while ``torch.export`` traces. The wrappers of K1-K4 then call
+    """True while ``torch.export`` traces. The wrappers of K1-K4 and K8 then call
     their registered ``pmr::`` operator, one opaque node of the exported
     graph that dispatches by device where the program runs (the CUDA
     implementation launches the kernel, the CPU one runs the twin, the fake

@@ -7,7 +7,8 @@ gate; the serving cases are in tests/test_torch_export_serve.py) on the
 tiny config of tests/test_torch_util.py: each artifact gives the live
 port's bits on the same inputs and draws. An artifact holds K1-K4 as the
 ``pmr::`` operators (no aten convolution), as many as a live forward
-calls, and its draws follow the plan in ``meta.json``. The same artifacts
+calls, and K8 as ``pmr::se_mean`` and ``pmr::se_tail``, one each an SE
+block; its draws follow the plan in ``meta.json``. The same artifacts
 held to the JAX package: tests/test_torch_export_jax.py.
 """
 
@@ -105,6 +106,29 @@ def test_exported_graph_calls_the_operators_a_live_forward_launches(tmp_path):
         assert live == {"conv3d": 46, "conv3d_pair": 2, "conv3d_transpose": 4, "in_stats": 37,
                         "in_apply": 37}
         assert {k: targets[op] for k, op in OPERATORS.items()} == live
+
+
+def test_cpu_traced_mc_graph_holds_the_se_tail_operators(tmp_path):
+    """An MC artifact traced on the CPU holds K8 as ``pmr::se_mean`` and
+    ``pmr::se_tail``, one each an SE block (8 in the tiny trunk), every
+    apply given its site's uniforms and keep, so the program launches K8 wherever it
+    is served; its outputs are the live model's bits."""
+    _, pm = _models(**MC)
+    art = str(tmp_path / "mc.zip")
+    exp.export_model(pm, art, mc_iter=2)
+    loaded = exp.ExportedModel.load(art, device="cpu")
+    prog = loaded._prog
+    targets = _graph_targets(prog)
+    assert (targets["pmr.se_mean.default"], targets["pmr.se_tail.default"]) == (8, 8)
+    applies = [n for n in prog.graph.nodes if str(n.target) == "pmr.se_tail.default"]
+    assert all(n.args[3] is not None for n in applies)
+    assert [n.args[4] for n in applies] == [0.5] * 7 + [0.75]  # dropd0 at half the rate
+    x = inputs(3, 3)
+    mean, std = loaded.predict(x, rng=5)
+    want = tinfer.mc_predict(pm.get_detect_model(), None, x, prng.generator(5, "cpu"),
+                             num_samples=2, reduce="mean_std")
+    np.testing.assert_array_equal(mean, want[0].numpy())
+    np.testing.assert_array_equal(std, want[1].numpy())
 
 
 def test_export_fixed_batch_and_transfer_dtype(tmp_path):

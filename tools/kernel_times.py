@@ -18,7 +18,11 @@ one CUDA graph, replayed between CUDA events, after warm-up) and weighted by
 its count;
 ``--library`` also times the one torch call computing the same function
 (cuDNN: ``F.conv3d``, ``F.conv_transpose3d`` for K2 and the data gradients
-it computes, ``torch.nn.grad.conv3d_weight`` for K6; fp32 with TF32 off).
+it computes, ``torch.nn.grad.conv3d_weight`` for K6; fp32 with TF32 off)
+and, in a forward, K8 (``se_tail``: its sums and masked apply) at the SE
+blocks' shapes of a served forward, bf16 at 32 volumes (cfg1, prob,
+prob_dense) and fp32 at 64 (cfg1), beside the torch chain it replaces
+(``se_tail_times``).
 ``--kernels`` times only the kernels named (wrapper names, e.g.
 ``in_backward``); ``--split`` adds each shape's device time by CUDA kernel
 (``kernels_us``, a call's share of ``--reps`` calls under torch.profiler,
@@ -62,7 +66,8 @@ sys.path.insert(0, os.getcwd())
 PTXAS_KERNELS = ("conv3d_wgmma_kernel", "wgmma_splitk_reduce_kernel", "in_stats_kernel",
                  "in_apply_kernel", "wgrad_wgmma_kernel", "wgrad_reduce_kernel",
                  "wgrad_split_kernel",
-                 "in_bwd_reduce_kernel", "in_bwd_apply_kernel")
+                 "in_bwd_reduce_kernel", "in_bwd_apply_kernel", "se_sums_kernel",
+                 "se_apply_kernel")
 
 
 # the shapes whose cycles --stamps accounts for (in each of --dtypes), at
@@ -221,6 +226,42 @@ def _calls(ps, cv, nm, name, sig, dtype, gen):
     return (lambda: nm.in_apply(x, stats, scale, bias, sig[1])), None
 
 
+SE_TAIL_BATCH = {"bfloat16": 32, "float32": 64}  # a serve cell's MC-4 forward, a gland one's
+SE_TAIL_MODELS = {"bfloat16": ("cfg1", "prob", "prob_dense"), "float32": ("cfg1",)}
+
+
+def se_tail_times(ps, k8, dtype, models, reps):
+    """K8 at each SE output shape of the serving forward of ``models``
+    ({name: config}) at SE_TAIL_BATCH volumes, beside the torch chain it
+    replaces: ms of the sums (``se_mean``; plain: the fp32 mean) and of the
+    masked apply at keep 0.5 (``se_tail``; plain: gate, shortcut, LReLU,
+    compare, divide, where), a row a shape with its blocks a forward of each
+    model, and each model's sums over its blocks. The draw and the squeeze
+    MLP, the same on both sides, are left out."""
+    import torch
+
+    dn = ps._dn(dtype)
+    counts = {m: ps.trace_se_shapes(cfg, SE_TAIL_BATCH[dn]) for m, cfg in models.items()}
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = []
+    for shape in sorted(set().union(*counts.values())):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        res = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        s = torch.rand((shape[0], 1, 1, 1, shape[-1]), generator=gen, device="cuda").to(dtype)
+        u = torch.rand(shape, generator=gen, device="cuda")
+        rows.append({"shape": shape, "blocks": {m: counts[m][shape] for m in models},
+                     "sums_ms": ps.time_ms(lambda: k8.se_mean(x), reps),
+                     "apply_ms": ps.time_ms(lambda: k8.se_tail(x, s, res, u, 0.5), reps),
+                     "plain_sums_ms": ps.time_ms(lambda: k8.se_mean_plain(x), reps),
+                     "plain_apply_ms": ps.time_ms(
+                         lambda: k8.se_tail_plain(x, s, res, u, 0.5), reps)})
+        del x, res, s, u
+    totals = {m: {k: sum(r[k] * r["blocks"][m] for r in rows)
+                  for k in ("sums_ms", "apply_ms", "plain_sums_ms", "plain_apply_ms")}
+              for m in models}
+    return {"batch": SE_TAIL_BATCH[dn], "totals": totals, "shapes": rows}
+
+
 def _held_plan(plan, pingpong, *args, **kwargs):
     """K6's plan on one schedule of its warpgroups (ping-pong where a plan's
     rows fit one warpgroup, else split)."""
@@ -259,6 +300,7 @@ def main(argv=None):
     from prostatemr_3d_cad_cspca_tpu_torch.ops import convolution as cv
     from prostatemr_3d_cad_cspca_tpu_torch.ops import cuda_lib
     from prostatemr_3d_cad_cspca_tpu_torch.ops import normalization as nm
+    from prostatemr_3d_cad_cspca_tpu_torch.ops import se_tail as k8
 
     if args.wgrad_schedule != "auto":  # K6's plans held to one schedule of its warpgroups
         cv.wgrad_plan = functools.partial(_held_plan, cv.wgrad_plan,
@@ -305,6 +347,10 @@ def main(argv=None):
                 row["kernels_us"] = kernel_split(ps, run, args.reps)
             per.setdefault(name, []).append(row)
         out[dn] = {}
+        if args.library and args.step == "forward" and (not args.kernels
+                                                        or "se_tail" in args.kernels):
+            out[dn]["se_tail"] = se_tail_times(
+                ps, k8, dtype, {m: models[m] for m in SE_TAIL_MODELS[dn]}, args.reps)
         for name, rows in per.items():
             out[dn][name] = {"sum_ms": sum(r["ms"] * r["count"] for r in rows), "shapes": rows}
             if args.library and all("library_ms" in r for r in rows):
